@@ -1,0 +1,555 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch port (``deepfakedetection_tpu_torch``) on one CUDA card.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+0. the card's name and power limit; build the CUDA kernels from
+   ``deepfakedetection_tpu_torch/ops/csrc`` with nvcc (timed);
+1. each kernel against its plain PyTorch version on the card, in bf16, at
+   every EfficientNet-B3 @ 224 dispatch shape (batch 8) plus odd and ragged
+   sizes, with the JAX package's test tolerances; kernel and plain times at
+   batch 128 (CUDA events, median of 25 runs after warm-up);
+2. the full-width B3 forward with seeded weights and a head fitted to spread
+   the probabilities: bf16 on the card through the kernels against bf16
+   (plain versions) and float32 (unfused chain) on the CPU, logits relative
+   to their scale (``check_logits``); launches per forward; forward img/s at
+   batch 128 and 256, with the kernels and with the plain versions in their
+   place;
+3. the main path: ``orchestrate(mode="inference")`` on a YAML config over a
+   seeded JPEG tree (val and test splits of a few hundred images, batch 128),
+   with launch counts, the job's summary, ``metrics.jsonl`` and 16 test
+   images' outputs against the CPU references checked.
+
+The second-to-last lines are a JSON object with the kernels' numbers and the
+card's ``nvidia-smi`` name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
+Without a CUDA card, or outside the repository, it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+
+# B3 @ 224 dispatch shapes (H, W, C[, Ce], k) and how many blocks use each
+K1_SHAPES = [((112, 112, 40, 3), 1), ((112, 112, 24, 3), 1)]
+K2_SHAPES = [
+    ((56, 56, 32, 192, 3), 2),
+    ((28, 28, 48, 288, 5), 2),
+    ((14, 14, 96, 576, 3), 4),
+    ((14, 14, 96, 576, 5), 1),
+    ((14, 14, 136, 816, 5), 4),
+    ((7, 7, 232, 1392, 5), 5),
+    ((7, 7, 232, 1392, 3), 1),
+    ((7, 7, 384, 2304, 3), 1),
+]
+# odd sizes: one tile smaller than the halo, ragged tiles and channel blocks, and
+# channel counts off the kernels' vector widths (their one-channel load paths)
+K1_ODD = [(9, 11, 128, 5), (37, 45, 72, 3), (13, 10, 20, 5)]
+K2_ODD = [(9, 11, 32, 192, 5), (30, 33, 24, 144, 5), (13, 10, 20, 42, 3)]
+K1_TOL = {"y": (3e-2, 3e-2), "pool": (2e-3, 2e-3)}  # (atol, rtol)
+SPLITS = {"val": 256, "test": 1280}  # phase 3 images per split
+EVAL_BATCH = 128
+EVAL_TF = {"ensure_rgb": True, "val_resize": True, "val_center_crop": True}
+K2_TOL = {"y": (5e-2, 5e-2), "pool": (2e-2, 5e-2)}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_times(fn, runs: int, warmup: int = 3) -> list[float]:
+    """Per-call device times in ms (CUDA events around each call)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def spread(ts: list[float]) -> dict[str, float]:
+    q = statistics.quantiles(ts, n=4)
+    return {"median": statistics.median(ts), "q1": q[0], "q3": q[2], "min": min(ts),
+            "max": max(ts), "n": len(ts)}
+
+
+def check_close(name: str, got, want, atol: float, rtol: float) -> float:
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol, msg=lambda m: f"{name}: {m}")
+    return err
+
+
+def k1_inputs(B, H, W, C, k, seed, device):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, H, W, C, generator=g).to(torch.bfloat16)
+    w = torch.randn(k, k, C, generator=g) * (1.0 / k)
+    b = torch.randn(C, generator=g) * 0.1
+    return [t.to(device) for t in (x, w, b)]
+
+
+def k2_inputs(B, H, W, Cin, Ce, k, seed, device):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, H, W, Cin, generator=g).to(torch.bfloat16)
+    wexp = torch.randn(Cin, Ce, generator=g) * Cin ** -0.5
+    bexp = torch.randn(Ce, generator=g) * 0.1
+    wdw = torch.randn(k, k, Ce, generator=g) * (1.0 / k)
+    bdw = torch.randn(Ce, generator=g) * 0.1
+    return [t.to(device) for t in (x, wexp, bexp, wdw, bdw)]
+
+
+def phase1(device, report):
+    """Kernels against their plain versions on the card."""
+    from deepfakedetection_tpu_torch.ops import depthwise_se as k1
+    from deepfakedetection_tpu_torch.ops import expand_dw as k2
+
+    kernels = {}
+    for name, mod, shapes, odd, tol, inputs, kw in (
+        ("depthwise_silu_pool", k1, K1_SHAPES, K1_ODD, K1_TOL, k1_inputs, "k"),
+        ("expand_dw_silu_pool", k2, K2_SHAPES, K2_ODD, K2_TOL, k2_inputs, "kernel"),
+    ):
+        fused, plain = getattr(mod, name), getattr(mod, name + "_plain")
+        rows, worst, ms, plain_ms = [], 0.0, 0.0, 0.0
+        cases = [(s, n) for s, n in shapes] + [(s, 0) for s in odd]
+        for i, (shape, count) in enumerate(cases):
+            k = shape[-1]
+            args = inputs(8, *shape, seed=100 + i, device=device)
+            y, pool = fused(*args, **{kw: k})
+            ry, rpool = plain(*args, **{kw: k})
+            ey = check_close(f"{name}{shape} y", y, ry, *tol["y"])
+            ep = check_close(f"{name}{shape} pool", pool, rpool, *tol["pool"])
+            worst = max(worst, ey)
+            row = {"shape": shape, "blocks_in_b3": count, "max_abs_err_y": ey,
+                   "max_abs_err_pool": ep}
+            if count:  # time at the eval batch (128) for the B3 shapes
+                big = inputs(128, *shape, seed=200 + i, device=device)
+                t_k = spread(cuda_times(lambda: fused(*big, **{kw: k}), runs=25))
+                t_p = spread(cuda_times(lambda: plain(*big, **{kw: k}), runs=25))
+                row.update(ms=t_k, plain_ms=t_p)
+                ms += count * t_k["median"]
+                plain_ms += count * t_p["median"]
+            rows.append(row)
+            log(f"  {name} {shape}: max|dy|={ey:.3e} max|dpool|={ep:.3e}"
+                + (f" kernel {row['ms']['median']:.4f} ms plain {row['plain_ms']['median']:.4f} ms"
+                   " (batch 128)" if count else ""))
+        kernels[name] = {"rows": rows, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        log(f"  {name}: per B3 forward at batch 128 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    report["phase1"] = kernels
+    return kernels
+
+
+def calibrate_bn(model, x) -> None:
+    """Seeded weights with realistic BatchNorm statistics: each BN's running
+    mean and variance become those of its conv's output over ``x`` (f32, one
+    pass, each layer seeing the layers before it already calibrated)."""
+    import torch
+    import torch.nn.functional as F
+
+    def conv_bn(cb, h):
+        z = F.conv2d(F.pad(h, cb._fpad), cb.conv.weight, None, cb.conv.stride, cb._conv_pad,
+                     1, cb.conv.groups)
+        cb.bn.running_mean.copy_(z.mean(dim=(0, 2, 3)))
+        cb.bn.running_var.copy_(z.var(dim=(0, 2, 3), unbiased=False))
+        return cb(h)
+
+    with torch.no_grad():
+        h = conv_bn(model.stem, x.contiguous(memory_format=torch.channels_last))
+        for blk in model._blocks:
+            r = conv_bn(blk.expand, h) if blk.has_expand else h
+            r = blk.se(conv_bn(blk.depthwise, r))
+            r = conv_bn(blk.project, r)
+            h = r + h if blk.residual else r
+        conv_bn(model.head, h)
+
+
+def seeded_images(n: int, g):
+    """Normalized [n, 3, 224, 224] images whose brightness varies per image,
+    as the phase-3 classes' do."""
+    import torch
+
+    offset = torch.rand(n, 1, 1, 1, generator=g) * 3.0 - 1.5
+    return offset + 0.5 * torch.randn(n, 3, 224, 224, generator=g)
+
+
+def fit_head(model, x) -> None:
+    """A classifier along the first principal direction of the model's f32
+    features over ``x``, scaled so the logit difference has a standard
+    deviation of 2 there: probabilities spread to a real operating point
+    (a random head leaves them almost tied)."""
+    import torch
+
+    feats = []
+    hook = model._fc.register_forward_hook(lambda _m, inp, _o: feats.append(inp[0]))
+    with torch.no_grad():
+        model(x)
+    hook.remove()
+    f = feats[0].double()
+    direction = torch.linalg.svd(f - f.mean(0), full_matrices=False).Vh[0]
+    z = (f - f.mean(0)) @ direction
+    scale = 2.0 / float(z.std())
+    with torch.no_grad():
+        model._fc.weight.zero_()
+        model._fc.weight[1].copy_(scale * direction)
+        model._fc.bias.copy_(torch.tensor([0.0, -scale * float(f.mean(0) @ direction)]))
+
+
+def seeded_b3_state(seed: int = 0):
+    """Full-width B3 state dict: generator-seeded weights, BN statistics
+    calibrated on a seeded batch, BN gamma and beta drawn near 1 and 0, and a
+    head fitted to spread that batch's probabilities."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+
+    g = torch.Generator().manual_seed(seed)
+    model = create_efficientnet("b3", num_classes=2, dtype=torch.float32, generator=g).eval()
+    x = seeded_images(8, g)
+    calibrate_bn(model, x)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(1.0 + 0.2 * (torch.rand(n, generator=g) - 0.5))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+        # residual branches enter the stream at a fifth of its scale, as in
+        # trained EfficientNets (a random net at unit branch scale amplifies
+        # any rounding difference through the depth)
+        for blk in model._blocks:
+            if blk.residual:
+                blk._bn2.weight.mul_(0.2)
+                blk._bn2.bias.mul_(0.2)
+    fit_head(model, x)
+    return model.state_dict()
+
+
+def check_logits(name: str, logits, bf16_ref, f32_ref) -> dict[str, float]:
+    """The card's bf16 logits against two CPU runs of the same weights on the
+    same inputs: the bf16 model through the plain versions, which rounds
+    where the kernels and the JAX package round, and the f32 model (the
+    unfused chain). Each max|d| over the f32 logits' scale must stay under
+    5e-2. bf16 rounding alone opens up to 3.3e-2 at full width (an H100
+    against the CPU, phase 3's images): the random net carries a flipped
+    bf16 rounding of an SE input or gate, which moves a whole channel,
+    through the depth. Wrong wiring moves the phase-2 logits
+    further: 6.6e-2 with one block's SE gate dropped, 0.13 with K2's halo
+    expanded from zero-padded x, 0.75 with one residual dropped. The kernels'
+    rounding points are phase 1's to hold. The probabilities must spread,
+    with the f32 argmax on every row whose f32 probability margin is over
+    5e-2 (at least half of them)."""
+    import torch
+
+    logits, bf16_ref, f32_ref = logits.double(), bf16_ref.double(), f32_ref.double()
+    if not torch.isfinite(logits).all() or logits.shape != f32_ref.shape:
+        raise AssertionError(f"{name}: bad output {logits}")
+    scale = f32_ref.abs().max()
+    rel16 = float((logits - bf16_ref).abs().max() / scale)
+    rel32 = float((logits - f32_ref).abs().max() / scale)
+    p_ref = torch.softmax(f32_ref, dim=-1)
+    decided = (p_ref[:, 1] - p_ref[:, 0]).abs() > 5e-2
+    same = bool((logits.argmax(-1) == f32_ref.argmax(-1))[decided].all())
+    spread = float(p_ref[:, 1].max() - p_ref[:, 1].min())
+    log(f"  {name}: max|dlogit|/scale {rel16:.3e} against bf16 CPU, {rel32:.3e} against "
+        f"f32 CPU; p1 spread {spread:.3f}; {int(decided.sum())}/{len(f32_ref)} rows decided, "
+        f"argmax equal there: {same}")
+    if max(rel16, rel32) > 5e-2 or spread < 0.3 or 2 * int(decided.sum()) < len(f32_ref) \
+            or not same:
+        raise AssertionError(f"{name} disagrees with the CPU references: {logits} vs "
+                             f"{bf16_ref} (bf16) and {f32_ref} (f32)")
+    return {"max_rel_dlogit_bf16": rel16, "max_rel_dlogit_f32": rel32, "p1_spread": spread,
+            "decided": int(decided.sum())}
+
+
+def cpu_logits(state, x):
+    """CPU logits of the B3 weights: bf16 through the plain versions, then
+    f32 through the unfused chain."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        model = create_efficientnet("b3", num_classes=2, dtype=dtype).eval()
+        model.load_state_dict(state)
+        with torch.no_grad():
+            out.append(model(x).float())
+    return out
+
+
+def phase2(device, report, state):
+    """Full-width B3: bf16 on the card through the kernels against bf16 and
+    f32 on the CPU; forward times with the kernels and the plain versions."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models import common, efficientnet
+    from deepfakedetection_tpu_torch.ops import depthwise_se as k1
+    from deepfakedetection_tpu_torch.ops import expand_dw as k2
+
+    model = efficientnet.create_efficientnet("b3", num_classes=2, dtype=torch.bfloat16)
+    model.load_state_dict(state)
+    model = model.to(device).eval()
+    expect = model.kernel_launches_per_forward()
+
+    g = torch.Generator().manual_seed(1)
+    x = seeded_images(8, g)
+    with torch.no_grad():
+        k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
+        logits = model(x.to(device).to(torch.bfloat16))
+        torch.cuda.synchronize()
+        launches = {"k1": k1.depthwise_silu_pool.launches, "k2": k2.expand_dw_silu_pool.launches}
+    agree = check_logits("B3 forward (card, bf16)", logits.float().cpu(), *cpu_logits(state, x))
+    log(f"  launches per forward: K1={launches['k1']} K2={launches['k2']} (expected {expect})")
+    if launches != expect or expect != {"k1": 2, "k2": 20}:
+        raise AssertionError(f"launches per forward {launches}, expected {expect}")
+
+    timings = {}
+    plain_k1, plain_k2 = k1.depthwise_silu_pool_plain, k2.expand_dw_silu_pool_plain
+    for batch in (128, 256):
+        xb = torch.randn(batch, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
+        xb = xb.contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            t_k = spread(cuda_times(lambda: model(xb), runs=12))
+            common.depthwise_silu_pool, efficientnet.expand_dw_silu_pool = plain_k1, plain_k2
+            try:
+                t_p = spread(cuda_times(lambda: model(xb), runs=12))
+            finally:
+                common.depthwise_silu_pool = k1.depthwise_silu_pool
+                efficientnet.expand_dw_silu_pool = k2.expand_dw_silu_pool
+        timings[batch] = {
+            "kernels_ms": t_k, "plain_ms": t_p,
+            "img_per_s": batch / (t_k["median"] / 1e3),
+            "plain_img_per_s": batch / (t_p["median"] / 1e3),
+        }
+        log(f"  B3 forward batch {batch}: {t_k['median']:.3f} ms "
+            f"(q1 {t_k['q1']:.3f}, q3 {t_k['q3']:.3f}) = {timings[batch]['img_per_s']:.1f} img/s;"
+            f" plain versions in place: {t_p['median']:.3f} ms = "
+            f"{timings[batch]['plain_img_per_s']:.1f} img/s")
+    report["phase2"] = {**agree, "launches_per_forward": launches, "timings": timings}
+
+
+def write_jpeg_tree(root: Path, counts: dict[str, int], seed: int) -> None:
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split, n in counts.items():
+        for ci, cls in enumerate(("fake", "real")):
+            d = root / split / cls
+            d.mkdir(parents=True, exist_ok=True)
+            for i in range(n // 2):
+                h, w = int(rng.integers(200, 320)), int(rng.integers(200, 320))
+                base = 80 if ci == 0 else 170
+                arr = rng.normal(base, 50, (h, w, 3)).clip(0, 255).astype(np.uint8)
+                Image.fromarray(arr).save(d / f"i{i:04d}.jpg", quality=90)
+
+
+def phase3(device, report, state):
+    """The main path: orchestrate(mode="inference") from a YAML config."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from deepfakedetection_tpu_torch.ops import depthwise_se as k1
+    from deepfakedetection_tpu_torch.ops import expand_dw as k2
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+
+    work = REPO / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    data = work / "data"
+    counts = SPLITS
+    write_jpeg_tree(data, counts, seed=3)
+    weights = work / "efficientnet_b3_seeded.pth"
+    torch.save(state, weights)
+    cfg = {
+        "seed": 1,
+        "device": str(device),
+        "data": {"root": str(data), "test_split": "test", "val_split": "val",
+                 "num_classes": 2, "img_size": 224},
+        "models": {"efficientnet_b3": {
+            "output_dir": str(work / "runs"),
+            "transforms": {"eval": EVAL_TF},
+            "inference": {"weights": str(weights), "split": "test", "batch_size": EVAL_BATCH,
+                          "num_workers": 8, "img_size": 224},
+        }},
+        "selection": ["efficientnet_b3"],
+    }
+    cfg_path = work / "inference.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+
+    k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
+    t0 = time.perf_counter()
+    results = orchestrate(cfg_path, mode="inference")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k1": k1.depthwise_silu_pool.launches, "k2": k2.expand_dw_silu_pool.launches}
+
+    res = results["efficientnet_b3"]
+    batches = sum(-(-n // EVAL_BATCH) for n in counts.values())
+    if launches != {"k1": 2 * batches, "k2": 20 * batches}:
+        raise AssertionError(f"main path launches {launches}, expected 2 and 20 x {batches}")
+    if res.probs.shape != (counts["test"], 2) or not np.isfinite(res.probs).all():
+        raise AssertionError(f"bad test probabilities {res.probs.shape}")
+    if not np.allclose(res.probs.sum(-1), 1.0, atol=1e-5):
+        raise AssertionError("probabilities do not sum to 1")
+    runs = sorted((work / "runs").iterdir())
+    lines = (runs[-1] / "logs" / "metrics.jsonl").read_text().splitlines()
+    record = json.loads(lines[-1])
+    want = {"model", "split", "accuracy", "timestamp", "roc_auc", "threshold",
+            "confusion_matrix"}
+    if set(record) != want:
+        raise AssertionError(f"metrics.jsonl fields {sorted(record)} != {sorted(want)}")
+    agree = reference_check(res, data, state)
+    summary = {"model": "efficientnet_b3", "split": "test", "accuracy": res.metrics["accuracy"]}
+    decode = decode_rate(data)
+    # device time of the test pass, from phase 2's forward, over its wall time
+    busy = (report["phase2"]["timings"][EVAL_BATCH]["kernels_ms"]["median"] / 1e3
+            * -(-counts["test"] // EVAL_BATCH) * res.images_per_s / counts["test"])
+    log(f"  summary {json.dumps(summary)}; threshold {res.metrics['threshold']}; "
+        f"test pass {res.images_per_s:.1f} img/s (decode included); the loader alone "
+        f"{decode:.1f} img/s; device busy share of the test pass ~{busy:.3f} (phase 2's "
+        f"forward time x batches / pass time); wall {wall:.1f} s")
+    log(f"  launches in the main path: K1={launches['k1']} K2={launches['k2']} over "
+        f"{batches} batches")
+    report["phase3"] = {"launches": launches, "batches": batches, "metrics": record,
+                        "test_img_per_s": res.images_per_s, "loader_img_per_s": decode,
+                        "device_busy_share_est": busy, "wall_s": wall, "reference": agree}
+    return launches
+
+
+def decode_rate(data: Path) -> float:
+    """Images per second of the eval loader alone over the test split: PIL
+    decode, resize and crop in 8 host threads, as the job runs it."""
+    from deepfakedetection_tpu_torch.data.pipeline import (
+        build_eval_plan,
+        make_eval_loader,
+        scan_image_folder,
+    )
+
+    loader = make_eval_loader(scan_image_folder(data / "test"), build_eval_plan(224, EVAL_TF),
+                              batch_size=EVAL_BATCH, num_workers=8)
+    t0 = time.perf_counter()
+    n = sum(int(batch.mask.sum()) for batch in loader)
+    return n / (time.perf_counter() - t0)
+
+
+def reference_check(res, data: Path, state) -> dict[str, float]:
+    """The job's outputs for 16 test images, the first and last 8 (both
+    classes), against the f32 model on the CPU over the same decoded pixels,
+    as logit differences log(p1 / p0): what the job's probabilities keep of
+    the logits."""
+    import dataclasses
+
+    import torch
+
+    from deepfakedetection_tpu_torch.data.augment import normalize_batch
+    from deepfakedetection_tpu_torch.data.pipeline import (
+        build_eval_plan,
+        make_eval_loader,
+        scan_image_folder,
+    )
+    plan = build_eval_plan(224, EVAL_TF)
+    ds = scan_image_folder(data / "test")
+    picked = list(range(8)) + list(range(len(ds) - 8, len(ds)))
+    ds = dataclasses.replace(ds, samples=[ds.samples[i] for i in picked])
+    batch = next(iter(make_eval_loader(ds, plan, batch_size=len(picked))))
+    refs = cpu_logits(state, normalize_batch(torch.from_numpy(batch.images), plan))
+    p = torch.from_numpy(res.probs[picked]).double()
+    got = torch.stack([torch.zeros(len(p), dtype=p.dtype), p[:, 1].log() - p[:, 0].log()], -1)
+    return check_logits("main path (card), 16 test images", got,
+                        *(r.double() - r[:, :1].double() for r in refs))
+
+
+def main() -> int:
+    if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    device = torch.device("cuda", 0)
+    card = smi()
+    report: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+                    "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+
+    from deepfakedetection_tpu_torch.ops import build
+
+    log(f"phase 0: card {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
+        f"cuDNN TF32 {torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    build.library()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"  kernels built by nvcc in {report['build_s']:.1f} s -> {build.library_path().name}")
+
+    log("phase 1: kernels against their plain versions (bf16)")
+    kernels = phase1(device, report)
+    state = seeded_b3_state()
+    log("phase 2: full-width B3 forward")
+    phase2(device, report, state)
+    log("phase 3: main path, orchestrate(mode='inference')")
+    launches = phase3(device, report, state)
+
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+    if leaked:
+        raise AssertionError(f"JAX was imported: {leaked[:5]}")
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
+    sources = {"depthwise_silu_pool": ("k1", "depthwise_se.cu",
+                                       "deepfakedetection_tpu/ops/pallas/depthwise_se.py:73"),
+               "expand_dw_silu_pool": ("k2", "expand_dw.cu",
+                                       "deepfakedetection_tpu/ops/pallas/expand_dw.py:88")}
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda",
+         "source": f"deepfakedetection_tpu_torch/ops/csrc/{src}", "replaces": where,
+         "launches": launches[key], "max_abs_err": kernels[name]["max_abs_err"],
+         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
+        for name, (key, src, where) in sources.items()
+    ]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,300 @@
+"""The batch-eval job: threshold sweep on val -> test pass -> metrics, plots, logs.
+
+Port of ``deepfakedetection_tpu/evaluate/job.py``: padded static batches with
+a validity mask, f32 softmax probabilities (with optional hflip TTA), the
+501-point threshold sweep on val, optional temperature calibration, the
+binary decision ``p1 >= t``, accuracy / ROC-AUC / confusion matrix, plots,
+``metrics.jsonl`` with the same fields, the ``inference.log`` tee and the
+one-line JSON summary.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from dataclasses import dataclass, field
+from datetime import datetime
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from deepfakedetection_tpu.data.folder import require_num_classes, scan_image_folder
+from deepfakedetection_tpu.data.transforms import build_eval_plan
+from deepfakedetection_tpu.evaluate.metrics import (
+    apply_temperature,
+    confusion,
+    expected_calibration_error,
+    fit_temperature,
+    roc_auc,
+    sweep_threshold,
+)
+from deepfakedetection_tpu.registry import ModelSpec
+from deepfakedetection_tpu_torch.data.augment import normalize_batch
+from deepfakedetection_tpu_torch.data.pipeline import DeviceStager, make_eval_loader
+from deepfakedetection_tpu_torch.evaluate.plots import save_confusion_matrix, save_roc_curve
+from deepfakedetection_tpu_torch.runtime.convert import load_weights
+from deepfakedetection_tpu_torch.runtime.logging import (
+    append_metrics,
+    console,
+    progress,
+    tee_output,
+)
+from deepfakedetection_tpu_torch.runtime.paths import RunPaths, world_size
+
+
+@dataclass
+class EvalJob:
+    model_name: str
+    spec: ModelSpec
+    run_paths: RunPaths
+    data_root: Path
+    device: torch.device
+    split: str = "test"
+    val_split: str = "val"
+    num_classes: int = 2
+    img_size: int = 224
+    batch_size: int = 64
+    num_workers: int = 4
+    weights: Path | None = None
+    eval_toggles: dict[str, Any] = field(default_factory=dict)
+    compute_dtype: torch.dtype = torch.bfloat16
+    # inference.precision: "bf16"; "int8" is ROADMAP Queue 1 item 8
+    precision: str = "bf16"
+    lookahead: int = 2
+    # test-time augmentation: None or "hflip" (probs averaged over the flip)
+    tta: str | None = None
+    # None or "temperature" (fit T on the val pass)
+    calibration: str | None = None
+    model_kwargs: dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class EvalResult:
+    metrics: dict[str, Any]
+    probs: np.ndarray
+    targets: np.ndarray
+    preds: np.ndarray
+    classes: list[str] = field(default_factory=list)
+    val_probs: np.ndarray | None = None
+    val_targets: np.ndarray | None = None
+    # test pass images per second, host clock, device synchronised at the end
+    images_per_s: float = 0.0
+
+
+def load_model_for_eval(job: EvalJob) -> torch.nn.Module:
+    """Build the model (init from a generator seeded 0), load the weights
+    when the file exists (a warning and the init weights when it does not),
+    move it to the job's device and switch it to eval."""
+    model = job.spec.builder(
+        job.num_classes,
+        dtype=job.compute_dtype,
+        generator=torch.Generator().manual_seed(0),
+        **job.model_kwargs,
+    )
+    if job.compute_dtype == torch.float32:
+        console.print(
+            "  precision float32: stride-1 MBConv blocks run the unfused f32 "
+            "ConvBN chain (the fused kernels take bf16)"
+        )
+    if job.weights is not None:
+        wpath = Path(job.weights)
+        if wpath.exists():
+            state = load_weights(wpath)
+            missing, unexpected = model.load_state_dict(state, strict=False)
+            counters = [k for k in model.state_dict() if k.endswith("num_batches_tracked")]
+            missing = [k for k in missing if k not in counters]
+            if len(missing) == len(model.state_dict()) - len(counters):
+                raise ValueError(
+                    f"{wpath}: no tensor matches {job.model_name} — refusing to "
+                    "evaluate randomly-initialized weights"
+                )
+            if missing or unexpected:
+                console.print(
+                    f"[yellow]⚠ {len(missing) + len(unexpected)} checkpoint tensors not "
+                    f"loaded (strict=False): {(missing + list(unexpected))[:5]}…[/]"
+                )
+        else:
+            console.print(f"[yellow]⚠ weights not found at {wpath}; using init weights[/]")
+    return model.to(job.device).eval()
+
+
+def make_eval_step(model: torch.nn.Module, tta: str | None = None):
+    """f32 softmax probabilities of a normalized NCHW batch; ``tta="hflip"``
+    averages them over the width flip."""
+
+    @torch.no_grad()
+    def eval_step(x: torch.Tensor) -> torch.Tensor:
+        p = torch.softmax(model(x).float(), dim=-1)
+        if tta == "hflip":
+            p = 0.5 * (p + torch.softmax(model(x.flip(3)).float(), dim=-1))
+        return p
+
+    return eval_step
+
+
+def _collect_probs(eval_step, loader, plan, stager: DeviceStager, compute_dtype):
+    """Run every batch; returns (probs, targets, images/s) for the valid rows.
+    Probabilities stay on the device until the pass ends."""
+    device_probs: list[torch.Tensor] = []
+    masks: list[np.ndarray] = []
+    targets: list[np.ndarray] = []
+    start = time.perf_counter()
+    with progress("inference", total=len(loader.dataset)) as advance:
+        for batch in loader:
+            x = normalize_batch(stager(batch.images), plan, out_dtype=compute_dtype)
+            device_probs.append(eval_step(x))
+            masks.append(batch.mask)
+            targets.append(batch.labels[batch.mask])
+            advance(int(batch.mask.sum()))
+    if not device_probs:
+        return np.zeros((0, 2)), np.zeros((0,), np.int64), 0.0
+    probs = torch.cat(device_probs).cpu().numpy()[np.concatenate(masks)]
+    elapsed = time.perf_counter() - start
+    return probs, np.concatenate(targets), len(probs) / max(elapsed, 1e-9)
+
+
+def run_eval_job(job: EvalJob) -> EvalResult | None:
+    console.print(f"[bold]→ inference {job.model_name}[/]")
+    log_path = job.run_paths.logs / "inference.log"
+    log_path.unlink(missing_ok=True)
+    with tee_output(log_path):
+        return _run_eval_job(job)
+
+
+def _run_eval_job(job: EvalJob) -> EvalResult | None:
+    if str(job.precision).lower() in ("int8", "i8"):
+        raise NotImplementedError("inference.precision int8 is ROADMAP Queue 1 item 8")
+    if world_size() > 1:
+        raise NotImplementedError(
+            "multi-process eval (gathering the ranks' rows) is ROADMAP Queue 1 item 9"
+        )
+    console.print(
+        f"[bold]Model[/]: {job.model_name} | split={job.split} | batch={job.batch_size}"
+        f" | device={job.device}"
+    )
+    model = load_model_for_eval(job)
+    eval_step = make_eval_step(model, tta=job.tta)
+    plan = build_eval_plan(job.img_size, job.eval_toggles)
+    return _eval_passes(job, eval_step, plan, DeviceStager(job.device))
+
+
+def _scan_val(job: EvalJob):
+    val_path = job.data_root / job.val_split
+    if not val_path.exists():
+        return None
+    try:
+        val_ds = scan_image_folder(val_path)
+    except FileNotFoundError:
+        return None
+    return val_ds if len(val_ds) > 0 else None
+
+
+def _eval_passes(job: EvalJob, eval_step, plan, stager: DeviceStager) -> EvalResult | None:
+    # ---- binary decision-threshold sweep on val
+    best_threshold = 0.5
+    vprobs = vtargets = None
+    want_calibration = str(job.calibration or "").lower() == "temperature"
+    if job.num_classes == 2 or want_calibration:
+        val_ds = _scan_val(job)
+        if val_ds is not None:
+            val_loader = make_eval_loader(
+                val_ds, plan, batch_size=job.batch_size,
+                num_workers=job.num_workers, lookahead=job.lookahead,
+            )
+            vprobs, vtargets, _ = _collect_probs(
+                eval_step, val_loader, plan, stager, job.compute_dtype
+            )
+
+    # ---- optional temperature calibration
+    temperature = None
+    if want_calibration:
+        if vprobs is not None and vprobs.size:
+            temperature = fit_temperature(vprobs, vtargets)
+            console.print(f"  calibration: temperature T={temperature:.4f} (fit on val)")
+        else:
+            console.print(
+                "[yellow]⚠ calibration requested but no val pass ran — "
+                "probabilities stay uncalibrated[/]"
+            )
+    if temperature is not None and vprobs is not None and vprobs.size:
+        vprobs = apply_temperature(vprobs, temperature)
+    if job.num_classes == 2 and vprobs is not None and vprobs.size:
+        best_threshold = sweep_threshold(vprobs[:, 1], vtargets)
+
+    # ---- test pass
+    test_path = job.data_root / job.split
+    if not test_path.exists():
+        console.print(f"[bold red]Split not found:[/] {test_path}")
+        raise SystemExit(1)
+    test_ds = scan_image_folder(test_path)
+    require_num_classes(test_ds, job.num_classes, split=job.split, dataset_root=test_path)
+    if len(test_ds) == 0:
+        console.print(f"[bold yellow]No images found in[/] {test_path}")
+        return None
+    loader = make_eval_loader(
+        test_ds, plan, batch_size=job.batch_size,
+        num_workers=job.num_workers, lookahead=job.lookahead,
+    )
+    probs, targets, speed = _collect_probs(eval_step, loader, plan, stager, job.compute_dtype)
+    console.print(f"  eval throughput: {speed:.1f} img/s")
+
+    ece_raw = None
+    if temperature is not None and probs.size:
+        ece_raw = expected_calibration_error(probs, targets)
+        probs = apply_temperature(probs, temperature)
+
+    if job.num_classes == 2:
+        preds = (probs[:, 1] >= best_threshold).astype(np.int64)
+    else:
+        preds = probs.argmax(axis=-1)
+
+    accuracy = float((preds == targets).mean()) if targets.size else 0.0
+    metrics: dict[str, Any] = {
+        "model": job.model_name,
+        "split": job.split,
+        "accuracy": accuracy,
+        "timestamp": datetime.now().isoformat(),
+    }
+    if np.unique(targets).size > 1:
+        auc = (
+            roc_auc(targets, probs[:, 1])
+            if job.num_classes == 2
+            else roc_auc(targets, probs, multi_class=True)
+        )
+        if auc is not None:
+            metrics["roc_auc"] = auc
+    if job.num_classes == 2:
+        metrics["threshold"] = float(best_threshold)
+    if temperature is not None:
+        metrics["temperature"] = float(temperature)
+        if ece_raw is not None:
+            metrics["ece_uncalibrated"] = ece_raw
+            metrics["ece"] = expected_calibration_error(probs, targets)
+
+    cm = confusion(targets, preds, num_classes=job.num_classes)
+    metrics["confusion_matrix"] = cm.tolist()
+    save_confusion_matrix(cm, test_ds.classes, job.run_paths.plots / "confusion_matrix.png")
+    if job.num_classes == 2 and np.unique(targets).size > 1:
+        save_roc_curve(targets, probs[:, 1], job.run_paths.plots / "roc_curve.png")
+
+    append_metrics(job.run_paths.logs / "metrics.jsonl", metrics)
+    console.print(
+        "[bold]Accuracy[/]: "
+        f"{accuracy:.4f} "
+        + " ".join(
+            f"{k}={v:.4f}"
+            for k, v in metrics.items()
+            if isinstance(v, float) and k != "accuracy"
+        )
+    )
+    # machine-readable one-liner for harness consumption
+    console.print(
+        json.dumps({"model": job.model_name, "split": job.split, "accuracy": accuracy})
+    )
+    return EvalResult(
+        metrics=metrics, probs=probs, targets=targets, preds=preds,
+        classes=list(test_ds.classes), val_probs=vprobs, val_targets=vtargets,
+        images_per_s=speed,
+    )

@@ -1,0 +1,206 @@
+"""Shared eval building blocks: BN-folded ConvBN, SqueezeExcite, DropPath.
+
+Port of ``deepfakedetection_tpu/models/common.py``. Activations are
+NCHW-logical tensors stored channels_last, so ``x.permute(0, 2, 3, 1)`` is the
+contiguous NHWC view the kernels take. Parameters stay f32; compute runs in
+the model's dtype (bf16 by default).
+
+``ConvBN`` and ``SqueezeExcite`` are plain objects over ``nn.Conv2d`` /
+``nn.BatchNorm2d`` modules that the owning model registers under the
+efficientnet_pytorch names (``_expand_conv`` + ``_bn0`` ...), so a reference
+``.pth`` loads with ``strict=True`` and no renaming.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepfakedetection_tpu_torch.ops.depthwise_se import depthwise_silu_pool
+
+Pads = tuple[tuple[int, int], tuple[int, int]]
+
+
+class Derived:
+    """A value computed from parameters, recomputed only when one of them
+    changes (new storage, or an in-place write such as ``load_state_dict``)."""
+
+    def __init__(self, fn: Callable[[], object]) -> None:
+        self._fn = fn
+        self._key: tuple | None = None
+        self._value: object = None
+
+    def get(self, tensors: Sequence[torch.Tensor]):
+        key = tuple((t.data_ptr(), t._version) for t in tensors)
+        if key != self._key:
+            with torch.no_grad():
+                self._value = self._fn()
+            self._key = key
+        return self._value
+
+
+def symmetric_pad(pads: Pads, k: int) -> bool:
+    """True for the (k//2, k//2) zero padding the fused kernels implement."""
+    r = k // 2
+    return tuple(map(tuple, pads)) == ((r, r), (r, r))
+
+
+class ConvBN:
+    """Conv2d + BatchNorm2d (+ activation), eval only, with BN folded in f32:
+    ``w' = w * gamma / sqrt(var + eps)``, ``b' = beta - mean * gamma /
+    sqrt(var + eps)``. Input and weight are rounded to the compute dtype; the
+    conv (cuDNN on the card) takes them as f32, so the products are exact and
+    accumulation and output stay f32, as in the JAX package's bf16 conv with
+    f32 accumulation. The f32 bias and the activation follow in f32, then one
+    cast to the compute dtype: the only rounding after the conv. bf16 values
+    are exact in TF32, so cuDNN's TF32 mode (PyTorch's default for convs)
+    runs this on tensor cores without changing the result. ``pads`` are the
+    frozen static-SAME pads ((top, bottom), (left, right)).
+
+    ``return_spatial_mean=True`` returns ``(y, mean | None)``: the f32 spatial
+    mean of y when the K1 kernel served the call (a depthwise, stride-1,
+    odd-k, symmetric-pad SiLU conv in bf16), else None. ``fold_only=True``
+    returns the folded ``(w, b)`` in the JAX package's layout (HWIO f32 and
+    f32) without running the conv, for callers that fuse several convs into
+    one kernel."""
+
+    def __init__(
+        self,
+        conv: nn.Conv2d,
+        bn: nn.BatchNorm2d,
+        *,
+        pads: Pads = ((0, 0), (0, 0)),
+        act: Callable[[torch.Tensor], torch.Tensor] | None = None,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> None:
+        if conv.bias is not None or conv.padding != (0, 0):
+            raise ValueError("ConvBN: the conv carries no bias and no padding of its own")
+        self.conv, self.bn, self.act, self.dtype = conv, bn, act, dtype
+        self.pads = tuple(map(tuple, pads))
+        (pt, pb), (pl, pr) = self.pads
+        # symmetric pads go to the conv itself; others need an explicit F.pad
+        self._conv_pad = (pt, pl) if (pt, pl) == (pb, pr) else (0, 0)
+        self._fpad = (0, 0, 0, 0) if (pt, pl) == (pb, pr) else (pl, pr, pt, pb)
+        self._folded = Derived(self._fold)
+        self._conv_weight = Derived(
+            lambda: self._folded_now()[0]
+            .to(dtype)
+            .float()
+            .contiguous(memory_format=torch.channels_last)
+        )
+        self._hwio = Derived(lambda: self._folded_now()[0].permute(2, 3, 1, 0).contiguous())
+
+    def _params(self) -> list[torch.Tensor]:
+        bn = self.bn
+        return [self.conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var]
+
+    def _fold(self) -> tuple[torch.Tensor, torch.Tensor]:
+        bn = self.bn
+        denom = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+        w = self.conv.weight.float() * denom.view(-1, 1, 1, 1)
+        b = bn.bias.float() - bn.running_mean.float() * denom
+        return w, b
+
+    def _folded_now(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self._folded.get(self._params())
+
+    def k1_eligible(self) -> bool:
+        c, k = self.conv, self.conv.kernel_size
+        return (
+            self.dtype == torch.bfloat16
+            and c.groups == c.in_channels == c.out_channels
+            and c.stride == (1, 1)
+            and k[0] == k[1]
+            and k[0] in (3, 5)
+            and self.act is F.silu
+            and symmetric_pad(self.pads, k[0])
+        )
+
+    def __call__(
+        self,
+        x: torch.Tensor | None,
+        *,
+        return_spatial_mean: bool = False,
+        fold_only: bool = False,
+    ):
+        if self.conv.training or self.bn.training:
+            raise NotImplementedError(
+                "ConvBN runs at eval only; training is ROADMAP Queue 1 item 4"
+            )
+        params = self._params()
+        if fold_only:
+            return self._hwio.get(params), self._folded.get(params)[1]
+        _, b = self._folded.get(params)
+        if return_spatial_mean and self.k1_eligible():
+            k = self.conv.kernel_size[0]
+            w = self._hwio.get(params)  # [k, k, 1, C]
+            y, pool = depthwise_silu_pool(
+                x.to(self.dtype).permute(0, 2, 3, 1), w.view(k, k, -1), b, k=k
+            )
+            return y.permute(0, 3, 1, 2), pool
+        x = x.to(self.dtype).float()
+        if any(self._fpad):
+            x = F.pad(x, self._fpad)
+        y = F.conv2d(
+            x, self._conv_weight.get(params), b, self.conv.stride, self._conv_pad, 1,
+            self.conv.groups,
+        )
+        if self.act is not None:
+            y = self.act(y, inplace=True)
+        y = y.to(self.dtype)
+        return (y, None) if return_spatial_mean else y
+
+
+class SqueezeExcite:
+    """SE gate: pool -> reduce 1x1 (+bias) -> SiLU -> expand 1x1 (+bias) ->
+    sigmoid -> x * gate, in the compute dtype. ``pooled`` is a precomputed
+    f32 [B, C] spatial mean (from K1/K2); it is cast to the compute dtype
+    first, as the JAX package does. Without it, x is pooled with f32
+    accumulation."""
+
+    def __init__(
+        self, reduce: nn.Conv2d, expand: nn.Conv2d, *, dtype: torch.dtype = torch.bfloat16
+    ) -> None:
+        self.reduce, self.expand, self.dtype = reduce, expand, dtype
+        self._weights = Derived(
+            lambda: tuple(
+                t.to(dtype).flatten(1) if t.dim() > 1 else t.to(dtype)
+                for t in (reduce.weight, reduce.bias, expand.weight, expand.bias)
+            )
+        )
+
+    def __call__(self, x: torch.Tensor, pooled: torch.Tensor | None = None) -> torch.Tensor:
+        wr, br, we, be = self._weights.get(
+            [self.reduce.weight, self.reduce.bias, self.expand.weight, self.expand.bias]
+        )
+        se = pooled if pooled is not None else x.mean(dim=(2, 3), dtype=torch.float32)
+        se = F.silu(F.linear(se.to(self.dtype), wr, br))
+        gate = torch.sigmoid(F.linear(se, we, be))
+        return x * gate[:, :, None, None]
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample: the identity at eval. The training-time
+    drop comes with the training slice (ROADMAP Queue 1 item 4)."""
+
+    def __init__(self, rate: float) -> None:
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError("DropPath in training is ROADMAP Queue 1 item 4")
+        return x
+
+
+def make_divisible(value: float, divisor: int = 8, min_value: int | None = None) -> int:
+    """Standard channel rounding used across mobile-net-family models."""
+    if min_value is None:
+        min_value = divisor
+    new_value = max(min_value, int(value + divisor / 2) // divisor * divisor)
+    if new_value < 0.9 * value:
+        new_value += divisor
+    return int(new_value)

@@ -1,0 +1,35 @@
+"""The device rule and the compute dtype, from the YAML config. The port
+has no dispatch flags: on the card the kernels are the path."""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+
+def resolve_device(config: dict[str, Any]) -> torch.device:
+    """The YAML ``device``: ``cpu`` runs the kernels' plain versions on the
+    CPU; any other value (the shipped configs say ``tpu``), or none, means the
+    CUDA card, and raises when there is none. Nothing falls back to the CPU."""
+    name = str(config.get("device") or "").strip().lower()
+    if name.startswith("cpu"):
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name or '(unset)'!r} needs a CUDA card and none is available; "
+            "set device: cpu to run on the CPU"
+        )
+    index = name.split(":", 1)[1] if name.startswith("cuda:") else None
+    return torch.device("cuda", int(index) if index else torch.cuda.current_device())
+
+
+def compute_dtype(config: dict[str, Any]) -> torch.dtype:
+    """The top-level ``precision``: bf16 by default, or float32."""
+    precision = str(config.get("precision") or "bfloat16").lower()
+    return {
+        "bfloat16": torch.bfloat16,
+        "bf16": torch.bfloat16,
+        "float32": torch.float32,
+        "fp32": torch.float32,
+    }[precision]

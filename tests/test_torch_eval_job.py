@@ -1,0 +1,211 @@
+"""The slice as a whole: the port's ``orchestrate(mode="inference")`` against
+the JAX package's, on the same image tree and the same ``.pth``.
+
+Both stacks run a narrow EfficientNet (width 0.25, depth 0.5) at 32 px with
+``get_model_spec`` monkeypatched, as tests/test_orchestrate_e2e.py does. The
+checkpoint comes from a JAX init through ``export_torch_state_dict``, with a
+classifier along the first principal direction of the model's features so
+probabilities spread to a real operating point (random-init probabilities sit
+almost tied). Gates, as tools/parity.py composes them: per-image
+probabilities within 1e-4 in f32, the same swept threshold, accuracy and
+confusion matrix, and the same decisions except for an image whose p1 lies
+within 1e-4 of the threshold. The bf16 port run (through the kernel wrappers'
+plain versions) must make the f32 run's decisions except within 2e-2 of the
+threshold. Measured max|dp|: 1.0e-6 between the f32 port and JAX, 3.5e-3
+between the bf16 and f32 port runs.
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import deepfakedetection_tpu.orchestrator as jax_orch
+import deepfakedetection_tpu_torch.orchestrator as port_orch
+from deepfakedetection_tpu.models.efficientnet import EfficientNet as JaxEfficientNet
+from deepfakedetection_tpu.registry import get_model_spec as jax_model_spec
+from deepfakedetection_tpu.runtime.torch_convert import export_torch_state_dict
+from deepfakedetection_tpu.train.steps import init_model_variables
+from deepfakedetection_tpu_torch.data.augment import normalize_batch
+from deepfakedetection_tpu_torch.data.pipeline import (
+    build_eval_plan,
+    make_eval_loader,
+    scan_image_folder,
+)
+from deepfakedetection_tpu_torch.models.efficientnet import EfficientNet
+from deepfakedetection_tpu_torch.runtime.flags import resolve_device
+
+NARROW = dict(width_coefficient=0.25, depth_coefficient=0.5, native_resolution=32)
+SIZE = 32
+EVAL = {"ensure_rgb": True, "val_resize": True, "val_center_crop": True}
+
+
+def _jax_spec():
+    return dataclasses.replace(
+        jax_model_spec("efficientnet_b3"),
+        builder=lambda num_classes, dtype=jnp.bfloat16, **kw: JaxEfficientNet(
+            num_classes=num_classes, dtype=dtype, **NARROW
+        ),
+    )
+
+
+def _port_spec():
+    return dataclasses.replace(
+        jax_model_spec("efficientnet_b3"),
+        builder=lambda num_classes, dtype=torch.bfloat16, generator=None, **kw: EfficientNet(
+            num_classes=num_classes, dtype=dtype, generator=generator, **NARROW
+        ),
+    )
+
+
+def _features(state, root):
+    """Pre-classifier features of every val and test image (port, f32)."""
+    model = EfficientNet(num_classes=2, dtype=torch.float32, **NARROW).eval()
+    model.load_state_dict(state)
+    plan = build_eval_plan(SIZE, EVAL)
+    feats = []
+    hook = model._fc.register_forward_hook(lambda _m, inp, _o: feats.append(inp[0]))
+    with torch.no_grad():
+        for split in ("val", "test"):
+            ds = scan_image_folder(root / split)
+            for batch in make_eval_loader(ds, plan, batch_size=32):
+                model(normalize_batch(torch.from_numpy(batch.images), plan)[batch.mask])
+    hook.remove()
+    return torch.cat(feats)
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tiny_image_tree, tmp_path_factory):
+    jmodel = JaxEfficientNet(num_classes=2, dtype=jnp.float32, **NARROW)
+    params, batch_stats = init_model_variables(jmodel, jax.random.key(0), (1, SIZE, SIZE, 3))
+    tree = {"params": jax.device_get(params), "batch_stats": jax.device_get(batch_stats)}
+    state = {
+        k: torch.from_numpy(np.array(v, np.float32))
+        for k, v in export_torch_state_dict(tree, "efficientnet").items()
+    }
+    feats = _features(state, tiny_image_tree).double()
+    centred = feats - feats.mean(0)
+    direction = torch.linalg.svd(centred, full_matrices=False).Vh[0]
+    z = centred @ direction
+    scale = 2.0 / float(z.std())
+    fc_w = torch.zeros_like(state["_fc.weight"], dtype=torch.float64)
+    fc_w[1] = scale * direction
+    state["_fc.weight"] = fc_w.float()
+    state["_fc.bias"] = torch.tensor([0.0, -scale * float(feats.mean(0) @ direction)])
+    path = tmp_path_factory.mktemp("ckpt") / "narrow_b3.pth"
+    torch.save(state, path)
+    return path
+
+
+def _config(path, root, out_dir, weights, precision):
+    cfg = {
+        "seed": 7,
+        "device": "cpu",
+        "precision": precision,
+        "data": {"root": str(root), "val_split": "val", "test_split": "test",
+                 "num_classes": 2, "img_size": SIZE},
+        "models": {"efficientnet_b3": {
+            "output_dir": str(out_dir),
+            "transforms": {"eval": EVAL},
+            "inference": {"weights": str(weights), "split": "test", "batch_size": 8,
+                          "num_workers": 0, "img_size": SIZE},
+        }},
+        "selection": ["efficientnet_b3"],
+    }
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def _metrics_keys(out_dir):
+    (run,) = sorted(out_dir.iterdir())
+    lines = (run / "logs" / "metrics.jsonl").read_text().splitlines()
+    return set(json.loads(lines[-1]))
+
+
+@pytest.fixture(scope="module")
+def runs(tiny_image_tree, checkpoint, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("runs")
+    mp = pytest.MonkeyPatch()
+    try:
+        captured = {}
+        real_run = jax_orch.run_eval_job
+        mp.setattr(jax_orch, "get_model_spec", lambda name: _jax_spec())
+        mp.setattr(jax_orch, "run_eval_job", lambda job: captured.setdefault("r", real_run(job)))
+        mp.setattr(port_orch, "get_model_spec", lambda name: _port_spec())
+        with jax.default_matmul_precision("highest"):
+            jax_orch.orchestrate(
+                _config(tmp / "jax.yaml", tiny_image_tree, tmp / "jax", checkpoint, "float32"),
+                mode="inference",
+            )
+        out = {"jax": captured["r"]}
+        for name, precision in (("f32", "float32"), ("bf16", "bfloat16")):
+            cfg = _config(tmp / f"{name}.yaml", tiny_image_tree, tmp / name, checkpoint,
+                          precision)
+            out[name] = port_orch.orchestrate(cfg, mode="inference")["efficientnet_b3"]
+        out["dirs"] = {k: tmp / k for k in ("jax", "f32", "bf16")}
+        return out
+    finally:
+        mp.undo()
+
+
+def test_port_f32_eval_job_matches_jax_per_image(runs):
+    jax_r, port = runs["jax"], runs["f32"]
+    t = jax_r.metrics["threshold"]
+    assert port.probs.shape == jax_r.probs.shape == (12, 2)
+    np.testing.assert_array_equal(port.targets, jax_r.targets)
+    np.testing.assert_allclose(port.probs, jax_r.probs, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(port.val_probs, jax_r.val_probs, atol=1e-4, rtol=0)
+    assert port.metrics["threshold"] == t
+    assert np.ptp(jax_r.probs[:, 1]) > 0.3  # a spread operating point, not a tie
+    far = np.abs(jax_r.probs[:, 1] - t) > 1e-4
+    np.testing.assert_array_equal(port.preds[far], jax_r.preds[far])
+    assert port.metrics["accuracy"] == jax_r.metrics["accuracy"]
+    assert port.metrics["confusion_matrix"] == jax_r.metrics["confusion_matrix"]
+    assert port.metrics["roc_auc"] == pytest.approx(jax_r.metrics["roc_auc"], abs=1e-9)
+    assert _metrics_keys(runs["dirs"]["f32"]) == _metrics_keys(runs["dirs"]["jax"])
+
+
+def test_port_bf16_decisions_match_f32_away_from_threshold(runs):
+    f32, bf16 = runs["f32"], runs["bf16"]
+    t32, t16 = f32.metrics["threshold"], bf16.metrics["threshold"]
+    p32 = f32.probs[:, 1]
+    np.testing.assert_allclose(bf16.probs, f32.probs, atol=2e-2, rtol=0)
+    far = (np.abs(p32 - t32) > 2e-2) & (np.abs(p32 - t16) > 2e-2)
+    assert far.sum() >= 6
+    np.testing.assert_array_equal(bf16.preds[far], f32.preds[far])
+
+
+@pytest.mark.parametrize("device", ["tpu", "cuda", None])
+def test_any_device_but_cpu_needs_cuda(monkeypatch, device):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device({"device": device})
+    assert resolve_device({"device": "cpu"}) == torch.device("cpu")
+
+
+def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, checkpoint,
+                                                monkeypatch):
+    cfg = tmp_path / "c.yaml"
+    _config(cfg, tiny_image_tree, tmp_path / "out", checkpoint, "float32")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        port_orch.orchestrate(cfg, mode="training")
+
+    data = yaml.safe_load(cfg.read_text())
+    data["models"]["faster_vit_2_224"] = {"output_dir": str(tmp_path / "fv")}
+    data["selection"] = ["efficientnet_b3", "faster_vit_2_224"]
+    cfg.write_text(yaml.safe_dump(data))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        port_orch.orchestrate(cfg, mode="inference")
+    assert not (tmp_path / "out").exists()  # failed before any work
+
+    data["selection"] = ["efficientnet_b3"]
+    data["models"]["efficientnet_b3"]["inference"]["precision"] = "int8"
+    cfg.write_text(yaml.safe_dump(data))
+    monkeypatch.setattr(port_orch, "get_model_spec", lambda name: _port_spec())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        port_orch.orchestrate(cfg, mode="inference")

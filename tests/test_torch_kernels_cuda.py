@@ -1,0 +1,70 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(bf16), at the EfficientNet-B3 @ 224 shapes of the main path and at odd
+sizes: ragged tiles, a map smaller than the halo, and channel counts off the
+kernels' vector widths. Tolerances are the JAX package's kernel tests':
+K1 y 3e-2 / pool 2e-3, K2 y 5e-2 / pool atol 2e-2 rtol 5e-2.
+
+Needs a CUDA card and imports no JAX, so it runs on the card with
+``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``;
+elsewhere every case skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deepfakedetection_tpu_torch.ops import depthwise_se as k1
+from deepfakedetection_tpu_torch.ops import expand_dw as k2
+
+K1_SHAPES = [
+    (112, 112, 40, 3), (112, 112, 24, 3),  # B3 stage 0
+    (7, 7, 256, 5), (14, 14, 128, 3), (9, 11, 128, 5), (37, 45, 72, 3), (13, 10, 20, 5),
+]
+K2_SHAPES = [
+    (56, 56, 32, 192, 3), (28, 28, 48, 288, 5), (14, 14, 96, 576, 3),
+    (14, 14, 96, 576, 5), (14, 14, 136, 816, 5), (7, 7, 232, 1392, 5),
+    (7, 7, 232, 1392, 3), (7, 7, 384, 2304, 3),  # every B3 stride-1 expand block
+    (9, 11, 32, 192, 5), (30, 33, 24, 144, 5), (1, 1, 8, 48, 5), (13, 10, 20, 42, 3),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, scale, device):
+    return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,k", K1_SHAPES)
+def test_depthwise_silu_pool_kernel_matches_plain(cuda, H, W, C, k):
+    rng = np.random.default_rng(H + C)
+    x = _randn(rng, (8, H, W, C), 1.0, cuda).to(torch.bfloat16)
+    w, b = _randn(rng, (k, k, C), 1.0 / k, cuda), _randn(rng, (C,), 0.1, cuda)
+    before = k1.depthwise_silu_pool.launches
+    y, pool = k1.depthwise_silu_pool(x, w, b, k=k)
+    torch.cuda.synchronize()
+    assert k1.depthwise_silu_pool.launches == before + 1
+    y_ref, pool_ref = k1.depthwise_silu_pool_plain(x, w, b, k=k)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(pool, pool_ref, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,Cin,Ce,k", K2_SHAPES)
+def test_expand_dw_silu_pool_kernel_matches_plain(cuda, H, W, Cin, Ce, k):
+    rng = np.random.default_rng(H + Ce)
+    x = _randn(rng, (8, H, W, Cin), 1.0, cuda).to(torch.bfloat16)
+    wexp, bexp = _randn(rng, (Cin, Ce), Cin ** -0.5, cuda), _randn(rng, (Ce,), 0.1, cuda)
+    wdw, bdw = _randn(rng, (k, k, Ce), 1.0 / k, cuda), _randn(rng, (Ce,), 0.1, cuda)
+    before = k2.expand_dw_silu_pool.launches
+    y, pool = k2.expand_dw_silu_pool(x, wexp, bexp, wdw, bdw, kernel=k)
+    torch.cuda.synchronize()
+    assert k2.expand_dw_silu_pool.launches == before + 1
+    y_ref, pool_ref = k2.expand_dw_silu_pool_plain(x, wexp, bexp, wdw, bdw, kernel=k)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(pool, pool_ref, atol=2e-2, rtol=5e-2)
