@@ -22,7 +22,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. the main path: ``orchestrate(mode="inference")`` on a YAML config over a
    seeded JPEG tree (val and test splits of a few hundred images, batch 128),
    with launch counts, the job's summary, ``metrics.jsonl`` and 16 test
-   images' outputs against the CPU references checked.
+   images' outputs against the CPU references checked;
+4. the training path: ``orchestrate(mode="training")`` with the shipped B3
+   recipe at full width (224 px, canvas 257: warmup at batch 64, fine-tune at
+   32 x 4 = 128, rotation, flip, jitter, resized crop and erasing on) over a
+   seeded JPEG tree, validation after each epoch, then a resume from
+   ``latest.ckpt`` and ``orchestrate(mode="inference", weights: auto)``: K4
+   launches 3 times per train step, K1 and K2 in validation, finite losses,
+   the checkpoints; one train step on the card against the CPU from the same
+   weights and augmentation draws (f32 with TF32 off, and bf16); the train
+   step's time at batch 64 and 128 (CUDA events) and the phase's img/s.
 
 The second-to-last lines are a JSON object with the kernels' numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -33,6 +42,8 @@ Without a CUDA card, or outside the repository, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -63,6 +74,36 @@ SPLITS = {"val": 256, "test": 1280}  # phase 3 images per split
 EVAL_BATCH = 128
 EVAL_TF = {"ensure_rgb": True, "val_resize": True, "val_center_crop": True}
 K2_TOL = {"y": (5e-2, 5e-2), "pool": (2e-2, 5e-2)}
+# K4 cases (B, H, W, max_theta, largest |angle|): the B3 fine-tune canvas at the
+# recipe's 10 degrees (timed), the 13.7-degree shear limit, the kernel's 0.45 rad
+# limit, odd sizes and a zero angle; one bf16 step per pass on [0, 1] images
+K4_CASES = [(128, 257, 257, 0.17453, 0.17453), (16, 257, 257, 0.23911, 0.23911),
+            (16, 96, 96, 0.45, 0.45), (8, 37, 45, 0.2, 0.2), (8, 45, 37, 0.45, 0.45),
+            (8, 33, 31, 0.2, 0.0)]
+K4_TOL = 3 * 2.0**-8
+TRAIN_SPLITS = {"train": 1024, "val": 128, "test": 128}  # phase 4 images per split
+TRAIN_TF = {"ensure_rgb": True, "train_random_resized_crop": True,
+            "train_random_horizontal_flip": True, "train_random_rotation": True,
+            "train_color_jitter": True, "train_random_erasing": True}
+
+
+JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+
+def reference_imports(source: str) -> list[str]:
+    """The modules of JAX or of the JAX package (``deepfakedetection_tpu``)
+    that the Python ``source`` imports by name. The port may reach the JAX
+    package's JAX-free modules; this script goes through the port only."""
+    import ast
+
+    names = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names.append(node.module)
+    banned = JAX_MODULES + ("deepfakedetection_tpu",)
+    return sorted(n for n in names if n.split(".")[0] in banned)
 
 
 def log(msg: str) -> None:
@@ -170,8 +211,49 @@ def phase1(device, report):
                    " (batch 128)" if count else ""))
         kernels[name] = {"rows": rows, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
         log(f"  {name}: per B3 forward at batch 128 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    kernels["rotate_batch"] = phase1_k4(device)
     report["phase1"] = kernels
     return kernels
+
+
+def phase1_k4(device) -> dict:
+    """K4 (three launches per rotation) against its plain version."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import shear_rotate as k4
+
+    rows, worst, timed = [], 0.0, {}
+    for i, (B, H, W, max_theta, largest) in enumerate(K4_CASES):
+        g = torch.Generator().manual_seed(300 + i)
+        x = torch.rand(B, H, W, 3, generator=g).to(torch.bfloat16).to(device)
+        thetas = ((torch.rand(B, generator=g) * 2 - 1) * largest).to(device)
+        if largest:
+            thetas[0], thetas[-1] = largest, -largest
+        before = k4.rotate_batch.launches
+        y = k4.rotate_batch(x, thetas, max_theta=max_theta)
+        torch.cuda.synchronize()
+        if k4.rotate_batch.launches != before + 3:
+            raise AssertionError("rotate_batch did not launch its three passes")
+        ref = k4.rotate_batch_plain(x, thetas, max_theta=max_theta)
+        err = check_close(f"rotate_batch{(B, H, W)} theta<={largest}", y, ref, K4_TOL, 0.0)
+        differ = float((y != ref).float().mean())
+        if differ > 1e-3 or (not largest and not torch.equal(y, x)):
+            raise AssertionError(f"rotate_batch{(B, H, W)}: {differ:.2e} of the elements differ")
+        worst = max(worst, err)
+        row = {"shape": (B, H, W, 3), "max_theta": max_theta, "largest_angle": largest,
+               "max_abs_err": err, "share_differing": differ}
+        if i == 0:  # the B3 fine-tune canvas
+            row["ms"] = timed["ms"] = spread(cuda_times(
+                lambda: k4.rotate_batch(x, thetas, max_theta=max_theta), runs=25))
+            row["plain_ms"] = timed["plain_ms"] = spread(cuda_times(
+                lambda: k4.rotate_batch_plain(x, thetas, max_theta=max_theta), runs=25))
+        rows.append(row)
+        log(f"  rotate_batch {(B, H, W, 3)} max_theta {max_theta}: max|d|={err:.3e}, "
+            f"{differ:.2e} of the elements differ"
+            + (f"; kernel {row['ms']['median']:.4f} ms plain {row['plain_ms']['median']:.4f} ms"
+               if "ms" in row else ""))
+    return {"rows": rows, "max_abs_err": worst, "ms": timed["ms"]["median"],
+            "plain_ms": timed["plain_ms"]["median"]}
 
 
 def calibrate_bn(model, x) -> None:
@@ -495,6 +577,308 @@ def reference_check(res, data: Path, state) -> dict[str, float]:
                         *(r.double() - r[:, :1].double() for r in refs))
 
 
+def train_config(work: Path, data: Path, device, epochs: int) -> Path:
+    import yaml
+
+    cfg = {
+        "seed": 1,
+        "device": str(device),
+        "data": {"root": str(data), "train_split": "train", "val_split": "val",
+                 "test_split": "test", "num_classes": 2, "img_size": 224},
+        "models": {"efficientnet_b3": {
+            "output_dir": str(work / "runs"),
+            "transforms": {"train": TRAIN_TF, "eval": EVAL_TF},
+            "training": {"epochs": epochs, "batch_size": 64, "num_workers": 8,
+                         "resume": "continue"},
+            "inference": {"weights": "auto", "split": "test", "batch_size": 64,
+                          "num_workers": 8, "img_size": 224},
+        }},
+        "selection": ["efficientnet_b3"],
+    }
+    path = work / f"train_{epochs}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def counted(fn):
+    """Runs ``fn`` with every kernel's launch count at 0 before it and reads
+    them after it: (fn's result, {"k1", "k2", "k4"})."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import depthwise_se as k1
+    from deepfakedetection_tpu_torch.ops import expand_dw as k2
+    from deepfakedetection_tpu_torch.ops import shear_rotate as k4
+
+    k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
+    k4.rotate_batch.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"k1": k1.depthwise_silu_pool.launches, "k2": k2.expand_dw_silu_pool.launches,
+                 "k4": k4.rotate_batch.launches}
+
+
+def logged_speeds(log_text: str) -> dict[str, float]:
+    """img/s of each warmup and fine-tune epoch from ``train.log``."""
+    return {m.group(1): float(m.group(2)) for m in
+            re.finditer(r"^\s+((?:warmup|epoch) \d+/\d+): loss=\S+ \| ([\d.]+) img/s", log_text,
+                        re.MULTILINE)}
+
+
+def phase4(device, report):
+    """The training path: orchestrate(mode="training") at full width, then a
+    resume and the inference handoff; the card's step against the CPU's."""
+    import numpy as np
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+
+    work = REPO / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    data = work / "data"
+    write_jpeg_tree(data, TRAIN_SPLITS, seed=5)
+    n_train, n_val = TRAIN_SPLITS["train"], TRAIN_SPLITS["val"]
+    warmup_steps, ft_steps = n_train // 64, n_train // 128
+    val_batches = -(-n_val // 64)
+
+    t0 = time.perf_counter()
+    res, launches = counted(lambda: orchestrate(train_config(work, data, device, 1),
+                                                mode="training")["efficientnet_b3"])
+    wall = time.perf_counter() - t0
+    steps = warmup_steps + ft_steps
+    per_forward = create_efficientnet("b3").eval().kernel_launches_per_forward()
+    want = {"k1": per_forward["k1"] * 2 * val_batches, "k2": per_forward["k2"] * 2 * val_batches,
+            "k4": 3 * steps}
+    log(f"  training (1 epoch): {steps} train steps, {2 * val_batches} val batches; launches "
+        f"K4={launches['k4']} K1={launches['k1']} K2={launches['k2']}; wall {wall:.1f} s")
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected {want}")
+    (run,) = sorted((work / "runs").iterdir())
+    ckpts = run / "checkpoints"
+    for name in ("latest.ckpt", "best.ckpt", "efficientnet_b3.pth"):
+        if not (ckpts / name).is_file():
+            raise AssertionError(f"training wrote no {name}")
+    log_text = (run / "logs" / "train.log").read_text()
+    speeds = logged_speeds(log_text)
+    records = [json.loads(x) for x in (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+    losses = [float(x) for x in re.findall(r": loss=(\S+) \|", log_text)]
+    if len(losses) != 2 or not all(np.isfinite(losses)) or res.interrupted:
+        raise AssertionError(f"bad training run: losses {losses}, {res}")
+
+    res2, launches2 = counted(lambda: orchestrate(train_config(work, data, device, 2),
+                                                  mode="training")["efficientnet_b3"])
+    state = torch.load(ckpts / "latest.ckpt", weights_only=True)
+    log_text2 = (run / "logs" / "train.log").read_text()
+    records = [json.loads(x) for x in (run / "logs" / "metrics.jsonl").read_text().splitlines()]
+    if ("atepoch1(best=" not in "".join(log_text2.split())  # the console wraps lines
+            or res2.epochs_run != 1 or state["counters"]["epoch"] != 1
+            or [r["epoch"] for r in records] != [1, 2]
+            or launches2["k4"] != 3 * ft_steps
+            or not all(np.isfinite(r["train_loss"]) for r in records)):
+        raise AssertionError(f"resume: {res2}, counters {state['counters']}, records {records}, "
+                             f"launches {launches2}")
+    speeds.update(logged_speeds(log_text2))
+    log(f"  resume from latest.ckpt ran epoch 2 only ({ft_steps} steps, K4={launches2['k4']}); "
+        f"losses {[round(x, 4) for x in losses]} then {records[-1]['train_loss']}; "
+        f"img/s (host clock, device synced at each epoch's end) {speeds}")
+
+    ires, ilaunch = counted(lambda: orchestrate(train_config(work, data, device, 2),
+                                                mode="inference")["efficientnet_b3"])
+    if ires.probs.shape != (TRAIN_SPLITS["test"], 2) or not np.isfinite(ires.probs).all() \
+            or ilaunch["k2"] != per_forward["k2"] * (-(-TRAIN_SPLITS["test"] // 64) + val_batches):
+        raise AssertionError(f"inference on the trained weights: {ires.probs.shape} {ilaunch}")
+    log(f"  inference with weights: auto ({ckpts / 'efficientnet_b3.pth'}): accuracy "
+        f"{ires.metrics['accuracy']:.4f}, K1={ilaunch['k1']} K2={ilaunch['k2']}")
+
+    agree = step_against_cpu(device)
+    timing = step_times(device)
+    report["phase4"] = {"launches": launches, "resume_launches": launches2,
+                        "train_steps": steps, "losses": losses, "records": records,
+                        "logged_img_per_s": speeds, "wall_s": wall, "cpu_check": agree,
+                        "step_times": timing}
+    return launches
+
+
+def seeded_train_inputs(n: int):
+    """A seeded B3 model's state, n uint8 canvases of 257 px and one set of
+    augmentation draws for them, on the CPU."""
+    import torch
+
+    from deepfakedetection_tpu_torch.data import augment
+    from deepfakedetection_tpu_torch.data.pipeline import build_train_plan
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.registry import get_model_spec
+
+    recipe = get_model_spec("efficientnet_b3").recipe
+    plan = build_train_plan(224, TRAIN_TF, recipe_defaults=recipe.default_train_toggles,
+                            jitter_params=recipe.color_jitter)
+    g = torch.Generator().manual_seed(9)
+    state = create_efficientnet("b3", num_classes=2, dtype=torch.float32,
+                                generator=g).state_dict()
+    S = plan.host_canvas_size
+    images = torch.randint(0, 256, (n, S, S, 3), generator=g, dtype=torch.uint8)
+    params = augment.sample_params(g, plan, n, S, S)
+    return state, images, params, plan
+
+
+def one_step(state, images, params, plan, device, dtype):
+    """One fine-tune step from ``state`` on ``device`` (dropout and
+    drop-path off): the augmented batch, the loss and the updated state,
+    returned on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from deepfakedetection_tpu_torch.data import augment
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
+    from deepfakedetection_tpu_torch.train.steps import train_step
+
+    model = create_efficientnet("b3", num_classes=2, dtype=dtype, dropout_rate=0.0,
+                                drop_connect_rate=0.0)
+    model.load_state_dict(state)
+    model = model.to(device)
+    p = augment.AugParams(**{f.name: getattr(params, f.name).to(device)
+                             for f in dataclasses.fields(params)})
+    x = augment.apply_augment(images.to(device), p, plan, out_dtype=dtype)
+    opt = PhaseOptimizer(list(model.named_parameters()), lr=1e-4, weight_decay=5e-2,
+                         trainable=unfreeze_predicate("all"))
+    labels = torch.arange(len(images), device=device) % 2
+    out = train_step(model, opt, x, labels, torch.ones_like(labels, dtype=torch.bool), None)
+    return (x.float().cpu(), float(out["loss"]),
+            {k: v.float().cpu() for k, v in model.state_dict().items()})
+
+
+BN_DECAY = 0.99  # the B3 BatchNorms' running-statistics decay (JAX convention)
+
+
+def batch_stats(after: dict, before: dict) -> dict:
+    """Each BatchNorm's batch statistics of one train step, recovered from
+    its running statistics: (after - decay * before) / (1 - decay), in f64."""
+    return {k: (after[k].double() - BN_DECAY * before[k].double()) / (1.0 - BN_DECAY)
+            for k in before if k.endswith(("running_mean", "running_var"))}
+
+
+def stats_gaps(card: dict, cpu: dict) -> tuple[float, float]:
+    """The worst BatchNorm's batch-mean difference over the largest batch
+    standard deviation of its channels, and batch-variance difference over
+    the largest batch variance of its channels (the CPU's as the scale)."""
+    dmean = dvar = 0.0
+    for k, var in cpu.items():
+        if k.endswith("running_var"):
+            mk = k[: -len("var")] + "mean"
+            dmean = max(dmean, float((card[mk] - cpu[mk]).abs().max() / var.max().sqrt()))
+            dvar = max(dvar, float((card[k] - var).abs().max() / var.max()))
+    return dmean, dvar
+
+
+def step_readings(state, images, params, plan, device, dtype) -> dict:
+    """One step on the card and on the CPU from the same inputs (TF32 off on
+    the card in f32): the losses, the augmented batches, the updated
+    weights in units of lr, the batch statistics."""
+    import torch
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    if dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x_card, loss_card, sd_card = one_step(state, images, params, plan, device, dtype)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    t0 = time.perf_counter()
+    x_cpu, loss_cpu, sd_cpu = one_step(state, images, params, plan, torch.device("cpu"), dtype)
+    cpu_s = time.perf_counter() - t0
+    units = torch.cat([((sd_card[k] - sd_cpu[k]).abs() / 1e-4).flatten()
+                       for k in sd_cpu if "running" not in k and "num_batches" not in k])
+    dmean, dvar = stats_gaps(batch_stats(sd_card, state), batch_stats(sd_cpu, state))
+    return {"loss_card": loss_card, "loss_cpu": loss_cpu,
+            "loss_rel": abs(loss_card - loss_cpu) / abs(loss_cpu),
+            "max_abs_dx": float((x_card - x_cpu).abs().max()),
+            "max_dw_over_lr": float(units.max()),
+            "share_dw_over_0.1lr": float((units > 0.1).float().mean()),
+            "share_dw_over_0.5lr": float((units > 0.5).float().mean()),
+            "batch_mean_gap": dmean, "batch_var_gap": dvar, "cpu_step_s": cpu_s}
+
+
+# the bounds of step_against_cpu, each set between the sound reading and a
+# wrong variant's (H100 80GB HBM3 against its host's CPU, batch 8):
+#   f32 loss 1.0e-5 sound, 5.1e-5 with the card keeping the unbiased variance;
+#   f32 batch means 1.5e-4 of the std sound, 1.0e-3 unbiased;
+#   f32 batch variances 8.1e-4 of their scale sound (the one-pass variance
+#   cancels where a channel's mean dwarfs its spread), 2.1e-3 unbiased;
+#   bf16 weights beyond 0.5 lr 23.5% sound, 27.0% with the card's normalise
+#   y*a+b in f32 (a dropped bf16 rounding); no bf16 reading tells the unbiased
+#   variance apart, so the bf16 loss and statistics bounds catch gross faults
+#   only (sound 3.6e-3, 2.5e-2 and 0.15). 2.01 lr: Adam's first step moves a
+#   weight by about lr, so a gradient whose sign differs moves it by 2 lr.
+STEP_BOUNDS = {
+    "f32": {"loss_rel": 2.5e-5, "max_dw_over_lr": 2.01, "share_dw_over_0.1lr": 1e-2,
+            "batch_mean_gap": 4e-4, "batch_var_gap": 1.3e-3},
+    "bf16": {"loss_rel": 1e-2, "max_dw_over_lr": 2.01, "share_dw_over_0.5lr": 0.25,
+             "batch_mean_gap": 5e-2, "batch_var_gap": 0.3},
+}
+
+
+def step_against_cpu(device) -> dict:
+    """One train step of the full-width B3 on the card and on the CPU from
+    the same weights, canvases and augmentation draws (K4 on the card, its
+    plain version on the CPU), batch 8, held to ``STEP_BOUNDS``. Weights are
+    compared in units of lr, and the share of weights that moved apart
+    counts the gradients whose signs differ. The batch statistics are
+    recovered from the running ones (``batch_stats``), which move by only a
+    hundredth of them in one step."""
+    import torch
+
+    state, images, params, plan = seeded_train_inputs(8)
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        row = out[name] = step_readings(state, images, params, plan, device, dtype)
+        log(f"  one step, card against CPU ({name}, batch 8): loss {row['loss_card']:.6f} / "
+            f"{row['loss_cpu']:.6f} (rel {row['loss_rel']:.2e}); augmented batch max|d| "
+            f"{row['max_abs_dx']:.2e}; weights max|d|/lr {row['max_dw_over_lr']:.3f}, "
+            f"{row['share_dw_over_0.1lr']:.2e} beyond 0.1 lr, {row['share_dw_over_0.5lr']:.2e} "
+            f"beyond 0.5 lr; batch means {row['batch_mean_gap']:.2e} of the std, batch "
+            f"variances {row['batch_var_gap']:.2e} of their scale; CPU step "
+            f"{row['cpu_step_s']:.1f} s")
+        over = {k: (row[k], bound) for k, bound in STEP_BOUNDS[name].items() if not row[k] <= bound}
+        if over or not math.isfinite(row["loss_card"]):
+            raise AssertionError(f"the card's {name} train step disagrees with the CPU's: "
+                                 f"{over} (reading, bound); {row}")
+    return out
+
+
+def step_times(device) -> dict:
+    """The bf16 B3 train step (forward, backward, AdamW over every tensor) on
+    the card at batch 64 and 128: CUDA events, median and quartiles."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.runtime.seeding import fold_in, root_generator
+    from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
+    from deepfakedetection_tpu_torch.train.steps import train_step
+
+    g = torch.Generator().manual_seed(4)
+    model = create_efficientnet("b3", num_classes=2, generator=g).to(device)
+    opt = PhaseOptimizer(list(model.named_parameters()), lr=1e-4, weight_decay=5e-2,
+                         trainable=unfreeze_predicate("all"))
+    root = root_generator(4)
+    out = {}
+    for batch in (64, 128):
+        x = torch.randn(batch, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        labels = (torch.arange(batch) % 2).to(device)
+        mask = torch.ones(batch, dtype=torch.bool, device=device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t = spread(cuda_times(lambda: train_step(
+            model, opt, x, labels, mask, fold_in(root, opt.count, device=device)), runs=10))
+        out[batch] = {"step_ms": t, "img_per_s": batch / (t["median"] / 1e3),
+                      "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+        log(f"  train step batch {batch}: {t['median']:.3f} ms (q1 {t['q1']:.3f}, q3 "
+            f"{t['q3']:.3f}) = {out[batch]['img_per_s']:.1f} img/s; peak "
+            f"{out[batch]['peak_gib']:.1f} GiB")
+    return out
+
+
 def main() -> int:
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -526,17 +910,22 @@ def main() -> int:
     phase2(device, report, state)
     log("phase 3: main path, orchestrate(mode='inference')")
     launches = phase3(device, report, state)
+    log("phase 4: training path, orchestrate(mode='training')")
+    launches["k4"] = phase4(device, report)["k4"]
 
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
-    if leaked:
-        raise AssertionError(f"JAX was imported: {leaked[:5]}")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
+    own = reference_imports(Path(__file__).read_text())
+    if leaked or own:
+        raise AssertionError(f"JAX was imported: {leaked[:5]}; this script imports {own}")
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     sources = {"depthwise_silu_pool": ("k1", "depthwise_se.cu",
                                        "deepfakedetection_tpu/ops/pallas/depthwise_se.py:73"),
                "expand_dw_silu_pool": ("k2", "expand_dw.cu",
-                                       "deepfakedetection_tpu/ops/pallas/expand_dw.py:88")}
+                                       "deepfakedetection_tpu/ops/pallas/expand_dw.py:88"),
+               "rotate_batch": ("k4", "shear_rotate.cu",
+                                "deepfakedetection_tpu/ops/pallas/shear_rotate.py:92")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"deepfakedetection_tpu_torch/ops/csrc/{src}", "replaces": where,

@@ -134,14 +134,16 @@ def make_eval_step(model: torch.nn.Module, tta: str | None = None):
     return eval_step
 
 
-def _collect_probs(eval_step, loader, plan, stager: DeviceStager, compute_dtype):
+def collect_probs(
+    eval_step, loader, plan, stager: DeviceStager, compute_dtype, desc: str = "inference"
+):
     """Run every batch; returns (probs, targets, images/s) for the valid rows.
     Probabilities stay on the device until the pass ends."""
     device_probs: list[torch.Tensor] = []
     masks: list[np.ndarray] = []
     targets: list[np.ndarray] = []
     start = time.perf_counter()
-    with progress("inference", total=len(loader.dataset)) as advance:
+    with progress(desc, total=len(loader.dataset)) as advance:
         for batch in loader:
             x = normalize_batch(stager(batch.images), plan, out_dtype=compute_dtype)
             device_probs.append(eval_step(x))
@@ -203,7 +205,7 @@ def _eval_passes(job: EvalJob, eval_step, plan, stager: DeviceStager) -> EvalRes
                 val_ds, plan, batch_size=job.batch_size,
                 num_workers=job.num_workers, lookahead=job.lookahead,
             )
-            vprobs, vtargets, _ = _collect_probs(
+            vprobs, vtargets, _ = collect_probs(
                 eval_step, val_loader, plan, stager, job.compute_dtype
             )
 
@@ -237,7 +239,7 @@ def _eval_passes(job: EvalJob, eval_step, plan, stager: DeviceStager) -> EvalRes
         test_ds, plan, batch_size=job.batch_size,
         num_workers=job.num_workers, lookahead=job.lookahead,
     )
-    probs, targets, speed = _collect_probs(eval_step, loader, plan, stager, job.compute_dtype)
+    probs, targets, speed = collect_probs(eval_step, loader, plan, stager, job.compute_dtype)
     console.print(f"  eval throughput: {speed:.1f} img/s")
 
     ece_raw = None

@@ -1,9 +1,11 @@
-"""Shared eval building blocks: BN-folded ConvBN, SqueezeExcite, DropPath.
+"""Shared building blocks: ConvBN (BN folded at eval, batch statistics in
+training), SqueezeExcite, DropPath.
 
 Port of ``deepfakedetection_tpu/models/common.py``. Activations are
 NCHW-logical tensors stored channels_last, so ``x.permute(0, 2, 3, 1)`` is the
 contiguous NHWC view the kernels take. Parameters stay f32; compute runs in
-the model's dtype (bf16 by default).
+the model's dtype (bf16 by default), cast explicitly: no autocast and no
+GradScaler (``docs/PARITY.md`` delta 1).
 
 ``ConvBN`` and ``SqueezeExcite`` are plain objects over ``nn.Conv2d`` /
 ``nn.BatchNorm2d`` modules that the owning model registers under the
@@ -13,7 +15,9 @@ efficientnet_pytorch names (``_expand_conv`` + ``_bn0`` ...), so a reference
 
 from __future__ import annotations
 
-from collections.abc import Callable, Sequence
+import contextlib
+import contextvars
+from collections.abc import Callable, Iterator, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +26,29 @@ from torch import nn
 from deepfakedetection_tpu_torch.ops.depthwise_se import depthwise_silu_pool
 
 Pads = tuple[tuple[int, int], tuple[int, int]]
+
+# BatchNorm running-stat decay override for BN recalibration: at decay 0 a
+# training forward leaves each layer's running statistics equal to that
+# batch's statistics.
+_BN_DECAY_OVERRIDE: contextvars.ContextVar[float | None] = contextvars.ContextVar(
+    "bn_decay_override", default=None
+)
+
+
+@contextlib.contextmanager
+def bn_momentum_override(value: float | None) -> Iterator[None]:
+    """Running-stat decay (the JAX package's momentum convention: 0.99 keeps
+    99% of the old value) for every ConvBN training forward in the block."""
+    token = _BN_DECAY_OVERRIDE.set(value)
+    try:
+        yield
+    finally:
+        _BN_DECAY_OVERRIDE.reset(token)
+
+
+def effective_bn_decay(default: float) -> float:
+    override = _BN_DECAY_OVERRIDE.get()
+    return default if override is None else override
 
 
 class Derived:
@@ -49,7 +76,15 @@ def symmetric_pad(pads: Pads, k: int) -> bool:
 
 
 class ConvBN:
-    """Conv2d + BatchNorm2d (+ activation), eval only, with BN folded in f32:
+    """Conv2d + BatchNorm2d (+ activation). In training (``bn.training``) it
+    follows the JAX package's train path, not ``nn.BatchNorm2d``'s: the conv
+    in the compute dtype with an output in that dtype; one-pass f32 batch
+    statistics, ``E[y]`` and ``E[y^2]`` with ``var = max(E[y^2] - E[y]^2, 0)``
+    (biased); running statistics updated at decay 0.99 with that biased
+    variance (PARITY delta 13); then ``y*a + b`` in the compute dtype, with
+    ``a`` and ``b`` computed in f32 and cast; the activation; one cast.
+
+    At eval, BN is folded in f32:
     ``w' = w * gamma / sqrt(var + eps)``, ``b' = beta - mean * gamma /
     sqrt(var + eps)``. Input and weight are rounded to the compute dtype; the
     conv (cuDNN on the card) takes them as f32, so the products are exact and
@@ -126,10 +161,11 @@ class ConvBN:
         return_spatial_mean: bool = False,
         fold_only: bool = False,
     ):
-        if self.conv.training or self.bn.training:
-            raise NotImplementedError(
-                "ConvBN runs at eval only; training is ROADMAP Queue 1 item 4"
-            )
+        if self.bn.training:
+            if fold_only:
+                raise ValueError("ConvBN: fold_only is for eval")
+            y = self._train_forward(x)
+            return (y, None) if return_spatial_mean else y
         params = self._params()
         if fold_only:
             return self._hwio.get(params), self._folded.get(params)[1]
@@ -153,47 +189,98 @@ class ConvBN:
         y = y.to(self.dtype)
         return (y, None) if return_spatial_mean else y
 
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn, dt = self.conv, self.bn, self.dtype
+        x = x.to(dt)
+        if any(self._fpad):
+            x = F.pad(x, self._fpad)
+        y = F.conv2d(x, conv.weight.to(dt), None, conv.stride, self._conv_pad, 1, conv.groups)
+        # One pass over y for each statistic, accumulated in f32; on the card
+        # both reductions read the bf16 y without an f32 copy of it.
+        dims = (0, 2, 3)
+        n = y.numel() // y.shape[1]
+        mean = y.sum(dim=dims, dtype=torch.float32) / n
+        mean2 = torch.linalg.vector_norm(y, 2, dim=dims, dtype=torch.float32).square() / n
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
+        decay = effective_bn_decay(1.0 - bn.momentum)
+        with torch.no_grad():
+            bn.running_mean.copy_(decay * bn.running_mean + (1.0 - decay) * mean)
+            bn.running_var.copy_(decay * bn.running_var + (1.0 - decay) * var)
+            bn.num_batches_tracked.add_(1)
+        denom = bn.weight * torch.rsqrt(var + bn.eps)
+        a = denom.to(dt).view(1, -1, 1, 1)
+        b = (bn.bias - mean * denom).to(dt).view(1, -1, 1, 1)
+        y = y * a + b
+        if self.act is not None:
+            y = self.act(y)
+        return y.to(dt)
+
 
 class SqueezeExcite:
     """SE gate: pool -> reduce 1x1 (+bias) -> SiLU -> expand 1x1 (+bias) ->
     sigmoid -> x * gate, in the compute dtype. ``pooled`` is a precomputed
     f32 [B, C] spatial mean (from K1/K2); it is cast to the compute dtype
     first, as the JAX package does. Without it, x is pooled with f32
-    accumulation."""
+    accumulation. At eval the compute-dtype weights are cached; in training
+    they are cast on every call, so the gradient reaches the f32 weights."""
 
     def __init__(
         self, reduce: nn.Conv2d, expand: nn.Conv2d, *, dtype: torch.dtype = torch.bfloat16
     ) -> None:
         self.reduce, self.expand, self.dtype = reduce, expand, dtype
-        self._weights = Derived(
-            lambda: tuple(
-                t.to(dtype).flatten(1) if t.dim() > 1 else t.to(dtype)
-                for t in (reduce.weight, reduce.bias, expand.weight, expand.bias)
-            )
+        self._weights = Derived(self._cast)
+
+    def _tensors(self) -> list[torch.Tensor]:
+        return [self.reduce.weight, self.reduce.bias, self.expand.weight, self.expand.bias]
+
+    def _cast(self) -> tuple[torch.Tensor, ...]:
+        return tuple(
+            t.to(self.dtype).flatten(1) if t.dim() > 1 else t.to(self.dtype)
+            for t in self._tensors()
         )
 
     def __call__(self, x: torch.Tensor, pooled: torch.Tensor | None = None) -> torch.Tensor:
-        wr, br, we, be = self._weights.get(
-            [self.reduce.weight, self.reduce.bias, self.expand.weight, self.expand.bias]
-        )
+        if self.reduce.training:
+            wr, br, we, be = self._cast()
+        else:
+            wr, br, we, be = self._weights.get(self._tensors())
         se = pooled if pooled is not None else x.mean(dim=(2, 3), dtype=torch.float32)
         se = F.silu(F.linear(se.to(self.dtype), wr, br))
         gate = torch.sigmoid(F.linear(se, we, be))
         return x * gate[:, :, None, None]
 
 
+def keep_mask(x: torch.Tensor, keep: float, shape: tuple[int, ...],
+              generator: torch.Generator | None) -> torch.Tensor:
+    """Bernoulli(keep) mask of ``shape`` on x's device from ``generator``."""
+    if generator is None:
+        raise ValueError("a training forward with dropout needs an explicit torch.Generator")
+    return torch.rand(shape, generator=generator, device=x.device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability 1 - rate, the
+    survivors scaled by 1 / (1 - rate)."""
+    keep = 1.0 - rate
+    return torch.where(keep_mask(x, keep, tuple(x.shape), generator), x / keep, 0.0)
+
+
 class DropPath(nn.Module):
-    """Stochastic depth per sample: the identity at eval. The training-time
-    drop comes with the training slice (ROADMAP Queue 1 item 4)."""
+    """Stochastic depth per sample: in training each sample's branch is kept
+    with probability 1 - rate (one Bernoulli draw per sample from the
+    forward's generator) and the survivors scaled by 1 / (1 - rate); the
+    identity at eval."""
 
     def __init__(self, rate: float) -> None:
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("DropPath in training is ROADMAP Queue 1 item 4")
-        return x
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.rate <= 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = keep_mask(x, keep, (x.shape[0],) + (1,) * (x.dim() - 1), generator)
+        return torch.where(mask, x / keep, 0.0)
 
 
 def make_divisible(value: float, divisor: int = 8, min_value: int | None = None) -> int:

@@ -1,9 +1,16 @@
-"""EfficientNet (B0-B7) in PyTorch, eval path, bf16 compute.
+"""EfficientNet (B0-B7) in PyTorch, bf16 compute.
 
 Port of ``deepfakedetection_tpu/models/efficientnet.py``. Module names are
 efficientnet_pytorch's (``_conv_stem``, ``_blocks.N._expand_conv`` ...), so a
 reference ``.pth`` loads with ``strict=True``. Activations are NCHW-logical
 and stored channels_last.
+
+Training (``model.train()``): every ConvBN takes its batch statistics (see
+``models/common.py``), residual branches drop per sample at rate
+``drop_connect_rate * block_index / blocks``, and the head applies dropout on
+the f32 pooled features. The masks come from the generator passed to
+``forward``; a training forward with a nonzero rate needs one. The fused
+kernels K1 and K2 serve eval only, as in the JAX package.
 
 MBConv dispatch at eval in bf16, for stride 1, k in {3, 5}, symmetric pads
 and SiLU: a block with an expansion runs expand + depthwise + SE mean as one
@@ -31,6 +38,7 @@ from deepfakedetection_tpu_torch.models.common import (
     DropPath,
     Pads,
     SqueezeExcite,
+    dropout,
     make_divisible,
     symmetric_pad,
 )
@@ -132,7 +140,7 @@ class MBConv(nn.Module):
             return None
         return "k2" if self.has_expand else "k1"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         shortcut = x
         if self.fused() == "k2":
             k = self.args.kernel
@@ -154,7 +162,7 @@ class MBConv(nn.Module):
         x = self.se(x, pooled=se_mean)
         x = self.project(x)
         if self.residual:
-            x = self.drop_path(x) + shortcut
+            x = self.drop_path(x, generator) + shortcut
         return x
 
 
@@ -168,6 +176,7 @@ class EfficientNet(nn.Module):
         num_classes: int,
         width_coefficient: float = 1.2,
         depth_coefficient: float = 1.4,
+        dropout_rate: float = 0.3,
         drop_connect_rate: float = 0.2,
         se_ratio: float = 0.25,
         native_resolution: int = 300,
@@ -176,6 +185,7 @@ class EfficientNet(nn.Module):
     ) -> None:
         super().__init__()
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.width_coefficient = width_coefficient
         self.depth_coefficient = depth_coefficient
         trace = native_resolution
@@ -248,13 +258,17 @@ class EfficientNet(nn.Module):
         served = [b.fused() for b in self._blocks]
         return {"k1": served.count("k1"), "k2": served.count("k2")}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """f32 logits. ``generator`` (on x's device) draws the drop-path and
+        dropout masks of a training forward."""
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = self.stem(x)
         for block in self._blocks:
-            x = block(x)
+            x = block(x, generator)
         x = self.head(x)
         x = x.float().mean(dim=(2, 3))
+        if self.training and self.dropout_rate > 0.0:
+            x = dropout(x, self.dropout_rate, generator)
         return self._fc(x)
 
 
@@ -264,14 +278,20 @@ def create_efficientnet(
     num_classes: int = 2,
     dtype: torch.dtype = torch.bfloat16,
     generator: torch.Generator | None = None,
+    dropout_rate: float | None = None,
+    drop_connect_rate: float = 0.2,
 ) -> EfficientNet:
+    """The variant at its published widths; ``dropout_rate`` defaults to
+    the variant's (0.3 for B3)."""
     if variant not in _VARIANTS:
         raise KeyError(f"unknown EfficientNet variant '{variant}'")
-    width, depth, res, _dropout = _VARIANTS[variant]
+    width, depth, res, variant_dropout = _VARIANTS[variant]
     return EfficientNet(
         num_classes=num_classes,
         width_coefficient=width,
         depth_coefficient=depth,
+        dropout_rate=variant_dropout if dropout_rate is None else dropout_rate,
+        drop_connect_rate=drop_connect_rate,
         native_resolution=res,
         dtype=dtype,
         generator=generator,

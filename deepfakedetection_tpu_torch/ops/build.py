@@ -25,12 +25,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (pointers and the stream as c_void_p, so
 # ctypes does not cut 64-bit addresses to a 32-bit int).
 _SIGNATURES = {
     "dfd_depthwise_silu_pool": [_P] * 6 + [_I] * 8 + [_P],
     "dfd_expand_dw_silu_pool": [_P] * 8 + [_I] * 9 + [_P],
+    "dfd_shear_pass": [_P] * 3 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
 }
 
 

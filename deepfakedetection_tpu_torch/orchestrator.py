@@ -1,10 +1,12 @@
-"""Orchestration: config -> per-model run dirs -> eval job, on PyTorch.
+"""Orchestration: config -> per-model run dirs -> train or eval job, on PyTorch.
 
-Port of the inference half of ``deepfakedetection_tpu/orchestrator.py``: the
-same YAML schema (validated by the JAX package's ``config.py``), selection
-order, fresh timestamped run dirs with a config snapshot, and the same eval
-job fields. Run it from the repository root as::
+Port of ``deepfakedetection_tpu/orchestrator.py``: the same YAML schema
+(validated by the JAX package's ``config.py``), selection order, fresh
+timestamped run dirs with a config snapshot (or the newest one under
+``training.resume: continue``), and the same train and eval job fields. Run it
+from the repository root as::
 
+    python -m deepfakedetection_tpu_torch.orchestrator --mode training --config CFG
     python -m deepfakedetection_tpu_torch.orchestrator --mode inference --config CFG
 
 The YAML ``device`` picks the CUDA card for any value but ``cpu``; the
@@ -27,6 +29,12 @@ from deepfakedetection_tpu_torch.registry import get_model_spec
 from deepfakedetection_tpu_torch.runtime.flags import compute_dtype, resolve_device
 from deepfakedetection_tpu_torch.runtime.logging import console
 from deepfakedetection_tpu_torch.runtime.paths import ensure_run_dirs, snapshot_config
+from deepfakedetection_tpu_torch.train.loop import (
+    TrainJob,
+    TrainResult,
+    run_training,
+    unported_options,
+)
 
 
 def _resolve_path(value: str | Path) -> Path:
@@ -50,6 +58,110 @@ def _model_kwargs(model_cfg: dict[str, Any]) -> dict[str, Any]:
     if model_cfg.get("head_config"):
         kw["head_config"] = model_cfg["head_config"]
     return kw
+
+
+def _parse_resume(value: Any) -> bool:
+    """``training.resume`` in {1, true, "auto", "yes", "continue"} resumes."""
+    if isinstance(value, bool):
+        return value
+    if isinstance(value, (int, float)):
+        return bool(value)
+    if isinstance(value, str):
+        return value.strip().lower() in ("1", "true", "auto", "yes", "continue")
+    return False
+
+
+def _parse_unfreeze(value: Any) -> str | tuple[str, ...] | None:
+    """``training.unfreeze``: "all", a substring or a list of substrings;
+    None defers to the recipe."""
+    if value is None:
+        return None
+    if isinstance(value, str):
+        v = value.strip()
+        if not v:
+            raise SystemExit("training.unfreeze must not be empty")
+        return "all" if v.lower() == "all" else (v,)
+    subs = tuple(str(s).strip() for s in value)
+    if not subs or any(not s for s in subs):
+        raise SystemExit(
+            "training.unfreeze must be 'all' or a non-empty list of parameter-name substrings"
+        )
+    return subs
+
+
+def _resolve_run_paths(model_cfg: dict[str, Any], output_dir: Path, mode: str):
+    """A fresh timestamped run dir, or under ``training.resume: continue`` the
+    newest existing one that holds ``checkpoints/latest.ckpt``."""
+    train_cfg = (model_cfg.get("training") or {}) if mode == "training" else {}
+    if str(train_cfg.get("resume") or "").strip().lower() == "continue" and output_dir.exists():
+        runs = sorted(
+            d for d in output_dir.iterdir()
+            if d.is_dir() and (d / "checkpoints" / "latest.ckpt").exists()
+        )
+        if runs:
+            console.print(f"  resume: continue → reusing run dir {runs[-1]}")
+            return ensure_run_dirs(output_dir, run_id=runs[-1].name)
+    return ensure_run_dirs(output_dir)
+
+
+def _opt(cfg: dict[str, Any], key: str, cast):
+    return cast(cfg[key]) if cfg.get(key) is not None else None
+
+
+def build_train_job(
+    config: dict[str, Any],
+    model_name: str,
+    model_cfg: dict[str, Any],
+    run_paths,
+    device: torch.device,
+) -> TrainJob:
+    """The JAX package's ``build_train_job`` fallback chains, on the port's job."""
+    spec = get_model_spec(model_name)
+    data_cfg = config.get("data", {})
+    train_cfg = model_cfg.get("training") or {}
+    img_size = int(
+        train_cfg.get("img_size") or data_cfg.get("img_size") or spec.default_image_size
+    )
+    class_weights = train_cfg.get("class_weights")
+    if isinstance(class_weights, (list, tuple)):
+        class_weights = tuple(float(w) for w in class_weights)
+    return TrainJob(
+        model_name=model_name,
+        spec=spec,
+        run_paths=run_paths,
+        data_root=_resolve_path(data_cfg.get("root", "data")),
+        device=device,
+        train_split=data_cfg.get("train_split", "train"),
+        val_split=data_cfg.get("val_split", "val"),
+        num_classes=int(model_cfg.get("num_classes", data_cfg.get("num_classes", 2))),
+        img_size=img_size,
+        batch_size=int(train_cfg.get("batch_size", 64)),
+        epochs=int(train_cfg.get("epochs", 10)),
+        num_workers=int(train_cfg.get("num_workers", 4)),
+        lr=_opt(train_cfg, "lr", float),
+        weight_decay=_opt(train_cfg, "weight_decay", float),
+        accum_steps=_opt(train_cfg, "accum_steps", int),
+        warmup_epochs=_opt(train_cfg, "warmup_epochs", int),
+        early_stop_patience=_opt(train_cfg, "early_stop_patience", int),
+        resume_auto=_parse_resume(train_cfg.get("resume")),
+        init_weights=_opt(train_cfg, "init_weights", _resolve_path),
+        unfreeze=_parse_unfreeze(train_cfg.get("unfreeze")),
+        seed=config.get("seed"),
+        profile_dir=config.get("profile_dir"),
+        remat=bool(train_cfg.get("remat", False)),
+        bn_recalc_batches=int(train_cfg.get("bn_recalc_batches", 0) or 0),
+        cache_decoded=bool(train_cfg.get("cache_decoded", False)),
+        async_checkpoint=bool(train_cfg.get("async_checkpoint", False)),
+        ema_decay=_opt(train_cfg, "ema_decay", float),
+        grad_clip_norm=_opt(train_cfg, "grad_clip_norm", float),
+        mixup_alpha=float(train_cfg.get("mixup_alpha", 0.0) or 0.0),
+        cutmix_alpha=float(train_cfg.get("cutmix_alpha", 0.0) or 0.0),
+        class_weights=class_weights,
+        train_toggles=resolve_transform_mapping(model_cfg, "train"),
+        eval_toggles=resolve_transform_mapping(model_cfg, "eval"),
+        compute_dtype=compute_dtype(config),
+        model_kwargs=_model_kwargs(model_cfg),
+    )
 
 
 def build_eval_job(
@@ -117,26 +229,33 @@ def build_eval_job(
 
 def orchestrate(
     config_path: str | Path, mode: str = "inference"
-) -> dict[str, EvalResult | None]:
-    """Evaluate every selected model; returns the results by model name.
-    Fails before any work for a model or option the port does not have yet."""
-    if mode == "training":
-        raise NotImplementedError("training on PyTorch is ROADMAP Queue 1 item 4")
-    if mode != "inference":
+) -> dict[str, EvalResult | TrainResult | None]:
+    """Train or evaluate every selected model; returns the results by model
+    name. Fails before any work for a model or option the port does not have
+    yet. A training run stopped by SIGTERM ends the selection loop."""
+    if mode not in ("training", "inference"):
         raise ValueError(f"unknown mode '{mode}'")
     config = load_config(Path(config_path))
     device = resolve_device(config)
     models = config.get("models") or {}
     selection = config.get("selection") or list(models.keys())
     for model_name in selection:
-        if model_name in models:
-            get_model_spec(model_name)  # raises for a family not ported yet
+        if model_name not in models:
+            continue
+        get_model_spec(model_name)  # raises for a family not ported yet
+        if mode == "training":
+            job = build_train_job(config, model_name, dict(models[model_name]), None, device)
+            refused = unported_options(job)
+            if refused:
+                raise NotImplementedError("; ".join(refused))
     ensemble = config.get("ensemble")
-    if ensemble is True or (isinstance(ensemble, dict) and ensemble.get("enabled", True)):
+    if mode == "inference" and (
+        ensemble is True or (isinstance(ensemble, dict) and ensemble.get("enabled", True))
+    ):
         raise NotImplementedError("ensembles on PyTorch are ROADMAP Queue 1 item 10")
     apply_seed(config.get("seed"))
 
-    results: dict[str, EvalResult | None] = {}
+    results: dict[str, EvalResult | TrainResult | None] = {}
     for model_name in selection:
         model_cfg = models.get(model_name)
         if model_cfg is None:
@@ -145,19 +264,33 @@ def orchestrate(
         model_cfg = dict(model_cfg)
         model_cfg["name"] = model_name
         output_dir = model_cfg.get("output_dir") or f"runs/{model_name}"
-        run_paths = ensure_run_dirs(_resolve_path(output_dir))
+        run_paths = _resolve_run_paths(model_cfg, _resolve_path(output_dir), mode)
         snapshot_config(config, model_name, run_paths)
-        job = build_eval_job(config, model_name, model_cfg, run_paths, device)
-        results[model_name] = run_eval_job(job)
+        if mode == "inference":
+            job = build_eval_job(config, model_name, model_cfg, run_paths, device)
+            results[model_name] = run_eval_job(job)
+            continue
+        result = results[model_name] = run_training(
+            build_train_job(config, model_name, model_cfg, run_paths, device)
+        )
+        if result.interrupted:
+            console.print(f"[yellow]⚠ {model_name} preempted — stopping; rerun to resume[/]")
+            break
+        console.print(
+            f"[bold green]✓ {model_name}[/]: best val acc "
+            f"{result.best_val_acc:.4f} @ epoch {result.best_epoch + 1}"
+        )
     return results
 
 
 def run_cli(default_mode: str = "inference") -> None:
     parser = argparse.ArgumentParser(description="deepfakedetection_tpu_torch orchestrator")
-    parser.add_argument("--config", type=Path, default=Path("config/inference.yaml"))
+    parser.add_argument("--config", type=Path, default=None,
+                        help="config/train.yaml for training, config/inference.yaml otherwise")
     parser.add_argument("--mode", choices=["training", "inference"], default=default_mode)
     args = parser.parse_args()
-    orchestrate(args.config, mode=args.mode)
+    default = "config/train.yaml" if args.mode == "training" else "config/inference.yaml"
+    orchestrate(args.config or Path(default), mode=args.mode)
 
 
 if __name__ == "__main__":

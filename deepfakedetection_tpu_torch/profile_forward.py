@@ -1,50 +1,94 @@
-"""Where the device time of the B3 eval forward goes, per op, on one CUDA card.
+"""Where the device time of the B3 eval forward, or of the train step, goes,
+per op, on one CUDA card.
 
-    python -m deepfakedetection_tpu_torch.profile_forward
+    python -m deepfakedetection_tpu_torch.profile_forward            # eval forward
+    python -m deepfakedetection_tpu_torch.profile_forward --train    # train step
 
 Runs EfficientNet-B3 at 224 px, batch 128, bf16, with generator-seeded
-weights (the times do not depend on their values), and traces 5 forwards
-after 3 warm-up ones with ``torch.profiler``. Prints the device time per
-forward, then each device kernel's self time and launches per forward, the
-largest first. This is the breakdown behind ``PERF.md`` section 5.
+weights (the times do not depend on their values), and traces 5 calls after
+3 warm-up ones with ``torch.profiler``. The train step is the training
+path's: forward with batch statistics, dropout and drop-path, backward, and
+AdamW over every tensor. Prints the device time per call against the wall
+time per call (host clock, device synchronised), so their gap is the
+device's idle time, then each device kernel's self time and launches per
+call, the largest first. This is the breakdown behind ``PERF.md`` section 5.
 """
 
 from __future__ import annotations
+
+import argparse
+import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+from deepfakedetection_tpu_torch.runtime.seeding import fold_in, root_generator
+from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
+from deepfakedetection_tpu_torch.train.steps import train_step
 
-BATCH, FORWARDS, WARMUP, ROWS = 128, 5, 3, 30
+BATCH, CALLS, WARMUP, ROWS = 128, 5, 3, 30
+
+
+def _call(model, x, train: bool):
+    if not train:
+        model.eval()
+
+        def forward():
+            with torch.no_grad():
+                model(x)
+
+        return forward
+    opt = PhaseOptimizer(list(model.named_parameters()), lr=1e-4, weight_decay=5e-2,
+                         trainable=unfreeze_predicate("all"))
+    labels = (torch.arange(BATCH) % 2).to(x.device)
+    mask = torch.ones(BATCH, dtype=torch.bool, device=x.device)
+    root = root_generator(0)
+    return lambda: train_step(model, opt, x, labels, mask,
+                              fold_in(root, opt.count, device=x.device))
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--train", action="store_true", help="profile the train step")
+    train = parser.parse_args().train
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: needs a CUDA card")
     g = torch.Generator().manual_seed(0)
-    model = create_efficientnet("b3", num_classes=2, dtype=torch.bfloat16, generator=g)
-    model = model.cuda().eval()
+    model = create_efficientnet("b3", num_classes=2, dtype=torch.bfloat16, generator=g).cuda()
     x = torch.randn(BATCH, 3, 224, 224, generator=g).cuda().to(torch.bfloat16)
     x = x.contiguous(memory_format=torch.channels_last)
-    with torch.no_grad():
-        for _ in range(WARMUP):
-            model(x)
+    call = _call(model, x, train)
+    for _ in range(WARMUP):
+        call()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(CALLS):
+        call()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - start) / CALLS * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(CALLS):
+            call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(FORWARDS):
-                model(x)
-            torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) / CALLS * 1e3
     kernels = sorted(
         (
-            (e.self_device_time_total / FORWARDS / 1e3, e.count / FORWARDS, e.key)
+            (e.self_device_time_total / CALLS / 1e3, e.count / CALLS, e.key)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
         ),
         reverse=True,
     )
-    print(f"B3 forward, batch {BATCH}, bf16: {sum(k[0] for k in kernels):.3f} ms of device "
-          f"time per forward ({torch.cuda.get_device_name(0)})")
+    device_ms = sum(k[0] for k in kernels)
+    host_ops = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.key.startswith("aten::")) / CALLS
+    what = "train step" if train else "forward"
+    print(f"B3 {what}, batch {BATCH}, bf16 ({torch.cuda.get_device_name(0)}): "
+          f"{device_ms:.3f} ms of device time per call; wall time {plain_wall:.3f} ms "
+          f"({wall:.3f} ms under the profiler); {host_ops:.0f} aten op calls per call (nested ones included)")
     print(f"{'ms':>8} {'calls':>6}  kernel")
     for ms, calls, name in kernels[:ROWS]:
         print(f"{ms:8.3f} {calls:6.1f}  {name[:110]}")

@@ -25,7 +25,7 @@ _WRAPPERS = ("state_dict", "model")
 def state_dict_from_jax(tree: dict[str, Any], family: str) -> dict[str, torch.Tensor]:
     """JAX package variables (numpy leaves) -> the port's state dict."""
     return {
-        k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+        k: torch.from_numpy(np.array(v, np.float32))
         for k, v in export_torch_state_dict(tree, family).items()
     }
 

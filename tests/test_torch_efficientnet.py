@@ -210,6 +210,12 @@ def test_b3_loads_reference_state_dict_strictly_and_matches_its_logits():
 
 
 def test_training_mode_raises():
+    """A training forward with nonzero dropout or drop-path rates draws its
+    masks from the generator it is given; without one it raises rather than
+    draw from the global RNG. With one it runs."""
     model = EfficientNet(**NARROW, dtype=torch.float32).train()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        model(torch.zeros(1, 3, SIZE, SIZE))
+    x = torch.randn(2, 3, SIZE, SIZE, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="explicit torch.Generator"):
+        model(x)
+    out = model(x, torch.Generator().manual_seed(1))
+    assert out.shape == (2, 2) and bool(torch.isfinite(out).all())

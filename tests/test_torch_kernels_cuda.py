@@ -2,7 +2,11 @@
 (bf16), at the EfficientNet-B3 @ 224 shapes of the main path and at odd
 sizes: ragged tiles, a map smaller than the halo, and channel counts off the
 kernels' vector widths. Tolerances are the JAX package's kernel tests':
-K1 y 3e-2 / pool 2e-3, K2 y 5e-2 / pool atol 2e-2 rtol 5e-2.
+K1 y 3e-2 / pool 2e-3, K2 y 5e-2 / pool atol 2e-2 rtol 5e-2. K4 (the shear
+rotation) at the B3 fine-tune canvas, the shear's angle bounds, odd sizes
+and a zero angle: one bf16 step per pass on images in [0, 1] (3 * 2**-8),
+and at most one element in a thousand different at all (both sides round
+the same f32 operations).
 
 Needs a CUDA card and imports no JAX, so it runs on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``;
@@ -15,6 +19,7 @@ import torch
 
 from deepfakedetection_tpu_torch.ops import depthwise_se as k1
 from deepfakedetection_tpu_torch.ops import expand_dw as k2
+from deepfakedetection_tpu_torch.ops import shear_rotate as k4
 
 K1_SHAPES = [
     (112, 112, 40, 3), (112, 112, 24, 3),  # B3 stage 0
@@ -25,6 +30,17 @@ K2_SHAPES = [
     (14, 14, 96, 576, 5), (14, 14, 136, 816, 5), (7, 7, 232, 1392, 5),
     (7, 7, 232, 1392, 3), (7, 7, 384, 2304, 3),  # every B3 stride-1 expand block
     (9, 11, 32, 192, 5), (30, 33, 24, 144, 5), (1, 1, 8, 48, 5), (13, 10, 20, 42, 3),
+]
+
+BOUND = 0.23911  # 13.7 degrees in radians, the augmentation's shear limit
+K4_CASES = [
+    # (B, H, W, max_theta, largest |angle|); angles drawn within +-largest
+    (128, 257, 257, 0.17453, 0.17453),  # B3 fine-tune canvas, the recipe's 10 degrees
+    (16, 257, 257, BOUND, BOUND),
+    (16, 96, 96, 0.45, 0.45),
+    (8, 37, 45, 0.2, 0.2),
+    (8, 45, 37, 0.45, 0.45),
+    (8, 33, 31, 0.2, 0.0),  # zero angle: the identity
 ]
 
 
@@ -68,3 +84,23 @@ def test_expand_dw_silu_pool_kernel_matches_plain(cuda, H, W, Cin, Ce, k):
     y_ref, pool_ref = k2.expand_dw_silu_pool_plain(x, wexp, bexp, wdw, bdw, kernel=k)
     torch.testing.assert_close(y.float(), y_ref.float(), atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(pool, pool_ref, atol=2e-2, rtol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,max_theta,largest", K4_CASES)
+def test_rotate_batch_kernel_matches_plain(cuda, B, H, W, max_theta, largest):
+    g = torch.Generator().manual_seed(H * W + B)
+    x = torch.rand(B, H, W, 3, generator=g).to(torch.bfloat16).to(cuda)
+    thetas = ((torch.rand(B, generator=g) * 2 - 1) * largest).to(cuda)
+    if largest:
+        thetas[0], thetas[-1] = largest, -largest
+    before = k4.rotate_batch.launches
+    y = k4.rotate_batch(x, thetas, max_theta=max_theta)
+    torch.cuda.synchronize()
+    assert k4.rotate_batch.launches == before + 3
+    ref = k4.rotate_batch_plain(x, thetas, max_theta=max_theta)
+    diff = (y.float() - ref.float()).abs()
+    assert float(diff.max()) <= 3 * 2.0**-8
+    assert float((diff > 0).float().mean()) <= 1e-3
+    if not largest:
+        assert torch.equal(y, x)

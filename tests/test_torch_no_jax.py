@@ -1,8 +1,10 @@
 """The port never imports JAX: in a fresh interpreter (tests/conftest.py
-imports jax into this one), import the port's orchestrator, eval job, model
-and kernel modules, run one CPU forward through the kernel wrappers, and
-check that no jax, flax, optax or orbax module was loaded."""
+imports jax into this one), import the port's orchestrator, eval job,
+training modules, model and kernel modules, run one CPU forward through the
+kernel wrappers and one CPU train step with the augmentation's shear
+rotation, and check that no jax, flax, optax or orbax module was loaded."""
 
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -26,6 +28,29 @@ with torch.no_grad():
     out = model(torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(1)))
 assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
 assert depthwise_se.depthwise_silu_pool.launches == expand_dw.expand_dw_silu_pool.launches == 0
+
+import deepfakedetection_tpu_torch.runtime.checkpoint
+import deepfakedetection_tpu_torch.runtime.preempt
+import deepfakedetection_tpu_torch.train.loop
+from deepfakedetection_tpu_torch.data.augment import augment_batch
+from deepfakedetection_tpu_torch.data.pipeline import build_train_plan
+from deepfakedetection_tpu_torch.ops import shear_rotate
+from deepfakedetection_tpu_torch.runtime.seeding import fold_in, root_generator
+from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
+from deepfakedetection_tpu_torch.train.steps import train_step
+
+plan = build_train_plan(72, {}, jitter_params=(0.2, 0.2, 0.2, 0.05))
+assert plan.rotation and plan.rotation_degrees == 10.0
+root = root_generator(3)
+canvas = torch.randint(0, 256, (4, plan.host_canvas_size, plan.host_canvas_size, 3),
+                       generator=fold_in(root, 1), dtype=torch.uint8)
+x = augment_batch(canvas, fold_in(root, 2), plan, torch.bfloat16)
+opt = PhaseOptimizer(list(model.named_parameters()), lr=1e-4, weight_decay=5e-2,
+                     trainable=unfreeze_predicate("all"))
+out = train_step(model, opt, x, torch.tensor([0, 1, 0, 1]), torch.ones(4, dtype=torch.bool),
+                 fold_in(root, 3))
+assert bool(torch.isfinite(out["loss"])) and opt.count == 1
+assert shear_rotate.rotate_batch.launches == 0
 banned = ("jax", "jaxlib", "flax", "optax", "orbax")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("LOADED", loaded)
@@ -38,3 +63,15 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """The card's script reaches the JAX package's JAX-free modules only
+    through the port; its own check finds a planted import."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.reference_imports((REPO / "chip_smoke.py").read_text()) == []
+    planted = "def f():\n    from deepfakedetection_tpu.data.transforms import build_train_plan\n"
+    assert smoke.reference_imports(planted) == ["deepfakedetection_tpu.data.transforms"]
+    assert smoke.reference_imports("import deepfakedetection_tpu_torch.ops, optax") == ["optax"]
