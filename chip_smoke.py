@@ -31,7 +31,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches 3 times per train step, K1 and K2 in validation, finite losses,
    the checkpoints; one train step on the card against the CPU from the same
    weights and augmentation draws (f32 with TF32 off, and bf16); the train
-   step's time at batch 64 and 128 (CUDA events) and the phase's img/s.
+   step's time at batch 64 and 128 (CUDA events) and the phase's img/s;
+5. the FasterViT-2 eval path: ``orchestrate(mode="inference")`` on a YAML
+   config over phase 3's JPEG tree at batch 256, from a seeded full-width
+   ``.pth`` in the fastervit wheel's key names (so the job builds the official
+   head configuration): K5 launches 13 times per forward batch, the job's
+   outputs for 16 test images against the CPU; the card's bf16 logits against
+   CPU bf16 and f32 runs of the same weights in both head configurations;
+   forward img/s at batch 128 and 256 with K5 and with its plain version.
+
+Phase 1 also holds K5 (window attention) against its plain version at the
+four shapes of the FasterViT-2 path at batch 256, with its time, the plain
+version's and ``torch.nn.functional.scaled_dot_product_attention``'s on the
+same q, k, v and bias (a yardstick the port never calls). Each kernel's bound
+is the larger of its bytes over the HBM rate and its operations over the
+card's peak rate for their type (``bound``).
 
 The second-to-last lines are a JSON object with the kernels' numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -85,6 +99,16 @@ TRAIN_SPLITS = {"train": 1024, "val": 128, "test": 128}  # phase 4 images per sp
 TRAIN_TF = {"ensure_rgb": True, "train_random_resized_crop": True,
             "train_random_horizontal_flip": True, "train_random_rotation": True,
             "train_color_jitter": True, "train_random_erasing": True}
+# K5 at the FasterViT-2 eval shapes, batch 256: (config, windows, N, C, heads,
+# launches per forward): stage 3's 4 windows of 4 + 49 tokens, stage 4's one
+# window of 49, in each head configuration
+K5_SHAPES = [("official", 1024, 53, 384, 8, 8), ("official", 256, 49, 768, 16, 5),
+             ("tpu", 1024, 53, 384, 3, 8), ("tpu", 256, 49, 768, 6, 5)]
+FV = "faster_vit_2_224"
+FV_BATCH = 256
+# the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes/s, dense
+# tensor-core bf16 and non-tensor f32 operations/s
+HBM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
 
 
 JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax")
@@ -92,8 +116,8 @@ JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 def reference_imports(source: str) -> list[str]:
     """The modules of JAX or of the JAX package (``deepfakedetection_tpu``)
-    that the Python ``source`` imports by name. The port may reach the JAX
-    package's JAX-free modules; this script goes through the port only."""
+    that the Python ``source`` imports by name. Neither this script nor any
+    module of the port may import one."""
     import ast
 
     names = []
@@ -142,6 +166,22 @@ def spread(ts: list[float]) -> dict[str, float]:
             "max": max(ts), "n": len(ts)}
 
 
+def bound(nbytes: float, ops: dict[str, float]) -> tuple[float, str]:
+    """(least time in ms, "bytes" or "operations"): the larger of the bytes
+    over the HBM rate and the operations over their peak rates, ``ops`` given
+    as {"bf16": tensor-core operations, "f32": CUDA-core operations}."""
+    t_bytes = nbytes / HBM_RATE
+    t_ops = ops.get("bf16", 0.0) / BF16_RATE + ops.get("f32", 0.0) / F32_RATE
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def add_bounds(rows) -> tuple[float, str]:
+    """The sum of (count, (ms, by)) rows' bounds, bound by the larger part."""
+    total = sum(n * ms for n, (ms, _) in rows)
+    by_bytes = sum(n * ms for n, (ms, by) in rows if by == "bytes")
+    return total, "bytes" if 2 * by_bytes >= total else "operations"
+
+
 def check_close(name: str, got, want, atol: float, rtol: float) -> float:
     import torch
 
@@ -186,7 +226,7 @@ def phase1(device, report):
         ("expand_dw_silu_pool", k2, K2_SHAPES, K2_ODD, K2_TOL, k2_inputs, "kernel"),
     ):
         fused, plain = getattr(mod, name), getattr(mod, name + "_plain")
-        rows, worst, ms, plain_ms = [], 0.0, 0.0, 0.0
+        rows, worst, ms, plain_ms, bounds = [], 0.0, 0.0, 0.0, []
         cases = [(s, n) for s, n in shapes] + [(s, 0) for s in odd]
         for i, (shape, count) in enumerate(cases):
             k = shape[-1]
@@ -200,6 +240,7 @@ def phase1(device, report):
                    "max_abs_err_pool": ep}
             if count:  # time at the eval batch (128) for the B3 shapes
                 big = inputs(128, *shape, seed=200 + i, device=device)
+                bounds.append((count, kernel_bound(name, 128, shape)))
                 t_k = spread(cuda_times(lambda: fused(*big, **{kw: k}), runs=25))
                 t_p = spread(cuda_times(lambda: plain(*big, **{kw: k}), runs=25))
                 row.update(ms=t_k, plain_ms=t_p)
@@ -209,11 +250,108 @@ def phase1(device, report):
             log(f"  {name} {shape}: max|dy|={ey:.3e} max|dpool|={ep:.3e}"
                 + (f" kernel {row['ms']['median']:.4f} ms plain {row['plain_ms']['median']:.4f} ms"
                    " (batch 128)" if count else ""))
-        kernels[name] = {"rows": rows, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
-        log(f"  {name}: per B3 forward at batch 128 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        bound_ms, bound_by = add_bounds(bounds)
+        kernels[name] = {"rows": rows, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        log(f"  {name}: per B3 forward at batch 128 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+            f" bound {bound_ms:.4f} ms ({bound_by})")
     kernels["rotate_batch"] = phase1_k4(device)
+    kernels["window_attention"] = phase1_k5(device)
     report["phase1"] = kernels
     return kernels
+
+
+def kernel_bound(name: str, B: int, shape) -> tuple[float, str]:
+    """K1's or K2's bound at batch B: x read, weights read, y and the pool
+    written; the taps on the CUDA cores in f32, K2's expand on the tensor
+    cores."""
+    if name == "depthwise_silu_pool":
+        H, W, C, k = shape
+        px = B * H * W
+        return bound(px * C * 2 * 2 + (k * k + 1) * C * 4 + B * C * 4,
+                     {"f32": 2 * k * k * px * C})
+    H, W, Cin, Ce, k = shape
+    px = B * H * W
+    return bound(px * (Cin + Ce) * 2 + (Cin * Ce + (k * k + 2) * Ce) * 4 + B * Ce * 4,
+                 {"bf16": 2 * px * Cin * Ce, "f32": 2 * k * k * px * Ce})
+
+
+def k5_bound(B: int, N: int, C: int, h: int) -> tuple[float, str]:
+    """qkv and the bias read, the output written; q k^T and p v on the tensor
+    cores."""
+    return bound(B * N * 4 * C * 2 + h * N * N * 4, {"bf16": 4 * B * N * N * C})
+
+
+def sdpa_ms(qkv, bias, h: int, scale: float) -> float | None:
+    """``scaled_dot_product_attention`` on the same q, k, v (strided views of
+    qkv) and bias (in bf16, as it takes a mask of the inputs' type): the
+    library yardstick. None, with the reason logged, when it refuses them."""
+    import torch
+    import torch.nn.functional as F
+
+    B, N, C3 = qkv.shape
+    q, k, v = qkv.view(B, N, 3, h, C3 // 3 // h).permute(2, 0, 3, 1, 4)
+    mask = bias.to(torch.bfloat16)[None]
+    try:
+        return statistics.median(cuda_times(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
+            runs=25))
+    except RuntimeError as exc:
+        log(f"  scaled_dot_product_attention refused {tuple(qkv.shape)}: {exc}")
+        return None
+
+
+def phase1_k5(device) -> dict:
+    """K5 against its plain version at the four FasterViT-2 shapes (batch
+    256), within two bf16 steps of the output's scale (both round the
+    probabilities and the output once, from f32 sums in different orders);
+    kernel, plain and library times, summed per forward of each head
+    configuration."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+
+    rows, worst, per = [], 0.0, {}
+    for i, (config, B, N, C, h, count) in enumerate(K5_SHAPES):
+        g = torch.Generator().manual_seed(400 + i)
+        qkv = torch.randn(B, N, 3 * C, generator=g).to(torch.bfloat16).to(device)
+        bias = torch.randn(h, N, N, generator=g).to(device)
+        scale = (C // h) ** -0.5
+        before = k5.window_attention.launches
+        out = k5.window_attention(qkv, bias, num_heads=h, scale=scale)
+        torch.cuda.synchronize()
+        if k5.window_attention.launches != before + 1:
+            raise AssertionError("window_attention did not launch its kernel")
+        ref = k5.window_attention_plain(qkv, bias, num_heads=h, scale=scale)
+        step = 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
+        err = check_close(f"window_attention {config} {(B, N, C, h)}", out, ref, 2 * step, 0.0)
+        worst = max(worst, err)
+        t_k = spread(cuda_times(lambda: k5.window_attention(qkv, bias, num_heads=h, scale=scale),
+                                runs=25))
+        t_p = spread(cuda_times(
+            lambda: k5.window_attention_plain(qkv, bias, num_heads=h, scale=scale), runs=10))
+        lib = sdpa_ms(qkv, bias, h, scale)
+        b_ms, b_by = k5_bound(B, N, C, h)
+        rows.append({"config": config, "shape": (B, N, C, h), "launches_per_forward": count,
+                     "max_abs_err": err, "tolerance": 2 * step, "ms": t_k, "plain_ms": t_p,
+                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+        agg = per.setdefault(config, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                      "bounds": []})
+        agg["ms"] += count * t_k["median"]
+        agg["plain_ms"] += count * t_p["median"]
+        agg["library_ms"] = None if lib is None or agg["library_ms"] is None \
+            else agg["library_ms"] + count * lib
+        agg["bounds"].append((count, (b_ms, b_by)))
+        log(f"  window_attention {config} windows {B} N {N} C {C} heads {h}: max|d|={err:.3e} "
+            f"(tol {2 * step:.3e}); kernel {t_k['median']:.4f} ms, plain "
+            f"{t_p['median']:.4f} ms, sdpa {lib if lib is None else round(lib, 4)} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    for config, agg in per.items():
+        agg["bound_ms"], agg["bound_by"] = add_bounds(agg.pop("bounds"))
+        log(f"  window_attention per FasterViT-2 {config} forward at batch {FV_BATCH} (13 "
+            f"launches): kernel {agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, sdpa "
+            f"{agg['library_ms']} ms, bound {agg['bound_ms']:.4f} ms")
+    return {"rows": rows, "max_abs_err": worst, "per_forward": per, **per["official"]}
 
 
 def phase1_k4(device) -> dict:
@@ -252,8 +390,13 @@ def phase1_k4(device) -> dict:
             f"{differ:.2e} of the elements differ"
             + (f"; kernel {row['ms']['median']:.4f} ms plain {row['plain_ms']['median']:.4f} ms"
                if "ms" in row else ""))
+    B, H, W, _, _ = K4_CASES[0]
+    n = B * H * W * 3
+    bound_ms, bound_by = bound(2 * n * 2 + B * 4, {"f32": 3 * 2 * 2 * n})
+    log(f"  rotate_batch bound at {(B, H, W, 3)}: {bound_ms:.4f} ms ({bound_by})")
     return {"rows": rows, "max_abs_err": worst, "ms": timed["ms"]["median"],
-            "plain_ms": timed["plain_ms"]["median"]}
+            "plain_ms": timed["plain_ms"]["median"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def calibrate_bn(model, x) -> None:
@@ -289,15 +432,17 @@ def seeded_images(n: int, g):
     return offset + 0.5 * torch.randn(n, 3, 224, 224, generator=g)
 
 
-def fit_head(model, x) -> None:
-    """A classifier along the first principal direction of the model's f32
-    features over ``x``, scaled so the logit difference has a standard
-    deviation of 2 there: probabilities spread to a real operating point
-    (a random head leaves them almost tied)."""
+def fit_head(model, x, head=None) -> None:
+    """A classifier (``head``, B3's ``_fc`` by default) along the first
+    principal direction of the model's f32 features over ``x``, scaled so the
+    logit difference has a standard deviation of 2 there: probabilities
+    spread to a real operating point (a random head leaves them almost
+    tied)."""
     import torch
 
+    head = model._fc if head is None else head
     feats = []
-    hook = model._fc.register_forward_hook(lambda _m, inp, _o: feats.append(inp[0]))
+    hook = head.register_forward_hook(lambda _m, inp, _o: feats.append(inp[0]))
     with torch.no_grad():
         model(x)
     hook.remove()
@@ -306,9 +451,9 @@ def fit_head(model, x) -> None:
     z = (f - f.mean(0)) @ direction
     scale = 2.0 / float(z.std())
     with torch.no_grad():
-        model._fc.weight.zero_()
-        model._fc.weight[1].copy_(scale * direction)
-        model._fc.bias.copy_(torch.tensor([0.0, -scale * float(f.mean(0) @ direction)]))
+        head.weight.zero_()
+        head.weight[1].copy_(scale * direction)
+        head.bias.copy_(torch.tensor([0.0, -scale * float(f.mean(0) @ direction)]))
 
 
 def seeded_b3_state(seed: int = 0):
@@ -340,12 +485,13 @@ def seeded_b3_state(seed: int = 0):
     return model.state_dict()
 
 
-def check_logits(name: str, logits, bf16_ref, f32_ref) -> dict[str, float]:
+def check_logits(name: str, logits, bf16_ref, f32_ref, gate: float = 5e-2) -> dict[str, float]:
     """The card's bf16 logits against two CPU runs of the same weights on the
     same inputs: the bf16 model through the plain versions, which rounds
     where the kernels and the JAX package round, and the f32 model (the
     unfused chain). Each max|d| over the f32 logits' scale must stay under
-    5e-2. bf16 rounding alone opens up to 3.3e-2 at full width (an H100
+    ``gate`` (5e-2 for B3; FasterViT's per configuration in ``FV_GATE``).
+    For B3, bf16 rounding alone opens up to 3.3e-2 at full width (an H100
     against the CPU, phase 3's images): the random net carries a flipped
     bf16 rounding of an SE input or gate, which moves a whole channel,
     through the depth. Wrong wiring moves the phase-2 logits
@@ -369,7 +515,7 @@ def check_logits(name: str, logits, bf16_ref, f32_ref) -> dict[str, float]:
     log(f"  {name}: max|dlogit|/scale {rel16:.3e} against bf16 CPU, {rel32:.3e} against "
         f"f32 CPU; p1 spread {spread:.3f}; {int(decided.sum())}/{len(f32_ref)} rows decided, "
         f"argmax equal there: {same}")
-    if max(rel16, rel32) > 5e-2 or spread < 0.3 or 2 * int(decided.sum()) < len(f32_ref) \
+    if max(rel16, rel32) > gate or spread < 0.3 or 2 * int(decided.sum()) < len(f32_ref) \
             or not same:
         raise AssertionError(f"{name} disagrees with the CPU references: {logits} vs "
                              f"{bf16_ref} (bf16) and {f32_ref} (f32)")
@@ -516,7 +662,7 @@ def phase3(device, report, state):
             "confusion_matrix"}
     if set(record) != want:
         raise AssertionError(f"metrics.jsonl fields {sorted(record)} != {sorted(want)}")
-    agree = reference_check(res, data, state)
+    agree = reference_check(res, data, lambda x: cpu_logits(state, x))
     summary = {"model": "efficientnet_b3", "split": "test", "accuracy": res.metrics["accuracy"]}
     decode = decode_rate(data)
     # device time of the test pass, from phase 2's forward, over its wall time
@@ -550,11 +696,11 @@ def decode_rate(data: Path) -> float:
     return n / (time.perf_counter() - t0)
 
 
-def reference_check(res, data: Path, state) -> dict[str, float]:
+def reference_check(res, data: Path, refs_of, gate: float = 5e-2) -> dict[str, float]:
     """The job's outputs for 16 test images, the first and last 8 (both
-    classes), against the f32 model on the CPU over the same decoded pixels,
-    as logit differences log(p1 / p0): what the job's probabilities keep of
-    the logits."""
+    classes), against ``refs_of(x)``, the CPU's (bf16, f32) logits over the
+    same decoded pixels, as logit differences log(p1 / p0): what the job's
+    probabilities keep of the logits."""
     import dataclasses
 
     import torch
@@ -570,11 +716,11 @@ def reference_check(res, data: Path, state) -> dict[str, float]:
     picked = list(range(8)) + list(range(len(ds) - 8, len(ds)))
     ds = dataclasses.replace(ds, samples=[ds.samples[i] for i in picked])
     batch = next(iter(make_eval_loader(ds, plan, batch_size=len(picked))))
-    refs = cpu_logits(state, normalize_batch(torch.from_numpy(batch.images), plan))
+    refs = refs_of(normalize_batch(torch.from_numpy(batch.images), plan))
     p = torch.from_numpy(res.probs[picked]).double()
     got = torch.stack([torch.zeros(len(p), dtype=p.dtype), p[:, 1].log() - p[:, 0].log()], -1)
     return check_logits("main path (card), 16 test images", got,
-                        *(r.double() - r[:, :1].double() for r in refs))
+                        *(r.double() - r[:, :1].double() for r in refs), gate=gate)
 
 
 def train_config(work: Path, data: Path, device, epochs: int) -> Path:
@@ -602,19 +748,20 @@ def train_config(work: Path, data: Path, device, epochs: int) -> Path:
 
 def counted(fn):
     """Runs ``fn`` with every kernel's launch count at 0 before it and reads
-    them after it: (fn's result, {"k1", "k2", "k4"})."""
+    them after it: (fn's result, {"k1", "k2", "k4", "k5"})."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import depthwise_se as k1
     from deepfakedetection_tpu_torch.ops import expand_dw as k2
     from deepfakedetection_tpu_torch.ops import shear_rotate as k4
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
 
     k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
-    k4.rotate_batch.launches = 0
+    k4.rotate_batch.launches = k5.window_attention.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"k1": k1.depthwise_silu_pool.launches, "k2": k2.expand_dw_silu_pool.launches,
-                 "k4": k4.rotate_batch.launches}
+                 "k4": k4.rotate_batch.launches, "k5": k5.window_attention.launches}
 
 
 def logged_speeds(log_text: str) -> dict[str, float]:
@@ -648,7 +795,7 @@ def phase4(device, report):
     steps = warmup_steps + ft_steps
     per_forward = create_efficientnet("b3").eval().kernel_launches_per_forward()
     want = {"k1": per_forward["k1"] * 2 * val_batches, "k2": per_forward["k2"] * 2 * val_batches,
-            "k4": 3 * steps}
+            "k4": 3 * steps, "k5": 0}
     log(f"  training (1 epoch): {steps} train steps, {2 * val_batches} val batches; launches "
         f"K4={launches['k4']} K1={launches['k1']} K2={launches['k2']}; wall {wall:.1f} s")
     if launches != want:
@@ -879,6 +1026,189 @@ def step_times(device) -> dict:
     return out
 
 
+# max|dlogit| / scale of FasterViT-2's bf16 logits on the card against the
+# CPU's bf16 and f32 runs (the weights of seeded_fastervit_state, 8 seeded
+# images), per head configuration. Sound: 1.7e-3 official and 5.7e-4 tpu,
+# CPU bf16 against CPU f32. Wrong variants of the attention, on the CPU in
+# bf16 against the sound f32 logits (tests/test_torch_fastervit.py holds
+# both sides of each gate): the scale times 1.5 3.0e-2 official and 5.8e-3
+# tpu, doubled 6.7e-2 and 1.2e-2, the bias dropped 8.0e-2 official, one
+# head's values for every head 0.83 and 0.17. Each gate sits near the
+# geometric middle of its sound reading and its mildest caught fault.
+# Weaker faults (the tpu bias dropped 8.8e-4, the heads' biases reversed or
+# transposed, the carrier tokens in the wrong order) stay within a few
+# times the sound spread: K5's own check is phase 1's, and the CPU tests
+# hold the model to the JAX package in f32.
+FV_GATE = {"official": 1e-2, "tpu": 3e-3}
+
+
+def seeded_fastervit_state(config: str, seed: int):
+    """Full-width FasterViT-2 state dict of ``config`` (the official one in
+    the wheel's key names): generator-seeded weights, the transformer blocks'
+    dense layers at unit gain (N(0, 1/fan_in): the 0.02 init leaves the
+    attention branches too small to move the logits); the conv stages'
+    BatchNorm statistics calibrated on a seeded batch (batch statistics of
+    each ConvBN in turn, at decay 0) and their residual branches entering at
+    a fifth of the stream's scale; the final BatchNorm's statistics those of
+    the last block's tokens; the tpu configuration's layer scales at 0.2 (its
+    init, 1e-5, would leave the blocks silent) and its bias tables drawn; a
+    head fitted to spread the batch's probabilities."""
+    import torch
+    from torch import nn
+
+    from deepfakedetection_tpu_torch.models.common import Linear, bn_momentum_override
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+
+    g = torch.Generator().manual_seed(seed)
+    model = create_faster_vit("2", head_config=config, dtype=torch.float32, generator=g).eval()
+    x = seeded_images(8, g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Linear):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) / m.in_features**0.5)
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1].startswith(("gamma", "hat_gamma")):
+                p.fill_(0.2)
+            elif name.endswith("rel_bias"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+        bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d) and m is not model.norm]
+        for m in bns:
+            m.train()
+        tokens = []
+        hook = model.levels[3].blocks[-1].register_forward_hook(
+            lambda _m, _i, out: tokens.append(out))
+        with bn_momentum_override(0.0):
+            model(x)
+        hook.remove()
+        for m in bns:
+            m.eval()
+        y = tokens[0].double()
+        model.norm.running_mean.copy_(y.mean(dim=(0, 1)))
+        model.norm.running_var.copy_(y.var(dim=(0, 1), unbiased=False))
+        for level in model.levels[:2]:
+            for blk in level.blocks:
+                blk.norm2.weight.mul_(0.2)
+                blk.norm2.bias.mul_(0.2)
+    fit_head(model, x, model.head)
+    return model.state_dict()
+
+
+def fastervit_logits(state, config: str, x, device, dtype):
+    """FasterViT-2 logits of ``state`` on ``device`` in ``dtype``, f32 on the
+    CPU."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+
+    model = create_faster_vit("2", head_config=config, dtype=dtype)
+    model.load_state_dict(state)
+    model = model.to(device).eval()
+    with torch.no_grad():
+        return model(x.to(device)).float().cpu()
+
+
+def fastervit_against_cpu(device, config: str, state, x) -> dict:
+    """The card's bf16 logits of ``state`` against the CPU's bf16 (K5's plain
+    version) and f32 runs on ``x``; K5 launches once per attention over 32 or
+    more tokens."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+
+    k5.window_attention.launches = 0
+    card = fastervit_logits(state, config, x, device, torch.bfloat16)
+    torch.cuda.synchronize()
+    if k5.window_attention.launches != 13:
+        raise AssertionError(f"{config} forward: {k5.window_attention.launches} K5 launches")
+    cpu = [fastervit_logits(state, config, x, torch.device("cpu"), dt)
+           for dt in (torch.bfloat16, torch.float32)]
+    return check_logits(f"FasterViT-2 {config} forward (card, bf16)", card, *cpu,
+                        gate=FV_GATE[config])
+
+
+def phase5(device, report):
+    """The FasterViT-2 eval path: orchestrate(mode="inference") from a YAML
+    config on a wheel-named seeded .pth (official config), at batch 256."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from deepfakedetection_tpu_torch.models import fastervit
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+
+    work = REPO / "build" / "chip_smoke"
+    data = work / "data"  # phase 3's tree
+    state = seeded_fastervit_state("official", seed=11)
+    weights = work / "faster_vit_2_224_seeded.pth"
+    torch.save(state, weights)
+    cfg = {
+        "seed": 1,
+        "device": str(device),
+        "data": {"root": str(data), "test_split": "test", "val_split": "val",
+                 "num_classes": 2, "img_size": 224},
+        "models": {FV: {
+            "output_dir": str(work / "runs_fv"),
+            "transforms": {"eval": EVAL_TF},
+            "inference": {"weights": str(weights), "split": "test", "batch_size": FV_BATCH,
+                          "num_workers": 8, "img_size": 224},
+        }},
+        "selection": [FV],
+    }
+    cfg_path = work / "inference_fastervit.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    t0 = time.perf_counter()
+    res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[FV])
+    wall = time.perf_counter() - t0
+    batches = sum(-(-n // FV_BATCH) for n in SPLITS.values())
+    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * batches}
+    log(f"  main path: {batches} forward batches, launches {launches}; test pass "
+        f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
+    if launches != want:
+        raise AssertionError(f"FasterViT main path launches {launches}, expected {want}")
+    if res.probs.shape != (SPLITS["test"], 2) or not np.isfinite(res.probs).all() \
+            or not np.allclose(res.probs.sum(-1), 1.0, atol=1e-5):
+        raise AssertionError(f"bad test probabilities {res.probs.shape}")
+    (run,) = sorted((work / "runs_fv").iterdir())
+    record = json.loads((run / "logs" / "metrics.jsonl").read_text().splitlines()[-1])
+    if record["model"] != FV or "roc_auc" not in record:
+        raise AssertionError(f"metrics.jsonl: {record}")
+    agree = reference_check(res, data, lambda x: [
+        fastervit_logits(state, "official", x, torch.device("cpu"), dt)
+        for dt in (torch.bfloat16, torch.float32)], gate=FV_GATE["official"])
+
+    g = torch.Generator().manual_seed(12)
+    x = seeded_images(8, g)
+    against = {"official": fastervit_against_cpu(device, "official", state, x),
+               "tpu": fastervit_against_cpu(device, "tpu", seeded_fastervit_state("tpu", 13), x)}
+
+    model = fastervit.create_faster_vit("2", head_config="official")
+    model.load_state_dict(state)
+    model = model.to(device).eval()
+    timings = {}
+    for batch in (128, FV_BATCH):
+        xb = torch.randn(batch, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
+        xb = xb.contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            t_k = spread(cuda_times(lambda: model(xb), runs=10))
+            fastervit.window_attention = k5.window_attention_plain
+            try:
+                t_p = spread(cuda_times(lambda: model(xb), runs=10))
+            finally:
+                fastervit.window_attention = k5.window_attention
+        timings[batch] = {"kernel_ms": t_k, "plain_ms": t_p,
+                          "img_per_s": batch / (t_k["median"] / 1e3),
+                          "plain_img_per_s": batch / (t_p["median"] / 1e3)}
+        log(f"  FasterViT-2 official forward batch {batch}: {t_k['median']:.3f} ms (q1 "
+            f"{t_k['q1']:.3f}, q3 {t_k['q3']:.3f}) = {timings[batch]['img_per_s']:.1f} img/s; "
+            f"K5's plain version in place: {t_p['median']:.3f} ms = "
+            f"{timings[batch]['plain_img_per_s']:.1f} img/s")
+    report["phase5"] = {"launches": launches, "batches": batches, "metrics": record,
+                        "test_img_per_s": res.images_per_s, "wall_s": wall,
+                        "reference": agree, "against_cpu": against, "timings": timings}
+    return launches
+
+
 def main() -> int:
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -912,6 +1242,8 @@ def main() -> int:
     launches = phase3(device, report, state)
     log("phase 4: training path, orchestrate(mode='training')")
     launches["k4"] = phase4(device, report)["k4"]
+    log("phase 5: FasterViT-2 eval path, orchestrate(mode='inference')")
+    launches["k5"] = phase5(device, report)["k5"]
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())
@@ -925,12 +1257,15 @@ def main() -> int:
                "expand_dw_silu_pool": ("k2", "expand_dw.cu",
                                        "deepfakedetection_tpu/ops/pallas/expand_dw.py:88"),
                "rotate_batch": ("k4", "shear_rotate.cu",
-                                "deepfakedetection_tpu/ops/pallas/shear_rotate.py:92")}
+                                "deepfakedetection_tpu/ops/pallas/shear_rotate.py:92"),
+               "window_attention": ("k5", "window_attn.cu",
+                                    "deepfakedetection_tpu/ops/pallas/window_attn.py:799")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"deepfakedetection_tpu_torch/ops/csrc/{src}", "replaces": where,
-         "launches": launches[key], "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
+         "launches": launches[key],
+         **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}}
         for name, (key, src, where) in sources.items()
     ]}))
     print(card)

@@ -29,7 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
-from deepfakedetection_tpu.data.transforms import EvalTransformPlan, TrainTransformPlan
+from deepfakedetection_tpu_torch.data.transforms import EvalTransformPlan, TrainTransformPlan
 from deepfakedetection_tpu_torch.ops.shear_rotate import rotate_batch
 
 # the shear kernel's validity bound for the rotation range, in degrees

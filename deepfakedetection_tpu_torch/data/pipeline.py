@@ -1,26 +1,35 @@
-"""Loaders over the JAX package's host pipeline, and the host-to-device copy.
+"""The host loader, and the host-to-device copy.
 
-``Loader`` is the JAX package's loader (``deepfakedetection_tpu/data/
-pipeline.py``: decode, static batches, zero padding with a validity mask,
-seeded per-epoch shuffling with ``set_epoch``) with the process count and
-index taken from ``torch.distributed`` instead of JAX. ``DeviceStager``
-moves each uint8 batch to the device through pinned host buffers with a
-``non_blocking`` copy. ``prefetch`` stages the next batch (copy and
-augmentation) on a second CUDA stream while the caller's step runs, as the
-JAX package's ``device_prefetch`` does through async dispatch.
+``Loader`` is the port's copy of the loader of
+``deepfakedetection_tpu/data/pipeline.py``: decode (PIL in a thread pool, or
+the native library, which training takes when it is built and eval with
+``DFD_NATIVE_EVAL=1``), static batches, the last eval batch zero-padded with
+a validity mask, seeded per-epoch shuffling with ``set_epoch``, and up to
+``lookahead`` batches decoding ahead of the consumer. With more than one
+``torch.distributed`` process each decodes a disjoint contiguous shard of
+the epoch order, the same number of batches on every process (training
+drops the global remainder, eval pads with masked rows).
+``DeviceStager`` moves each uint8 batch to the device through pinned host
+buffers with a ``non_blocking`` copy. ``prefetch`` stages the next batch
+(copy and augmentation) on a second CUDA stream while the caller's step
+runs, as the JAX package's ``device_prefetch`` does through async dispatch.
 """
 
 from __future__ import annotations
 
+import os
+from collections import deque
 from collections.abc import Callable, Iterable, Iterator
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from deepfakedetection_tpu.data import pipeline as _jax_pipeline
-from deepfakedetection_tpu.data.folder import ImageFolderDataset, scan_image_folder
-from deepfakedetection_tpu.data.pipeline import Batch
-from deepfakedetection_tpu.data.transforms import (
+from deepfakedetection_tpu_torch.data import native
+from deepfakedetection_tpu_torch.data.decode import decode_eval, decode_train
+from deepfakedetection_tpu_torch.data.folder import ImageFolderDataset, scan_image_folder
+from deepfakedetection_tpu_torch.data.transforms import (
     EvalTransformPlan,
     TrainTransformPlan,
     build_eval_plan,
@@ -36,13 +45,145 @@ __all__ = [
 Staged = tuple[torch.Tensor, ...]
 
 
-class Loader(_jax_pipeline.Loader):
-    """The JAX package's loader; rank and world size from torch.distributed
-    when it is initialised, else 0 and 1."""
+@dataclass
+class Batch:
+    images: np.ndarray  # uint8 [B, S, S, 3]
+    labels: np.ndarray  # int64 [B]
+    mask: np.ndarray  # bool [B], False on padding rows
+    num_valid: int
 
-    @staticmethod
-    def _processes() -> tuple[int, int]:
-        return world_size(), rank()
+
+class Loader:
+    """Iterable over padded (eval) or dropped (training) batches of decoded
+    uint8 images."""
+
+    def __init__(
+        self,
+        dataset: ImageFolderDataset,
+        plan: TrainTransformPlan | EvalTransformPlan,
+        *,
+        batch_size: int,
+        shuffle: bool,
+        drop_last: bool,
+        seed: int | None = None,
+        num_workers: int = 0,
+        cache_decoded: bool = False,
+        lookahead: int = 1,
+    ) -> None:
+        self.dataset = dataset
+        self.plan = plan
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = 0 if seed is None else int(seed)
+        self.num_workers = int(num_workers)
+        self.lookahead = max(1, int(lookahead))
+        self._epoch = 0
+        self._train = isinstance(plan, TrainTransformPlan)
+        self._target = plan.host_canvas_size if self._train else plan.img_size
+        self.use_native = native.available() and (
+            self._train or os.environ.get("DFD_NATIVE_EVAL") == "1"
+        )
+        # the host decode is the same every epoch (all randomness is on the
+        # device), so cached canvases make later epochs decode-free
+        self.cache_decoded = bool(cache_decoded)
+        self._cache: dict[int, np.ndarray] = {}
+        self._pool: ThreadPoolExecutor | None = None
+
+    def set_epoch(self, epoch: int) -> None:
+        """Selects the epoch's shuffled order."""
+        self._epoch = int(epoch)
+
+    def _local_batch_rows(self) -> int:
+        return max(self.batch_size // world_size(), 1)
+
+    def _shard_len(self) -> int:
+        n, pc = len(self.dataset), world_size()
+        if pc == 1:
+            return n
+        return n // pc if self.shuffle else -(-n // pc)
+
+    def _order(self) -> np.ndarray:
+        """This process's sample slots for the epoch (-1 marks a padding slot
+        of multi-process eval)."""
+        n = len(self.dataset)
+        if self.shuffle:
+            order = np.random.default_rng([self.seed, self._epoch]).permutation(n)
+        else:
+            order = np.arange(n)
+        pc = world_size()
+        if pc == 1:
+            return order
+        per = self._shard_len()
+        if not self.shuffle and per * pc > n:
+            order = np.concatenate([order, np.full(per * pc - n, -1, order.dtype)])
+        return order[rank() * per : (rank() + 1) * per]
+
+    def __len__(self) -> int:
+        rows, n = self._local_batch_rows(), self._shard_len()
+        return n // rows if self.drop_last else -(-n // rows)
+
+    def _decode_indices(self, idx: np.ndarray) -> Batch:
+        B = self._local_batch_rows()
+        images = np.zeros((B, self._target, self._target, 3), np.uint8)
+        labels = np.zeros((B,), np.int64)
+        mask = np.zeros((B,), bool)
+        valid_pos = [k for k, i in enumerate(idx) if int(i) >= 0]
+        for k in valid_pos:
+            labels[k] = self.dataset.samples[int(idx[k])][1]
+        if self.cache_decoded:
+            todo = [k for k in valid_pos if int(idx[k]) not in self._cache]
+            if todo:
+                decoded, ok = self._decode_raw(np.asarray([int(idx[k]) for k in todo]))
+                for k, arr, good in zip(todo, decoded, ok):
+                    if good:
+                        self._cache[int(idx[k])] = arr
+            for k in valid_pos:
+                arr = self._cache.get(int(idx[k]))
+                if arr is not None:
+                    images[k], mask[k] = arr, True
+        elif valid_pos:
+            decoded, ok = self._decode_raw(np.asarray([int(idx[k]) for k in valid_pos]))
+            for j, k in enumerate(valid_pos):
+                images[k], mask[k] = decoded[j], ok[j]
+        return Batch(images=images, labels=labels, mask=mask, num_valid=int(mask.sum()))
+
+    def _decode_raw(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """The samples ``idx`` -> (uint8 [n, T, T, 3], ok [n])."""
+        paths = [self.dataset.samples[i][0] for i in idx]
+        if self.use_native:
+            resize = self._target if self._train else (self.plan.resize_size or self.plan.img_size)
+            decoded, status = native.decode_batch(
+                paths, self._target, n_threads=max(self.num_workers, 1), resize_target=resize
+            )
+            return decoded, status == 0
+        decode = decode_train if self._train else decode_eval
+        if self.num_workers > 0:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
+            arrays = list(self._pool.map(lambda p: decode(p, self.plan), paths))
+        else:
+            arrays = [decode(p, self.plan) for p in paths]
+        return np.stack(arrays), np.ones(len(idx), bool)
+
+    def __iter__(self) -> Iterator[Batch]:
+        order = self._order()
+        B = self._local_batch_rows()
+        n_full = len(order) // B
+        chunks = [order[i * B : (i + 1) * B] for i in range(n_full)]
+        if not self.drop_last and len(order) > n_full * B:
+            chunks.append(order[n_full * B :])
+        if not chunks:
+            return
+        with ThreadPoolExecutor(max_workers=self.lookahead) as ahead:
+            pending = deque(ahead.submit(self._decode_indices, c)
+                            for c in chunks[: self.lookahead])
+            for nxt in chunks[self.lookahead :]:
+                current = pending.popleft().result()
+                pending.append(ahead.submit(self._decode_indices, nxt))
+                yield current
+            while pending:
+                yield pending.popleft().result()
 
 
 def make_eval_loader(

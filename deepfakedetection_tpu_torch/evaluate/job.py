@@ -20,9 +20,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from deepfakedetection_tpu.data.folder import require_num_classes, scan_image_folder
-from deepfakedetection_tpu.data.transforms import build_eval_plan
-from deepfakedetection_tpu.evaluate.metrics import (
+from deepfakedetection_tpu_torch.data.augment import normalize_batch
+from deepfakedetection_tpu_torch.data.folder import require_num_classes, scan_image_folder
+from deepfakedetection_tpu_torch.data.pipeline import DeviceStager, make_eval_loader
+from deepfakedetection_tpu_torch.data.transforms import build_eval_plan
+from deepfakedetection_tpu_torch.evaluate.metrics import (
     apply_temperature,
     confusion,
     expected_calibration_error,
@@ -30,11 +32,9 @@ from deepfakedetection_tpu.evaluate.metrics import (
     roc_auc,
     sweep_threshold,
 )
-from deepfakedetection_tpu.registry import ModelSpec
-from deepfakedetection_tpu_torch.data.augment import normalize_batch
-from deepfakedetection_tpu_torch.data.pipeline import DeviceStager, make_eval_loader
 from deepfakedetection_tpu_torch.evaluate.plots import save_confusion_matrix, save_roc_curve
-from deepfakedetection_tpu_torch.runtime.convert import load_weights
+from deepfakedetection_tpu_torch.registry import ModelSpec
+from deepfakedetection_tpu_torch.runtime.convert import is_torch_checkpoint, load_weights
 from deepfakedetection_tpu_torch.runtime.logging import (
     append_metrics,
     console,
@@ -83,23 +83,35 @@ class EvalResult:
     images_per_s: float = 0.0
 
 
+_F32_NOTE = {
+    "efficientnet": "stride-1 MBConv blocks run the unfused f32 ConvBN chain (K1 and K2 "
+                    "take bf16)",
+    "fastervit": "window attention runs in plain f32 PyTorch ops (K5 takes bf16)",
+}
+
+
 def load_model_for_eval(job: EvalJob) -> torch.nn.Module:
     """Build the model (init from a generator seeded 0), load the weights
     when the file exists (a warning and the init weights when it does not),
-    move it to the job's device and switch it to eval."""
+    move it to the job's device and switch it to eval. A FasterViT whose
+    weights are a torch checkpoint is built in the wheel's configuration
+    (``head_config="official"``) unless the config pins one, as the JAX
+    package's job does."""
+    model_kwargs = dict(job.model_kwargs)
+    wpath = Path(job.weights) if job.weights is not None else None
+    if (job.spec.family == "fastervit" and "head_config" not in model_kwargs
+            and wpath is not None and wpath.exists() and is_torch_checkpoint(wpath)):
+        model_kwargs["head_config"] = "official"
+        console.print("  torch checkpoint detected → faster_vit head_config='official'")
     model = job.spec.builder(
         job.num_classes,
         dtype=job.compute_dtype,
         generator=torch.Generator().manual_seed(0),
-        **job.model_kwargs,
+        **model_kwargs,
     )
-    if job.compute_dtype == torch.float32:
-        console.print(
-            "  precision float32: stride-1 MBConv blocks run the unfused f32 "
-            "ConvBN chain (the fused kernels take bf16)"
-        )
-    if job.weights is not None:
-        wpath = Path(job.weights)
+    if job.compute_dtype == torch.float32 and job.spec.family in _F32_NOTE:
+        console.print(f"  precision float32: {_F32_NOTE[job.spec.family]}")
+    if wpath is not None:
         if wpath.exists():
             state = load_weights(wpath)
             missing, unexpected = model.load_state_dict(state, strict=False)

@@ -1,5 +1,6 @@
 """Shared building blocks: ConvBN (BN folded at eval, batch statistics in
-training), SqueezeExcite, DropPath.
+training), SqueezeExcite, DropPath, and for the transformers LayerNorm,
+Linear, Mlp and GELU.
 
 Port of ``deepfakedetection_tpu/models/common.py``. Activations are
 NCHW-logical tensors stored channels_last, so ``x.permute(0, 2, 3, 1)`` is the
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepfakedetection_tpu_torch.ops.depthwise_se import depthwise_silu_pool
+from deepfakedetection_tpu_torch.runtime.flags import exact_gelu
 
 Pads = tuple[tuple[int, int], tuple[int, int]]
 
@@ -82,11 +84,12 @@ class ConvBN:
     statistics, ``E[y]`` and ``E[y^2]`` with ``var = max(E[y^2] - E[y]^2, 0)``
     (biased); running statistics updated at decay 0.99 with that biased
     variance (PARITY delta 13); then ``y*a + b`` in the compute dtype, with
-    ``a`` and ``b`` computed in f32 and cast; the activation; one cast.
+    ``a`` and ``b`` computed in f32 and cast; the activation; one cast. A conv
+    bias is added to the conv output in the compute dtype first.
 
-    At eval, BN is folded in f32:
-    ``w' = w * gamma / sqrt(var + eps)``, ``b' = beta - mean * gamma /
-    sqrt(var + eps)``. Input and weight are rounded to the compute dtype; the
+    At eval, BN (and a conv bias) is folded in f32:
+    ``w' = w * gamma / sqrt(var + eps)``, ``b' = beta - (mean - conv_bias) *
+    gamma / sqrt(var + eps)``. Input and weight are rounded to the compute dtype; the
     conv (cuDNN on the card) takes them as f32, so the products are exact and
     accumulation and output stay f32, as in the JAX package's bf16 conv with
     f32 accumulation. The f32 bias and the activation follow in f32, then one
@@ -111,8 +114,8 @@ class ConvBN:
         act: Callable[[torch.Tensor], torch.Tensor] | None = None,
         dtype: torch.dtype = torch.bfloat16,
     ) -> None:
-        if conv.bias is not None or conv.padding != (0, 0):
-            raise ValueError("ConvBN: the conv carries no bias and no padding of its own")
+        if conv.padding != (0, 0):
+            raise ValueError("ConvBN: the conv carries no padding of its own")
         self.conv, self.bn, self.act, self.dtype = conv, bn, act, dtype
         self.pads = tuple(map(tuple, pads))
         (pt, pb), (pl, pr) = self.pads
@@ -130,14 +133,17 @@ class ConvBN:
 
     def _params(self) -> list[torch.Tensor]:
         bn = self.bn
-        return [self.conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var]
+        params = [self.conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var]
+        return params if self.conv.bias is None else params + [self.conv.bias]
 
     def _fold(self) -> tuple[torch.Tensor, torch.Tensor]:
         bn = self.bn
         denom = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
         w = self.conv.weight.float() * denom.view(-1, 1, 1, 1)
-        b = bn.bias.float() - bn.running_mean.float() * denom
-        return w, b
+        mean = bn.running_mean.float()
+        if self.conv.bias is not None:
+            mean = mean - self.conv.bias.float()
+        return w, bn.bias.float() - mean * denom
 
     def _folded_now(self) -> tuple[torch.Tensor, torch.Tensor]:
         return self._folded.get(self._params())
@@ -195,6 +201,8 @@ class ConvBN:
         if any(self._fpad):
             x = F.pad(x, self._fpad)
         y = F.conv2d(x, conv.weight.to(dt), None, conv.stride, self._conv_pad, 1, conv.groups)
+        if conv.bias is not None:
+            y = y + conv.bias.to(dt).view(1, -1, 1, 1)
         # One pass over y for each statistic, accumulated in f32; on the card
         # both reductions read the bf16 y without an f32 copy of it.
         dims = (0, 2, 3)
@@ -281,6 +289,64 @@ class DropPath(nn.Module):
         keep = 1.0 - self.rate
         mask = keep_mask(x, keep, (x.shape[0],) + (1,) * (x.dim() - 1), generator)
         return torch.where(mask, x / keep, 0.0)
+
+
+def gelu(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
+    """GELU in its tanh form, or erf with ``DFD_EXACT_GELU=1``
+    (``runtime/flags.exact_gelu``). ``inplace`` is taken for ConvBN's
+    activation call and ignored."""
+    return F.gelu(x, approximate="none" if exact_gelu() else "tanh")
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last dim computed in f32, then cast to ``dtype``, as
+    the JAX package's ``nn.LayerNorm(dtype=float32)`` followed by a cast."""
+
+    def __init__(self, dim: int, eps: float, *, dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__(dim, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), self.normalized_shape, self.weight, self.bias, self.eps
+        ).to(self.dtype)
+
+
+class Linear(nn.Linear):
+    """nn.Linear in the compute dtype: input, weight and bias cast to ``dtype``
+    (the casts cached at eval), output in ``dtype``, as the JAX package's
+    ``nn.Dense(dtype=...)``. The bias joins the product before its one
+    rounding (in the GEMM's epilogue on the card); the JAX package rounds the
+    product and then the sum, at most one bf16 step apart."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__(in_features, out_features, bias)
+        self.dtype = dtype
+        self._cast = Derived(self._cast_now)
+
+    def _tensors(self) -> list[torch.Tensor]:
+        return [self.weight] if self.bias is None else [self.weight, self.bias]
+
+    def _cast_now(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return self.weight.to(self.dtype), b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self._cast_now() if self.training else self._cast.get(self._tensors())
+        return F.linear(x.to(self.dtype), w, b)
+
+
+class Mlp(nn.Module):
+    """Transformer MLP: fc1 -> GELU -> fc2, in the compute dtype."""
+
+    def __init__(self, dim: int, hidden: int, *, dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.fc1 = Linear(dim, hidden, dtype=dtype)
+        self.fc2 = Linear(hidden, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu(self.fc1(x)))
 
 
 def make_divisible(value: float, divisor: int = 8, min_value: int | None = None) -> int:

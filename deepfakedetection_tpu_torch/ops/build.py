@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-Every ``ops/csrc/*.cu`` file is compiled by one ``nvcc`` call for ``sm_90a``
-into a shared library with a plain C interface under ``build/torch_kernels/``
-at the repository root. The library's name carries a hash of the sources and
+Each ``ops/csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface under ``build/torch_kernels/`` at the
+repository root. The library's name carries a hash of the sources and
 flags, so an edited source builds anew and an unchanged one is reused. The
 CPU never reaches this module: the kernel wrappers call ``library()`` only for
 CUDA tensors.
@@ -21,17 +22,17 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points: name -> argtypes (pointers and the stream as c_void_p, so
 # ctypes does not cut 64-bit addresses to a 32-bit int).
 _SIGNATURES = {
     "dfd_depthwise_silu_pool": [_P] * 6 + [_I] * 8 + [_P],
     "dfd_expand_dw_silu_pool": [_P] * 8 + [_I] * 9 + [_P],
     "dfd_shear_pass": [_P] * 3 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    "dfd_window_attention": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _I, _P],
 }
 
 
@@ -62,21 +63,41 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compiles the kernels unless this exact build exists. Raises with
-    nvcc's output when the build fails."""
+    """Compiles the kernels unless this exact build exists: one nvcc process
+    per source, in parallel, then one link. Raises with nvcc's output when a
+    step fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = str(os.getpid())
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for _, cmd, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stdout}{stderr}")
+    objs = [obj for obj, _, _ in jobs]
+    tmp = out.with_suffix(f".{tag}.tmp")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -1,7 +1,7 @@
 """Orchestration: config -> per-model run dirs -> train or eval job, on PyTorch.
 
 Port of ``deepfakedetection_tpu/orchestrator.py``: the same YAML schema
-(validated by the JAX package's ``config.py``), selection order, fresh
+(validated by the port's ``config.py``, a copy of the JAX package's), selection order, fresh
 timestamped run dirs with a config snapshot (or the newest one under
 ``training.resume: continue``), and the same train and eval job fields. Run it
 from the repository root as::
@@ -21,14 +21,14 @@ from typing import Any
 
 import torch
 
-from deepfakedetection_tpu.config import load_config
-from deepfakedetection_tpu.data.transforms import resolve_transform_mapping
-from deepfakedetection_tpu.runtime.seeding import apply_seed
+from deepfakedetection_tpu_torch.config import load_config
+from deepfakedetection_tpu_torch.data.transforms import resolve_transform_mapping
 from deepfakedetection_tpu_torch.evaluate.job import EvalJob, EvalResult, run_eval_job
 from deepfakedetection_tpu_torch.registry import get_model_spec
 from deepfakedetection_tpu_torch.runtime.flags import compute_dtype, resolve_device
 from deepfakedetection_tpu_torch.runtime.logging import console
 from deepfakedetection_tpu_torch.runtime.paths import ensure_run_dirs, snapshot_config
+from deepfakedetection_tpu_torch.runtime.seeding import apply_seed
 from deepfakedetection_tpu_torch.train.loop import (
     TrainJob,
     TrainResult,

@@ -1,17 +1,20 @@
-"""Where the device time of the B3 eval forward, or of the train step, goes,
+"""Where the device time of an eval forward, or of the B3 train step, goes,
 per op, on one CUDA card.
 
-    python -m deepfakedetection_tpu_torch.profile_forward            # eval forward
-    python -m deepfakedetection_tpu_torch.profile_forward --train    # train step
+    python -m deepfakedetection_tpu_torch.profile_forward            # B3 eval forward
+    python -m deepfakedetection_tpu_torch.profile_forward --train    # B3 train step
+    python -m deepfakedetection_tpu_torch.profile_forward --model faster_vit_2_224 \
+        [--head-config official|tpu]                                 # FasterViT-2 forward
 
-Runs EfficientNet-B3 at 224 px, batch 128, bf16, with generator-seeded
-weights (the times do not depend on their values), and traces 5 calls after
-3 warm-up ones with ``torch.profiler``. The train step is the training
-path's: forward with batch statistics, dropout and drop-path, backward, and
-AdamW over every tensor. Prints the device time per call against the wall
-time per call (host clock, device synchronised), so their gap is the
-device's idle time, then each device kernel's self time and launches per
-call, the largest first. This is the breakdown behind ``PERF.md`` section 5.
+Runs the model at 224 px in bf16, B3 at batch 128, FasterViT-2 at its eval
+config's batch 256, with generator-seeded weights (the times do not depend on their
+values), and traces 5 calls after 3 warm-up ones with ``torch.profiler``.
+The train step is the training path's: forward with batch statistics,
+dropout and drop-path, backward, and AdamW over every tensor. Prints the
+device time per call against the wall time per call (host clock, device
+synchronised), so their gap is the device's idle time, then each device
+kernel's self time and launches per call, the largest first. This is the
+breakdown behind ``PERF.md`` section 5.
 """
 
 from __future__ import annotations
@@ -23,11 +26,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
 from deepfakedetection_tpu_torch.runtime.seeding import fold_in, root_generator
 from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
 from deepfakedetection_tpu_torch.train.steps import train_step
 
-BATCH, CALLS, WARMUP, ROWS = 128, 5, 3, 30
+CALLS, WARMUP, ROWS = 5, 3, 30
+BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 256}
 
 
 def _call(model, x, train: bool):
@@ -41,8 +46,8 @@ def _call(model, x, train: bool):
         return forward
     opt = PhaseOptimizer(list(model.named_parameters()), lr=1e-4, weight_decay=5e-2,
                          trainable=unfreeze_predicate("all"))
-    labels = (torch.arange(BATCH) % 2).to(x.device)
-    mask = torch.ones(BATCH, dtype=torch.bool, device=x.device)
+    labels = (torch.arange(len(x)) % 2).to(x.device)
+    mask = torch.ones(len(x), dtype=torch.bool, device=x.device)
     root = root_generator(0)
     return lambda: train_step(model, opt, x, labels, mask,
                               fold_in(root, opt.count, device=x.device))
@@ -50,13 +55,25 @@ def _call(model, x, train: bool):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--train", action="store_true", help="profile the train step")
-    train = parser.parse_args().train
+    parser.add_argument("--train", action="store_true", help="profile the B3 train step")
+    parser.add_argument("--model", choices=list(BATCH), default="efficientnet_b3")
+    parser.add_argument("--head-config", choices=("official", "tpu"), default="official",
+                        help="FasterViT's head configuration")
+    args = parser.parse_args()
+    train, batch = args.train, BATCH[args.model]
+    if train and args.model != "efficientnet_b3":
+        raise SystemExit("profile_forward: --train profiles the B3 train step only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: needs a CUDA card")
     g = torch.Generator().manual_seed(0)
-    model = create_efficientnet("b3", num_classes=2, dtype=torch.bfloat16, generator=g).cuda()
-    x = torch.randn(BATCH, 3, 224, 224, generator=g).cuda().to(torch.bfloat16)
+    if args.model == "efficientnet_b3":
+        model = create_efficientnet("b3", num_classes=2, dtype=torch.bfloat16, generator=g)
+        name = "B3"
+    else:
+        model = create_faster_vit("2", head_config=args.head_config, generator=g).eval()
+        name = f"FasterViT-2 {args.head_config}"
+    model = model.cuda()
+    x = torch.randn(batch, 3, 224, 224, generator=g).cuda().to(torch.bfloat16)
     x = x.contiguous(memory_format=torch.channels_last)
     call = _call(model, x, train)
     for _ in range(WARMUP):
@@ -86,7 +103,7 @@ def main() -> None:
                    if e.device_type == torch.autograd.DeviceType.CPU
                    and e.key.startswith("aten::")) / CALLS
     what = "train step" if train else "forward"
-    print(f"B3 {what}, batch {BATCH}, bf16 ({torch.cuda.get_device_name(0)}): "
+    print(f"{name} {what}, batch {batch}, bf16 ({torch.cuda.get_device_name(0)}): "
           f"{device_ms:.3f} ms of device time per call; wall time {plain_wall:.3f} ms "
           f"({wall:.3f} ms under the profiler); {host_ops:.0f} aten op calls per call (nested ones included)")
     print(f"{'ms':>8} {'calls':>6}  kernel")

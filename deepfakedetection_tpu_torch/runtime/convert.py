@@ -1,15 +1,22 @@
 """Weights into the port's models.
 
 ``state_dict_from_jax`` carries a JAX package ``{"params", "batch_stats"}``
-tree across through ``export_torch_state_dict`` (the name maps of
-``deepfakedetection_tpu/runtime/torch_convert.py``). ``load_weights`` reads a
-genuine torch ``.pth``. A native flax msgpack export (the JAX package's
-``checkpoints/<Model>.pth``) is converted once with the existing CLI:
-``python tools/convert.py --model NAME --weights ckpt.pth --out for_torch.pth``.
+tree (numpy leaves) into the port's state dict through the port's own name
+maps, the counterparts of ``deepfakedetection_tpu/runtime/torch_convert.py``
+(EfficientNet) and ``runtime/fastervit_convert.py`` (FasterViT): keys are
+the reference wheels' (efficientnet_pytorch; the fastervit wheel), layouts
+OIHW for convs and [out, in] for dense kernels. For FasterViT it covers both
+head configurations: the tensors only the "tpu" one has (layer-scale gammas,
+learned bias tables, learned position tables) get the port's own names.
+``load_weights`` reads a genuine torch ``.pth``. A native flax msgpack
+export (the JAX package's ``checkpoints/<Model>.pth``) is converted once
+with ``python tools/convert.py --model NAME --weights ckpt.pth --out
+for_torch.pth``.
 """
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Any
 
@@ -17,17 +24,164 @@ import numpy as np
 import torch
 from torch import nn
 
-from deepfakedetection_tpu.runtime.torch_convert import export_torch_state_dict
-
 _WRAPPERS = ("state_dict", "model")
+
+Path_ = tuple[str, ...]
+# torch key -> (flax body path, layout kind: "auto" or "none")
+NameMap = dict[str, tuple[Path_, str]]
+
+
+def _flatten(tree: Any, prefix: Path_ = ()) -> dict[Path_, Any]:
+    if not hasattr(tree, "items"):
+        return {prefix: tree}
+    out: dict[Path_, Any] = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, prefix + (str(k),)))
+    return out
+
+
+def _inverse_layout(arr: np.ndarray, kind: str) -> np.ndarray:
+    """flax -> torch: HWIO -> OIHW, [in, out] -> [out, in]; "none" copies."""
+    if kind == "none":
+        return arr
+    if arr.ndim == 4:
+        return np.transpose(arr, (3, 2, 0, 1))
+    if arr.ndim == 2:
+        return arr.T
+    return arr
+
+
+class _Map:
+    """Builds a NameMap with the flax module conventions."""
+
+    def __init__(self) -> None:
+        self.m: NameMap = {}
+
+    def __call__(self, key: str, path: Path_, kind: str = "none") -> None:
+        self.m[key] = (path, kind)
+
+    def bn(self, key: str, path: Path_) -> None:
+        for t, f in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                     ("running_var", "var")):
+            self(f"{key}.{t}", path + (f,))
+
+    def ln(self, key: str, path: Path_) -> None:
+        self(f"{key}.weight", path + ("scale",))
+        self(f"{key}.bias", path + ("bias",))
+
+    def dense(self, key: str, path: Path_, bias: bool = True) -> None:
+        self(f"{key}.weight", path + ("kernel",), "auto")
+        if bias:
+            self(f"{key}.bias", path + ("bias",))
+
+
+def _efficientnet_map(tops: set[str]) -> NameMap:
+    """efficientnet_pytorch keys <- the flax EfficientNet (``stem``,
+    ``stage{S}_block{R}``, ``head_conv``, ``classifier``); the flat torch
+    block index follows the (stage, rep) order."""
+    m = _Map()
+    blocks = sorted((int(a), int(b)) for t in tops
+                    for a, b in re.findall(r"^stage(\d+)_block(\d+)$", t))
+    m("_conv_stem.weight", ("stem", "kernel"), "auto")
+    m.bn("_bn0", ("stem",))
+    for i, (stage, rep) in enumerate(blocks):
+        b, f = f"_blocks.{i}", (f"stage{stage}_block{rep}",)
+        m(f"{b}._expand_conv.weight", f + ("expand", "kernel"), "auto")
+        m.bn(f"{b}._bn0", f + ("expand",))
+        m(f"{b}._depthwise_conv.weight", f + ("depthwise", "kernel"), "auto")
+        m.bn(f"{b}._bn1", f + ("depthwise",))
+        m.dense(f"{b}._se_reduce", f + ("se", "reduce"))
+        m.dense(f"{b}._se_expand", f + ("se", "expand"))
+        m(f"{b}._project_conv.weight", f + ("project", "kernel"), "auto")
+        m.bn(f"{b}._bn2", f + ("project",))
+    m("_conv_head.weight", ("head_conv", "kernel"), "auto")
+    m.bn("_bn1", ("head_conv",))
+    m.dense("_fc", ("classifier",))
+    return m.m
+
+
+def _fastervit_map(tops: set[str]) -> NameMap:
+    """fastervit wheel keys <- the flax FasterViT. The flax model downsamples
+    at a stage's start (``downsample_{s}``), the wheel at the previous
+    level's end (``levels.{s-1}.downsample``). The CT tokenizer's depthwise
+    conv is registered under two names in the wheel; both are emitted."""
+    m = _Map()
+
+    def cpb(key: str, path: Path_) -> None:
+        m.dense(f"{key}.cpb_mlp.0", path + ("cpb_fc1",))
+        m.dense(f"{key}.cpb_mlp.2", path + ("cpb_fc2",), bias=False)
+
+    def subblock(key: str, path: Path_, gammas: tuple[str, str]) -> None:
+        """A flax TransformerSubBlock: ``key`` ends in the separator, so the
+        carrier-token sub-block passes "...hat_"."""
+        m.ln(f"{key}norm1", path + ("norm1",))
+        m.dense(f"{key}attn.qkv", path + ("attn", "qkv"))
+        m.dense(f"{key}attn.proj", path + ("attn", "proj"))
+        cpb(f"{key}attn.pos_emb_funct", path + ("attn", "pos_emb_funct"))
+        m(f"{key}attn.rel_bias", path + ("attn", "rel_bias"))
+        m.ln(f"{key}norm2", path + ("norm2",))
+        m.dense(f"{key}mlp.fc1", path + ("mlp", "fc1"))
+        m.dense(f"{key}mlp.fc2", path + ("mlp", "fc2"))
+        m(f"{key}{gammas[0]}", path + ("attn_gamma",))
+        m(f"{key}{gammas[1]}", path + ("mlp_gamma",))
+
+    for i, s in ((0, "stem_0"), (3, "stem_1")):
+        m(f"patch_embed.conv_down.{i}.weight", (s, "kernel"), "auto")
+        m.bn(f"patch_embed.conv_down.{i + 1}", (s,))
+    for t in tops:
+        hit = re.match(r"^stage([01])_block(\d+)$", t)
+        if hit:
+            b = f"levels.{hit.group(1)}.blocks.{hit.group(2)}"
+            for n in ("1", "2"):
+                m(f"{b}.conv{n}.weight", (t, f"conv{n}", "kernel"), "auto")
+                m(f"{b}.conv{n}.bias", (t, f"conv{n}", "conv_bias"))
+                m.bn(f"{b}.norm{n}", (t, f"conv{n}"))
+            m(f"{b}.gamma", (t, "gamma"))
+        hit = re.match(r"^stage([23])_block(\d+)$", t)
+        if hit:
+            b = f"levels.{hit.group(1)}.blocks.{hit.group(2)}."
+            cpb(f"{b}pos_embed", (t, "pos_embed"))
+            if hit.group(1) == "2":  # HAT: carrier-token and window sub-blocks
+                cpb(f"{b}hat_pos_embed", (t, "hat_pos_embed"))
+                subblock(f"{b}hat_", (t, "hat"), ("gamma1", "gamma2"))
+                subblock(b, (t, "win"), ("gamma1", "gamma2"))
+            else:
+                subblock(b, (t, "blk"), ("gamma1", "gamma2"))
+    for s in (1, 2, 3):
+        m.ln(f"levels.{s - 1}.downsample.norm", (f"downsample_{s}", "norm"))
+        m(f"levels.{s - 1}.downsample.reduction.0.weight",
+          (f"downsample_{s}", "conv", "kernel"), "auto")
+    for alias in ("pos_embed", "to_global_feature.pos"):
+        m.dense(f"levels.2.global_tokenizer.{alias}", ("ct_tokenizer_pos",))
+    m("levels.2.ct_pos_embed", ("ct_pos_embed",))
+    m("levels.2.win_pos_embed", ("win_pos_embed",))
+    m("levels.3.pos_embed_table", ("stage3_pos_embed",))
+    m.bn("norm", ("norm_out",))
+    m.dense("head", ("head",))
+    return m.m
+
+
+_MAPS = {"efficientnet": _efficientnet_map, "fastervit": _fastervit_map}
 
 
 def state_dict_from_jax(tree: dict[str, Any], family: str) -> dict[str, torch.Tensor]:
-    """JAX package variables (numpy leaves) -> the port's state dict."""
-    return {
-        k: torch.from_numpy(np.array(v, np.float32))
-        for k, v in export_torch_state_dict(tree, family).items()
-    }
+    """JAX package variables ``{"params", "batch_stats"}`` (numpy leaves) ->
+    the port's state dict of ``family`` ("efficientnet" or "fastervit"):
+    every tensor of the tree whose path the family's map names, in the
+    torch layout. Raises when the tree holds a tensor the map leaves out."""
+    flat = _flatten(tree)
+    name_map = _MAPS[family]({p[1] for p in flat})
+    sd, used = {}, set()
+    for key, (path, kind) in name_map.items():
+        full = (("batch_stats",) if path[-1] in ("mean", "var") else ("params",)) + path
+        if full in flat:
+            arr = _inverse_layout(np.asarray(flat[full], np.float32), kind)
+            sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+            used.add(full)
+    left = sorted(set(flat) - used)
+    if left:
+        raise KeyError(f"{family}: no port name for {['/'.join(p) for p in left[:8]]}")
+    return sd
 
 
 def load_state_dict_strict(model: nn.Module, state: dict[str, torch.Tensor]) -> None:

@@ -1,11 +1,20 @@
-"""The device rule and the compute dtype, from the YAML config. The port
-has no dispatch flags: on the card the kernels are the path."""
+"""The device rule and the compute dtype, from the YAML config, and the one
+numerics switch, ``DFD_EXACT_GELU``. The port has no dispatch flags: on the
+card the kernels are the path."""
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import torch
+
+
+def exact_gelu() -> bool:
+    """``DFD_EXACT_GELU=1`` selects the erf GELU; by default GELU takes its
+    tanh form, as the JAX package does (``models/common.py`` there, PARITY
+    delta 15): at most 4.8e-4 from erf, under one bf16 step."""
+    return os.environ.get("DFD_EXACT_GELU") == "1"
 
 
 def resolve_device(config: dict[str, Any]) -> torch.device:

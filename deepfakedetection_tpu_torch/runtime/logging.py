@@ -1,8 +1,10 @@
 """Console, stream tee, throughput meter and metrics.jsonl writer.
 
-The JAX package's console, ``TeeStream``, ``Throughput`` and ``progress`` are
-reused as they are; ``tee_output`` and ``append_metrics`` ask
-``torch.distributed`` for the rank instead of JAX.
+The port's copy of ``deepfakedetection_tpu/runtime/logging.py``: a rich
+console, the stdout/stderr tee into per-run logs, a live progress bar with
+img/s on an interactive terminal (a bare meter otherwise, so tee'd logs stay
+plain), and append-only ``metrics.jsonl``. ``tee_output`` and
+``append_metrics`` ask ``torch.distributed`` for the rank.
 """
 
 from __future__ import annotations
@@ -12,12 +14,81 @@ import json
 import sys
 from collections.abc import Iterator
 from pathlib import Path
-from typing import Any
+from time import perf_counter
+from typing import Any, TextIO
 
-from deepfakedetection_tpu.runtime.logging import TeeStream, Throughput, console, progress
+from rich.console import Console
+
 from deepfakedetection_tpu_torch.runtime.paths import rank, world_size
 
-__all__ = ["TeeStream", "Throughput", "append_metrics", "console", "progress", "tee_output"]
+console = Console()
+
+
+class TeeStream:
+    """Writes to a stream and mirrors them into a log file."""
+
+    def __init__(self, stream: TextIO, log_file: TextIO) -> None:
+        self._stream = stream
+        self._log = log_file
+
+    def write(self, data: str) -> int:
+        n = self._stream.write(data)
+        with contextlib.suppress(ValueError):  # the log was closed
+            self._log.write(data)
+        return n
+
+    def flush(self) -> None:
+        self._stream.flush()
+        with contextlib.suppress(ValueError):
+            self._log.flush()
+
+    def isatty(self) -> bool:
+        return bool(getattr(self._stream, "isatty", lambda: False)())
+
+    def fileno(self) -> int:
+        return self._stream.fileno()
+
+
+class Throughput:
+    """img/s since the meter started."""
+
+    def __init__(self) -> None:
+        self.start = perf_counter()
+        self.seen = 0
+
+    def update(self, n: int) -> float:
+        self.seen += n
+        return self.seen / max(perf_counter() - self.start, 1e-6)
+
+
+@contextlib.contextmanager
+def progress(description: str, total: int | None) -> Iterator[Any]:
+    """Yields ``update(n_images) -> img/s``; draws a rich progress bar only
+    on an interactive terminal."""
+    if not getattr(sys.stdout, "isatty", lambda: False)():
+        yield Throughput().update
+        return
+    from rich.progress import BarColumn, MofNCompleteColumn, Progress, TextColumn, TimeElapsedColumn
+
+    prog = Progress(
+        TextColumn("[progress.description]{task.description}"),
+        BarColumn(),
+        MofNCompleteColumn(),
+        TextColumn("{task.fields[rate]:>8.1f} img/s"),
+        TimeElapsedColumn(),
+        console=console,
+        transient=True,
+    )
+    with prog:
+        task = prog.add_task(description, total=total, rate=0.0)
+        meter = Throughput()
+
+        def update(n: int) -> float:
+            rate = meter.update(n)
+            prog.update(task, advance=n, rate=rate)
+            return rate
+
+        yield update
 
 
 @contextlib.contextmanager

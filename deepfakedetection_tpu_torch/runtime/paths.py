@@ -1,22 +1,34 @@
 """Run-directory layout and config snapshots, with torch.distributed ranks.
 
-Same layout as the JAX package (``runs/<model>/<YYYYmmdd-HHMMSS>/{checkpoints,
-logs,plots}`` and ``config_snapshot.yaml``); ``RunPaths`` and the snapshot
-format are reused from it. Process 0's run id and writes win when
+The layout of ``deepfakedetection_tpu/runtime/paths.py``:
+``runs/<model>/<YYYYmmdd-HHMMSS>/{checkpoints,logs,plots}`` and a
+``config_snapshot.yaml`` per run. Process 0's run id and writes win when
 ``torch.distributed`` is initialised.
 """
 
 from __future__ import annotations
 
 import copy
+from dataclasses import dataclass
+from datetime import datetime
 from pathlib import Path
 from typing import Any
 
 import yaml
 
-from deepfakedetection_tpu.runtime.paths import RunPaths, timestamp_now
-
 __all__ = ["RunPaths", "ensure_run_dirs", "snapshot_config", "rank", "world_size"]
+
+
+@dataclass(frozen=True)
+class RunPaths:
+    root: Path
+    checkpoints: Path
+    logs: Path
+    plots: Path
+
+
+def timestamp_now() -> str:
+    return datetime.now().strftime("%Y%m%d-%H%M%S")
 
 
 def _dist():

@@ -34,17 +34,17 @@ from typing import Any
 import numpy as np
 import torch
 
-from deepfakedetection_tpu.data.folder import require_num_classes, scan_image_folder
-from deepfakedetection_tpu.data.transforms import build_eval_plan, build_train_plan
-from deepfakedetection_tpu.registry import ModelSpec
 from deepfakedetection_tpu_torch.data.augment import augment_batch
+from deepfakedetection_tpu_torch.data.folder import require_num_classes, scan_image_folder
 from deepfakedetection_tpu_torch.data.pipeline import (
     DeviceStager,
     make_eval_loader,
     make_train_loader,
     prefetch,
 )
+from deepfakedetection_tpu_torch.data.transforms import build_eval_plan, build_train_plan
 from deepfakedetection_tpu_torch.evaluate.job import collect_probs, make_eval_step
+from deepfakedetection_tpu_torch.registry import ModelSpec
 from deepfakedetection_tpu_torch.runtime import checkpoint as ckpt
 from deepfakedetection_tpu_torch.runtime import preempt
 from deepfakedetection_tpu_torch.runtime.convert import load_weights
@@ -131,6 +131,8 @@ class TrainResult:
 def unported_options(job: TrainJob) -> list[str]:
     """The job's options the port does not have, as refusal messages."""
     out = []
+    if job.spec.family != "efficientnet":
+        out.append(f"training {job.spec.family} on PyTorch is ROADMAP Queue 1 item 5")
     for name, on in (("training.remat", job.remat),
                      ("training.async_checkpoint", job.async_checkpoint),
                      ("profile_dir", bool(job.profile_dir))):

@@ -2,7 +2,10 @@
 the JAX package's, on the same image tree and the same ``.pth``.
 
 Both stacks run a narrow EfficientNet (width 0.25, depth 0.5) at 32 px with
-``get_model_spec`` monkeypatched, as tests/test_orchestrate_e2e.py does. The
+``get_model_spec`` monkeypatched, as tests/test_orchestrate_e2e.py does, and
+a narrow FasterViT (dim 16, depths (1, 1, 2, 1)) at 224 px from a ``.pth`` in
+the fastervit wheel's key names, which both jobs must read as the official
+head configuration. The
 checkpoint comes from a JAX init through ``export_torch_state_dict``, with a
 classifier along the first principal direction of the model's features so
 probabilities spread to a real operating point (random-init probabilities sit
@@ -28,6 +31,7 @@ import yaml
 import deepfakedetection_tpu.orchestrator as jax_orch
 import deepfakedetection_tpu_torch.orchestrator as port_orch
 from deepfakedetection_tpu.models.efficientnet import EfficientNet as JaxEfficientNet
+from deepfakedetection_tpu.models.fastervit import FasterViT as JaxFasterViT
 from deepfakedetection_tpu.registry import get_model_spec as jax_model_spec
 from deepfakedetection_tpu.runtime.torch_convert import export_torch_state_dict
 from deepfakedetection_tpu.train.steps import init_model_variables
@@ -38,7 +42,11 @@ from deepfakedetection_tpu_torch.data.pipeline import (
     scan_image_folder,
 )
 from deepfakedetection_tpu_torch.models.efficientnet import EfficientNet
+from deepfakedetection_tpu_torch.models.fastervit import FasterViT
+from deepfakedetection_tpu_torch.registry import get_model_spec as port_model_spec
+from deepfakedetection_tpu_torch.runtime.convert import state_dict_from_jax
 from deepfakedetection_tpu_torch.runtime.flags import resolve_device
+from tests.test_torch_fastervit import _perturbed
 
 NARROW = dict(width_coefficient=0.25, depth_coefficient=0.5, native_resolution=32)
 SIZE = 32
@@ -56,7 +64,7 @@ def _jax_spec():
 
 def _port_spec():
     return dataclasses.replace(
-        jax_model_spec("efficientnet_b3"),
+        port_model_spec("efficientnet_b3"),
         builder=lambda num_classes, dtype=torch.bfloat16, generator=None, **kw: EfficientNet(
             num_classes=num_classes, dtype=dtype, generator=generator, **NARROW
         ),
@@ -180,6 +188,111 @@ def test_port_bf16_decisions_match_f32_away_from_threshold(runs):
     np.testing.assert_array_equal(bf16.preds[far], f32.preds[far])
 
 
+FV = "faster_vit_2_224"
+FV_NARROW = dict(dim=16, in_dim=8, depths=(1, 1, 2, 1))
+FV_SIZE = 224
+FV_HEADS = {"official": (2, 4, 8, 16), "tpu": (1, 1, 1, 1)}
+
+
+def _fv_specs(built):
+    """Narrow FasterViT specs for both packages; ``built`` records the
+    head_config each builder was given."""
+    def jax_builder(num_classes, dtype=jnp.bfloat16, head_config="tpu", **kw):
+        built.append(("jax", head_config))
+        return JaxFasterViT(num_classes=num_classes, num_heads=FV_HEADS[head_config],
+                            pos_mode="cpb" if head_config == "official" else "table",
+                            dtype=dtype, **FV_NARROW)
+
+    def port_builder(num_classes, dtype=torch.bfloat16, generator=None, head_config="tpu", **kw):
+        built.append(("port", head_config))
+        return FasterViT(num_classes, num_heads=FV_HEADS[head_config],
+                         official=head_config == "official", dtype=dtype, generator=generator,
+                         **FV_NARROW)
+
+    return (dataclasses.replace(jax_model_spec(FV), builder=jax_builder),
+            dataclasses.replace(port_model_spec(FV), builder=port_builder))
+
+
+@pytest.fixture(scope="module")
+def fv_runs(tiny_image_tree, tmp_path_factory):
+    """The JAX and port eval jobs (f32) on a narrow official FasterViT whose
+    seeded weights are a torch ``.pth`` in the wheel's names, its head fitted
+    along the first principal direction of the val and test features."""
+    tmp = tmp_path_factory.mktemp("fv")
+    built = []
+    jax_spec, port_spec = _fv_specs(built)
+    jmodel = JaxFasterViT(num_classes=2, num_heads=FV_HEADS["official"], pos_mode="cpb",
+                          dtype=jnp.float32, **FV_NARROW)
+    params, stats = init_model_variables(jmodel, jax.random.key(0), (1, FV_SIZE, FV_SIZE, 3))
+    rng = np.random.default_rng(3)
+    tree = {"params": _perturbed(jax.device_get(params), rng),
+            "batch_stats": _perturbed(jax.device_get(stats), rng)}
+    state = state_dict_from_jax(tree, "fastervit")
+    model = FasterViT(2, num_heads=FV_HEADS["official"], dtype=torch.float32, **FV_NARROW).eval()
+    model.load_state_dict(state, strict=False)
+    plan = build_eval_plan(FV_SIZE, EVAL)
+    feats = []
+    hook = model.head.register_forward_hook(lambda _m, inp, _o: feats.append(inp[0]))
+    with torch.no_grad():
+        for split in ("val", "test"):
+            for batch in make_eval_loader(scan_image_folder(tiny_image_tree / split), plan,
+                                          batch_size=32):
+                model(normalize_batch(torch.from_numpy(batch.images), plan)[batch.mask])
+    hook.remove()
+    f = torch.cat(feats).double()
+    direction = torch.linalg.svd(f - f.mean(0), full_matrices=False).Vh[0]
+    scale = 2.0 / float(((f - f.mean(0)) @ direction).std())
+    state["head.weight"] = torch.stack([torch.zeros_like(direction), scale * direction]).float()
+    state["head.bias"] = torch.tensor([0.0, -scale * float(f.mean(0) @ direction)])
+    weights = tmp / "narrow_fastervit.pth"
+    torch.save(state, weights)
+
+    def config(name):
+        cfg = {"seed": 7, "device": "cpu", "precision": "float32",
+               "data": {"root": str(tiny_image_tree), "val_split": "val", "test_split": "test",
+                        "num_classes": 2, "img_size": FV_SIZE},
+               "models": {FV: {"output_dir": str(tmp / name), "transforms": {"eval": EVAL},
+                               "inference": {"weights": str(weights), "split": "test",
+                                             "batch_size": 8, "num_workers": 0,
+                                             "img_size": FV_SIZE}}},
+               "selection": [FV]}
+        path = tmp / f"{name}.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        return path
+
+    mp = pytest.MonkeyPatch()
+    try:
+        captured = {}
+        real_run = jax_orch.run_eval_job
+        mp.setattr(jax_orch, "get_model_spec", lambda name: jax_spec)
+        mp.setattr(jax_orch, "run_eval_job", lambda job: captured.setdefault("r", real_run(job)))
+        mp.setattr(port_orch, "get_model_spec", lambda name: port_spec)
+        with jax.default_matmul_precision("highest"):
+            jax_orch.orchestrate(config("jax"), mode="inference")
+        port = port_orch.orchestrate(config("port"), mode="inference")[FV]
+    finally:
+        mp.undo()
+    return {"jax": captured["r"], "port": port, "built": built}
+
+
+def test_fastervit_torch_checkpoint_selects_the_official_config(fv_runs):
+    assert ("port", "official") in fv_runs["built"] and ("jax", "official") in fv_runs["built"]
+    assert ("port", "tpu") not in fv_runs["built"]
+
+
+def test_port_f32_fastervit_eval_job_matches_jax_per_image(fv_runs):
+    jax_r, port = fv_runs["jax"], fv_runs["port"]
+    assert port.probs.shape == jax_r.probs.shape == (12, 2)
+    assert np.ptp(jax_r.probs[:, 1]) > 0.3  # a spread operating point, not a tie
+    np.testing.assert_array_equal(port.targets, jax_r.targets)
+    np.testing.assert_allclose(port.probs, jax_r.probs, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(port.val_probs, jax_r.val_probs, atol=1e-4, rtol=0)
+    assert port.metrics["threshold"] == jax_r.metrics["threshold"]
+    t = jax_r.metrics["threshold"]
+    far = np.abs(jax_r.probs[:, 1] - t) > 1e-4
+    np.testing.assert_array_equal(port.preds[far], jax_r.preds[far])
+
+
 @pytest.mark.parametrize("device", ["tpu", "cuda", None])
 def test_any_device_but_cpu_needs_cuda(monkeypatch, device):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -194,10 +307,12 @@ def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, check
     _config(cfg, tiny_image_tree, tmp_path / "out", checkpoint, "float32")
     data = yaml.safe_load(cfg.read_text())
     data["models"]["faster_vit_2_224"] = {"output_dir": str(tmp_path / "fv")}
-    data["selection"] = ["efficientnet_b3", "faster_vit_2_224"]
-    cfg.write_text(yaml.safe_dump(data))
-    for mode in ("inference", "training"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    data["models"]["efficientformerv2_s1"] = {"output_dir": str(tmp_path / "ef")}
+    for mode, model, item in (("training", "faster_vit_2_224", 5),
+                              ("inference", "efficientformerv2_s1", 6)):
+        data["selection"] = ["efficientnet_b3", model]
+        cfg.write_text(yaml.safe_dump(data))
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             port_orch.orchestrate(cfg, mode=mode)
     assert not (tmp_path / "out").exists()  # failed before any work
 

@@ -6,12 +6,19 @@ K1 y 3e-2 / pool 2e-3, K2 y 5e-2 / pool atol 2e-2 rtol 5e-2. K4 (the shear
 rotation) at the B3 fine-tune canvas, the shear's angle bounds, odd sizes
 and a zero angle: one bf16 step per pass on images in [0, 1] (3 * 2**-8),
 and at most one element in a thousand different at all (both sides round
-the same f32 operations).
+the same f32 operations). K5 (window attention) at the four FasterViT-2
+shapes of the eval path (64 windows each), at ragged and small token counts,
+head_dims off the 16-byte loads, a strided view that takes the kernel's
+one-element path, and the v1 [B, h, N, d] layout: within two bf16 steps of the
+output's scale (both sides round the probabilities and the output once, from
+f32 sums taken in different orders).
 
 Needs a CUDA card and imports no JAX, so it runs on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``;
 elsewhere every case skips.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -20,6 +27,7 @@ import torch
 from deepfakedetection_tpu_torch.ops import depthwise_se as k1
 from deepfakedetection_tpu_torch.ops import expand_dw as k2
 from deepfakedetection_tpu_torch.ops import shear_rotate as k4
+from deepfakedetection_tpu_torch.ops import window_attn as k5
 
 K1_SHAPES = [
     (112, 112, 40, 3), (112, 112, 24, 3),  # B3 stage 0
@@ -41,6 +49,15 @@ K4_CASES = [
     (8, 37, 45, 0.2, 0.2),
     (8, 45, 37, 0.45, 0.45),
     (8, 33, 31, 0.2, 0.0),  # zero angle: the identity
+]
+
+
+K5_CASES = [
+    # (windows, N, heads, d)
+    (64, 53, 8, 48), (64, 49, 16, 48),  # FasterViT-2 official, stages 3 and 4
+    (64, 53, 3, 128), (64, 49, 6, 128),  # the tpu configuration
+    (8, 16, 8, 48), (8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 1, 128), (8, 53, 8, 8),
+    (8, 37, 3, 100), (8, 20, 2, 4),
 ]
 
 
@@ -104,3 +121,51 @@ def test_rotate_batch_kernel_matches_plain(cuda, B, H, W, max_theta, largest):
     assert float((diff > 0).float().mean()) <= 1e-3
     if not largest:
         assert torch.equal(y, x)
+
+
+def _k5_inputs(B, N, h, d, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * h * d, generator=g).to(torch.bfloat16).to(device)
+    bias = torch.randn(h, N, N, generator=g).to(device)
+    return qkv, bias
+
+
+def _k5_close(got, ref):
+    scale = float(ref.float().abs().max())
+    tol = 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= tol, f"max|d| {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,h,d", K5_CASES)
+def test_window_attention_kernel_matches_plain(cuda, B, N, h, d):
+    qkv, bias = _k5_inputs(B, N, h, d, cuda, seed=N * d + h)
+    before = k5.window_attention.launches
+    out = k5.window_attention(qkv, bias, num_heads=h, scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert k5.window_attention.launches == before + 1
+    _k5_close(out, k5.window_attention_plain(qkv, bias, num_heads=h, scale=d**-0.5))
+
+
+@pytest.mark.cuda
+def test_window_attention_kernel_takes_an_unaligned_view(cuda):
+    qkv, bias = _k5_inputs(16, 53, 8, 48, cuda, seed=5)
+    wide = torch.zeros(16, 53, qkv.shape[-1] + 2, dtype=torch.bfloat16, device=cuda)
+    wide[..., 1:-1] = qkv
+    out = k5.window_attention(wide[..., 1:-1], bias, num_heads=8, scale=48**-0.5)
+    torch.cuda.synchronize()
+    _k5_close(out, k5.window_attention_plain(qkv, bias, num_heads=8, scale=48**-0.5))
+
+
+@pytest.mark.cuda
+def test_window_attention_heads_kernel_matches_plain(cuda):
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(32, 4, 53, 48, generator=g).to(torch.bfloat16).to(cuda)
+               for _ in range(3))
+    bias = torch.randn(4, 53, 53, generator=g).to(cuda)
+    before = k5.window_attention_heads.launches
+    out = k5.window_attention_heads(q, k, v, bias, scale=0.15)
+    torch.cuda.synchronize()
+    assert k5.window_attention_heads.launches == before + 1
+    _k5_close(out, k5.window_attention_heads_plain(q, k, v, bias, scale=0.15))

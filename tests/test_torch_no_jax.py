@@ -1,8 +1,11 @@
-"""The port never imports JAX: in a fresh interpreter (tests/conftest.py
-imports jax into this one), import the port's orchestrator, eval job,
-training modules, model and kernel modules, run one CPU forward through the
-kernel wrappers and one CPU train step with the augmentation's shear
-rotation, and check that no jax, flax, optax or orbax module was loaded."""
+"""The port never imports JAX or the JAX package: in a fresh interpreter
+(tests/conftest.py imports jax into this one), import the port's
+orchestrator, eval job, training modules, model and kernel modules, run one
+CPU forward of a narrow EfficientNet through the K1/K2 wrappers and of a
+narrow FasterViT through the K5 wrapper, and one CPU train step with the
+augmentation's shear rotation, and check that no jax, flax, optax or orbax
+module and no ``deepfakedetection_tpu`` module was loaded. Statically, no
+``.py`` file of the port imports either (``chip_smoke.reference_imports``)."""
 
 import importlib.util
 import subprocess
@@ -51,7 +54,22 @@ out = train_step(model, opt, x, torch.tensor([0, 1, 0, 1]), torch.ones(4, dtype=
                  fold_in(root, 3))
 assert bool(torch.isfinite(out["loss"])) and opt.count == 1
 assert shear_rotate.rotate_batch.launches == 0
-banned = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+from deepfakedetection_tpu_torch.models.fastervit import FasterViT
+from deepfakedetection_tpu_torch.ops import window_attn
+
+vit = FasterViT(2, dim=16, in_dim=8, depths=(1, 1, 1, 1),
+                generator=torch.Generator().manual_seed(0)).eval()
+assert vit.kernel_launches_per_forward() == {"k5": 2}
+calls = []
+plain = window_attn.window_attention_plain
+window_attn.window_attention_plain = lambda *a, **kw: calls.append(a[0].shape[1]) or plain(*a, **kw)
+with torch.no_grad():
+    out = vit(torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(1)))
+window_attn.window_attention_plain = plain
+assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
+assert calls == [53, 49] and window_attn.window_attention.launches == 0, calls
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "deepfakedetection_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("LOADED", loaded)
 """
@@ -65,12 +83,25 @@ def test_port_imports_no_jax():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
-def test_chip_smoke_imports_nothing_of_the_jax_package():
-    """The card's script reaches the JAX package's JAX-free modules only
-    through the port; its own check finds a planted import."""
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    smoke = _chip_smoke()
+    files = sorted((REPO / "deepfakedetection_tpu_torch").rglob("*.py"))
+    assert len(files) > 30
+    found = {str(f.relative_to(REPO)): smoke.reference_imports(f.read_text()) for f in files}
+    assert {f: names for f, names in found.items() if names} == {}
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """The card's script goes through the port only; its own check finds a
+    planted import."""
+    smoke = _chip_smoke()
     assert smoke.reference_imports((REPO / "chip_smoke.py").read_text()) == []
     planted = "def f():\n    from deepfakedetection_tpu.data.transforms import build_train_plan\n"
     assert smoke.reference_imports(planted) == ["deepfakedetection_tpu.data.transforms"]

@@ -49,6 +49,7 @@ from deepfakedetection_tpu.train.steps import init_model_variables
 from deepfakedetection_tpu_torch.data import augment
 from deepfakedetection_tpu_torch.models.efficientnet import EfficientNet
 from deepfakedetection_tpu_torch.ops import shear_rotate
+from deepfakedetection_tpu_torch.registry import get_model_spec as port_model_spec
 from deepfakedetection_tpu_torch.runtime import preempt
 from deepfakedetection_tpu_torch.runtime.convert import load_state_dict_strict
 
@@ -68,7 +69,7 @@ def _recipe(spec):
 
 def _port_spec(**model):
     return _recipe(dataclasses.replace(
-        jax_model_spec("efficientnet_b3"),
+        port_model_spec("efficientnet_b3"),
         builder=lambda num_classes, dtype=torch.bfloat16, generator=None, **kw: EfficientNet(
             num_classes=num_classes, dtype=dtype, generator=generator, **NARROW, **model
         ),
