@@ -38,14 +38,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    head configuration): K5 launches 13 times per forward batch, the job's
    outputs for 16 test images against the CPU; the card's bf16 logits against
    CPU bf16 and f32 runs of the same weights in both head configurations;
-   forward img/s at batch 128 and 256 with K5 and with its plain version.
+   forward img/s at batch 128 and 256 with K5 and with its plain version;
+6. the FasterViT-2 training path: ``orchestrate(mode="training")`` with the
+   shipped FasterViT recipe and transforms over phase 4's tree (tpu
+   configuration: warmup at batch 64, fine-tune at 32 x 4 = 128, rotation and
+   erasing off, validation after each): K5 forward and backward launches per
+   step (13/0 in the warmup, 13/13 in the fine-tune), no K4, finite losses,
+   the checkpoints, then ``orchestrate(mode="inference", weights: auto)``,
+   which must build the tpu configuration again; one full-width step's loss
+   and gradients on the card against the CPU in both head configurations
+   (bf16 and f32, ``FV_STEP_BOUNDS``); the fine-tune step's time at batch 64
+   and 128 with K5's backward and with its plain version in its place.
 
 Phase 1 also holds K5 (window attention) against its plain version at the
-four shapes of the FasterViT-2 path at batch 256, with its time, the plain
-version's and ``torch.nn.functional.scaled_dot_product_attention``'s on the
-same q, k, v and bias (a yardstick the port never calls). Each kernel's bound
-is the larger of its bytes over the HBM rate and its operations over the
-card's peak rate for their type (``bound``).
+four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
+four fine-tune shapes at batch 128 (plus odd sizes and a repeat that must
+give bit-identical dbias), with their times, the plain versions' and
+``torch.nn.functional.scaled_dot_product_attention``'s on the same q, k, v
+and bias (forward, or forward and backward less the forward: a yardstick the
+port never calls). Each kernel's bound is the larger of its bytes over the
+HBM rate and its operations over the card's peak rate for their type
+(``bound``).
 
 The second-to-last lines are a JSON object with the kernels' numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -104,6 +117,17 @@ TRAIN_TF = {"ensure_rgb": True, "train_random_resized_crop": True,
 # window of 49, in each head configuration
 K5_SHAPES = [("official", 1024, 53, 384, 8, 8), ("official", 256, 49, 768, 16, 5),
              ("tpu", 1024, 53, 384, 3, 8), ("tpu", 256, 49, 768, 6, 5)]
+# K5's backward at the FasterViT-2 fine-tune shapes, batch 128: (config,
+# windows, N, C, heads, launches per step)
+K5_BWD_SHAPES = [("official", 512, 53, 384, 8, 8), ("official", 128, 49, 768, 16, 5),
+                 ("tpu", 512, 53, 384, 3, 8), ("tpu", 128, 49, 768, 6, 5)]
+# odd sizes (windows, N, heads, d): the carrier-token attention's 16 tokens, one
+# token, ragged tiles past 64 tokens, head_dims off the 16-byte loads
+K5_BWD_ODD = [(8, 16, 8, 48), (8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 1, 64), (8, 53, 8, 8),
+              (8, 37, 3, 100), (8, 20, 2, 4)]
+# dbias against the plain version, max|d| over its scale: both sum ds over the
+# windows in f32, in different orders (dbias summed over no window: ~1)
+K5_BWD_DBIAS_TOL = 1e-3
 FV = "faster_vit_2_224"
 FV_BATCH = 256
 # the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes/s, dense
@@ -257,6 +281,7 @@ def phase1(device, report):
             f" bound {bound_ms:.4f} ms ({bound_by})")
     kernels["rotate_batch"] = phase1_k4(device)
     kernels["window_attention"] = phase1_k5(device)
+    kernels["window_attention_bwd"] = phase1_k5_bwd(device)
     report["phase1"] = kernels
     return kernels
 
@@ -323,8 +348,8 @@ def phase1_k5(device) -> dict:
         if k5.window_attention.launches != before + 1:
             raise AssertionError("window_attention did not launch its kernel")
         ref = k5.window_attention_plain(qkv, bias, num_heads=h, scale=scale)
-        step = 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
-        err = check_close(f"window_attention {config} {(B, N, C, h)}", out, ref, 2 * step, 0.0)
+        tol = two_steps(ref)
+        err = check_close(f"window_attention {config} {(B, N, C, h)}", out, ref, tol, 0.0)
         worst = max(worst, err)
         t_k = spread(cuda_times(lambda: k5.window_attention(qkv, bias, num_heads=h, scale=scale),
                                 runs=25))
@@ -333,7 +358,7 @@ def phase1_k5(device) -> dict:
         lib = sdpa_ms(qkv, bias, h, scale)
         b_ms, b_by = k5_bound(B, N, C, h)
         rows.append({"config": config, "shape": (B, N, C, h), "launches_per_forward": count,
-                     "max_abs_err": err, "tolerance": 2 * step, "ms": t_k, "plain_ms": t_p,
+                     "max_abs_err": err, "tolerance": tol, "ms": t_k, "plain_ms": t_p,
                      "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
         agg = per.setdefault(config, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                                       "bounds": []})
@@ -343,7 +368,7 @@ def phase1_k5(device) -> dict:
             else agg["library_ms"] + count * lib
         agg["bounds"].append((count, (b_ms, b_by)))
         log(f"  window_attention {config} windows {B} N {N} C {C} heads {h}: max|d|={err:.3e} "
-            f"(tol {2 * step:.3e}); kernel {t_k['median']:.4f} ms, plain "
+            f"(tol {tol:.3e}); kernel {t_k['median']:.4f} ms, plain "
             f"{t_p['median']:.4f} ms, sdpa {lib if lib is None else round(lib, 4)} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
     for config, agg in per.items():
@@ -352,6 +377,155 @@ def phase1_k5(device) -> dict:
             f"launches): kernel {agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, sdpa "
             f"{agg['library_ms']} ms, bound {agg['bound_ms']:.4f} ms")
     return {"rows": rows, "max_abs_err": worst, "per_forward": per, **per["official"]}
+
+
+def k5_bwd_bound(B: int, N: int, C: int, h: int) -> tuple[float, str]:
+    """qkv, dout and the bias read, dqkv and dbias written; the five products
+    (q k^T, do v^T, p^T do, ds k, ds^T q) on the tensor cores."""
+    return bound(B * N * 7 * C * 2 + 2 * h * N * N * 4, {"bf16": 10 * B * N * N * C})
+
+
+def two_steps(ref) -> float:
+    """Two bf16 steps of ``ref``'s scale: 2 * 2**(floor(log2 max|ref|) - 7);
+    0 for an all-zero ``ref`` (dq and dk over one token)."""
+    top = float(ref.float().abs().max())
+    return 2.0 * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def sdpa_bwd_ms(qkv, bias, dout, h: int, scale: float) -> tuple[float | None, str]:
+    """The yardstick for K5's backward: ``scaled_dot_product_attention`` with
+    the bias as a bf16 ``attn_mask`` through autograd on the same q, k, v,
+    forward and backward time less the forward time, and the backend that
+    served it. Each backend is tried on its own (cuDNN, flash,
+    memory-efficient, math), first with the mask requiring grad; where none
+    returns the mask's gradient, the mask does not require grad, and the
+    backend's name says so."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, N, C3 = qkv.shape
+    d = C3 // 3 // h
+    q, k, v = (t.contiguous().requires_grad_() for t in
+               qkv.view(B, N, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
+    g = dout.view(B, N, h, d).transpose(1, 2).contiguous()
+    order = [SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+             SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
+    for mask_grad in (True, False):
+        mask = bias.to(torch.bfloat16)[None].requires_grad_(mask_grad)
+        inputs = [q, k, v] + ([mask] if mask_grad else [])
+        for backend in order:
+            def fwd():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+            def fwd_bwd():
+                torch.autograd.grad(fwd(), inputs, g)
+
+            try:
+                with sdpa_kernel([backend]):
+                    both = statistics.median(cuda_times(fwd_bwd, runs=10))
+                    with torch.no_grad():
+                        alone = statistics.median(cuda_times(fwd, runs=10))
+            except RuntimeError:
+                continue
+            name = backend.name.lower() + ("" if mask_grad else ", mask without grad")
+            return both - alone, name
+    log(f"  scaled_dot_product_attention took no backward at {tuple(qkv.shape)}")
+    return None, "none"
+
+
+def phase1_k5_bwd(device) -> dict:
+    """K5's backward against its plain version at the four FasterViT-2
+    fine-tune shapes (batch 128) and odd sizes: dq, dk and dv each within two
+    bf16 steps of its own scale (both round bf16(p), bf16(ds) and each output
+    once, from f32 sums in different orders), dbias within
+    ``K5_BWD_DBIAS_TOL`` of its scale; two kernel runs give bit-identical
+    dbias and dqkv. Kernel, plain and library times, summed per fine-tune
+    step of each head configuration."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+
+    def check(label, qkv, bias, dout, h, scale):
+        before = k5.window_attention_bwd.launches
+        dqkv, dbias = k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=scale)
+        torch.cuda.synchronize()
+        if k5.window_attention_bwd.launches != before + 1:
+            raise AssertionError("window_attention_bwd did not launch its kernel")
+        again = k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=scale)
+        torch.cuda.synchronize()
+        if not (torch.equal(again[1], dbias) and torch.equal(again[0], dqkv)):
+            raise AssertionError(f"window_attention_bwd {label}: two runs differ")
+        ref_qkv, ref_bias = k5.window_attention_bwd_plain(qkv, bias, dout, num_heads=h,
+                                                          scale=scale)
+        C = qkv.shape[-1] // 3
+        errs, tols = {}, {}
+        for i, part in enumerate(("dq", "dk", "dv")):
+            ref = ref_qkv[..., i * C:(i + 1) * C]
+            tols[part] = two_steps(ref)
+            errs[part] = check_close(f"window_attention_bwd {label} {part}",
+                                     dqkv[..., i * C:(i + 1) * C], ref, tols[part], 0.0)
+        scale_b = float(ref_bias.abs().max())
+        errs["dbias"] = check_close(f"window_attention_bwd {label} dbias", dbias, ref_bias,
+                                    K5_BWD_DBIAS_TOL * scale_b, 0.0)
+        tols["dbias"] = K5_BWD_DBIAS_TOL * scale_b
+        return errs, tols
+
+    rows, worst, per = [], 0.0, {}
+    for i, (config, B, N, C, h, count) in enumerate(K5_BWD_SHAPES):
+        g = torch.Generator().manual_seed(500 + i)
+        qkv = torch.randn(B, N, 3 * C, generator=g).to(torch.bfloat16).to(device)
+        bias = torch.randn(h, N, N, generator=g).to(device)
+        dout = torch.randn(B, N, C, generator=g).to(torch.bfloat16).to(device)
+        scale = (C // h) ** -0.5
+        errs, tols = check(f"{config} {(B, N, C, h)}", qkv, bias, dout, h, scale)
+        worst = max(worst, errs["dq"], errs["dk"], errs["dv"])
+        t_k = spread(cuda_times(
+            lambda: k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=scale), runs=25))
+        t_p = spread(cuda_times(lambda: k5.window_attention_bwd_plain(
+            qkv, bias, dout, num_heads=h, scale=scale), runs=10))
+        lib, backend = sdpa_bwd_ms(qkv, bias, dout, h, scale)
+        b_ms, b_by = k5_bwd_bound(B, N, C, h)
+        rows.append({"config": config, "shape": (B, N, C, h), "launches_per_step": count,
+                     "max_abs_err": errs, "tolerance": tols, "ms": t_k, "plain_ms": t_p,
+                     "library_ms": lib, "library_backend": backend, "bound_ms": b_ms,
+                     "bound_by": b_by, "windows_per_block": k5.bwd_windows_per_block(B, h)})
+        agg = per.setdefault(config, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                      "bounds": []})
+        agg["ms"] += count * t_k["median"]
+        agg["plain_ms"] += count * t_p["median"]
+        agg["library_ms"] = None if lib is None or agg["library_ms"] is None \
+            else agg["library_ms"] + count * lib
+        agg["bounds"].append((count, (b_ms, b_by)))
+        log(f"  window_attention_bwd {config} windows {B} N {N} C {C} heads {h}: max|d| "
+            + ", ".join(f"{k} {errs[k]:.3e} (tol {tols[k]:.3e})" for k in errs)
+            + f"; dbias bit-identical over two runs; kernel {t_k['median']:.4f} ms, plain "
+            f"{t_p['median']:.4f} ms, sdpa backward {lib if lib is None else round(lib, 4)} ms "
+            f"({backend}), bound {b_ms:.4f} ms ({b_by})")
+    for B, N, h, d in K5_BWD_ODD:
+        g = torch.Generator().manual_seed(600 + N * d + h)
+        C = h * d
+        qkv = torch.randn(B, N, 3 * C, generator=g).to(torch.bfloat16).to(device)
+        bias = torch.randn(h, N, N, generator=g).to(device)
+        dout = torch.randn(B, N, C, generator=g).to(torch.bfloat16).to(device)
+        errs, _ = check(f"{(B, N, h, d)}", qkv, bias, dout, h, d**-0.5)
+        rows.append({"shape": (B, N, C, h), "max_abs_err": errs})
+        log(f"  window_attention_bwd odd {(B, N, h, d)}: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    # an unaligned strided view of qkv: the kernel's one-element path
+    g = torch.Generator().manual_seed(7)
+    qkv = torch.randn(16, 53, 3 * 384, generator=g).to(torch.bfloat16).to(device)
+    wide = torch.zeros(16, 53, 3 * 384 + 2, dtype=torch.bfloat16, device=device)
+    wide[..., 1:-1] = qkv
+    bias = torch.randn(8, 53, 53, generator=g).to(device)
+    dout = torch.randn(16, 53, 384, generator=g).to(torch.bfloat16).to(device)
+    check("unaligned view", wide[..., 1:-1], bias, dout, 8, 48**-0.5)
+    for config, agg in per.items():
+        agg["bound_ms"], agg["bound_by"] = add_bounds(agg.pop("bounds"))
+        log(f"  window_attention_bwd per FasterViT-2 {config} fine-tune step at batch 128 (13 "
+            f"launches): kernel {agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, sdpa "
+            f"backward {agg['library_ms']} ms, bound {agg['bound_ms']:.4f} ms")
+    return {"rows": rows, "max_abs_err": worst, "per_step": per, **per["official"]}
 
 
 def phase1_k4(device) -> dict:
@@ -748,7 +922,7 @@ def train_config(work: Path, data: Path, device, epochs: int) -> Path:
 
 def counted(fn):
     """Runs ``fn`` with every kernel's launch count at 0 before it and reads
-    them after it: (fn's result, {"k1", "k2", "k4", "k5"})."""
+    them after it: (fn's result, {"k1", "k2", "k4", "k5", "k5_bwd"})."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import depthwise_se as k1
@@ -758,10 +932,12 @@ def counted(fn):
 
     k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
     k4.rotate_batch.launches = k5.window_attention.launches = 0
+    k5.window_attention_bwd.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"k1": k1.depthwise_silu_pool.launches, "k2": k2.expand_dw_silu_pool.launches,
-                 "k4": k4.rotate_batch.launches, "k5": k5.window_attention.launches}
+                 "k4": k4.rotate_batch.launches, "k5": k5.window_attention.launches,
+                 "k5_bwd": k5.window_attention_bwd.launches}
 
 
 def logged_speeds(log_text: str) -> dict[str, float]:
@@ -795,7 +971,7 @@ def phase4(device, report):
     steps = warmup_steps + ft_steps
     per_forward = create_efficientnet("b3").eval().kernel_launches_per_forward()
     want = {"k1": per_forward["k1"] * 2 * val_batches, "k2": per_forward["k2"] * 2 * val_batches,
-            "k4": 3 * steps, "k5": 0}
+            "k4": 3 * steps, "k5": 0, "k5_bwd": 0}
     log(f"  training (1 epoch): {steps} train steps, {2 * val_batches} val batches; launches "
         f"K4={launches['k4']} K1={launches['k1']} K2={launches['k2']}; wall {wall:.1f} s")
     if launches != want:
@@ -1161,7 +1337,7 @@ def phase5(device, report):
     res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[FV])
     wall = time.perf_counter() - t0
     batches = sum(-(-n // FV_BATCH) for n in SPLITS.values())
-    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * batches}
+    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * batches, "k5_bwd": 0}
     log(f"  main path: {batches} forward batches, launches {launches}; test pass "
         f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
     if launches != want:
@@ -1209,6 +1385,285 @@ def phase5(device, report):
     return launches
 
 
+FV_TRAIN_TF = {"ensure_rgb": True, "train_random_resized_crop": True,
+               "train_random_horizontal_flip": True, "train_color_jitter": True}  # the shipped
+FV_STEP_BATCH = 4  # images of the card-against-CPU step (full width, 224 px)
+
+
+def fv_train_config(work: Path, data: Path, device) -> Path:
+    """The shipped FasterViT-2 block of ``config/train.yaml`` (its transforms,
+    batch 64, the recipe's warmup and fine-tune) for one epoch over ``data``."""
+    import yaml
+
+    cfg = {
+        "seed": 1,
+        "device": str(device),
+        "data": {"root": str(data), "train_split": "train", "val_split": "val",
+                 "test_split": "test", "num_classes": 2, "img_size": 224},
+        "models": {FV: {
+            "output_dir": str(work / "runs_fv"),
+            "transforms": {"train": FV_TRAIN_TF, "eval": EVAL_TF},
+            "training": {"epochs": 1, "batch_size": 64, "num_workers": 8, "resume": "auto"},
+            "inference": {"weights": "auto", "split": "test", "batch_size": 64,
+                          "num_workers": 8, "img_size": 224},
+        }},
+        "selection": [FV],
+    }
+    path = work / "train_fastervit.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def phase6(device, report):
+    """The FasterViT-2 training path: orchestrate(mode="training") with the
+    shipped recipe over phase 4's tree (tpu configuration, as the shipped
+    config builds it), the inference handoff, the card's step against the
+    CPU's in both head configurations, and the step's time."""
+    import numpy as np
+    import torch
+
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+    from deepfakedetection_tpu_torch.runtime.convert import fastervit_head_config
+    from deepfakedetection_tpu_torch.train import loop
+
+    work = REPO / "build" / "chip_smoke_train"
+    data = work / "data"  # phase 4's tree
+    shutil.rmtree(work / "runs_fv", ignore_errors=True)
+    n_train, n_val = TRAIN_SPLITS["train"], TRAIN_SPLITS["val"]
+    warmup_steps, ft_steps, val_batches = n_train // 64, n_train // 128, -(-n_val // 64)
+
+    per_step = []
+    real_step = loop.train_step
+
+    def step_spy(model, opt, *args, **kw):
+        before = (k5.window_attention.launches, k5.window_attention_bwd.launches)
+        out = real_step(model, opt, *args, **kw)
+        per_step.append((opt.n_train == opt.n_total, k5.window_attention.launches - before[0],
+                         k5.window_attention_bwd.launches - before[1]))
+        return out
+
+    loop.train_step = step_spy
+    try:
+        t0 = time.perf_counter()
+        res, launches = counted(lambda: orchestrate(fv_train_config(work, data, device),
+                                                    mode="training")[FV])
+        wall = time.perf_counter() - t0
+    finally:
+        loop.train_step = real_step
+    model = create_faster_vit("2", head_config="tpu")
+    warm, ft = (tuple(model.kernel_launches_per_step(head_only).values())
+                for head_only in (True, False))
+    if (warm, ft) != ((13, 0), (13, 13)):
+        raise AssertionError(f"K5 launches per warmup and fine-tune step: {warm}, {ft}")
+    want_steps = [(False, *warm)] * warmup_steps + [(True, *ft)] * ft_steps
+    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * (warmup_steps + ft_steps + 2 * val_batches),
+            "k5_bwd": 13 * ft_steps}
+    log(f"  training (1 epoch, tpu configuration): {warmup_steps} warmup steps at batch 64, "
+        f"{ft_steps} fine-tune steps at 32 x 4, {2 * val_batches} val batches; launches "
+        f"{launches}; K5 forward/backward per warmup step {per_step[0][1:]}, per fine-tune step "
+        f"{per_step[-1][1:]}; wall {wall:.1f} s")
+    if launches != want or per_step != want_steps:
+        raise AssertionError(f"FasterViT training launches {launches} (expected {want}), per "
+                             f"step {per_step}")
+    (run,) = sorted((work / "runs_fv").iterdir())
+    ckpts = run / "checkpoints"
+    for name in ("latest.ckpt", "best.ckpt", f"{FV}.pth"):
+        if not (ckpts / name).is_file():
+            raise AssertionError(f"FasterViT training wrote no {name}")
+    log_text = (run / "logs" / "train.log").read_text()
+    speeds = logged_speeds(log_text)
+    losses = [float(x) for x in re.findall(r": loss=(\S+) \|", log_text)]
+    if len(losses) != 2 or not all(np.isfinite(losses)) or res.interrupted:
+        raise AssertionError(f"bad FasterViT training run: losses {losses}, {res}")
+    exported = torch.load(ckpts / f"{FV}.pth", weights_only=True)
+    log(f"  losses {[round(x, 4) for x in losses]}; img/s (host clock, device synced at each "
+        f"epoch's end) {speeds}")
+
+    ires, ilaunch = counted(lambda: orchestrate(fv_train_config(work, data, device),
+                                                mode="inference")[FV])
+    (irun,) = [r for r in sorted((work / "runs_fv").iterdir()) if r != run]
+    ilog = "".join((irun / "logs" / "inference.log").read_text().split())
+    if (fastervit_head_config(exported) != "tpu" or "head_config='tpu'" not in ilog
+            or ires.probs.shape != (TRAIN_SPLITS["test"], 2) or not np.isfinite(ires.probs).all()
+            or ilaunch["k5"] != 13 * (-(-TRAIN_SPLITS["test"] // 64) + val_batches)
+            or ilaunch["k5_bwd"]):
+        raise AssertionError(f"inference on the trained FasterViT: {ires.probs.shape} {ilaunch}")
+    log(f"  inference with weights: auto ({ckpts / f'{FV}.pth'}) built head_config 'tpu': "
+        f"accuracy {ires.metrics['accuracy']:.4f}, K5 {ilaunch['k5']}")
+
+    agree = {config: fv_step_against_cpu(device, config) for config in ("official", "tpu")}
+    timing = fv_step_times(device)
+    report["phase6"] = {"launches": launches, "per_step": per_step, "losses": losses,
+                        "logged_img_per_s": speeds, "wall_s": wall, "inference_launches": ilaunch,
+                        "cpu_check": agree, "step_times": timing}
+    return launches
+
+
+# parameter groups of the FasterViT step comparison, by the port's names
+FV_GROUPS = {
+    "attention": lambda n: ".attn.qkv." in n or ".attn.proj." in n,
+    "bias tensors": lambda n: "rel_bias" in n or "pos_emb_funct" in n,
+    "conv stages": lambda n: n.startswith(("patch_embed.", "levels.0.", "levels.1.")),
+    "head": lambda n: n.startswith("head."),
+}
+
+
+def fv_gradients(state, config: str, x, labels, device, dtype):
+    """One FasterViT-2 fine-tune step's loss and gradients (drop-path at 0)
+    of ``state`` on ``device`` in ``dtype``, on the CPU in f32, and the K5
+    launches it made."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+    from deepfakedetection_tpu_torch.train.objectives import smoothed_cross_entropy
+
+    model = create_faster_vit("2", head_config=config, dtype=dtype, drop_path_rate=0.0)
+    model.load_state_dict(state)
+    model = model.to(device).train()
+    labels = labels.to(device)
+    (loss, grads), launches = counted(lambda: _loss_and_grads(model, x.to(device), labels,
+                                                              smoothed_cross_entropy))
+    return float(loss), {n: g.float().cpu() for n, g in grads.items()}, launches
+
+
+def _loss_and_grads(model, x, labels, ce):
+    import torch
+
+    named = list(model.named_parameters())
+    loss = ce(model(x), labels, torch.ones_like(labels, dtype=torch.bool))
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return loss.detach(), dict(zip((n for n, _ in named), grads))
+
+
+def fv_step_readings(card, cpu) -> dict:
+    """The loss's relative gap and, per parameter group, max|dg| over the
+    group's largest |g| (the CPU's as the scale)."""
+    (l_card, g_card), (l_cpu, g_cpu) = card, cpu
+    out = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel": abs(l_card - l_cpu) / abs(l_cpu)}
+    for group, member in FV_GROUPS.items():
+        names = [n for n in g_cpu if member(n)]
+        top = max(float(g_cpu[n].abs().max()) for n in names)
+        out[group] = max(float((g_card[n] - g_cpu[n]).abs().max()) for n in names) / top
+    return out
+
+
+# the bounds of fv_step_against_cpu, each near the geometric middle of the
+# sound reading and the mildest wrong variant's that moves it (H100 80GB HBM3
+# against its host's CPU, batch 4, official / tpu; the card patched at run
+# time by a scratch script under build/):
+#   f32 loss 2.8e-7 / 3.7e-7 sound, 2.3e-4 / 1.4e-3 with the final norm's
+#   variance unbiased; attention 3.2e-6 / 3.1e-6 sound, 8.8e-5 / 1.0e-4 with
+#   the erf GELU in place of the tanh one; bias tensors 6.2e-6 / 6.7e-6 sound,
+#   2.7e-4 / 3.1e-4 erf GELU; head 9.3e-6 / 4.6e-6 sound, 4.1e-4 / 9.8e-5 erf
+#   GELU; conv stages 3.1e-4 / 9.0e-6 sound (official: a stem ReLU kink, see
+#   tests/test_torch_fastervit_train.py), 2.4e-3 / 3.1e-3 unbiased norm.
+#   bf16 (K5 forward and backward on the card): attention 6.4e-3 / 5.3e-3
+#   sound, 0.67 / 2.0 with dk not scaled; bias tensors 1.3e-2 / 1.4e-2 sound,
+#   0.94 / 0.94 with dbias the windows' mean rather than their sum, 1.5 / 0.63
+#   dk not scaled; conv stages 4.7e-3 / 4.2e-3 sound, 0.71 / 0.33 dk not
+#   scaled. No backward variant moves the loss or the head (sound 1.4e-5 /
+#   6.5e-5 and 1.0e-2 / 4.0e-3), so those bf16 bounds catch gross faults
+#   only. The row term taken from the bf16 output (FlashAttention's
+#   rowsum(do * o)) moves no reading beyond the sound spread (bias tensors
+#   1.25e-2 / 1.23e-2): phase 1 and the CPU tests hold the kernel's row term.
+FV_STEP_BOUNDS = {
+    "f32": {"loss_rel": 1e-5, "attention": 2e-5, "bias tensors": 4e-5, "conv stages": 1e-3,
+            "head": 3e-5},
+    "bf16": {"loss_rel": 1e-3, "attention": 6e-2, "bias tensors": 0.1, "conv stages": 4e-2,
+             "head": 0.1},
+}
+
+
+def fv_step_against_cpu(device, config: str) -> dict:
+    """One full-width FasterViT-2 fine-tune step (forward, loss, gradients;
+    drop-path 0) on the card and on the CPU from the same seeded weights and
+    images, in bf16 (the card through K5 forward and backward, the CPU through
+    their plain versions) and in f32 (TF32 off; attention in plain ops on
+    both), held to ``FV_STEP_BOUNDS``."""
+    import torch
+
+    state = seeded_fastervit_state(config, seed=21 if config == "official" else 23)
+    g = torch.Generator().manual_seed(24)
+    x = seeded_images(FV_STEP_BATCH, g)
+    labels = torch.arange(FV_STEP_BATCH) % 2
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        if dtype == torch.float32:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            l_card, g_card, launches = fv_gradients(state, config, x, labels, device, dtype)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        t0 = time.perf_counter()
+        l_cpu, g_cpu, _ = fv_gradients(state, config, x, labels, torch.device("cpu"), dtype)
+        row = out[name] = {**fv_step_readings((l_card, g_card), (l_cpu, g_cpu)),
+                           "launches": launches, "cpu_s": time.perf_counter() - t0}
+        want = {"f32": (0, 0), "bf16": (13, 13)}[name]
+        log(f"  FasterViT-2 {config} step, card against CPU ({name}, batch {FV_STEP_BATCH}): "
+            f"loss {l_card:.6f} / {l_cpu:.6f} (rel {row['loss_rel']:.2e}); max|dg|/scale "
+            + ", ".join(f"{k} {row[k]:.2e}" for k in FV_GROUPS)
+            + f"; K5 forward/backward launches {launches['k5']}/{launches['k5_bwd']}; CPU "
+            f"{row['cpu_s']:.1f} s")
+        over = {k: (row[k], b) for k, b in FV_STEP_BOUNDS[name].items() if not row[k] <= b}
+        if over or (launches["k5"], launches["k5_bwd"]) != want:
+            raise AssertionError(f"the card's {name} FasterViT {config} step disagrees with the "
+                                 f"CPU's: {over} (reading, bound); {row}")
+    return out
+
+
+def fv_step_times(device) -> dict:
+    """The bf16 FasterViT-2 (tpu configuration) fine-tune step (forward,
+    backward, AdamW over every tensor, drop-path on) at batch 64 and 128:
+    CUDA events, median and quartiles, with K5's backward and with its plain
+    version in its place."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+    from deepfakedetection_tpu_torch.runtime.seeding import fold_in, root_generator
+    from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
+    from deepfakedetection_tpu_torch.train.steps import train_step
+
+    g = torch.Generator().manual_seed(25)
+    model = create_faster_vit("2", head_config="tpu", generator=g).to(device)
+    opt = PhaseOptimizer(list(model.named_parameters()), lr=1e-4, weight_decay=5e-2,
+                         trainable=unfreeze_predicate("all"))
+    root = root_generator(4)
+    kernel_bwd = k5.window_attention_bwd
+
+    def plain_bwd(qkv, bias, dout, *, num_heads, scale):
+        return k5.window_attention_bwd_plain(qkv, bias, dout, num_heads=num_heads, scale=scale)
+
+    out = {}
+    for batch in (64, 128):
+        x = torch.randn(batch, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        labels = (torch.arange(batch) % 2).to(device)
+        mask = torch.ones(batch, dtype=torch.bool, device=device)
+
+        def step():
+            train_step(model, opt, x, labels, mask, fold_in(root, opt.count, device=device))
+
+        torch.cuda.reset_peak_memory_stats(device)
+        t_k = spread(cuda_times(step, runs=10))
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        k5.window_attention_bwd = plain_bwd
+        try:
+            t_p = spread(cuda_times(step, runs=10))
+        finally:
+            k5.window_attention_bwd = kernel_bwd
+        out[batch] = {"step_ms": t_k, "plain_bwd_step_ms": t_p, "peak_gib": peak,
+                      "img_per_s": batch / (t_k["median"] / 1e3)}
+        log(f"  FasterViT-2 tpu train step batch {batch}: {t_k['median']:.3f} ms (q1 "
+            f"{t_k['q1']:.3f}, q3 {t_k['q3']:.3f}) = {out[batch]['img_per_s']:.1f} img/s, peak "
+            f"{peak:.1f} GiB; K5 backward's plain version in place: {t_p['median']:.3f} ms (q1 "
+            f"{t_p['q1']:.3f}, q3 {t_p['q3']:.3f})")
+    return out
+
+
 def main() -> int:
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -1244,6 +1699,8 @@ def main() -> int:
     launches["k4"] = phase4(device, report)["k4"]
     log("phase 5: FasterViT-2 eval path, orchestrate(mode='inference')")
     launches["k5"] = phase5(device, report)["k5"]
+    log("phase 6: FasterViT-2 training path, orchestrate(mode='training')")
+    launches["k5_bwd"] = phase6(device, report)["k5_bwd"]
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())
@@ -1259,7 +1716,9 @@ def main() -> int:
                "rotate_batch": ("k4", "shear_rotate.cu",
                                 "deepfakedetection_tpu/ops/pallas/shear_rotate.py:92"),
                "window_attention": ("k5", "window_attn.cu",
-                                    "deepfakedetection_tpu/ops/pallas/window_attn.py:799")}
+                                    "deepfakedetection_tpu/ops/pallas/window_attn.py:799"),
+               "window_attention_bwd": ("k5_bwd", "window_attn_bwd.cu",
+                                        "deepfakedetection_tpu/ops/pallas/window_attn.py:587")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"deepfakedetection_tpu_torch/ops/csrc/{src}", "replaces": where,

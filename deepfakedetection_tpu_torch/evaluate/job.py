@@ -34,7 +34,7 @@ from deepfakedetection_tpu_torch.evaluate.metrics import (
 )
 from deepfakedetection_tpu_torch.evaluate.plots import save_confusion_matrix, save_roc_curve
 from deepfakedetection_tpu_torch.registry import ModelSpec
-from deepfakedetection_tpu_torch.runtime.convert import is_torch_checkpoint, load_weights
+from deepfakedetection_tpu_torch.runtime.convert import fastervit_head_config, load_weights
 from deepfakedetection_tpu_torch.runtime.logging import (
     append_metrics,
     console,
@@ -90,19 +90,27 @@ _F32_NOTE = {
 }
 
 
+def pick_head_config(family: str, model_kwargs: dict[str, Any],
+                     state: dict[str, torch.Tensor] | None) -> dict[str, Any]:
+    """``model_kwargs`` with a FasterViT's ``head_config`` taken from the
+    weights it will load (``fastervit_head_config``) unless the config pins
+    one; other families and runs without weights unchanged."""
+    if family != "fastervit" or "head_config" in model_kwargs or state is None:
+        return model_kwargs
+    config = fastervit_head_config(state)
+    console.print(f"  torch checkpoint's tensors → faster_vit head_config='{config}'")
+    return {**model_kwargs, "head_config": config}
+
+
 def load_model_for_eval(job: EvalJob) -> torch.nn.Module:
     """Build the model (init from a generator seeded 0), load the weights
     when the file exists (a warning and the init weights when it does not),
-    move it to the job's device and switch it to eval. A FasterViT whose
-    weights are a torch checkpoint is built in the wheel's configuration
-    (``head_config="official"``) unless the config pins one, as the JAX
-    package's job does."""
-    model_kwargs = dict(job.model_kwargs)
+    move it to the job's device and switch it to eval. A FasterViT is built
+    in the head configuration its weights were made in (``pick_head_config``)
+    unless the config pins one."""
     wpath = Path(job.weights) if job.weights is not None else None
-    if (job.spec.family == "fastervit" and "head_config" not in model_kwargs
-            and wpath is not None and wpath.exists() and is_torch_checkpoint(wpath)):
-        model_kwargs["head_config"] = "official"
-        console.print("  torch checkpoint detected → faster_vit head_config='official'")
+    state = load_weights(wpath) if wpath is not None and wpath.exists() else None
+    model_kwargs = pick_head_config(job.spec.family, dict(job.model_kwargs), state)
     model = job.spec.builder(
         job.num_classes,
         dtype=job.compute_dtype,
@@ -112,8 +120,7 @@ def load_model_for_eval(job: EvalJob) -> torch.nn.Module:
     if job.compute_dtype == torch.float32 and job.spec.family in _F32_NOTE:
         console.print(f"  precision float32: {_F32_NOTE[job.spec.family]}")
     if wpath is not None:
-        if wpath.exists():
-            state = load_weights(wpath)
+        if state is not None:
             missing, unexpected = model.load_state_dict(state, strict=False)
             counters = [k for k in model.state_dict() if k.endswith("num_batches_tracked")]
             missing = [k for k in missing if k not in counters]

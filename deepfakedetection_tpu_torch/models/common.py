@@ -1,6 +1,6 @@
 """Shared building blocks: ConvBN (BN folded at eval, batch statistics in
-training), SqueezeExcite, DropPath, and for the transformers LayerNorm,
-Linear, Mlp and GELU.
+training), a standalone BatchNorm's train path, SqueezeExcite, DropPath, and
+for the transformers LayerNorm, Linear, Mlp and GELU.
 
 Port of ``deepfakedetection_tpu/models/common.py``. Activations are
 NCHW-logical tensors stored channels_last, so ``x.permute(0, 2, 3, 1)`` is the
@@ -82,8 +82,9 @@ class ConvBN:
     follows the JAX package's train path, not ``nn.BatchNorm2d``'s: the conv
     in the compute dtype with an output in that dtype; one-pass f32 batch
     statistics, ``E[y]`` and ``E[y^2]`` with ``var = max(E[y^2] - E[y]^2, 0)``
-    (biased); running statistics updated at decay 0.99 with that biased
-    variance (PARITY delta 13); then ``y*a + b`` in the compute dtype, with
+    (biased); running statistics updated at the decay ``1 - bn.momentum``
+    (B3's 0.99, FasterViT's 0.9) with that biased variance (PARITY delta
+    13); then ``y*a + b`` in the compute dtype, with
     ``a`` and ``b`` computed in f32 and cast; the activation; one cast. A conv
     bias is added to the conv output in the compute dtype first.
 
@@ -222,6 +223,27 @@ class ConvBN:
         if self.act is not None:
             y = self.act(y)
         return y.to(dt)
+
+
+def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """A standalone BatchNorm in training over a channels-last ``x`` (the
+    channel is the last dim), as the JAX package's ``BatchNorm2d``, not
+    ConvBN's chain: f32 batch statistics over every other dim, the variance
+    in two passes and biased (``jnp.var``), the running statistics updated
+    at the override-aware decay (``effective_bn_decay``; 0.9 from
+    ``nn.BatchNorm2d``'s momentum 0.1, as the JAX module's 0.9), then
+    ``(y - mean) * rsqrt(var + eps) * weight + bias`` in f32. Returns f32;
+    the caller casts once."""
+    y = x.float()
+    dims = tuple(range(y.dim() - 1))
+    mean = y.mean(dim=dims)
+    var = (y - mean).square().mean(dim=dims)
+    decay = effective_bn_decay(1.0 - bn.momentum)
+    with torch.no_grad():
+        bn.running_mean.copy_(decay * bn.running_mean + (1.0 - decay) * mean)
+        bn.running_var.copy_(decay * bn.running_var + (1.0 - decay) * var)
+        bn.num_batches_tracked.add_(1)
+    return (y - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
 
 
 class SqueezeExcite:

@@ -1,4 +1,4 @@
-"""FasterViT (0-4) in PyTorch, bf16 compute: the eval forward.
+"""FasterViT (0-4) in PyTorch, bf16 compute: the eval and train forwards.
 
 Port of ``deepfakedetection_tpu/models/fastervit.py``: a conv stem (two 3x3
 stride-2 ConvBN + ReLU), two stages of residual conv blocks, then two stages
@@ -30,7 +30,15 @@ for the 16-token carrier-token attention and for float32 models. The K5
 wrapper launches the CUDA kernel for CUDA tensors and runs its plain version
 for CPU tensors. The JAX package takes its kernel only for head_dim % 128 != 0
 at eval (a v5e measurement); the port takes K5 in both configurations.
-Training is not ported yet (ROADMAP Queue 1 item 5).
+
+In training (``model.train()``, ``forward(x, generator)``) it follows the JAX
+package's ``train=True`` path: the conv stages' ConvBN with batch statistics
+(decay 0.9), the final ``norm`` through ``batch_norm_train``, the position
+MLPs recomputed every call, drop-path after the layer scale on every residual
+branch (per window in the window sub-block, per image elsewhere) at the JAX
+per-block rate, and K5 through its autograd Function, whose backward is the
+K5 backward kernel. ``DFD_FUSED_ATTN`` (the JAX package's fused K6 sub-block)
+raises: K6 is not ported yet (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -47,12 +55,15 @@ from torch import nn
 from deepfakedetection_tpu_torch.models.common import (
     ConvBN,
     Derived,
+    DropPath,
     LayerNorm,
     Linear,
     Mlp,
+    batch_norm_train,
     gelu,
 )
 from deepfakedetection_tpu_torch.ops.window_attn import window_attention, window_attention_plain
+from deepfakedetection_tpu_torch.runtime.flags import fused_attn
 
 # torch Conv2d(k=3, s=2, padding=1): symmetric, unlike TF-SAME on even inputs
 _PAD1 = ((1, 1), (1, 1))
@@ -245,21 +256,26 @@ def _add_subblock(owner: nn.Module, prefix: str, dim: int, num_heads: int, token
                     nn.Parameter(torch.full((dim,), _LAYER_SCALE_INIT)))
 
 
-def _run_subblock(owner: nn.Module, prefix: str, x: torch.Tensor) -> torch.Tensor:
-    """The JAX package's TransformerSubBlock at eval: x + γ1·attn(norm1(x)),
-    then x + γ2·mlp(norm2(x)), γ in x's dtype (no γ in the official model)."""
+def _run_subblock(owner: nn.Module, prefix: str, x: torch.Tensor,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """The JAX package's TransformerSubBlock: x + dp(γ1·attn(norm1(x))), then
+    x + dp(γ2·mlp(norm2(x))), γ in x's dtype (no γ in the official model), dp
+    the owner's drop-path (the identity at eval), one mask per row of x."""
     for norm, branch, gamma in (("norm1", "attn", "gamma1"), ("norm2", "mlp", "gamma2")):
         fx = getattr(owner, prefix + branch)(getattr(owner, prefix + norm)(x))
         g = getattr(owner, prefix + gamma, None)
-        x = x + (fx if g is None else fx * g.to(fx.dtype))
+        x = x + owner.drop_path(fx if g is None else fx * g.to(fx.dtype), generator)
     return x
 
 
 class ConvBlock(nn.Module):
-    """Stages 1-2: x + γ·BN(conv(GELU(BN(conv(x))))), 3x3 convs, BN folded."""
+    """Stages 1-2: x + dp(γ·BN(conv(GELU(BN(conv(x)))))), 3x3 convs, BN
+    folded at eval, dp the per-image drop-path in training."""
 
-    def __init__(self, dim: int, *, official: bool, dtype: torch.dtype) -> None:
+    def __init__(self, dim: int, *, official: bool, dtype: torch.dtype,
+                 drop_path: float = 0.0) -> None:
         super().__init__()
+        self.drop_path = DropPath(drop_path)
         self.conv1 = nn.Conv2d(dim, dim, 3, bias=official)
         self.norm1 = nn.BatchNorm2d(dim)
         self.conv2 = nn.Conv2d(dim, dim, 3, bias=official)
@@ -269,16 +285,18 @@ class ConvBlock(nn.Module):
         self.cb1 = ConvBN(self.conv1, self.norm1, pads=_PAD1, act=gelu, dtype=dtype)
         self.cb2 = ConvBN(self.conv2, self.norm2, pads=_PAD1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.cb2(self.cb1(x))
         if hasattr(self, "gamma"):
             h = h * self.gamma.to(h.dtype).view(1, -1, 1, 1)
-        return x + h
+        return x + self.drop_path(h, generator)
 
 
 class Downsample(nn.Module):
     """Channel LayerNorm (eps 1e-6, f32, then the compute dtype) and a 3x3
-    stride-2 conv with symmetric padding 1, no bias."""
+    stride-2 conv with symmetric padding 1, no bias. At eval the conv takes
+    the cached rounded weight; in training the weight is cast on every call
+    and the conv runs in the compute dtype, so the gradient reaches it."""
 
     def __init__(self, dim: int, *, dtype: torch.dtype) -> None:
         super().__init__()
@@ -292,6 +310,8 @@ class Downsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        if self.training:
+            return F.conv2d(h, self.reduction[0].weight.to(self.dtype), None, 2, 1)
         w = self._weight.get([self.reduction[0].weight])
         return F.conv2d(h.float(), w, None, 2, 1).to(self.dtype)
 
@@ -314,8 +334,10 @@ class HATBlock(nn.Module):
     window attends jointly over [its CTs; its tokens] (53 tokens)."""
 
     def __init__(self, dim: int, num_heads: int, *, window: int, ct_size: int, n_win: int,
-                 last: bool, official: bool, mlp_ratio: float, dtype: torch.dtype) -> None:
+                 last: bool, official: bool, mlp_ratio: float, dtype: torch.dtype,
+                 drop_path: float = 0.0) -> None:
         super().__init__()
+        self.drop_path = DropPath(drop_path)
         self.window, self.ct_size, self.n_win = window, ct_size, n_win
         self.last, self.official = last, official
         ct_side = ct_size * n_win
@@ -327,17 +349,22 @@ class HATBlock(nn.Module):
         _add_subblock(self, "", dim, num_heads, ct_size**2 + window**2, window=window,
                       n_global=ct_size**2 if official else 0, **kw)
 
-    def forward(self, xw: torch.Tensor, ct: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """xw [B*nW, win², C]; ct [B, nW*ct², C], window-major."""
+    def forward(self, xw: torch.Tensor, ct: torch.Tensor,
+                generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """xw [B*nW, win², C]; ct [B, nW*ct², C], window-major. Drop-path
+        masks are per image in the carrier-token sub-block and per window in
+        the window sub-block, as the rows of each sub-block's input."""
         BnW, Nw, C = xw.shape
         per_win = self.ct_size**2
         if self.official:
             xw = self.pos_embed(xw)
             ctg = self.hat_pos_embed(ct_dewindow(ct, self.n_win, self.ct_size))
-            ct = ct_window(_run_subblock(self, "hat_", ctg), self.n_win, self.ct_size)
+            ct = ct_window(_run_subblock(self, "hat_", ctg, generator), self.n_win,
+                           self.ct_size)
         else:
-            ct = _run_subblock(self, "hat_", ct)
-        y = _run_subblock(self, "", torch.cat([ct.reshape(BnW, per_win, C), xw], dim=1))
+            ct = _run_subblock(self, "hat_", ct, generator)
+        y = _run_subblock(self, "", torch.cat([ct.reshape(BnW, per_win, C), xw], dim=1),
+                          generator)
         ct_w, xw = y[:, :per_win], y[:, per_win:]
         if self.last and not self.official:
             # propagation: nearest-upsample each window's CT grid to the window
@@ -352,23 +379,26 @@ class PlainBlock(nn.Module):
     """Stage-4 block: the 7x7 map is one window of global attention."""
 
     def __init__(self, dim: int, num_heads: int, *, grid: int, official: bool,
-                 mlp_ratio: float, dtype: torch.dtype) -> None:
+                 mlp_ratio: float, dtype: torch.dtype, drop_path: float = 0.0) -> None:
         super().__init__()
+        self.drop_path = DropPath(drop_path)
         if official:
             self.pos_embed = AbsPosMLP(dim, grid)
         _add_subblock(self, "", dim, num_heads, grid * grid, window=grid, n_global=0,
                       official=official, mlp_ratio=mlp_ratio, dtype=dtype)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if hasattr(self, "pos_embed"):
             tokens = self.pos_embed(tokens)
-        return _run_subblock(self, "", tokens)
+        return _run_subblock(self, "", tokens, generator)
 
 
 class FasterViT(nn.Module):
     """FasterViT classifier over normalized NCHW-logical images at
     ``img_size`` (224: stage 3 at 14x14, 2x2 windows of 7x7); returns f32
-    logits."""
+    logits. ``drop_path_rate`` is the JAX default 0.2, spread over the blocks
+    as ``rate * i / (sum(depths) - 1)`` for the i-th block of all stages."""
 
     def __init__(
         self,
@@ -383,10 +413,16 @@ class FasterViT(nn.Module):
         window_size: int = 7,
         ct_size: int = 2,
         mlp_ratio: float = 4.0,
+        drop_path_rate: float = 0.2,
         dtype: torch.dtype = torch.bfloat16,
         generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
+        if fused_attn():
+            raise NotImplementedError(
+                "DFD_FUSED_ATTN: the fused qkv -> attention -> proj sub-block (K6) is not "
+                "ported to PyTorch yet (ROADMAP Queue 2, K6); unset it"
+            )
         self.dtype, self.official = dtype, official
         self.window_size, self.ct_size = window_size, ct_size
         self.res3 = img_size // 16  # stage-3 resolution
@@ -409,17 +445,20 @@ class FasterViT(nn.Module):
         cd = self.patch_embed.conv_down
         self.stem = [ConvBN(cd[i], cd[i + 1], pads=_PAD1, act=F.relu, dtype=dtype) for i in (0, 3)]
 
+        total = sum(depths)
+        rates = iter([drop_path_rate * i / max(total - 1, 1) for i in range(total)])
         self.levels = nn.ModuleList()
         for i in range(4):
             level = nn.Module()
             width = dim * 2**i
             if i < 2:
-                blocks = [ConvBlock(width, official=official, dtype=dtype)
+                blocks = [ConvBlock(width, official=official, dtype=dtype, drop_path=next(rates))
                           for _ in range(depths[i])]
             elif i == 2:
                 blocks = [HATBlock(width, num_heads[i], window=window_size, ct_size=ct_size,
                                    n_win=self.n_win, last=b == depths[i] - 1, official=official,
-                                   mlp_ratio=mlp_ratio, dtype=dtype) for b in range(depths[i])]
+                                   mlp_ratio=mlp_ratio, dtype=dtype, drop_path=next(rates))
+                          for b in range(depths[i])]
                 if official:
                     level.global_tokenizer = TokenInitializer(width, self.ct_kernel,
                                                               self.ct_stride)
@@ -428,7 +467,8 @@ class FasterViT(nn.Module):
                     level.win_pos_embed = nn.Parameter(torch.zeros(window_size**2, width))
             else:
                 blocks = [PlainBlock(width, num_heads[i], grid=self.res4, official=official,
-                                     mlp_ratio=mlp_ratio, dtype=dtype) for _ in range(depths[i])]
+                                     mlp_ratio=mlp_ratio, dtype=dtype, drop_path=next(rates))
+                          for _ in range(depths[i])]
                 if not official:
                     level.pos_embed_table = nn.Parameter(torch.zeros(self.res4**2, width))
             level.blocks = nn.ModuleList(blocks)
@@ -478,6 +518,14 @@ class FasterViT(nn.Module):
         tokens.update({id(blk.attn): self.res4**2 for blk in self.levels[3].blocks})
         return {"k5": sum(a.uses_kernel(tokens.get(id(a), 0)) for a in self.attentions())}
 
+    def kernel_launches_per_step(self, head_only: bool = False) -> dict[str, int]:
+        """K5 forward and backward launches of one train step: the forward's,
+        and as many backward ones unless only the head trains (the warmup:
+        no gradient flows below the head, so autograd runs no backward
+        there)."""
+        k5 = self.kernel_launches_per_forward()["k5"]
+        return {"k5": k5, "k5_bwd": 0 if head_only else k5}
+
     def _carrier_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """[B, C, H, W] -> [B, nW*ct², C], window-major: the tokenizer's map
         average-pooled to a (ct·nW)² grid."""
@@ -495,16 +543,16 @@ class FasterViT(nn.Module):
         grid = grid.permute(0, 2, 3, 1).reshape(B, nw, cs, nw, cs, C)
         return grid.permute(0, 1, 3, 2, 4, 5).reshape(B, nw * nw * cs * cs, C)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("FasterViT training on PyTorch is ROADMAP Queue 1 item 5")
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits of a normalized batch; in training ``generator`` draws the
+        drop-path masks (needed when the rate is above 0)."""
         dt = self.dtype
         x = x.to(dt).contiguous(memory_format=torch.channels_last)
         for stem in self.stem:
             x = stem(x)
         for level in self.levels[:2]:
             for blk in level.blocks:
-                x = blk(x)
+                x = blk(x, generator)
             x = level.downsample(x)
 
         level = self.levels[2]
@@ -516,7 +564,7 @@ class FasterViT(nn.Module):
         if not self.official:
             xw = xw + level.win_pos_embed.to(dt)[None]
         for blk in level.blocks:
-            xw, ct = blk(xw, ct)
+            xw, ct = blk(xw, ct, generator)
         x = level.downsample(window_reverse(xw, self.window_size, H, W, B))
 
         level = self.levels[3]
@@ -525,11 +573,14 @@ class FasterViT(nn.Module):
         if not self.official:
             tokens = tokens + level.pos_embed_table.to(dt)[None]
         for blk in level.blocks:
-            tokens = blk(tokens)
+            tokens = blk(tokens, generator)
 
         n = self.norm
-        y = tokens.float()
-        y = (y - n.running_mean) * torch.rsqrt(n.running_var + n.eps) * n.weight + n.bias
+        if n.training:
+            y = batch_norm_train(n, tokens)
+        else:
+            y = tokens.float()
+            y = (y - n.running_mean) * torch.rsqrt(n.running_var + n.eps) * n.weight + n.bias
         y = y.to(dt).float().mean(dim=1)  # the f32 mean pool of the bf16 map
         return self.head(y)
 
@@ -540,6 +591,7 @@ def create_faster_vit(
     num_classes: int = 2,
     dtype: torch.dtype = torch.bfloat16,
     head_config: str = "tpu",
+    drop_path_rate: float = 0.2,
     generator: torch.Generator | None = None,
 ) -> FasterViT:
     """The variant at its published widths. ``head_config``: "official" (the
@@ -553,4 +605,5 @@ def create_faster_vit(
     official = head_config == "official"
     heads = cfg["num_heads"] if official else tpu_heads(cfg["dim"], cfg["num_heads"])
     return FasterViT(num_classes, cfg["dim"], cfg["in_dim"], cfg["depths"], heads,
-                     official=official, dtype=dtype, generator=generator)
+                     official=official, drop_path_rate=drop_path_rate, dtype=dtype,
+                     generator=generator)

@@ -42,56 +42,9 @@
 #include <cmath>
 #include <cstdint>
 
+#include "window_attn_common.cuh"
+
 namespace {
-
-constexpr int kWarps = 4;
-constexpr int kMaxSmemBytes = 232448;  // shared memory one sm_90 block may use
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-struct View {
-  const __nv_bfloat16* p;
-  long long sb, sr, sh;  // batch, row and head strides, in elements
-};
-
-// Stages rows [0, Np) x columns [0, Dp) of one head of `src` into `dst`
-// (row stride ld), zero past N rows and d columns.
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, long long sr,
-                                      int N, int d, int Np, int Dp, int ld, bool vec) {
-  if (vec) {  // d % 8 == 0, strides % 8 == 0, 16-byte aligned base
-    const int chunks = Dp / 8;
-    for (int i = threadIdx.x; i < Np * chunks; i += blockDim.x) {
-      const int row = i / chunks, ch = i % chunks;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row < N && ch * 8 < d) v = *reinterpret_cast<const uint4*>(src + row * sr + ch * 8);
-      *reinterpret_cast<uint4*>(dst + row * ld + ch * 8) = v;
-    }
-  } else {
-    for (int i = threadIdx.x; i < Np * Dp; i += blockDim.x) {
-      const int row = i / Dp, col = i % Dp;
-      __nv_bfloat16 v = __float2bfloat16(0.0f);
-      if (row < N && col < d) v = src[row * sr + col];
-      dst[row * ld + col] = v;
-    }
-  }
-}
 
 // KT bounds the 16-key tiles (N <= 16 KT), DT the 16-wide d tiles (d <= 16 DT);
 // the loops run over the actual counts, kt and dt.
@@ -216,19 +169,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int nt = 0; nt < 2 * DT; ++nt) {
       if (nt >= 2 * dt) continue;
-      const int c = nt * 8 + 2 * t4;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = half ? r1 : r0;
-        if (row >= N || c >= d) continue;
-        __nv_bfloat16* dst = out_bh + row * o_sr + c;
-        if (vec) {  // c + 1 < d, 4-byte aligned
-          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o[nt][2 * half], o[nt][2 * half + 1]);
-        } else {
-          dst[0] = __float2bfloat16_rn(o[nt][2 * half]);
-          if (c + 1 < d) dst[1] = __float2bfloat16_rn(o[nt][2 * half + 1]);
-        }
-      }
+      store_pair_rows(out_bh, o_sr, o[nt], r0, nt * 8 + 2 * t4, N, d, 1.0f, vec);
     }
   }
 }

@@ -1,16 +1,18 @@
-"""Where the device time of an eval forward, or of the B3 train step, goes,
-per op, on one CUDA card.
+"""Where the device time of an eval forward, or of a train step, goes, per
+op, on one CUDA card.
 
     python -m deepfakedetection_tpu_torch.profile_forward            # B3 eval forward
     python -m deepfakedetection_tpu_torch.profile_forward --train    # B3 train step
     python -m deepfakedetection_tpu_torch.profile_forward --model faster_vit_2_224 \
-        [--head-config official|tpu]                                 # FasterViT-2 forward
+        [--head-config official|tpu] [--train]       # FasterViT-2 forward or train step
 
-Runs the model at 224 px in bf16, B3 at batch 128, FasterViT-2 at its eval
-config's batch 256, with generator-seeded weights (the times do not depend on their
-values), and traces 5 calls after 3 warm-up ones with ``torch.profiler``.
-The train step is the training path's: forward with batch statistics,
-dropout and drop-path, backward, and AdamW over every tensor. Prints the
+Runs the model at 224 px in bf16 with generator-seeded weights (the times do
+not depend on their values): B3 at batch 128, FasterViT-2's forward at its
+eval config's batch 256 and its train step at the fine-tune batch 128 (32 x
+4 folded), and traces 5 calls after 3 warm-up ones with ``torch.profiler``.
+The train step is the training path's fine-tune step: forward with batch
+statistics, dropout and drop-path, backward (FasterViT: K5's forward and
+backward kernels), and AdamW over every tensor. Prints the
 device time per call against the wall time per call (host clock, device
 synchronised), so their gap is the device's idle time, then each device
 kernel's self time and launches per call, the largest first. This is the
@@ -33,6 +35,7 @@ from deepfakedetection_tpu_torch.train.steps import train_step
 
 CALLS, WARMUP, ROWS = 5, 3, 30
 BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 256}
+TRAIN_BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 128}
 
 
 def _call(model, x, train: bool):
@@ -55,14 +58,13 @@ def _call(model, x, train: bool):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--train", action="store_true", help="profile the B3 train step")
+    parser.add_argument("--train", action="store_true", help="profile the train step")
     parser.add_argument("--model", choices=list(BATCH), default="efficientnet_b3")
     parser.add_argument("--head-config", choices=("official", "tpu"), default="official",
                         help="FasterViT's head configuration")
     args = parser.parse_args()
-    train, batch = args.train, BATCH[args.model]
-    if train and args.model != "efficientnet_b3":
-        raise SystemExit("profile_forward: --train profiles the B3 train step only")
+    train = args.train
+    batch = (TRAIN_BATCH if train else BATCH)[args.model]
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: needs a CUDA card")
     g = torch.Generator().manual_seed(0)
@@ -70,7 +72,7 @@ def main() -> None:
         model = create_efficientnet("b3", num_classes=2, dtype=torch.bfloat16, generator=g)
         name = "B3"
     else:
-        model = create_faster_vit("2", head_config=args.head_config, generator=g).eval()
+        model = create_faster_vit("2", head_config=args.head_config, generator=g)
         name = f"FasterViT-2 {args.head_config}"
     model = model.cuda()
     x = torch.randn(batch, 3, 224, 224, generator=g).cuda().to(torch.bfloat16)

@@ -193,6 +193,23 @@ def load_state_dict_strict(model: nn.Module, state: dict[str, torch.Tensor]) -> 
         raise KeyError(f"state dict mismatch: missing {missing[:8]}, unexpected {unexpected[:8]}")
 
 
+# the tensors only FasterViT's "tpu" head configuration has (a suffix of the
+# key): learned bias tables, layer scales, the learned position tables
+_FASTERVIT_TPU_KEYS = (".attn.rel_bias", ".gamma", "gamma1", "gamma2", "levels.2.ct_pos_embed",
+                       "levels.2.win_pos_embed", "levels.3.pos_embed_table")
+
+
+def fastervit_head_config(state: dict[str, torch.Tensor]) -> str:
+    """The FasterViT head configuration a torch state dict was made in:
+    "tpu" when it carries that configuration's own tensors (the port's and
+    the converter's exports of a tpu model), "official" for any other (the
+    fastervit wheel's checkpoints). The JAX package reads a torch file as
+    official whatever it holds, which is right for the wheel's files it
+    meets; reading the tensors also gives the port's own exports back their
+    configuration."""
+    return "tpu" if any(k.endswith(_FASTERVIT_TPU_KEYS) for k in state) else "official"
+
+
 def is_torch_checkpoint(path: Path) -> bool:
     """True for a PyTorch checkpoint (zip or legacy pickle)."""
     with Path(path).open("rb") as f:

@@ -1,6 +1,7 @@
-"""The device rule and the compute dtype, from the YAML config, and the one
-numerics switch, ``DFD_EXACT_GELU``. The port has no dispatch flags: on the
-card the kernels are the path."""
+"""The device rule and the compute dtype, from the YAML config, the one
+numerics switch, ``DFD_EXACT_GELU``, and ``DFD_FUSED_ATTN``, which the port
+reads only to refuse it. The port has no dispatch flags: on the card the
+kernels are the path."""
 
 from __future__ import annotations
 
@@ -8,6 +9,15 @@ import os
 from typing import Any
 
 import torch
+
+_FALSY = ("", "0", "false", "no")  # the JAX package's env_flag
+
+
+def fused_attn() -> bool:
+    """``DFD_FUSED_ATTN`` set (the JAX package's opt-in fused qkv ->
+    attention -> proj FasterViT sub-block, K6). The port has no K6 yet, so a
+    FasterViT built with it set raises rather than ignore it."""
+    return os.environ.get("DFD_FUSED_ATTN", "").strip().lower() not in _FALSY
 
 
 def exact_gelu() -> bool:

@@ -8,9 +8,10 @@ Port of ``deepfakedetection_tpu/train/loop.py`` (``TrainJob``,
   ``warmup_epochs`` at the configured batch, then one validation.
 - Fine-tune: AdamW(lr, wd) over the recipe's unfreeze set with the
   per-epoch cosine schedule, at micro-batch x accum folded into one batch
-  (B3: 32 x 4 = 128; ``docs/PARITY.md`` delta 2); validation on the
-  trainer's val geometry after every epoch (the eval forward, K1 and K2 on
-  the card), ``latest.ckpt`` every epoch, ``best.ckpt`` and
+  (B3 and FasterViT: 32 x 4 = 128; ``docs/PARITY.md`` delta 2); validation on
+  the trainer's val geometry after every epoch (the eval forward: K1 and K2
+  for B3, K5 for FasterViT on the card), ``latest.ckpt`` every epoch,
+  ``best.ckpt`` and
   ``<weights_key>.pth`` on an improvement over +1e-4, early stopping,
   optional precise-BN recalibration and weight EMA.
 - ``resume: auto`` restarts at the epoch after ``latest.ckpt``; a SIGTERM
@@ -19,8 +20,13 @@ Port of ``deepfakedetection_tpu/train/loop.py`` (``TrainJob``,
   draw comes from a generator derived from (phase, epoch, batch), so the
   resumed run repeats the uninterrupted one.
 
-Not ported: ``remat``, ``async_checkpoint``, ``profile_dir`` and more than
-one process raise ``NotImplementedError`` (ROADMAP Queue 1 items 11 and 9).
+The families are EfficientNet and FasterViT (whose train step runs K5's
+forward and backward on the card); a FasterViT's head configuration comes
+from its ``init_weights`` tensors unless the config pins one, as the eval
+job picks it. Not ported: EfficientFormerV2 (ROADMAP Queue 1 item 6),
+``DFD_FUSED_ATTN`` (K6, Queue 2), ``remat``, ``async_checkpoint``,
+``profile_dir`` and more than one process raise ``NotImplementedError``
+(ROADMAP Queue 1 items 11 and 9).
 """
 
 from __future__ import annotations
@@ -43,11 +49,12 @@ from deepfakedetection_tpu_torch.data.pipeline import (
     prefetch,
 )
 from deepfakedetection_tpu_torch.data.transforms import build_eval_plan, build_train_plan
-from deepfakedetection_tpu_torch.evaluate.job import collect_probs, make_eval_step
+from deepfakedetection_tpu_torch.evaluate.job import collect_probs, make_eval_step, pick_head_config
 from deepfakedetection_tpu_torch.registry import ModelSpec
 from deepfakedetection_tpu_torch.runtime import checkpoint as ckpt
 from deepfakedetection_tpu_torch.runtime import preempt
 from deepfakedetection_tpu_torch.runtime.convert import load_weights
+from deepfakedetection_tpu_torch.runtime.flags import fused_attn
 from deepfakedetection_tpu_torch.runtime.logging import (
     append_metrics,
     console,
@@ -131,8 +138,11 @@ class TrainResult:
 def unported_options(job: TrainJob) -> list[str]:
     """The job's options the port does not have, as refusal messages."""
     out = []
-    if job.spec.family != "efficientnet":
-        out.append(f"training {job.spec.family} on PyTorch is ROADMAP Queue 1 item 5")
+    if job.spec.family not in ("efficientnet", "fastervit"):
+        out.append(f"training {job.spec.family} on PyTorch is ROADMAP Queue 1 item 6")
+    if job.spec.family == "fastervit" and fused_attn():
+        out.append("DFD_FUSED_ATTN (the fused attention sub-block, K6) on PyTorch is ROADMAP "
+                   "Queue 2")
     for name, on in (("training.remat", job.remat),
                      ("training.async_checkpoint", job.async_checkpoint),
                      ("profile_dir", bool(job.profile_dir))):
@@ -168,10 +178,10 @@ def resolve_class_weights(job: TrainJob, train_ds) -> np.ndarray | None:
     return w.astype(np.float32)
 
 
-def apply_init_weights(model: torch.nn.Module, path: Path) -> None:
-    """Load a torch ``.pth`` into a fresh model, strict=False: tensors whose
-    name or shape differs (a swapped head) keep their init."""
-    state = load_weights(path)
+def apply_init_weights(model: torch.nn.Module, state: dict, path: Path) -> None:
+    """Load the state dict of the torch ``.pth`` at ``path`` into a fresh
+    model, strict=False: tensors whose name or shape differs (a swapped head)
+    keep their init."""
     own = model.state_dict()
     matched = {k: v for k, v in state.items() if k in own and own[k].shape == v.shape}
     model.load_state_dict(matched, strict=False)
@@ -227,21 +237,23 @@ def _run_training(job: TrainJob) -> TrainResult:
         class_w = torch.from_numpy(class_w).to(device)
 
     # ----- model
-    init_wpath = None
+    init_wpath = init_state = None
     if job.init_weights:
         init_wpath = Path(job.init_weights)
         if not init_wpath.exists():
             raise SystemExit(f"training.init_weights not found: {init_wpath}")
+        # read even when resuming: latest.ckpt holds the configuration it picks
+        init_state = load_weights(init_wpath)
     model = job.spec.builder(
         job.num_classes, dtype=job.compute_dtype,
         generator=torch.Generator().manual_seed(0 if job.seed is None else int(job.seed)),
-        **job.model_kwargs,
+        **pick_head_config(job.spec.family, dict(job.model_kwargs), init_state),
     )
     if init_wpath is not None:
         if job.resume_auto and ckpt.has_latest(job.run_paths.checkpoints):
             console.print("  resume checkpoint present — skipping init_weights")
         else:
-            apply_init_weights(model, init_wpath)
+            apply_init_weights(model, init_state, init_wpath)
     model = model.to(device)
     named = list(model.named_parameters())
     console.print(

@@ -44,9 +44,12 @@ from deepfakedetection_tpu_torch.data.pipeline import (
 from deepfakedetection_tpu_torch.models.efficientnet import EfficientNet
 from deepfakedetection_tpu_torch.models.fastervit import FasterViT
 from deepfakedetection_tpu_torch.registry import get_model_spec as port_model_spec
-from deepfakedetection_tpu_torch.runtime.convert import state_dict_from_jax
+from deepfakedetection_tpu_torch.evaluate.job import pick_head_config
+from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+from deepfakedetection_tpu_torch.runtime.convert import fastervit_head_config, state_dict_from_jax
 from deepfakedetection_tpu_torch.runtime.flags import resolve_device
 from tests.test_torch_fastervit import _perturbed
+from tests.torch_refs.fastervit_torch import FasterViT2
 
 NARROW = dict(width_coefficient=0.25, depth_coefficient=0.5, native_resolution=32)
 SIZE = 32
@@ -308,12 +311,19 @@ def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, check
     data = yaml.safe_load(cfg.read_text())
     data["models"]["faster_vit_2_224"] = {"output_dir": str(tmp_path / "fv")}
     data["models"]["efficientformerv2_s1"] = {"output_dir": str(tmp_path / "ef")}
-    for mode, model, item in (("training", "faster_vit_2_224", 5),
-                              ("inference", "efficientformerv2_s1", 6)):
+    for mode, model, item in (("training", "efficientformerv2_s1", "Queue 1 item 6"),
+                              ("inference", "efficientformerv2_s1", "Queue 1 item 6")):
         data["selection"] = ["efficientnet_b3", model]
         cfg.write_text(yaml.safe_dump(data))
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        with pytest.raises(NotImplementedError, match=item):
             port_orch.orchestrate(cfg, mode=mode)
+    # FasterViT trains, but not with the fused sub-block (K6) switched on
+    data["selection"] = ["efficientnet_b3", "faster_vit_2_224"]
+    cfg.write_text(yaml.safe_dump(data))
+    with monkeypatch.context() as mp:
+        mp.setenv("DFD_FUSED_ATTN", "1")
+        with pytest.raises(NotImplementedError, match="Queue 2"):
+            port_orch.orchestrate(cfg, mode="training")
     assert not (tmp_path / "out").exists()  # failed before any work
 
     data["selection"] = ["efficientnet_b3"]
@@ -322,3 +332,37 @@ def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, check
     monkeypatch.setattr(port_orch, "get_model_spec", lambda name: _port_spec())
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         port_orch.orchestrate(cfg, mode="inference")
+
+
+@pytest.mark.parametrize("source,want", [
+    ("wheel", "official"), ("port official", "official"), ("port tpu", "tpu"),
+    ("jax tpu", "tpu"), ("jax official", "official"),
+])
+def test_fastervit_head_config_reads_the_tensors(source, want):
+    """A torch state dict builds the configuration it was made in: the
+    wheel's FasterViT-2 and the port's official export official, the port's
+    tpu export and the converter's tpu tree tpu (full width for the wheel
+    and the port, narrow through ``state_dict_from_jax``)."""
+    if source == "wheel":
+        state = FasterViT2(num_classes=2).state_dict()
+    elif source.startswith("port"):
+        state = create_faster_vit("2", head_config=source.split()[1],
+                                  dtype=torch.float32).state_dict()
+    else:
+        config = source.split()[1]
+        jmodel = JaxFasterViT(num_classes=2, num_heads=FV_HEADS[config],
+                              pos_mode="cpb" if config == "official" else "table",
+                              dtype=jnp.float32, **FV_NARROW)
+        params, stats = init_model_variables(jmodel, jax.random.key(0), (1, FV_SIZE, FV_SIZE, 3))
+        state = state_dict_from_jax({"params": jax.device_get(params),
+                                     "batch_stats": jax.device_get(stats)}, "fastervit")
+    assert fastervit_head_config(state) == want
+    assert pick_head_config("fastervit", {}, state) == {"head_config": want}
+
+
+def test_pinned_head_config_wins_and_other_families_are_untouched():
+    tpu_state = {"levels.2.blocks.0.attn.rel_bias": torch.zeros(1)}
+    assert pick_head_config("fastervit", {"head_config": "official"}, tpu_state) == {
+        "head_config": "official"}
+    assert pick_head_config("fastervit", {}, None) == {}
+    assert pick_head_config("efficientnet", {"width": 1}, tpu_state) == {"width": 1}

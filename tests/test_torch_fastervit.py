@@ -176,6 +176,9 @@ def test_official_full_width_takes_the_wheel_state_dict():
 def test_full_width_launches_k5_thirteen_times_per_forward(config):
     model = create_faster_vit("2", head_config=config)
     assert model.kernel_launches_per_forward() == {"k5": 13}
+    # a fine-tune step runs the backward of each, the head-only warmup none
+    assert model.kernel_launches_per_step() == {"k5": 13, "k5_bwd": 13}
+    assert model.kernel_launches_per_step(head_only=True) == {"k5": 13, "k5_bwd": 0}
     f32 = create_faster_vit("2", head_config=config, dtype=torch.float32)
     assert f32.kernel_launches_per_forward() == {"k5": 0}
 

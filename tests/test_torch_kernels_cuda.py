@@ -11,7 +11,11 @@ shapes of the eval path (64 windows each), at ragged and small token counts,
 head_dims off the 16-byte loads, a strided view that takes the kernel's
 one-element path, and the v1 [B, h, N, d] layout: within two bf16 steps of the
 output's scale (both sides round the probabilities and the output once, from
-f32 sums taken in different orders).
+f32 sums taken in different orders). K5's backward at the same shapes: dq, dk
+and dv within two bf16 steps of each one's scale, dbias within 1e-3 of its
+scale (f32 on both sides, summed over the windows in other orders), and
+bit-identical dbias and dqkv over two runs; the autograd Function launches
+the forward once and the backward once.
 
 Needs a CUDA card and imports no JAX, so it runs on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``;
@@ -169,3 +173,52 @@ def test_window_attention_heads_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert k5.window_attention_heads.launches == before + 1
     _k5_close(out, k5.window_attention_heads_plain(q, k, v, bias, scale=0.15))
+
+
+K5_BWD_CASES = K5_CASES[:4] + [(8, 16, 8, 48), (8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 1, 64),
+                               (8, 53, 8, 8), (8, 37, 3, 100), (8, 20, 2, 4)]
+
+
+def _k5_bwd_close(got, want):
+    (dqkv, dbias), (ref_qkv, ref_bias) = got, want
+    C = ref_qkv.shape[-1] // 3
+    for i in range(3):
+        ref = ref_qkv[..., i * C:(i + 1) * C].float()
+        top = float(ref.abs().max())
+        tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+        err = float((dqkv[..., i * C:(i + 1) * C].float() - ref).abs().max())
+        assert err <= tol, f"{'qkv'[i]}: max|d| {err:.3e} > {tol:.3e}"
+    err, top = float((dbias - ref_bias).abs().max()), float(ref_bias.abs().max())
+    assert dbias.dtype == torch.float32 and err <= 1e-3 * top, f"dbias {err:.3e} of {top:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,h,d", K5_BWD_CASES)
+def test_window_attention_bwd_kernel_matches_plain_and_repeats(cuda, B, N, h, d):
+    qkv, bias = _k5_inputs(B, N, h, d, cuda, seed=N * d + h + 1)
+    g = torch.Generator().manual_seed(N + d)
+    dout = torch.randn(B, N, h * d, generator=g).to(torch.bfloat16).to(cuda)
+    before = k5.window_attention_bwd.launches
+    got = k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=d**-0.5)
+    again = k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert k5.window_attention_bwd.launches == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    _k5_bwd_close(got, k5.window_attention_bwd_plain(qkv, bias, dout, num_heads=h,
+                                                     scale=d**-0.5))
+
+
+@pytest.mark.cuda
+def test_window_attention_function_runs_both_kernels(cuda):
+    qkv, bias = _k5_inputs(32, 53, 8, 48, cuda, seed=11)
+    qkv.requires_grad_()
+    bias.requires_grad_()
+    dout = torch.randn(32, 53, 384, generator=torch.Generator().manual_seed(12)).to(cuda)
+    before = (k5.window_attention.launches, k5.window_attention_bwd.launches)
+    out = k5.window_attention(qkv, bias, num_heads=8, scale=48**-0.5)
+    out.backward(dout.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert (k5.window_attention.launches, k5.window_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _k5_bwd_close((qkv.grad, bias.grad), k5.window_attention_bwd_plain(
+        qkv.detach(), bias.detach(), dout.to(torch.bfloat16), num_heads=8, scale=48**-0.5))
