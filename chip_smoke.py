@@ -48,7 +48,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    which must build the tpu configuration again; one full-width step's loss
    and gradients on the card against the CPU in both head configurations
    (bf16 and f32, ``FV_STEP_BOUNDS``); the fine-tune step's time at batch 64
-   and 128 with K5's backward and with its plain version in its place.
+   and 128 with K5's backward and with its plain version in its place;
+7. the EfficientFormerV2-S1 eval path: ``orchestrate(mode="inference")`` on a
+   YAML config over phase 3's JPEG tree at batch 256, from a seeded
+   full-width ``.pth`` in timm's key names (calibrated BatchNorms, a fitted
+   head): K7 launches 4 times per forward batch, the job's outputs for 16
+   test images against the CPU; the card's bf16 logits against CPU bf16 and
+   f32 runs (``EFV2_GATE``); forward times at batch 128 and 256 with K7 and
+   with its plain version in its place.
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
@@ -56,7 +63,9 @@ four fine-tune shapes at batch 128 (plus odd sizes and a repeat that must
 give bit-identical dbias), with their times, the plain versions' and
 ``torch.nn.functional.scaled_dot_product_attention``'s on the same q, k, v
 and bias (forward, or forward and backward less the forward: a yardstick the
-port never calls). Each kernel's bound is the larger of its bytes over the
+port never calls), and K7 (talking-head attention) at EfficientFormerV2-S1's
+shape at batch 256 and at ragged sizes, bit-identical run to run (no PyTorch
+call computes it: its library time is none). Each kernel's bound is the larger of its bytes over the
 HBM rate and its operations over the card's peak rate for their type
 (``bound``).
 
@@ -130,6 +139,15 @@ K5_BWD_ODD = [(8, 16, 8, 48), (8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 1, 64), (
 K5_BWD_DBIAS_TOL = 1e-3
 FV = "faster_vit_2_224"
 FV_BATCH = 256
+# K7 at EfficientFormerV2-S1's eval shape, batch 256: (B, N, heads, d, dv,
+# launches per forward): the 7x7 tokens of the last two blocks of stages 3
+# and 4; then ragged and small sizes (the narrow test model's 16 tokens, one
+# token, N past 64, value widths off the 16-byte loads)
+K7_SHAPES = [(256, 49, 8, 32, 128, 4)]
+K7_ODD = [(8, 25, 4, 16, 64), (8, 16, 8, 32, 128), (8, 1, 2, 16, 8), (8, 100, 3, 32, 40),
+          (8, 128, 8, 16, 16), (8, 64, 8, 32, 128)]
+EF = "efficientformerv2_s1"
+EF_BATCH = 256
 # the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes/s, dense
 # tensor-core bf16 and non-tensor f32 operations/s
 HBM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
@@ -282,6 +300,7 @@ def phase1(device, report):
     kernels["rotate_batch"] = phase1_k4(device)
     kernels["window_attention"] = phase1_k5(device)
     kernels["window_attention_bwd"] = phase1_k5_bwd(device)
+    kernels["attn4d"] = phase1_k7(device)
     report["phase1"] = kernels
     return kernels
 
@@ -526,6 +545,82 @@ def phase1_k5_bwd(device) -> dict:
             f"launches): kernel {agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, sdpa "
             f"backward {agg['library_ms']} ms, bound {agg['bound_ms']:.4f} ms")
     return {"rows": rows, "max_abs_err": worst, "per_step": per, **per["official"]}
+
+
+def k7_inputs(B, N, h, d, dv, seed, device):
+    """q, k, v bf16; the bias table, the talking heads and their biases f32."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    qkv = [torch.randn(B, N, h * c, generator=g).to(torch.bfloat16) for c in (d, d, dv)]
+    tables = [torch.randn(h, N, N, generator=g) * 0.5, torch.randn(h, h, generator=g) * 0.5,
+              torch.randn(h, generator=g) * 0.1, torch.randn(h, h, generator=g) * 0.5,
+              torch.randn(h, generator=g) * 0.1]
+    return [t.to(device) for t in qkv + tables]
+
+
+def k7_bound(B: int, N: int, h: int, d: int, dv: int) -> tuple[float, str]:
+    """q, k, v and the tables read, the output written; q k^T and p2 v on the
+    tensor cores, the two head mixes on the CUDA cores in f32."""
+    nbytes = B * N * (2 * h * d + 2 * h * dv) * 2 + (h * N * N + 2 * h * h + 2 * h) * 4
+    return bound(nbytes, {"bf16": 2 * B * h * N * N * (d + dv), "f32": 2 * 2 * B * N * N * h * h})
+
+
+def phase1_k7(device) -> dict:
+    """K7 against its plain version at EfficientFormerV2-S1's shape (batch
+    256) and ragged sizes, within two bf16 steps of the output's scale (both
+    round p2 and the output once, from f32 sums in different orders),
+    bit-identical over two runs; kernel and plain times per S1 forward. No
+    single PyTorch call computes talking-head attention (library: none)."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import attn4d as k7
+
+    def check(label, args, h, d):
+        before = k7.attn4d.launches
+        out = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
+        again = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
+        torch.cuda.synchronize()
+        if k7.attn4d.launches != before + 2:
+            raise AssertionError("attn4d did not launch its kernel")
+        if not torch.equal(out, again):
+            raise AssertionError(f"attn4d {label}: two runs differ")
+        ref = k7.attn4d_plain(*args, num_heads=h, scale=d**-0.5)
+        tol = two_steps(ref)
+        return check_close(f"attn4d {label}", out, ref, tol, 0.0), tol
+
+    rows, worst, agg = [], 0.0, {"ms": 0.0, "plain_ms": 0.0, "bounds": []}
+    for i, (B, N, h, d, dv, count) in enumerate(K7_SHAPES):
+        args = k7_inputs(B, N, h, d, dv, seed=700 + i, device=device)
+        err, tol = check(f"{(B, N, h, d, dv)}", args, h, d)
+        worst = max(worst, err)
+        t_k = spread(cuda_times(lambda: k7.attn4d(*args, num_heads=h, scale=d**-0.5), runs=25))
+        t_p = spread(cuda_times(lambda: k7.attn4d_plain(*args, num_heads=h, scale=d**-0.5),
+                                runs=10))
+        b_ms, b_by = k7_bound(B, N, h, d, dv)
+        rows.append({"shape": (B, N, h, d, dv), "launches_per_forward": count, "max_abs_err": err,
+                     "tolerance": tol, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        agg["ms"] += count * t_k["median"]
+        agg["plain_ms"] += count * t_p["median"]
+        agg["bounds"].append((count, (b_ms, b_by)))
+        log(f"  attn4d {(B, N, h, d, dv)}: max|d|={err:.3e} (tol {tol:.3e}), bit-identical over "
+            f"two runs; kernel {t_k['median']:.4f} ms (q1 {t_k['q1']:.4f}, q3 {t_k['q3']:.4f}), "
+            f"plain {t_p['median']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    for i, (B, N, h, d, dv) in enumerate(K7_ODD):
+        err, tol = check(f"{(B, N, h, d, dv)}", k7_inputs(B, N, h, d, dv, 710 + i, device), h, d)
+        rows.append({"shape": (B, N, h, d, dv), "max_abs_err": err, "tolerance": tol})
+        log(f"  attn4d odd {(B, N, h, d, dv)}: max|d|={err:.3e} (tol {tol:.3e})")
+    # q and k as unaligned views of one wider tensor: the kernel's one-element path
+    args = k7_inputs(16, 49, 8, 32, 128, seed=720, device=device)
+    wide = torch.zeros(16, 49, 2 * 256 + 2, dtype=torch.bfloat16, device=device)
+    wide[..., 1:257], wide[..., 257:513] = args[0], args[1]
+    check("unaligned views", [wide[..., 1:257], wide[..., 257:513]] + args[2:], 8, 32)
+    bound_ms, bound_by = add_bounds(agg.pop("bounds"))
+    log(f"  attn4d per EfficientFormerV2-S1 forward at batch {EF_BATCH} (4 launches): kernel "
+        f"{agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms")
+    return {"rows": rows, "max_abs_err": worst, **agg, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def phase1_k4(device) -> dict:
@@ -780,11 +875,35 @@ def write_jpeg_tree(root: Path, counts: dict[str, int], seed: int) -> None:
                 Image.fromarray(arr).save(d / f"i{i:04d}.jpg", quality=90)
 
 
+def eval_config(work: Path, name: str, model: str, out: str, weights: Path, batch: int,
+                device) -> Path:
+    """Writes ``work / name``: a YAML config that evaluates ``model`` from
+    ``weights`` over the JPEG tree ``work / "data"`` at ``batch``, 224 px, with
+    runs under ``work / out``."""
+    import yaml
+
+    cfg = {
+        "seed": 1,
+        "device": str(device),
+        "data": {"root": str(work / "data"), "test_split": "test", "val_split": "val",
+                 "num_classes": 2, "img_size": 224},
+        "models": {model: {
+            "output_dir": str(work / out),
+            "transforms": {"eval": EVAL_TF},
+            "inference": {"weights": str(weights), "split": "test", "batch_size": batch,
+                          "num_workers": 8, "img_size": 224},
+        }},
+        "selection": [model],
+    }
+    path = work / name
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
 def phase3(device, report, state):
     """The main path: orchestrate(mode="inference") from a YAML config."""
     import numpy as np
     import torch
-    import yaml
 
     from deepfakedetection_tpu_torch.ops import depthwise_se as k1
     from deepfakedetection_tpu_torch.ops import expand_dw as k2
@@ -797,21 +916,8 @@ def phase3(device, report, state):
     write_jpeg_tree(data, counts, seed=3)
     weights = work / "efficientnet_b3_seeded.pth"
     torch.save(state, weights)
-    cfg = {
-        "seed": 1,
-        "device": str(device),
-        "data": {"root": str(data), "test_split": "test", "val_split": "val",
-                 "num_classes": 2, "img_size": 224},
-        "models": {"efficientnet_b3": {
-            "output_dir": str(work / "runs"),
-            "transforms": {"eval": EVAL_TF},
-            "inference": {"weights": str(weights), "split": "test", "batch_size": EVAL_BATCH,
-                          "num_workers": 8, "img_size": 224},
-        }},
-        "selection": ["efficientnet_b3"],
-    }
-    cfg_path = work / "inference.yaml"
-    cfg_path.write_text(yaml.safe_dump(cfg))
+    cfg_path = eval_config(work, "inference.yaml", "efficientnet_b3", "runs", weights,
+                           EVAL_BATCH, device)
 
     k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
     t0 = time.perf_counter()
@@ -922,9 +1028,10 @@ def train_config(work: Path, data: Path, device, epochs: int) -> Path:
 
 def counted(fn):
     """Runs ``fn`` with every kernel's launch count at 0 before it and reads
-    them after it: (fn's result, {"k1", "k2", "k4", "k5", "k5_bwd"})."""
+    them after it: (fn's result, {"k1", "k2", "k4", "k5", "k5_bwd", "k7"})."""
     import torch
 
+    from deepfakedetection_tpu_torch.ops import attn4d as k7
     from deepfakedetection_tpu_torch.ops import depthwise_se as k1
     from deepfakedetection_tpu_torch.ops import expand_dw as k2
     from deepfakedetection_tpu_torch.ops import shear_rotate as k4
@@ -932,12 +1039,12 @@ def counted(fn):
 
     k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
     k4.rotate_batch.launches = k5.window_attention.launches = 0
-    k5.window_attention_bwd.launches = 0
+    k5.window_attention_bwd.launches = k7.attn4d.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"k1": k1.depthwise_silu_pool.launches, "k2": k2.expand_dw_silu_pool.launches,
                  "k4": k4.rotate_batch.launches, "k5": k5.window_attention.launches,
-                 "k5_bwd": k5.window_attention_bwd.launches}
+                 "k5_bwd": k5.window_attention_bwd.launches, "k7": k7.attn4d.launches}
 
 
 def logged_speeds(log_text: str) -> dict[str, float]:
@@ -971,7 +1078,7 @@ def phase4(device, report):
     steps = warmup_steps + ft_steps
     per_forward = create_efficientnet("b3").eval().kernel_launches_per_forward()
     want = {"k1": per_forward["k1"] * 2 * val_batches, "k2": per_forward["k2"] * 2 * val_batches,
-            "k4": 3 * steps, "k5": 0, "k5_bwd": 0}
+            "k4": 3 * steps, "k5": 0, "k5_bwd": 0, "k7": 0}
     log(f"  training (1 epoch): {steps} train steps, {2 * val_batches} val batches; launches "
         f"K4={launches['k4']} K1={launches['k1']} K2={launches['k2']}; wall {wall:.1f} s")
     if launches != want:
@@ -1302,12 +1409,39 @@ def fastervit_against_cpu(device, config: str, state, x) -> dict:
                         gate=FV_GATE[config])
 
 
+def forward_times(label: str, kernel: str, model, module, attr: str, plain, g, device) -> dict:
+    """The bf16 eval forward of ``model`` at batch 128 and 256 on random
+    images (CUDA events, median and quartiles of 10), with the kernel wrapper
+    ``module.attr`` and with its plain version ``plain`` in its place."""
+    import torch
+
+    wrapper = getattr(module, attr)
+    timings = {}
+    for batch in (128, 256):
+        xb = torch.randn(batch, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
+        xb = xb.contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            t_k = spread(cuda_times(lambda: model(xb), runs=10))
+            setattr(module, attr, plain)
+            try:
+                t_p = spread(cuda_times(lambda: model(xb), runs=10))
+            finally:
+                setattr(module, attr, wrapper)
+        timings[batch] = {"kernel_ms": t_k, "plain_ms": t_p,
+                          "img_per_s": batch / (t_k["median"] / 1e3),
+                          "plain_img_per_s": batch / (t_p["median"] / 1e3)}
+        log(f"  {label} forward batch {batch}: {t_k['median']:.3f} ms (q1 {t_k['q1']:.3f}, q3 "
+            f"{t_k['q3']:.3f}) = {timings[batch]['img_per_s']:.1f} img/s; {kernel}'s plain "
+            f"version in place: {t_p['median']:.3f} ms (q1 {t_p['q1']:.3f}, q3 {t_p['q3']:.3f}) "
+            f"= {timings[batch]['plain_img_per_s']:.1f} img/s")
+    return timings
+
+
 def phase5(device, report):
     """The FasterViT-2 eval path: orchestrate(mode="inference") from a YAML
     config on a wheel-named seeded .pth (official config), at batch 256."""
     import numpy as np
     import torch
-    import yaml
 
     from deepfakedetection_tpu_torch.models import fastervit
     from deepfakedetection_tpu_torch.ops import window_attn as k5
@@ -1318,26 +1452,13 @@ def phase5(device, report):
     state = seeded_fastervit_state("official", seed=11)
     weights = work / "faster_vit_2_224_seeded.pth"
     torch.save(state, weights)
-    cfg = {
-        "seed": 1,
-        "device": str(device),
-        "data": {"root": str(data), "test_split": "test", "val_split": "val",
-                 "num_classes": 2, "img_size": 224},
-        "models": {FV: {
-            "output_dir": str(work / "runs_fv"),
-            "transforms": {"eval": EVAL_TF},
-            "inference": {"weights": str(weights), "split": "test", "batch_size": FV_BATCH,
-                          "num_workers": 8, "img_size": 224},
-        }},
-        "selection": [FV],
-    }
-    cfg_path = work / "inference_fastervit.yaml"
-    cfg_path.write_text(yaml.safe_dump(cfg))
+    cfg_path = eval_config(work, "inference_fastervit.yaml", FV, "runs_fv", weights, FV_BATCH,
+                           device)
     t0 = time.perf_counter()
     res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[FV])
     wall = time.perf_counter() - t0
     batches = sum(-(-n // FV_BATCH) for n in SPLITS.values())
-    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * batches, "k5_bwd": 0}
+    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * batches, "k5_bwd": 0, "k7": 0}
     log(f"  main path: {batches} forward batches, launches {launches}; test pass "
         f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
     if launches != want:
@@ -1360,25 +1481,8 @@ def phase5(device, report):
 
     model = fastervit.create_faster_vit("2", head_config="official")
     model.load_state_dict(state)
-    model = model.to(device).eval()
-    timings = {}
-    for batch in (128, FV_BATCH):
-        xb = torch.randn(batch, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
-        xb = xb.contiguous(memory_format=torch.channels_last)
-        with torch.no_grad():
-            t_k = spread(cuda_times(lambda: model(xb), runs=10))
-            fastervit.window_attention = k5.window_attention_plain
-            try:
-                t_p = spread(cuda_times(lambda: model(xb), runs=10))
-            finally:
-                fastervit.window_attention = k5.window_attention
-        timings[batch] = {"kernel_ms": t_k, "plain_ms": t_p,
-                          "img_per_s": batch / (t_k["median"] / 1e3),
-                          "plain_img_per_s": batch / (t_p["median"] / 1e3)}
-        log(f"  FasterViT-2 official forward batch {batch}: {t_k['median']:.3f} ms (q1 "
-            f"{t_k['q1']:.3f}, q3 {t_k['q3']:.3f}) = {timings[batch]['img_per_s']:.1f} img/s; "
-            f"K5's plain version in place: {t_p['median']:.3f} ms = "
-            f"{timings[batch]['plain_img_per_s']:.1f} img/s")
+    timings = forward_times("FasterViT-2 official", "K5", model.to(device).eval(), fastervit,
+                            "window_attention", k5.window_attention_plain, g, device)
     report["phase5"] = {"launches": launches, "batches": batches, "metrics": record,
                         "test_img_per_s": res.images_per_s, "wall_s": wall,
                         "reference": agree, "against_cpu": against, "timings": timings}
@@ -1459,7 +1563,7 @@ def phase6(device, report):
         raise AssertionError(f"K5 launches per warmup and fine-tune step: {warm}, {ft}")
     want_steps = [(False, *warm)] * warmup_steps + [(True, *ft)] * ft_steps
     want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * (warmup_steps + ft_steps + 2 * val_batches),
-            "k5_bwd": 13 * ft_steps}
+            "k5_bwd": 13 * ft_steps, "k7": 0}
     log(f"  training (1 epoch, tpu configuration): {warmup_steps} warmup steps at batch 64, "
         f"{ft_steps} fine-tune steps at 32 x 4, {2 * val_batches} val batches; launches "
         f"{launches}; K5 forward/backward per warmup step {per_step[0][1:]}, per fine-tune step "
@@ -1664,6 +1768,139 @@ def fv_step_times(device) -> dict:
     return out
 
 
+# max|dlogit| / scale of EfficientFormerV2-S1's bf16 logits on the card against
+# the CPU's bf16 and f32 runs (the weights of seeded_efficientformer_state, 8
+# seeded images). Sound: 1.4e-3, CPU bf16 against CPU f32. Wrong variants of
+# K7, on the CPU in bf16 against the sound f32 logits
+# (tests/test_torch_efficientformer_v2.py holds both sides of the gate): th1
+# transposed 1.07e-2, th2 transposed 0.12, th2's bias dropped 0.26. The gate
+# sits near the geometric middle of the sound reading and the mildest caught
+# fault. The bias table dropped (3.3e-3) stays inside: phase 1 and the CPU
+# tests hold K7's own arithmetic.
+EFV2_GATE = 4e-3
+
+
+def seeded_efficientformer_state(seed: int):
+    """Full-width EfficientFormerV2-S1 state dict in timm's key names:
+    generator-seeded weights (talking heads N(0, 0.25) from the conv init,
+    their biases N(0, 0.01), bias tables N(0, 0.25)), layer scales at 0.2 (their init, 1e-5,
+    would leave every block silent), each ConvNorm's BatchNorm statistics
+    calibrated on a seeded batch (its batch statistics in turn, at decay 0),
+    the final norm's those of the last block's map, and both heads fitted
+    along the features' first principal direction."""
+    import torch
+    from torch import nn
+
+    from deepfakedetection_tpu_torch.models.common import bn_momentum_override
+    from deepfakedetection_tpu_torch.models.efficientformer_v2 import (
+        LayerScale2d,
+        create_efficientformer_v2,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    model = create_efficientformer_v2("s1", dtype=torch.float32, generator=g).eval()
+    x = seeded_images(8, g)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("attention_biases"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+            elif ".talking_head" in name and name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        for m in model.modules():
+            if isinstance(m, LayerScale2d):
+                m.gamma.fill_(0.2)
+        bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d) and m is not model.norm]
+        for m in bns:
+            m.train()
+        maps = []
+        hook = model.stages[-1].blocks[-1].register_forward_hook(
+            lambda _m, _i, out: maps.append(out))
+        with bn_momentum_override(0.0):
+            model(x)
+        hook.remove()
+        for m in bns:
+            m.eval()
+        y = maps[0].double()
+        model.norm.running_mean.copy_(y.mean(dim=(0, 2, 3)))
+        model.norm.running_var.copy_(y.var(dim=(0, 2, 3), unbiased=False))
+    fit_head(model, x, model.head)
+    with torch.no_grad():
+        model.head_dist.load_state_dict(model.head.state_dict())
+    return model.state_dict()
+
+
+def efficientformer_logits(state, x, device, dtype):
+    """EfficientFormerV2-S1 logits of ``state`` on ``device`` in ``dtype``, f32
+    on the CPU."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
+
+    model = create_efficientformer_v2("s1", dtype=dtype)
+    model.load_state_dict(state)
+    model = model.to(device).eval()
+    with torch.no_grad():
+        return model(x.to(device)).float().cpu()
+
+
+def phase7(device, report):
+    """The EfficientFormerV2-S1 eval path: orchestrate(mode="inference") from
+    a YAML config on a seeded timm-named .pth, at batch 256; the card's
+    logits against the CPU's; forward times with K7 and its plain version."""
+    import numpy as np
+    import torch
+
+    from deepfakedetection_tpu_torch.models import efficientformer_v2 as efv2
+    from deepfakedetection_tpu_torch.ops import attn4d as k7
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+
+    work = REPO / "build" / "chip_smoke"
+    data = work / "data"  # phase 3's tree
+    state = seeded_efficientformer_state(seed=31)
+    weights = work / f"{EF}_seeded.pth"
+    torch.save(state, weights)
+    cfg_path = eval_config(work, "inference_efficientformer.yaml", EF, "runs_ef", weights,
+                           EF_BATCH, device)
+    t0 = time.perf_counter()
+    res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[EF])
+    wall = time.perf_counter() - t0
+    batches = sum(-(-n // EF_BATCH) for n in SPLITS.values())
+    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k7": 4 * batches}
+    log(f"  main path: {batches} forward batches, launches {launches}; test pass "
+        f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
+    if launches != want:
+        raise AssertionError(f"EfficientFormerV2 main path launches {launches}, expected {want}")
+    if res.probs.shape != (SPLITS["test"], 2) or not np.isfinite(res.probs).all() \
+            or not np.allclose(res.probs.sum(-1), 1.0, atol=1e-5):
+        raise AssertionError(f"bad test probabilities {res.probs.shape}")
+    (run,) = sorted((work / "runs_ef").iterdir())
+    record = json.loads((run / "logs" / "metrics.jsonl").read_text().splitlines()[-1])
+    if record["model"] != EF or "roc_auc" not in record:
+        raise AssertionError(f"metrics.jsonl: {record}")
+    cpu = torch.device("cpu")
+    agree = reference_check(res, data, lambda x: [
+        efficientformer_logits(state, x, cpu, dt) for dt in (torch.bfloat16, torch.float32)],
+        gate=EFV2_GATE)
+
+    g = torch.Generator().manual_seed(32)
+    x = seeded_images(8, g)
+    card, n = counted(lambda: efficientformer_logits(state, x, device, torch.bfloat16))
+    if n["k7"] != 4:
+        raise AssertionError(f"EfficientFormerV2-S1 forward: {n['k7']} K7 launches")
+    against = check_logits("EfficientFormerV2-S1 forward (card, bf16)", card, *[
+        efficientformer_logits(state, x, cpu, dt) for dt in (torch.bfloat16, torch.float32)],
+        gate=EFV2_GATE)
+
+    model = efv2.create_efficientformer_v2("s1")
+    model.load_state_dict(state)
+    timings = forward_times("EfficientFormerV2-S1", "K7", model.to(device).eval(), efv2,
+                            "attn4d", k7.attn4d_plain, g, device)
+    report["phase7"] = {"launches": launches, "batches": batches, "metrics": record,
+                        "test_img_per_s": res.images_per_s, "wall_s": wall,
+                        "reference": agree, "against_cpu": against, "timings": timings}
+    return launches
+
+
 def main() -> int:
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -1701,6 +1938,8 @@ def main() -> int:
     launches["k5"] = phase5(device, report)["k5"]
     log("phase 6: FasterViT-2 training path, orchestrate(mode='training')")
     launches["k5_bwd"] = phase6(device, report)["k5_bwd"]
+    log("phase 7: EfficientFormerV2-S1 eval path, orchestrate(mode='inference')")
+    launches["k7"] = phase7(device, report)["k7"]
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())
@@ -1718,7 +1957,8 @@ def main() -> int:
                "window_attention": ("k5", "window_attn.cu",
                                     "deepfakedetection_tpu/ops/pallas/window_attn.py:799"),
                "window_attention_bwd": ("k5_bwd", "window_attn_bwd.cu",
-                                        "deepfakedetection_tpu/ops/pallas/window_attn.py:587")}
+                                        "deepfakedetection_tpu/ops/pallas/window_attn.py:587"),
+               "attn4d": ("k7", "attn4d.cu", "deepfakedetection_tpu/ops/pallas/attn4d.py:92")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"deepfakedetection_tpu_torch/ops/csrc/{src}", "replaces": where,

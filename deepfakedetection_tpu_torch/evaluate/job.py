@@ -87,6 +87,7 @@ _F32_NOTE = {
     "efficientnet": "stride-1 MBConv blocks run the unfused f32 ConvBN chain (K1 and K2 "
                     "take bf16)",
     "fastervit": "window attention runs in plain f32 PyTorch ops (K5 takes bf16)",
+    "efficientformerv2": "Attention4D runs in plain f32 PyTorch ops (K7 takes bf16)",
 }
 
 
@@ -107,10 +108,13 @@ def load_model_for_eval(job: EvalJob) -> torch.nn.Module:
     when the file exists (a warning and the init weights when it does not),
     move it to the job's device and switch it to eval. A FasterViT is built
     in the head configuration its weights were made in (``pick_head_config``)
-    unless the config pins one."""
+    unless the config pins one; an EfficientFormerV2 at the job's
+    ``img_size`` (its attention bias tables' sizes depend on it)."""
     wpath = Path(job.weights) if job.weights is not None else None
     state = load_weights(wpath) if wpath is not None and wpath.exists() else None
     model_kwargs = pick_head_config(job.spec.family, dict(job.model_kwargs), state)
+    if job.spec.family == "efficientformerv2":
+        model_kwargs["img_size"] = job.img_size
     model = job.spec.builder(
         job.num_classes,
         dtype=job.compute_dtype,

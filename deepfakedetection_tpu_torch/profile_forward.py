@@ -5,11 +5,14 @@ op, on one CUDA card.
     python -m deepfakedetection_tpu_torch.profile_forward --train    # B3 train step
     python -m deepfakedetection_tpu_torch.profile_forward --model faster_vit_2_224 \
         [--head-config official|tpu] [--train]       # FasterViT-2 forward or train step
+    python -m deepfakedetection_tpu_torch.profile_forward --model efficientformerv2_s1
 
 Runs the model at 224 px in bf16 with generator-seeded weights (the times do
-not depend on their values): B3 at batch 128, FasterViT-2's forward at its
-eval config's batch 256 and its train step at the fine-tune batch 128 (32 x
-4 folded), and traces 5 calls after 3 warm-up ones with ``torch.profiler``.
+not depend on their values): B3 at batch 128, FasterViT-2's and
+EfficientFormerV2-S1's forwards at their eval configs' batch 256, FasterViT-2's
+train step at the fine-tune batch 128 (32 x 4 folded), and traces 5 calls
+after 3 warm-up ones with ``torch.profiler``. EfficientFormerV2 has no train
+step on the port yet.
 The train step is the training path's fine-tune step: forward with batch
 statistics, dropout and drop-path, backward (FasterViT: K5's forward and
 backward kernels), and AdamW over every tensor. Prints the
@@ -27,6 +30,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
 from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
 from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
 from deepfakedetection_tpu_torch.runtime.seeding import fold_in, root_generator
@@ -34,7 +38,7 @@ from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_pre
 from deepfakedetection_tpu_torch.train.steps import train_step
 
 CALLS, WARMUP, ROWS = 5, 3, 30
-BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 256}
+BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 256, "efficientformerv2_s1": 256}
 TRAIN_BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 128}
 
 
@@ -64,6 +68,8 @@ def main() -> None:
                         help="FasterViT's head configuration")
     args = parser.parse_args()
     train = args.train
+    if train and args.model not in TRAIN_BATCH:
+        parser.error(f"--train: {args.model} has no train step on the port yet")
     batch = (TRAIN_BATCH if train else BATCH)[args.model]
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: needs a CUDA card")
@@ -71,6 +77,9 @@ def main() -> None:
     if args.model == "efficientnet_b3":
         model = create_efficientnet("b3", num_classes=2, dtype=torch.bfloat16, generator=g)
         name = "B3"
+    elif args.model == "efficientformerv2_s1":
+        model = create_efficientformer_v2("s1", generator=g)
+        name = "EfficientFormerV2-S1"
     else:
         model = create_faster_vit("2", head_config=args.head_config, generator=g)
         name = f"FasterViT-2 {args.head_config}"

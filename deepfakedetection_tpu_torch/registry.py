@@ -3,8 +3,7 @@
 The port's copy of ``deepfakedetection_tpu/registry.py``: ``TrainRecipe``,
 ``ModelSpec``, the recipes of the ported families and the name rules
 (``efficientnet_b3`` exactly, ``efficientformer*`` and ``faster_vit*`` by
-prefix). A family the port does not have yet raises, naming the ROADMAP item
-that ports it; its recipe comes with its port.
+prefix).
 """
 
 from __future__ import annotations
@@ -82,6 +81,21 @@ def _build_fastervit(
     )
 
 
+def _build_efficientformer_v2(
+    num_classes: int,
+    variant: str = "s1",
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    generator: torch.Generator | None = None,
+    **kw: Any,
+):
+    from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
+
+    return create_efficientformer_v2(
+        variant, num_classes=num_classes, dtype=dtype, generator=generator, **kw
+    )
+
+
 def _efficientformer_variant(name: str) -> str:
     """'efficientformerv2_s1' -> 's1'; V1 names and unknown variants raise."""
     tail = name.rsplit("_", 1)[-1].lower()
@@ -111,7 +125,15 @@ _EFFICIENTNET_RECIPE = TrainRecipe(
     head_param_substrings=("classifier", "_fc", "fc"),
     color_jitter=(0.2, 0.2, 0.2, 0.05),
 )
-# the recipe of the EfficientFormerV2 family, which its port will attach
+# unfreeze names the JAX package's modules; training EfficientFormerV2 on the
+# port (ROADMAP Queue 1 item 6) maps them onto timm's
+_EFFICIENTFORMER_RECIPE = TrainRecipe(
+    head_param_substrings=("head",),
+    unfreeze=("stages_3", "blocks_3", "norm_out", "head"),
+    early_stop_patience=None,
+    color_jitter=(0.1, 0.1, 0.1, 0.05),
+    default_train_toggles={"train_random_rotation": False, "train_random_erasing": False},
+)
 _FASTERVIT_RECIPE = TrainRecipe(
     finetune_micro_batch=32,
     accum_steps=4,
@@ -122,17 +144,15 @@ _FASTERVIT_RECIPE = TrainRecipe(
 
 
 def get_model_spec(name: str) -> ModelSpec:
-    """The spec of ``name`` with the port's builder. KeyError for an unknown
-    name, NotImplementedError for a family not ported yet."""
+    """The spec of ``name`` with the port's builder; KeyError for an unknown
+    name."""
     if name == "efficientnet_b3":
         return ModelSpec(name, "efficientnet", "b3", name, 224, _EFFICIENTNET_RECIPE,
                          functools.partial(_build_efficientnet, variant="b3"))
     if name.startswith("efficientformer"):
-        _efficientformer_variant(name)  # a V1 or unknown variant is a KeyError
-        raise NotImplementedError(
-            f"model '{name}' (efficientformerv2) is not ported to PyTorch yet: "
-            "ROADMAP Queue 1 item 6 (EfficientFormerV2-S1)"
-        )
+        variant = _efficientformer_variant(name)
+        return ModelSpec(name, "efficientformerv2", variant, name, 224, _EFFICIENTFORMER_RECIPE,
+                         functools.partial(_build_efficientformer_v2, variant=variant))
     if name.startswith("faster_vit"):
         variant = _fastervit_variant(name)
         return ModelSpec(name, "fastervit", variant, name, 224, _FASTERVIT_RECIPE,

@@ -3,9 +3,10 @@
 ``state_dict_from_jax`` carries a JAX package ``{"params", "batch_stats"}``
 tree (numpy leaves) into the port's state dict through the port's own name
 maps, the counterparts of ``deepfakedetection_tpu/runtime/torch_convert.py``
-(EfficientNet) and ``runtime/fastervit_convert.py`` (FasterViT): keys are
-the reference wheels' (efficientnet_pytorch; the fastervit wheel), layouts
-OIHW for convs and [out, in] for dense kernels. For FasterViT it covers both
+(EfficientNet and EfficientFormerV2) and ``runtime/fastervit_convert.py``
+(FasterViT): keys are the reference wheels' (efficientnet_pytorch; timm; the
+fastervit wheel), layouts OIHW for convs, [out, in] for dense kernels and [g,
+h, 1, 1] for EfficientFormerV2's talking heads. For FasterViT it covers both
 head configurations: the tensors only the "tpu" one has (layer-scale gammas,
 learned bias tables, learned position tables) get the port's own names.
 ``load_weights`` reads a genuine torch ``.pth``. A native flax msgpack
@@ -41,9 +42,12 @@ def _flatten(tree: Any, prefix: Path_ = ()) -> dict[Path_, Any]:
 
 
 def _inverse_layout(arr: np.ndarray, kind: str) -> np.ndarray:
-    """flax -> torch: HWIO -> OIHW, [in, out] -> [out, in]; "none" copies."""
+    """flax -> torch: HWIO -> OIHW, [in, out] -> [out, in]; "talking_head":
+    an einsum table [h, g] -> a 1x1 conv's weight [g, h, 1, 1]; "none" copies."""
     if kind == "none":
         return arr
+    if kind == "talking_head":
+        return arr.T[:, :, None, None]
     if arr.ndim == 4:
         return np.transpose(arr, (3, 2, 0, 1))
     if arr.ndim == 2:
@@ -161,12 +165,60 @@ def _fastervit_map(tops: set[str]) -> NameMap:
     return m.m
 
 
-_MAPS = {"efficientnet": _efficientnet_map, "fastervit": _fastervit_map}
+def _efficientformer_v2_map(tops: set[str]) -> NameMap:
+    """timm ``efficientformerv2_*`` keys <- the flax EfficientFormerV2
+    (``stem_{0,1}``, ``downsample_{s}``, ``stages_{s}_block{b}_{attn,
+    attn_res,ffn,ffn_res}``, ``norm_out``, ``head``, ``head_dist``); a
+    ConvNorm is ``.conv`` + ``.bn``. The output projection is spelled
+    ``proj`` (the port's model also reads timm's older ``proj.1``)."""
+    m = _Map()
+
+    def convbn(key: str, path: Path_) -> None:
+        m(f"{key}.conv.weight", path + ("kernel",), "auto")
+        m.bn(f"{key}.bn", path)
+
+    convbn("stem.conv1", ("stem_0",))
+    convbn("stem.conv2", ("stem_1",))
+    convbn("stages.1.downsample.conv", ("downsample_1",))
+    for s in (2, 3):
+        d, f = f"stages.{s}.downsample", f"downsample_{s}"
+        convbn(f"{d}.conv", (f, "conv"))
+        m(f"{d}.attn.q.local.weight", (f, "q_local", "kernel"), "auto")
+        m(f"{d}.attn.q.local.bias", (f, "q_local", "bias"))
+        convbn(f"{d}.attn.q.proj", (f, "q"))
+        for name in ("k", "v", "v_local", "proj"):
+            convbn(f"{d}.attn.{name}", (f, name))
+        m(f"{d}.attn.attention_biases", (f, "attention_biases"))
+    blocks = sorted((int(a), int(b)) for t in tops
+                    for a, b in re.findall(r"^stages_(\d+)_block(\d+)_ffn$", t))
+    for s, b in blocks:
+        t, f = f"stages.{s}.blocks.{b}", f"stages_{s}_block{b}"
+        for name in ("fc1", "mid", "fc2"):
+            convbn(f"{t}.mlp.{name}", (f"{f}_ffn", name))
+        m(f"{t}.ls2.gamma", (f"{f}_ffn_res", "gamma"))
+        if f"{f}_attn" in tops:
+            tm, fa = f"{t}.token_mixer", (f"{f}_attn",)
+            for name in ("stride_conv", "q", "k", "v", "v_local", "proj"):
+                convbn(f"{tm}.{name}", fa + (name,))
+            for th in ("talking_head1", "talking_head2"):
+                m(f"{tm}.{th}.weight", fa + (th,), "talking_head")
+                m(f"{tm}.{th}.bias", fa + (f"{th}_bias",))
+            m(f"{tm}.attention_biases", fa + ("attention_biases",))
+            m(f"{t}.ls1.gamma", (f"{f}_attn_res", "gamma"))
+    m.bn("norm", ("norm_out",))
+    m.dense("head", ("head",))
+    m.dense("head_dist", ("head_dist",))
+    return m.m
+
+
+_MAPS = {"efficientnet": _efficientnet_map, "efficientformerv2": _efficientformer_v2_map,
+         "fastervit": _fastervit_map}
 
 
 def state_dict_from_jax(tree: dict[str, Any], family: str) -> dict[str, torch.Tensor]:
     """JAX package variables ``{"params", "batch_stats"}`` (numpy leaves) ->
-    the port's state dict of ``family`` ("efficientnet" or "fastervit"):
+    the port's state dict of ``family`` ("efficientnet", "efficientformerv2"
+    or "fastervit"):
     every tensor of the tree whose path the family's map names, in the
     torch layout. Raises when the tree holds a tensor the map leaves out."""
     flat = _flatten(tree)

@@ -139,7 +139,8 @@ def unported_options(job: TrainJob) -> list[str]:
     """The job's options the port does not have, as refusal messages."""
     out = []
     if job.spec.family not in ("efficientnet", "fastervit"):
-        out.append(f"training {job.spec.family} on PyTorch is ROADMAP Queue 1 item 6")
+        out.append(f"training {job.spec.family} on PyTorch is ROADMAP Queue 1 item 6 "
+                   "(EfficientFormerV2 training)")
     if job.spec.family == "fastervit" and fused_attn():
         out.append("DFD_FUSED_ATTN (the fused attention sub-block, K6) on PyTorch is ROADMAP "
                    "Queue 2")

@@ -5,7 +5,10 @@ Both stacks run a narrow EfficientNet (width 0.25, depth 0.5) at 32 px with
 ``get_model_spec`` monkeypatched, as tests/test_orchestrate_e2e.py does, and
 a narrow FasterViT (dim 16, depths (1, 1, 2, 1)) at 224 px from a ``.pth`` in
 the fastervit wheel's key names, which both jobs must read as the official
-head configuration. The
+head configuration, and a
+narrow EfficientFormerV2 (dims (16, 24, 32, 48), depths (1, 1, 3, 2)) at 128 px
+from a ``.pth`` in timm's key names, which the port's job must build at the
+job's img_size. The B3
 checkpoint comes from a JAX init through ``export_torch_state_dict``, with a
 classifier along the first principal direction of the model's features so
 probabilities spread to a real operating point (random-init probabilities sit
@@ -30,6 +33,7 @@ import yaml
 
 import deepfakedetection_tpu.orchestrator as jax_orch
 import deepfakedetection_tpu_torch.orchestrator as port_orch
+from deepfakedetection_tpu.models.efficientformer_v2 import EfficientFormerV2 as JaxEFv2
 from deepfakedetection_tpu.models.efficientnet import EfficientNet as JaxEfficientNet
 from deepfakedetection_tpu.models.fastervit import FasterViT as JaxFasterViT
 from deepfakedetection_tpu.registry import get_model_spec as jax_model_spec
@@ -41,6 +45,7 @@ from deepfakedetection_tpu_torch.data.pipeline import (
     make_eval_loader,
     scan_image_folder,
 )
+from deepfakedetection_tpu_torch.models.efficientformer_v2 import EfficientFormerV2
 from deepfakedetection_tpu_torch.models.efficientnet import EfficientNet
 from deepfakedetection_tpu_torch.models.fastervit import FasterViT
 from deepfakedetection_tpu_torch.registry import get_model_spec as port_model_spec
@@ -48,6 +53,8 @@ from deepfakedetection_tpu_torch.evaluate.job import pick_head_config
 from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
 from deepfakedetection_tpu_torch.runtime.convert import fastervit_head_config, state_dict_from_jax
 from deepfakedetection_tpu_torch.runtime.flags import resolve_device
+from tests.test_torch_efficientformer_v2 import NARROW as EF_NARROW
+from tests.test_torch_efficientformer_v2 import seeded_tree
 from tests.test_torch_fastervit import _perturbed
 from tests.torch_refs.fastervit_torch import FasterViT2
 
@@ -113,20 +120,21 @@ def checkpoint(tiny_image_tree, tmp_path_factory):
     return path
 
 
-def _config(path, root, out_dir, weights, precision):
+def _config(path, root, out_dir, weights, precision="float32", model="efficientnet_b3",
+            size=SIZE):
     cfg = {
         "seed": 7,
         "device": "cpu",
         "precision": precision,
         "data": {"root": str(root), "val_split": "val", "test_split": "test",
-                 "num_classes": 2, "img_size": SIZE},
-        "models": {"efficientnet_b3": {
+                 "num_classes": 2, "img_size": size},
+        "models": {model: {
             "output_dir": str(out_dir),
             "transforms": {"eval": EVAL},
             "inference": {"weights": str(weights), "split": "test", "batch_size": 8,
-                          "num_workers": 0, "img_size": SIZE},
+                          "num_workers": 0, "img_size": size},
         }},
-        "selection": ["efficientnet_b3"],
+        "selection": [model],
     }
     path.write_text(yaml.safe_dump(cfg))
     return path
@@ -251,17 +259,8 @@ def fv_runs(tiny_image_tree, tmp_path_factory):
     torch.save(state, weights)
 
     def config(name):
-        cfg = {"seed": 7, "device": "cpu", "precision": "float32",
-               "data": {"root": str(tiny_image_tree), "val_split": "val", "test_split": "test",
-                        "num_classes": 2, "img_size": FV_SIZE},
-               "models": {FV: {"output_dir": str(tmp / name), "transforms": {"eval": EVAL},
-                               "inference": {"weights": str(weights), "split": "test",
-                                             "batch_size": 8, "num_workers": 0,
-                                             "img_size": FV_SIZE}}},
-               "selection": [FV]}
-        path = tmp / f"{name}.yaml"
-        path.write_text(yaml.safe_dump(cfg))
-        return path
+        return _config(tmp / f"{name}.yaml", tiny_image_tree, tmp / name, weights, model=FV,
+                       size=FV_SIZE)
 
     mp = pytest.MonkeyPatch()
     try:
@@ -296,6 +295,88 @@ def test_port_f32_fastervit_eval_job_matches_jax_per_image(fv_runs):
     np.testing.assert_array_equal(port.preds[far], jax_r.preds[far])
 
 
+EF = "efficientformerv2_s1"
+EF_SIZE = 128
+
+
+def _ef_specs(built):
+    """Narrow EfficientFormerV2 specs for both packages; ``built`` records the
+    img_size the port's builder was given."""
+    def jax_builder(num_classes, dtype=jnp.bfloat16, **kw):
+        return JaxEFv2(num_classes=num_classes, dtype=dtype, **EF_NARROW)
+
+    def port_builder(num_classes, dtype=torch.bfloat16, generator=None, img_size=224, **kw):
+        built.append(img_size)
+        return EfficientFormerV2(num_classes, **EF_NARROW, img_size=img_size, dtype=dtype,
+                                 generator=generator)
+
+    return (dataclasses.replace(jax_model_spec(EF), builder=jax_builder),
+            dataclasses.replace(port_model_spec(EF), builder=port_builder))
+
+
+@pytest.fixture(scope="module")
+def ef_runs(tiny_image_tree, tmp_path_factory):
+    """The JAX and port eval jobs (f32) on a narrow EfficientFormerV2 whose
+    numpy-seeded weights are a torch ``.pth`` in timm's names, its heads
+    fitted along the first principal direction of the val and test features."""
+    tmp = tmp_path_factory.mktemp("ef")
+    built = []
+    jax_spec, port_spec = _ef_specs(built)
+    tree = seeded_tree(EF_NARROW, EF_SIZE, np.random.default_rng(5))
+    state = state_dict_from_jax(tree, "efficientformerv2")
+    model = EfficientFormerV2(2, **EF_NARROW, img_size=EF_SIZE, dtype=torch.float32).eval()
+    model.load_state_dict(state)
+    plan = build_eval_plan(EF_SIZE, EVAL)
+    feats = []
+    hook = model.head.register_forward_hook(lambda _m, inp, _o: feats.append(inp[0]))
+    with torch.no_grad():
+        for split in ("val", "test"):
+            for batch in make_eval_loader(scan_image_folder(tiny_image_tree / split), plan,
+                                          batch_size=32):
+                model(normalize_batch(torch.from_numpy(batch.images), plan)[batch.mask])
+    hook.remove()
+    f = torch.cat(feats).double()
+    direction = torch.linalg.svd(f - f.mean(0), full_matrices=False).Vh[0]
+    scale = 2.0 / float(((f - f.mean(0)) @ direction).std())
+    for head in ("head", "head_dist"):
+        state[f"{head}.weight"] = torch.stack([torch.zeros_like(direction),
+                                               scale * direction]).float()
+        state[f"{head}.bias"] = torch.tensor([0.0, -scale * float(f.mean(0) @ direction)])
+    weights = tmp / "narrow_efficientformer.pth"
+    torch.save(state, weights)
+
+    mp = pytest.MonkeyPatch()
+    try:
+        captured = {}
+        real_run = jax_orch.run_eval_job
+        mp.setattr(jax_orch, "get_model_spec", lambda name: jax_spec)
+        mp.setattr(jax_orch, "run_eval_job", lambda job: captured.setdefault("r", real_run(job)))
+        mp.setattr(port_orch, "get_model_spec", lambda name: port_spec)
+        with jax.default_matmul_precision("highest"):
+            jax_orch.orchestrate(_config(tmp / "jax.yaml", tiny_image_tree, tmp / "jax", weights,
+                                         model=EF, size=EF_SIZE), mode="inference")
+        port = port_orch.orchestrate(_config(tmp / "port.yaml", tiny_image_tree, tmp / "port",
+                                             weights, model=EF, size=EF_SIZE),
+                                     mode="inference")[EF]
+    finally:
+        mp.undo()
+    return {"jax": captured["r"], "port": port, "built": built}
+
+
+def test_port_f32_efficientformer_eval_job_matches_jax_per_image(ef_runs):
+    jax_r, port = ef_runs["jax"], ef_runs["port"]
+    assert ef_runs["built"] == [EF_SIZE]  # built at the job's img_size
+    assert port.probs.shape == jax_r.probs.shape == (12, 2)
+    assert np.ptp(jax_r.probs[:, 1]) > 0.3  # a spread operating point, not a tie
+    np.testing.assert_array_equal(port.targets, jax_r.targets)
+    np.testing.assert_allclose(port.probs, jax_r.probs, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(port.val_probs, jax_r.val_probs, atol=1e-4, rtol=0)
+    assert port.metrics["threshold"] == jax_r.metrics["threshold"]
+    far = np.abs(jax_r.probs[:, 1] - jax_r.metrics["threshold"]) > 1e-4
+    np.testing.assert_array_equal(port.preds[far], jax_r.preds[far])
+    assert port.metrics["confusion_matrix"] == jax_r.metrics["confusion_matrix"]
+
+
 @pytest.mark.parametrize("device", ["tpu", "cuda", None])
 def test_any_device_but_cpu_needs_cuda(monkeypatch, device):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -311,12 +392,11 @@ def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, check
     data = yaml.safe_load(cfg.read_text())
     data["models"]["faster_vit_2_224"] = {"output_dir": str(tmp_path / "fv")}
     data["models"]["efficientformerv2_s1"] = {"output_dir": str(tmp_path / "ef")}
-    for mode, model, item in (("training", "efficientformerv2_s1", "Queue 1 item 6"),
-                              ("inference", "efficientformerv2_s1", "Queue 1 item 6")):
-        data["selection"] = ["efficientnet_b3", model]
-        cfg.write_text(yaml.safe_dump(data))
-        with pytest.raises(NotImplementedError, match=item):
-            port_orch.orchestrate(cfg, mode=mode)
+    # EfficientFormerV2 evaluates (below) but does not train yet
+    data["selection"] = ["efficientnet_b3", "efficientformerv2_s1"]
+    cfg.write_text(yaml.safe_dump(data))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        port_orch.orchestrate(cfg, mode="training")
     # FasterViT trains, but not with the fused sub-block (K6) switched on
     data["selection"] = ["efficientnet_b3", "faster_vit_2_224"]
     cfg.write_text(yaml.safe_dump(data))
@@ -332,6 +412,14 @@ def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, check
     monkeypatch.setattr(port_orch, "get_model_spec", lambda name: _port_spec())
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         port_orch.orchestrate(cfg, mode="inference")
+
+    _, ef_spec = _ef_specs([])
+    monkeypatch.setattr(port_orch, "get_model_spec", lambda name: ef_spec)
+    data["selection"] = ["efficientformerv2_s1"]
+    data["models"]["efficientformerv2_s1"]["inference"] = {"batch_size": 8, "num_workers": 0}
+    cfg.write_text(yaml.safe_dump(data))
+    res = port_orch.orchestrate(cfg, mode="inference")["efficientformerv2_s1"]
+    assert res.probs.shape == (12, 2) and np.isfinite(res.probs).all()
 
 
 @pytest.mark.parametrize("source,want", [

@@ -15,7 +15,10 @@ f32 sums taken in different orders). K5's backward at the same shapes: dq, dk
 and dv within two bf16 steps of each one's scale, dbias within 1e-3 of its
 scale (f32 on both sides, summed over the windows in other orders), and
 bit-identical dbias and dqkv over two runs; the autograd Function launches
-the forward once and the backward once.
+the forward once and the backward once. K7 (talking-head attention) at
+EfficientFormerV2-S1's shape and at ragged and small sizes: within two bf16
+steps of the output's scale, bit-identical over two runs; it refuses a
+gradient, and a full-width S1 forward launches it four times.
 
 Needs a CUDA card and imports no JAX, so it runs on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``;
@@ -28,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
+from deepfakedetection_tpu_torch.ops import attn4d as k7
 from deepfakedetection_tpu_torch.ops import depthwise_se as k1
 from deepfakedetection_tpu_torch.ops import expand_dw as k2
 from deepfakedetection_tpu_torch.ops import shear_rotate as k4
@@ -222,3 +227,73 @@ def test_window_attention_function_runs_both_kernels(cuda):
         before[0] + 1, before[1] + 1)
     _k5_bwd_close((qkv.grad, bias.grad), k5.window_attention_bwd_plain(
         qkv.detach(), bias.detach(), dout.to(torch.bfloat16), num_heads=8, scale=48**-0.5))
+
+
+K7_CASES = [
+    # (B, N, heads, d, dv)
+    (64, 49, 8, 32, 128),  # EfficientFormerV2-S1's 7x7 attention
+    (8, 25, 4, 16, 64), (8, 16, 8, 32, 128), (8, 1, 2, 16, 8), (8, 100, 3, 32, 40),
+    (8, 128, 8, 16, 16), (8, 64, 8, 32, 128),
+]
+
+
+def _k7_inputs(B, N, h, d, dv, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    qkv = [torch.randn(B, N, h * c, generator=g).to(torch.bfloat16) for c in (d, d, dv)]
+    tables = [torch.randn(h, N, N, generator=g) * 0.5, torch.randn(h, h, generator=g) * 0.5,
+              torch.randn(h, generator=g) * 0.1, torch.randn(h, h, generator=g) * 0.5,
+              torch.randn(h, generator=g) * 0.1]
+    return [t.to(device) for t in qkv + tables]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,h,d,dv", K7_CASES)
+def test_attn4d_kernel_matches_plain_and_repeats(cuda, B, N, h, d, dv):
+    args = _k7_inputs(B, N, h, d, dv, cuda, seed=N * dv + h)
+    before = k7.attn4d.launches
+    out = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
+    again = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert k7.attn4d.launches == before + 2
+    assert torch.equal(out, again)
+    _k5_close(out, k7.attn4d_plain(*args, num_heads=h, scale=d**-0.5))
+
+
+@pytest.mark.cuda
+def test_attn4d_kernel_takes_unaligned_views(cuda):
+    args = _k7_inputs(16, 49, 8, 32, 128, cuda, seed=13)
+    wide = torch.zeros(16, 49, 514, dtype=torch.bfloat16, device=cuda)
+    wide[..., 1:257], wide[..., 257:513] = args[0], args[1]
+    out = k7.attn4d(wide[..., 1:257], wide[..., 257:513], *args[2:], num_heads=8,
+                    scale=32**-0.5)
+    torch.cuda.synchronize()
+    _k5_close(out, k7.attn4d_plain(*args, num_heads=8, scale=32**-0.5))
+
+
+@pytest.mark.cuda
+def test_attn4d_refuses_a_gradient(cuda):
+    args = _k7_inputs(2, 49, 8, 32, 128, cuda, seed=14)
+    args[0].requires_grad_()
+    with pytest.raises(ValueError, match="inference-only"):
+        k7.attn4d(*args, num_heads=8, scale=32**-0.5)
+
+
+@pytest.mark.cuda
+def test_efficientformer_forward_launches_k7_four_times(cuda, monkeypatch):
+    """The bf16 forward on the card runs K7 and never its plain version."""
+    from deepfakedetection_tpu_torch.models import efficientformer_v2 as efv2
+
+    def refuse(*args, **kw):
+        raise AssertionError("the bf16 forward on the card ran attn4d_plain")
+
+    monkeypatch.setattr(k7, "attn4d_plain", refuse)
+    monkeypatch.setattr(efv2, "attn4d_plain", refuse)
+    model = create_efficientformer_v2("s1", generator=torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    x = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = k7.attn4d.launches
+    with torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    assert k7.attn4d.launches == before + 4
+    assert out.shape == (2, 2) and bool(torch.isfinite(out).all())

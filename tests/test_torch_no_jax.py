@@ -1,8 +1,9 @@
 """The port never imports JAX or the JAX package: in a fresh interpreter
 (tests/conftest.py imports jax into this one), import the port's
 orchestrator, eval job, training modules, model and kernel modules, run one
-CPU forward of a narrow EfficientNet through the K1/K2 wrappers and of a
-narrow FasterViT through the K5 wrapper, and one CPU train step with the
+CPU forward of a narrow EfficientNet through the K1/K2 wrappers, of a narrow
+FasterViT through the K5 wrapper and of a narrow EfficientFormerV2 through
+the K7 wrapper, and one CPU train step with the
 augmentation's shear rotation, and check that no jax, flax, optax or orbax
 module and no ``deepfakedetection_tpu`` module was loaded. Statically, no
 ``.py`` file of the port imports either (``chip_smoke.reference_imports``)."""
@@ -69,6 +70,22 @@ with torch.no_grad():
 window_attn.window_attention_plain = plain
 assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
 assert calls == [53, 49] and window_attn.window_attention.launches == 0, calls
+
+from deepfakedetection_tpu_torch.models.efficientformer_v2 import EfficientFormerV2
+from deepfakedetection_tpu_torch.ops import attn4d
+
+ef = EfficientFormerV2(2, dims=(16, 24, 32, 48), depths=(1, 1, 2, 2), vit_num=1,
+                       e_ratios={0: [4], 1: [4], 2: [4, 4], 3: [4, 4]}, img_size=64,
+                       generator=torch.Generator().manual_seed(0)).eval()
+assert ef.kernel_launches_per_forward() == {"k7": 2}
+tokens = []
+plain4d = attn4d.attn4d_plain
+attn4d.attn4d_plain = lambda *a, **kw: tokens.append(a[0].shape[1]) or plain4d(*a, **kw)
+with torch.no_grad():
+    out = ef(torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1)))
+attn4d.attn4d_plain = plain4d
+assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
+assert tokens == [4, 4] and attn4d.attn4d.launches == 0, tokens
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "deepfakedetection_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("LOADED", loaded)
