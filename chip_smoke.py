@@ -55,7 +55,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    head): K7 launches 4 times per forward batch, the job's outputs for 16
    test images against the CPU; the card's bf16 logits against CPU bf16 and
    f32 runs (``EFV2_GATE``); forward times at batch 128 and 256 with K7 and
-   with its plain version in its place.
+   with its plain version in its place;
+8. FasterViT-2 with ``DFD_FUSED_ATTN`` set (inside the phase only), every
+   attention through K6: ``orchestrate(mode="inference")`` at batch 256 over
+   phase 3's tree from phase 5's ``.pth`` (K6 21 launches a batch, nothing
+   else), 16 test images against the CPU, the card's bf16 logits against the
+   CPU's in both head configurations (``FV_GATE``), forward times at batch
+   128 and 256 with K6 and with the unfused path; ``orchestrate(mode=
+   "training")`` with the shipped recipe from that ``.pth`` (official) over a
+   small seeded tree: K6 forward/backward 21/0 a warmup step and 21/21 a
+   fine-tune step, no K5, finite losses, the checkpoints; one full-width bf16
+   step on the card against the CPU in both head configurations
+   (``FV_STEP_BOUNDS``); the fine-tune step's time at batch 64 and 128 with
+   K6 and with the unfused path.
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
@@ -65,7 +77,13 @@ give bit-identical dbias), with their times, the plain versions' and
 and bias (forward, or forward and backward less the forward: a yardstick the
 port never calls), and K7 (talking-head attention) at EfficientFormerV2-S1's
 shape at batch 256 and at ragged sizes, bit-identical run to run (no PyTorch
-call computes it: its library time is none). Each kernel's bound is the larger of its bytes over the
+call computes it: its library time is none), and K6 (the fused attention
+sub-block) at the six FasterViT-2 attentions of both head configurations,
+forward at batch 256 and backward at 128 (plus odd sizes; the backward's six
+gradients bit-identical over two runs), with its times, its plain version's,
+the port's unfused path's (Linear, K5, Linear) and
+``torch.nn.functional.multi_head_attention_forward``'s in bf16 (a yardstick
+the port never calls). Each kernel's bound is the larger of its bytes over the
 HBM rate and its operations over the card's peak rate for their type
 (``bound``).
 
@@ -77,8 +95,10 @@ Without a CUDA card, or outside the repository, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -148,6 +168,27 @@ K7_ODD = [(8, 25, 4, 16, 64), (8, 16, 8, 32, 128), (8, 1, 2, 16, 8), (8, 100, 3,
           (8, 128, 8, 16, 16), (8, 64, 8, 32, 128)]
 EF = "efficientformerv2_s1"
 EF_BATCH = 256
+# K6 (the fused attention sub-block, DFD_FUSED_ATTN) at the FasterViT-2 eval
+# shapes, batch 256: (config, windows, N, C, heads, launches per forward):
+# stage 3's windows of 4 + 49 tokens, its carrier tokens (16 an image), stage
+# 4's one window of 49, in each head configuration; its backward at the
+# fine-tune batch 128
+K6_SHAPES = [("official", 1024, 53, 384, 8, 8), ("official", 256, 16, 384, 8, 8),
+             ("official", 256, 49, 768, 16, 5), ("tpu", 1024, 53, 384, 3, 8),
+             ("tpu", 256, 16, 384, 3, 8), ("tpu", 256, 49, 768, 6, 5)]
+K6_BWD_SHAPES = [(config, B // 2, N, C, h, n) for config, B, N, C, h, n in K6_SHAPES]
+# odd sizes (windows, N, heads, d): one token, N past 64 and at 128, a head_dim
+# and C off the 16-byte loads (C 60), C off the 4-byte pairs (d 63, C 126) and
+# odd (C 123)
+K6_ODD = [(8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 2, 64), (8, 53, 3, 20), (8, 20, 2, 63),
+          (8, 33, 3, 41)]
+K6_GRADS = ("dx", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj")
+# K6's f32 gradients against the plain backward, max|d| over each one's scale:
+# both sum over every row of every window in f32, in different orders, from
+# bf16 dqkv and ctx that may each sit a rounding step apart
+K6_BWD_TOL = 1e-2
+K6_LAUNCHES = 21  # per FasterViT-2 forward with DFD_FUSED_ATTN: 8 + 8 + 5
+FV_FUSED_SPLITS = {"train": 256, "val": 64, "test": 64}  # phase 8's training tree
 # the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes/s, dense
 # tensor-core bf16 and non-tensor f32 operations/s
 HBM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
@@ -301,6 +342,7 @@ def phase1(device, report):
     kernels["window_attention"] = phase1_k5(device)
     kernels["window_attention_bwd"] = phase1_k5_bwd(device)
     kernels["attn4d"] = phase1_k7(device)
+    kernels["attn_subblock"], kernels["attn_subblock_bwd"] = phase1_k6(device)
     report["phase1"] = kernels
     return kernels
 
@@ -621,6 +663,227 @@ def phase1_k7(device) -> dict:
         f"{agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms")
     return {"rows": rows, "max_abs_err": worst, **agg, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+def k6_inputs(B, N, C, h, seed, device):
+    """x and dout bf16; the Linears' f32 weights (unit gain) and biases; the
+    f32 bias table."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, N, C, generator=g).to(torch.bfloat16)
+    wqkv = torch.randn(3 * C, C, generator=g) * C**-0.5
+    bqkv = torch.randn(3 * C, generator=g) * 0.1
+    bias = torch.randn(h, N, N, generator=g)
+    wproj = torch.randn(C, C, generator=g) * C**-0.5
+    bproj = torch.randn(C, generator=g) * 0.1
+    dout = torch.randn(B, N, C, generator=g).to(torch.bfloat16)
+    return [t.to(device) for t in (x, wqkv, bqkv, bias, wproj, bproj, dout)]
+
+
+def k6_bound(B: int, N: int, C: int, h: int) -> tuple[float, str]:
+    """x read and the output written (bf16), the f32 weights, biases and bias
+    table read once; x Wqkv^T, q k^T, p v and ctx Wproj^T on the tensor
+    cores."""
+    return bound(2 * B * N * C * 2 + (4 * C * C + 4 * C + h * N * N) * 4,
+                 {"bf16": 2 * B * N * C * (4 * C + 2 * N)})
+
+
+def k6_bwd_bound(B: int, N: int, C: int, h: int) -> tuple[float, str]:
+    """x and dout read, dx written (bf16); the f32 weights, qkv bias and bias
+    table read, the six gradients written; on the tensor cores the qkv
+    recompute (6 B N C^2), dctx (2), dx (6), dWqkv (6) and dWproj (2), and
+    the attention's six N x N products (q k^T, p v, do v^T, ds k, p^T do,
+    ds^T q: 12 B N^2 C)."""
+    nbytes = 3 * B * N * C * 2 + (4 * C * C + 3 * C + h * N * N) * 4 \
+        + (4 * C * C + 4 * C + h * N * N) * 4
+    return bound(nbytes, {"bf16": B * N * C * (22 * C + 12 * N)})
+
+
+def unfused_subblock(x, wqkv, bqkv, bias, wproj, bproj, h: int, scale: float):
+    """The port's path without ``DFD_FUSED_ATTN``: the qkv Linear (bf16
+    weights and bias, cuBLAS), K5 for N >= 32 (plain ops below), the proj
+    Linear."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+
+    bf16 = torch.bfloat16
+    attend = k5.window_attention if x.shape[1] >= 32 else k5.window_attention_plain
+    qkv = F.linear(x, wqkv.to(bf16), bqkv.to(bf16))
+    return F.linear(attend(qkv, bias, num_heads=h, scale=scale), wproj.to(bf16), bproj.to(bf16))
+
+
+def mha_forward(x, wqkv, bqkv, bias, wproj, bproj, h: int):
+    """``torch.nn.functional.multi_head_attention_forward`` on the same
+    function in bf16, the bias expanded to a [B h, N, N] float mask: the
+    library yardstick, which the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    B, N, C = x.shape
+    mask = bias.to(torch.bfloat16)[None].expand(B, h, N, N).reshape(B * h, N, N)
+    q = x.transpose(0, 1)
+    return F.multi_head_attention_forward(
+        q, q, q, C, h, wqkv, bqkv, None, None, False, 0.0, wproj, bproj, training=False,
+        need_weights=False, attn_mask=mask)[0].transpose(0, 1)
+
+
+def backward_ms(fwd, inputs, dout, runs: int = 10) -> float:
+    """Median forward-and-backward time less the median forward time (CUDA
+    events) of ``fwd`` over ``inputs``, which require grad."""
+    import torch
+
+    def both():
+        torch.autograd.grad(fwd(), inputs, dout)
+
+    total = statistics.median(cuda_times(both, runs=runs))
+    with torch.no_grad():
+        alone = statistics.median(cuda_times(fwd, runs=runs))
+    return total - alone
+
+
+def phase1_k6(device) -> tuple[dict, dict]:
+    """K6 against its plain version: the forward at the six FasterViT-2 eval
+    shapes (batch 256) and odd sizes, within two bf16 steps of each output's
+    scale (both round qkv, the probabilities, ctx and the output once, from
+    f32 sums in different orders); the backward at the six fine-tune shapes
+    (batch 128) and odd sizes, dx within two bf16 steps of its scale, the f32
+    gradients within ``K6_BWD_TOL`` of theirs, and all six bit-identical over
+    two runs. Times (CUDA events, medians) of K6, its plain version, the
+    port's unfused path (Linear, K5, Linear) and
+    ``multi_head_attention_forward`` in bf16, forward and (forward and
+    backward less the forward) backward, summed per forward and per
+    fine-tune step of each head configuration."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import attn_block as k6
+
+    def fwd_check(label, args, h, scale):
+        before = k6.attn_subblock.launches
+        out = k6.attn_subblock(*args, num_heads=h, scale=scale)
+        torch.cuda.synchronize()
+        if k6.attn_subblock.launches != before + 1:
+            raise AssertionError("attn_subblock did not launch its kernel")
+        ref = k6.attn_subblock_plain(*args, num_heads=h, scale=scale)
+        tol = two_steps(ref)
+        return check_close(f"attn_subblock {label}", out, ref, tol, 0.0), tol
+
+    def bwd_check(label, args, dout, h, scale):
+        before = k6.attn_subblock_bwd.launches
+        grads = k6.attn_subblock_bwd(*args[:5], dout, num_heads=h, scale=scale)
+        again = k6.attn_subblock_bwd(*args[:5], dout, num_heads=h, scale=scale)
+        torch.cuda.synchronize()
+        if k6.attn_subblock_bwd.launches != before + 2:
+            raise AssertionError("attn_subblock_bwd did not launch its kernels")
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"attn_subblock_bwd {label}: two runs differ")
+        refs = k6.attn_subblock_bwd_plain(*args[:5], dout, num_heads=h, scale=scale)
+        errs, tols = {}, {}
+        for name, got, ref in zip(K6_GRADS, grads, refs):
+            tols[name] = two_steps(ref) if name == "dx" else \
+                K6_BWD_TOL * float(ref.abs().max())
+            errs[name] = check_close(f"attn_subblock_bwd {label} {name}", got, ref, tols[name],
+                                     0.0)
+        return errs, tols
+
+    def add(per, config, count, t_k, t_p, unfused, lib, b):
+        agg = per.setdefault(config, {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0,
+                                      "library_ms": 0.0, "bounds": []})
+        agg["ms"] += count * t_k["median"]
+        agg["plain_ms"] += count * t_p["median"]
+        agg["unfused_ms"] += count * unfused
+        agg["library_ms"] = None if lib is None or agg["library_ms"] is None \
+            else agg["library_ms"] + count * lib
+        agg["bounds"].append((count, b))
+
+    def finish(per, what):
+        for config, agg in per.items():
+            agg["bound_ms"], agg["bound_by"] = add_bounds(agg.pop("bounds"))
+            log(f"  {what} per FasterViT-2 {config} (21 launches): kernel {agg['ms']:.4f} ms, "
+                f"plain {agg['plain_ms']:.4f} ms, unfused path {agg['unfused_ms']:.4f} ms, "
+                f"multi_head_attention_forward {agg['library_ms']} ms, bound "
+                f"{agg['bound_ms']:.4f} ms ({agg['bound_by']})")
+
+    rows, worst, per = [], 0.0, {}
+    for i, (config, B, N, C, h, count) in enumerate(K6_SHAPES):
+        x, wq, bq, bias, wp, bp, _ = args = k6_inputs(B, N, C, h, 800 + i, device)
+        args, scale = args[:6], (C // h) ** -0.5
+        err, tol = fwd_check(f"{config} {(B, N, C, h)}", args, h, scale)
+        worst = max(worst, err)
+        t_k = spread(cuda_times(lambda: k6.attn_subblock(*args, num_heads=h, scale=scale),
+                                runs=25))
+        t_p = spread(cuda_times(lambda: k6.attn_subblock_plain(*args, num_heads=h, scale=scale),
+                                runs=10))
+        unfused = statistics.median(cuda_times(lambda: unfused_subblock(*args, h, scale),
+                                               runs=25))
+        w16 = [t.to(torch.bfloat16) for t in (wq, bq, wp, bp)]
+        try:
+            lib = statistics.median(cuda_times(
+                lambda: mha_forward(x, w16[0], w16[1], bias, w16[2], w16[3], h), runs=25))
+        except RuntimeError as exc:
+            log(f"  multi_head_attention_forward refused {(B, N, C, h)}: {exc}")
+            lib = None
+        b = k6_bound(B, N, C, h)
+        rows.append({"config": config, "shape": (B, N, C, h), "launches_per_forward": count,
+                     "max_abs_err": err, "tolerance": tol, "ms": t_k, "plain_ms": t_p,
+                     "unfused_ms": unfused, "library_ms": lib, "bound_ms": b[0],
+                     "bound_by": b[1]})
+        add(per, config, count, t_k, t_p, unfused, lib, b)
+        log(f"  attn_subblock {config} windows {B} N {N} C {C} heads {h}: max|d|={err:.3e} "
+            f"(tol {tol:.3e}); kernel {t_k['median']:.4f} ms (q1 {t_k['q1']:.4f}, q3 "
+            f"{t_k['q3']:.4f}), plain {t_p['median']:.4f} ms, unfused path {unfused:.4f} ms, "
+            f"multi_head_attention_forward {lib if lib is None else round(lib, 4)} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]})")
+    finish(per, "attn_subblock")
+    fwd = {"rows": rows, "max_abs_err": worst, "per_forward": per, **per["official"]}
+
+    rows, worst, per = [], 0.0, {}
+    for i, (config, B, N, C, h, count) in enumerate(K6_BWD_SHAPES):
+        x, wq, bq, bias, wp, bp, dout = k6_inputs(B, N, C, h, 900 + i, device)
+        args, scale = [x, wq, bq, bias, wp, bp], (C // h) ** -0.5
+        errs, tols = bwd_check(f"{config} {(B, N, C, h)}", args, dout, h, scale)
+        worst = max(worst, errs["dx"])
+        t_k = spread(cuda_times(lambda: k6.attn_subblock_bwd(*args[:5], dout, num_heads=h,
+                                                             scale=scale), runs=25))
+        t_p = spread(cuda_times(lambda: k6.attn_subblock_bwd_plain(*args[:5], dout, num_heads=h,
+                                                                   scale=scale), runs=10))
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        unfused = backward_ms(lambda: unfused_subblock(*leaves, h, scale), leaves, dout)
+        w16 = [t.to(torch.bfloat16).requires_grad_() for t in (x, wq, bq, wp, bp)]
+        try:
+            lib = backward_ms(lambda: mha_forward(w16[0], w16[1], w16[2], bias, w16[3], w16[4],
+                                                  h), w16, dout)
+        except RuntimeError as exc:
+            log(f"  multi_head_attention_forward took no backward at {(B, N, C, h)}: {exc}")
+            lib = None
+        b = k6_bwd_bound(B, N, C, h)
+        rows.append({"config": config, "shape": (B, N, C, h), "launches_per_step": count,
+                     "max_abs_err": errs, "tolerance": tols, "ms": t_k, "plain_ms": t_p,
+                     "unfused_ms": unfused, "library_ms": lib, "bound_ms": b[0],
+                     "bound_by": b[1], "windows_per_block":
+                         k6.bwd_windows_per_block(B, N, C, C // h)})
+        add(per, config, count, t_k, t_p, unfused, lib, b)
+        log(f"  attn_subblock_bwd {config} windows {B} N {N} C {C} heads {h}: max|d| "
+            + ", ".join(f"{k} {errs[k]:.3e} (tol {tols[k]:.3e})" for k in errs)
+            + f"; bit-identical over two runs; kernel {t_k['median']:.4f} ms (q1 "
+            f"{t_k['q1']:.4f}, q3 {t_k['q3']:.4f}), plain {t_p['median']:.4f} ms, unfused path "
+            f"backward {unfused:.4f} ms, multi_head_attention_forward backward "
+            f"{lib if lib is None else round(lib, 4)} ms, bound {b[0]:.4f} ms ({b[1]})")
+    finish(per, "attn_subblock_bwd")
+    bwd = {"rows": rows, "max_abs_err": worst, "per_step": per, **per["official"]}
+
+    for i, (B, N, h, d) in enumerate(K6_ODD):
+        x, wq, bq, bias, wp, bp, dout = k6_inputs(B, N, h * d, h, 950 + i, device)
+        args, label = [x, wq, bq, bias, wp, bp], f"odd {(B, N, h, d)}"
+        err, tol = fwd_check(label, args, h, d**-0.5)
+        errs, _ = bwd_check(label, args, dout, h, d**-0.5)
+        fwd["rows"].append({"shape": (B, N, h * d, h), "max_abs_err": err, "tolerance": tol})
+        bwd["rows"].append({"shape": (B, N, h * d, h), "max_abs_err": errs})
+        log(f"  attn_subblock {label}: forward max|d|={err:.3e} (tol {tol:.3e}); backward "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return fwd, bwd
 
 
 def phase1_k4(device) -> dict:
@@ -1028,10 +1291,12 @@ def train_config(work: Path, data: Path, device, epochs: int) -> Path:
 
 def counted(fn):
     """Runs ``fn`` with every kernel's launch count at 0 before it and reads
-    them after it: (fn's result, {"k1", "k2", "k4", "k5", "k5_bwd", "k7"})."""
+    them after it: (fn's result, {"k1", "k2", "k4", "k5", "k5_bwd", "k6",
+    "k6_bwd", "k7"})."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import attn4d as k7
+    from deepfakedetection_tpu_torch.ops import attn_block as k6
     from deepfakedetection_tpu_torch.ops import depthwise_se as k1
     from deepfakedetection_tpu_torch.ops import expand_dw as k2
     from deepfakedetection_tpu_torch.ops import shear_rotate as k4
@@ -1040,11 +1305,13 @@ def counted(fn):
     k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
     k4.rotate_batch.launches = k5.window_attention.launches = 0
     k5.window_attention_bwd.launches = k7.attn4d.launches = 0
+    k6.attn_subblock.launches = k6.attn_subblock_bwd.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"k1": k1.depthwise_silu_pool.launches, "k2": k2.expand_dw_silu_pool.launches,
                  "k4": k4.rotate_batch.launches, "k5": k5.window_attention.launches,
-                 "k5_bwd": k5.window_attention_bwd.launches, "k7": k7.attn4d.launches}
+                 "k5_bwd": k5.window_attention_bwd.launches, "k6": k6.attn_subblock.launches,
+                 "k6_bwd": k6.attn_subblock_bwd.launches, "k7": k7.attn4d.launches}
 
 
 def logged_speeds(log_text: str) -> dict[str, float]:
@@ -1078,7 +1345,7 @@ def phase4(device, report):
     steps = warmup_steps + ft_steps
     per_forward = create_efficientnet("b3").eval().kernel_launches_per_forward()
     want = {"k1": per_forward["k1"] * 2 * val_batches, "k2": per_forward["k2"] * 2 * val_batches,
-            "k4": 3 * steps, "k5": 0, "k5_bwd": 0, "k7": 0}
+            "k4": 3 * steps, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0, "k7": 0}
     log(f"  training (1 epoch): {steps} train steps, {2 * val_batches} val batches; launches "
         f"K4={launches['k4']} K1={launches['k1']} K2={launches['k2']}; wall {wall:.1f} s")
     if launches != want:
@@ -1391,18 +1658,19 @@ def fastervit_logits(state, config: str, x, device, dtype):
 
 
 def fastervit_against_cpu(device, config: str, state, x) -> dict:
-    """The card's bf16 logits of ``state`` against the CPU's bf16 (K5's plain
-    version) and f32 runs on ``x``; K5 launches once per attention over 32 or
-    more tokens."""
+    """The card's bf16 logits of ``state`` against the CPU's bf16 (the
+    kernels' plain versions) and f32 runs on ``x``; K5 launches once per
+    attention over 32 or more tokens (13), or with ``DFD_FUSED_ATTN`` K6 once
+    per attention (21)."""
     import torch
 
-    from deepfakedetection_tpu_torch.ops import window_attn as k5
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
 
-    k5.window_attention.launches = 0
-    card = fastervit_logits(state, config, x, device, torch.bfloat16)
-    torch.cuda.synchronize()
-    if k5.window_attention.launches != 13:
-        raise AssertionError(f"{config} forward: {k5.window_attention.launches} K5 launches")
+    want = create_faster_vit("2", head_config=config).kernel_launches_per_forward()
+    card, n = counted(lambda: fastervit_logits(state, config, x, device, torch.bfloat16))
+    if want not in ({"k5": 13, "k6": 0}, {"k5": 0, "k6": K6_LAUNCHES}) \
+            or {k: n[k] for k in want} != want:
+        raise AssertionError(f"{config} forward: launches {n}, expected {want}")
     cpu = [fastervit_logits(state, config, x, torch.device("cpu"), dt)
            for dt in (torch.bfloat16, torch.float32)]
     return check_logits(f"FasterViT-2 {config} forward (card, bf16)", card, *cpu,
@@ -1458,7 +1726,8 @@ def phase5(device, report):
     res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[FV])
     wall = time.perf_counter() - t0
     batches = sum(-(-n // FV_BATCH) for n in SPLITS.values())
-    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * batches, "k5_bwd": 0, "k7": 0}
+    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * batches, "k5_bwd": 0, "k6": 0, "k6_bwd": 0,
+            "k7": 0}
     log(f"  main path: {batches} forward batches, launches {launches}; test pass "
         f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
     if launches != want:
@@ -1494,9 +1763,11 @@ FV_TRAIN_TF = {"ensure_rgb": True, "train_random_resized_crop": True,
 FV_STEP_BATCH = 4  # images of the card-against-CPU step (full width, 224 px)
 
 
-def fv_train_config(work: Path, data: Path, device) -> Path:
+def fv_train_config(work: Path, data: Path, device, runs: str = "runs_fv",
+                    init_weights: Path | None = None) -> Path:
     """The shipped FasterViT-2 block of ``config/train.yaml`` (its transforms,
-    batch 64, the recipe's warmup and fine-tune) for one epoch over ``data``."""
+    batch 64, the recipe's warmup and fine-tune) for one epoch over ``data``,
+    into ``work / runs``, from ``init_weights`` when given."""
     import yaml
 
     cfg = {
@@ -1505,15 +1776,16 @@ def fv_train_config(work: Path, data: Path, device) -> Path:
         "data": {"root": str(data), "train_split": "train", "val_split": "val",
                  "test_split": "test", "num_classes": 2, "img_size": 224},
         "models": {FV: {
-            "output_dir": str(work / "runs_fv"),
+            "output_dir": str(work / runs),
             "transforms": {"train": FV_TRAIN_TF, "eval": EVAL_TF},
-            "training": {"epochs": 1, "batch_size": 64, "num_workers": 8, "resume": "auto"},
+            "training": {"epochs": 1, "batch_size": 64, "num_workers": 8, "resume": "auto",
+                         **({"init_weights": str(init_weights)} if init_weights else {})},
             "inference": {"weights": "auto", "split": "test", "batch_size": 64,
                           "num_workers": 8, "img_size": 224},
         }},
         "selection": [FV],
     }
-    path = work / "train_fastervit.yaml"
+    path = work / f"train_{runs}.yaml"
     path.write_text(yaml.safe_dump(cfg))
     return path
 
@@ -1557,13 +1829,13 @@ def phase6(device, report):
     finally:
         loop.train_step = real_step
     model = create_faster_vit("2", head_config="tpu")
-    warm, ft = (tuple(model.kernel_launches_per_step(head_only).values())
+    warm, ft = ((lambda n: (n["k5"], n["k5_bwd"]))(model.kernel_launches_per_step(head_only))
                 for head_only in (True, False))
     if (warm, ft) != ((13, 0), (13, 13)):
         raise AssertionError(f"K5 launches per warmup and fine-tune step: {warm}, {ft}")
     want_steps = [(False, *warm)] * warmup_steps + [(True, *ft)] * ft_steps
     want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * (warmup_steps + ft_steps + 2 * val_batches),
-            "k5_bwd": 13 * ft_steps, "k7": 0}
+            "k5_bwd": 13 * ft_steps, "k6": 0, "k6_bwd": 0, "k7": 0}
     log(f"  training (1 epoch, tpu configuration): {warmup_steps} warmup steps at batch 64, "
         f"{ft_steps} fine-tune steps at 32 x 4, {2 * val_batches} val batches; launches "
         f"{launches}; K5 forward/backward per warmup step {per_step[0][1:]}, per fine-tune step "
@@ -1680,20 +1952,25 @@ FV_STEP_BOUNDS = {
 }
 
 
-def fv_step_against_cpu(device, config: str) -> dict:
+def fv_step_against_cpu(device, config: str, dtypes=("f32", "bf16")) -> dict:
     """One full-width FasterViT-2 fine-tune step (forward, loss, gradients;
     drop-path 0) on the card and on the CPU from the same seeded weights and
-    images, in bf16 (the card through K5 forward and backward, the CPU through
-    their plain versions) and in f32 (TF32 off; attention in plain ops on
-    both), held to ``FV_STEP_BOUNDS``."""
+    images, in bf16 (the card through K5 forward and backward, or K6's with
+    ``DFD_FUSED_ATTN``, the CPU through their plain versions) and in f32 (TF32
+    off; attention in plain ops on both), held to ``FV_STEP_BOUNDS``."""
     import torch
+
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
 
     state = seeded_fastervit_state(config, seed=21 if config == "official" else 23)
     g = torch.Generator().manual_seed(24)
     x = seeded_images(FV_STEP_BATCH, g)
     labels = torch.arange(FV_STEP_BATCH) % 2
     out = {}
+    per_step = create_faster_vit("2", head_config=config).kernel_launches_per_step()
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        if name not in dtypes:
+            continue
         tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
         if dtype == torch.float32:
             torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -1705,14 +1982,14 @@ def fv_step_against_cpu(device, config: str) -> dict:
         l_cpu, g_cpu, _ = fv_gradients(state, config, x, labels, torch.device("cpu"), dtype)
         row = out[name] = {**fv_step_readings((l_card, g_card), (l_cpu, g_cpu)),
                            "launches": launches, "cpu_s": time.perf_counter() - t0}
-        want = {"f32": (0, 0), "bf16": (13, 13)}[name]
+        want = {k: v if name == "bf16" else 0 for k, v in per_step.items()}
         log(f"  FasterViT-2 {config} step, card against CPU ({name}, batch {FV_STEP_BATCH}): "
             f"loss {l_card:.6f} / {l_cpu:.6f} (rel {row['loss_rel']:.2e}); max|dg|/scale "
             + ", ".join(f"{k} {row[k]:.2e}" for k in FV_GROUPS)
-            + f"; K5 forward/backward launches {launches['k5']}/{launches['k5_bwd']}; CPU "
-            f"{row['cpu_s']:.1f} s")
+            + f"; K5 forward/backward launches {launches['k5']}/{launches['k5_bwd']}, K6 "
+            f"{launches['k6']}/{launches['k6_bwd']}; CPU {row['cpu_s']:.1f} s")
         over = {k: (row[k], b) for k, b in FV_STEP_BOUNDS[name].items() if not row[k] <= b}
-        if over or (launches["k5"], launches["k5_bwd"]) != want:
+        if over or {k: launches[k] for k in want} != want:
             raise AssertionError(f"the card's {name} FasterViT {config} step disagrees with the "
                                  f"CPU's: {over} (reading, bound); {row}")
     return out
@@ -1865,7 +2142,8 @@ def phase7(device, report):
     res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[EF])
     wall = time.perf_counter() - t0
     batches = sum(-(-n // EF_BATCH) for n in SPLITS.values())
-    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k7": 4 * batches}
+    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0,
+            "k7": 4 * batches}
     log(f"  main path: {batches} forward batches, launches {launches}; test pass "
         f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
     if launches != want:
@@ -1899,6 +2177,206 @@ def phase7(device, report):
                         "test_img_per_s": res.images_per_s, "wall_s": wall,
                         "reference": agree, "against_cpu": against, "timings": timings}
     return launches
+
+
+@contextlib.contextmanager
+def fused_attn(on: bool):
+    """``DFD_FUSED_ATTN`` set (or unset) for the models built inside, then
+    restored."""
+    old = os.environ.pop("DFD_FUSED_ATTN", None)
+    if on:
+        os.environ["DFD_FUSED_ATTN"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("DFD_FUSED_ATTN", None)
+        if old is not None:
+            os.environ["DFD_FUSED_ATTN"] = old
+
+
+def fused_forward_times(state, g, device) -> dict:
+    """The bf16 FasterViT-2 official eval forward of ``state`` at batch 128
+    and 256 on random images (CUDA events, median and quartiles of 10), built
+    with ``DFD_FUSED_ATTN`` (K6) and without it (the unfused path: Linear,
+    K5, Linear), in turns."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+
+    models = {}
+    for on in (True, False):
+        with fused_attn(on):
+            models[on] = create_faster_vit("2", head_config="official")
+        models[on].load_state_dict(state)
+        models[on] = models[on].to(device).eval()
+    timings = {}
+    for batch in (128, 256):
+        xb = torch.randn(batch, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
+        xb = xb.contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            t_k, t_u = (spread(cuda_times(lambda m=models[on]: m(xb), runs=10))
+                        for on in (True, False))
+        timings[batch] = {"k6_ms": t_k, "unfused_ms": t_u,
+                          "img_per_s": batch / (t_k["median"] / 1e3),
+                          "unfused_img_per_s": batch / (t_u["median"] / 1e3)}
+        log(f"  FasterViT-2 official forward batch {batch}: K6 {t_k['median']:.3f} ms (q1 "
+            f"{t_k['q1']:.3f}, q3 {t_k['q3']:.3f}) = {timings[batch]['img_per_s']:.1f} img/s; "
+            f"unfused path {t_u['median']:.3f} ms (q1 {t_u['q1']:.3f}, q3 {t_u['q3']:.3f}) = "
+            f"{timings[batch]['unfused_img_per_s']:.1f} img/s")
+    return timings
+
+
+def fused_step_times(device) -> dict:
+    """The bf16 FasterViT-2 official fine-tune step (forward, backward, AdamW
+    over every tensor, drop-path on) at batch 64 and 128, CUDA events, median
+    and quartiles of 10, built with ``DFD_FUSED_ATTN`` (K6 forward and
+    backward) and without it (the unfused path), from the same seeded weights,
+    in turns."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+    from deepfakedetection_tpu_torch.runtime.seeding import fold_in, root_generator
+    from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
+    from deepfakedetection_tpu_torch.train.steps import train_step
+
+    steps = {}
+    for on in (True, False):
+        with fused_attn(on):
+            model = create_faster_vit("2", head_config="official",
+                                      generator=torch.Generator().manual_seed(26)).to(device)
+        steps[on] = (model, PhaseOptimizer(list(model.named_parameters()), lr=1e-4,
+                                           weight_decay=5e-2,
+                                           trainable=unfreeze_predicate("all")))
+    root = root_generator(4)
+    g = torch.Generator().manual_seed(27)
+    out = {}
+    for batch in (64, 128):
+        x = torch.randn(batch, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        labels = (torch.arange(batch) % 2).to(device)
+        mask = torch.ones(batch, dtype=torch.bool, device=device)
+        times = {}
+        for on in (True, False):
+            model, opt = steps[on]
+            torch.cuda.reset_peak_memory_stats(device)
+            times[on] = spread(cuda_times(lambda: train_step(
+                model, opt, x, labels, mask, fold_in(root, opt.count, device=device)), runs=10))
+            times[on, "peak"] = torch.cuda.max_memory_allocated(device) / 2**30
+        out[batch] = {"k6_step_ms": times[True], "unfused_step_ms": times[False],
+                      "k6_peak_gib": times[True, "peak"], "unfused_peak_gib": times[False, "peak"],
+                      "img_per_s": batch / (times[True]["median"] / 1e3)}
+        log(f"  FasterViT-2 official train step batch {batch}: K6 {times[True]['median']:.3f} ms "
+            f"(q1 {times[True]['q1']:.3f}, q3 {times[True]['q3']:.3f}) = "
+            f"{out[batch]['img_per_s']:.1f} img/s, peak {times[True, 'peak']:.1f} GiB; unfused "
+            f"path {times[False]['median']:.3f} ms (q1 {times[False]['q1']:.3f}, q3 "
+            f"{times[False]['q3']:.3f}), peak {times[False, 'peak']:.1f} GiB")
+    return out
+
+
+def phase8(device, report):
+    """The FasterViT-2 path with ``DFD_FUSED_ATTN`` set (inside this phase
+    only): ``orchestrate(mode="inference")`` at batch 256 over phase 3's tree
+    from phase 5's seeded wheel-named .pth (official), the card's logits
+    against the CPU's in both head configurations, forward times with K6 and
+    with the unfused path; ``orchestrate(mode="training")`` with the shipped
+    FasterViT recipe from that .pth over a small tree (warmup at batch 64,
+    fine-tune at 32 x 4 = 128), one full-width bf16 step against the CPU's in
+    both head configurations, and the fine-tune step's times."""
+    import numpy as np
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import attn_block as k6
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+    from deepfakedetection_tpu_torch.train import loop
+
+    work = REPO / "build" / "chip_smoke"
+    data = work / "data"  # phase 3's tree
+    weights = work / "faster_vit_2_224_seeded.pth"  # phase 5's
+    state = torch.load(weights, weights_only=True)
+    cpu = torch.device("cpu")
+    zero = {"k1": 0, "k2": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0, "k7": 0}
+    with fused_attn(True):
+        cfg_path = eval_config(work, "inference_fastervit_fused.yaml", FV, "runs_fv_fused",
+                               weights, FV_BATCH, device)
+        t0 = time.perf_counter()
+        res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[FV])
+        wall = time.perf_counter() - t0
+        batches = sum(-(-n // FV_BATCH) for n in SPLITS.values())
+        log(f"  eval main path: {batches} forward batches, launches {launches}; test pass "
+            f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
+        if launches != {**zero, "k6": K6_LAUNCHES * batches}:
+            raise AssertionError(f"fused FasterViT eval launches {launches}, expected "
+                                 f"{K6_LAUNCHES} K6 a batch and nothing else")
+        if res.probs.shape != (SPLITS["test"], 2) or not np.isfinite(res.probs).all() \
+                or not np.allclose(res.probs.sum(-1), 1.0, atol=1e-5):
+            raise AssertionError(f"bad test probabilities {res.probs.shape}")
+        agree = reference_check(res, data, lambda x: [
+            fastervit_logits(state, "official", x, cpu, dt)
+            for dt in (torch.bfloat16, torch.float32)], gate=FV_GATE["official"])
+        g = torch.Generator().manual_seed(12)
+        x = seeded_images(8, g)
+        against = {"official": fastervit_against_cpu(device, "official", state, x),
+                   "tpu": fastervit_against_cpu(device, "tpu", seeded_fastervit_state("tpu", 13),
+                                                x)}
+    timings = fused_forward_times(state, g, device)
+    eval_launches = launches
+
+    train_work = REPO / "build" / "chip_smoke_fused"
+    shutil.rmtree(train_work, ignore_errors=True)
+    tree = train_work / "data"
+    write_jpeg_tree(tree, FV_FUSED_SPLITS, seed=8)
+    n_train, n_val = FV_FUSED_SPLITS["train"], FV_FUSED_SPLITS["val"]
+    warmup_steps, ft_steps, val_batches = n_train // 64, n_train // 128, -(-n_val // 64)
+    per_step = []
+    real_step = loop.train_step
+
+    def step_spy(model, opt, *args, **kw):
+        before = (k6.attn_subblock.launches, k6.attn_subblock_bwd.launches)
+        out = real_step(model, opt, *args, **kw)
+        per_step.append((opt.n_train == opt.n_total, k6.attn_subblock.launches - before[0],
+                         k6.attn_subblock_bwd.launches - before[1]))
+        return out
+
+    with fused_attn(True):
+        loop.train_step = step_spy
+        try:
+            t0 = time.perf_counter()
+            tres, launches = counted(lambda: orchestrate(fv_train_config(
+                train_work, tree, device, "runs_fv", init_weights=weights), mode="training")[FV])
+            train_wall = time.perf_counter() - t0
+        finally:
+            loop.train_step = real_step
+        want_steps = ([(False, K6_LAUNCHES, 0)] * warmup_steps
+                      + [(True, K6_LAUNCHES, K6_LAUNCHES)] * ft_steps)
+        want = {**zero, "k6": K6_LAUNCHES * (warmup_steps + ft_steps + 2 * val_batches),
+                "k6_bwd": K6_LAUNCHES * ft_steps}
+        log(f"  training (1 epoch, official from the seeded .pth): {warmup_steps} warmup steps "
+            f"at batch 64, {ft_steps} fine-tune steps at 32 x 4, {2 * val_batches} val batches; "
+            f"launches {launches}; K6 forward/backward per warmup step {per_step[0][1:]}, per "
+            f"fine-tune step {per_step[-1][1:]}; wall {train_wall:.1f} s")
+        if launches != want or per_step != want_steps:
+            raise AssertionError(f"fused FasterViT training launches {launches} (expected "
+                                 f"{want}), per step {per_step}")
+        (run,) = sorted((train_work / "runs_fv").iterdir())
+        for name in ("latest.ckpt", "best.ckpt", f"{FV}.pth"):
+            if not (run / "checkpoints" / name).is_file():
+                raise AssertionError(f"fused FasterViT training wrote no {name}")
+        log_text = (run / "logs" / "train.log").read_text()
+        losses = [float(v) for v in re.findall(r": loss=(\S+) \|", log_text)]
+        if "head_config='official'" not in "".join(log_text.split()) or len(losses) != 2 \
+                or not all(np.isfinite(losses)) or tres.interrupted:
+            raise AssertionError(f"bad fused FasterViT training run: losses {losses}, {tres}")
+        log(f"  losses {[round(v, 4) for v in losses]}; img/s {logged_speeds(log_text)}")
+        step_agree = {config: fv_step_against_cpu(device, config, dtypes=("bf16",))
+                      for config in ("official", "tpu")}
+    step_timing = fused_step_times(device)
+    report["phase8"] = {"eval_launches": eval_launches, "batches": batches,
+                        "test_img_per_s": res.images_per_s, "wall_s": wall, "reference": agree,
+                        "against_cpu": against, "timings": timings, "train_launches": launches,
+                        "per_step": per_step, "losses": losses,
+                        "logged_img_per_s": logged_speeds(log_text), "train_wall_s": train_wall,
+                        "cpu_check": step_agree, "step_times": step_timing}
+    return eval_launches, launches
 
 
 def main() -> int:
@@ -1940,6 +2418,10 @@ def main() -> int:
     launches["k5_bwd"] = phase6(device, report)["k5_bwd"]
     log("phase 7: EfficientFormerV2-S1 eval path, orchestrate(mode='inference')")
     launches["k7"] = phase7(device, report)["k7"]
+    log("phase 8: FasterViT-2 with DFD_FUSED_ATTN (K6), orchestrate(mode='inference') and "
+        "orchestrate(mode='training')")
+    fused_eval, fused_train = phase8(device, report)
+    launches["k6"], launches["k6_bwd"] = fused_eval["k6"], fused_train["k6_bwd"]
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())
@@ -1958,7 +2440,11 @@ def main() -> int:
                                     "deepfakedetection_tpu/ops/pallas/window_attn.py:799"),
                "window_attention_bwd": ("k5_bwd", "window_attn_bwd.cu",
                                         "deepfakedetection_tpu/ops/pallas/window_attn.py:587"),
-               "attn4d": ("k7", "attn4d.cu", "deepfakedetection_tpu/ops/pallas/attn4d.py:92")}
+               "attn4d": ("k7", "attn4d.cu", "deepfakedetection_tpu/ops/pallas/attn4d.py:92"),
+               "attn_subblock": ("k6", "attn_block.cu",
+                                 "deepfakedetection_tpu/ops/pallas/attn_block.py:167"),
+               "attn_subblock_bwd": ("k6_bwd", "attn_block_bwd.cu",
+                                     "deepfakedetection_tpu/ops/pallas/attn_block.py:202")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"deepfakedetection_tpu_torch/ops/csrc/{src}", "replaces": where,

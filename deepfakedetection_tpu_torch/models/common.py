@@ -354,8 +354,13 @@ class Linear(nn.Linear):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return self.weight.to(self.dtype), b
 
+    def cast(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(weight, bias) in the compute dtype: cached at eval, cast anew in
+        training."""
+        return self._cast_now() if self.training else self._cast.get(self._tensors())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self._cast_now() if self.training else self._cast.get(self._tensors())
+        w, b = self.cast()
         return F.linear(x.to(self.dtype), w, b)
 
 

@@ -31,14 +31,24 @@ wrapper launches the CUDA kernel for CUDA tensors and runs its plain version
 for CPU tensors. The JAX package takes its kernel only for head_dim % 128 != 0
 at eval (a v5e measurement); the port takes K5 in both configurations.
 
+``DFD_FUSED_ATTN`` set when a bf16 model is built (the JAX package's opt-in)
+sends every attention, the carrier tokens' included, through K6
+(``ops/attn_block.py``): the qkv Linear, the attention and the proj Linear
+as one kernel, 21 launches per FasterViT-2 forward and no K5. ``qkv`` and
+``proj`` stay ``Linear`` modules, so the parameters' names and shapes do not
+change with the flag; K6 takes their f32 tensors (their cached bf16 weights
+at eval), so their gradients come back in f32. The JAX package takes K6 only
+where it takes K5 (``use_pallas_for``); the port in both configurations, at
+eval and in training. A float32 model with the flag attends through plain
+ops, unfused.
+
 In training (``model.train()``, ``forward(x, generator)``) it follows the JAX
 package's ``train=True`` path: the conv stages' ConvBN with batch statistics
 (decay 0.9), the final ``norm`` through ``batch_norm_train``, the position
 MLPs recomputed every call, drop-path after the layer scale on every residual
 branch (per window in the window sub-block, per image elsewhere) at the JAX
 per-block rate, and K5 through its autograd Function, whose backward is the
-K5 backward kernel. ``DFD_FUSED_ATTN`` (the JAX package's fused K6 sub-block)
-raises: K6 is not ported yet (ROADMAP Queue 2).
+K5 backward kernel (K6's Function and backward kernels under the flag).
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from deepfakedetection_tpu_torch.models.common import (
     batch_norm_train,
     gelu,
 )
+from deepfakedetection_tpu_torch.ops.attn_block import attn_subblock
 from deepfakedetection_tpu_torch.ops.window_attn import window_attention, window_attention_plain
 from deepfakedetection_tpu_torch.runtime.flags import fused_attn
 
@@ -215,12 +226,14 @@ class RelPosBiasMLP(_Cached):
 class TokenAttention(nn.Module):
     """Multi-head self-attention over [B, N, C] with a per-head [N, N] bias:
     the official configuration's log-CPB MLP (``pos_emb_funct``) or the tpu
-    configuration's learned table (``rel_bias``)."""
+    configuration's learned table (``rel_bias``). Built in bf16 with
+    ``DFD_FUSED_ATTN`` set, the whole sub-block runs as K6."""
 
     def __init__(self, dim: int, num_heads: int, tokens: int, *, window: int, n_global: int,
                  official: bool, dtype: torch.dtype) -> None:
         super().__init__()
         self.num_heads, self.dtype = num_heads, dtype
+        self.fused = dtype == torch.bfloat16 and fused_attn()
         self.scale = (dim // num_heads) ** -0.5
         self.qkv = Linear(dim, 3 * dim, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
@@ -229,13 +242,22 @@ class TokenAttention(nn.Module):
         else:
             self.rel_bias = nn.Parameter(torch.zeros(num_heads, tokens, tokens))
 
-    def uses_kernel(self, tokens: int) -> bool:
-        return self.dtype == torch.bfloat16 and tokens >= _KERNEL_MIN_TOKENS
+    def kernel(self, tokens: int) -> str | None:
+        """The kernel this attention launches over ``tokens`` tokens on the
+        card: "k6", "k5" or None (plain ops)."""
+        if self.fused:
+            return "k6"
+        return "k5" if self.dtype == torch.bfloat16 and tokens >= _KERNEL_MIN_TOKENS else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = self.qkv(x)
         bias = self.pos_emb_funct.value() if hasattr(self, "pos_emb_funct") else self.rel_bias
-        attend = window_attention if self.uses_kernel(x.shape[1]) else window_attention_plain
+        if self.fused:
+            wqkv, wproj = ((self.qkv.weight, self.proj.weight) if self.training
+                           else (self.qkv.cast()[0], self.proj.cast()[0]))
+            return attn_subblock(x.to(self.dtype), wqkv, self.qkv.bias, bias, wproj,
+                                 self.proj.bias, num_heads=self.num_heads, scale=self.scale)
+        qkv = self.qkv(x)
+        attend = window_attention if self.kernel(x.shape[1]) == "k5" else window_attention_plain
         return self.proj(attend(qkv, bias, num_heads=self.num_heads, scale=self.scale))
 
 
@@ -418,11 +440,6 @@ class FasterViT(nn.Module):
         generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
-        if fused_attn():
-            raise NotImplementedError(
-                "DFD_FUSED_ATTN: the fused qkv -> attention -> proj sub-block (K6) is not "
-                "ported to PyTorch yet (ROADMAP Queue 2, K6); unset it"
-            )
         self.dtype, self.official = dtype, official
         self.window_size, self.ct_size = window_size, ct_size
         self.res3 = img_size // 16  # stage-3 resolution
@@ -511,20 +528,23 @@ class FasterViT(nn.Module):
         return [m for m in self.modules() if isinstance(m, TokenAttention)]
 
     def kernel_launches_per_forward(self) -> dict[str, int]:
-        """How many K5 launches one eval forward makes: every attention over
-        at least 32 tokens, in bf16 (13 for FasterViT-2)."""
+        """How many K5 and K6 launches one eval forward makes: without
+        ``DFD_FUSED_ATTN``, K5 for every bf16 attention over at least 32
+        tokens (13 for FasterViT-2); with it, K6 for every bf16 attention (21)."""
         tokens = {id(blk.attn): self.ct_size**2 + self.window_size**2
                   for blk in self.levels[2].blocks}
         tokens.update({id(blk.attn): self.res4**2 for blk in self.levels[3].blocks})
-        return {"k5": sum(a.uses_kernel(tokens.get(id(a), 0)) for a in self.attentions())}
+        kernels = [a.kernel(tokens.get(id(a), 0)) for a in self.attentions()]
+        return {k: kernels.count(k) for k in ("k5", "k6")}
 
     def kernel_launches_per_step(self, head_only: bool = False) -> dict[str, int]:
-        """K5 forward and backward launches of one train step: the forward's,
-        and as many backward ones unless only the head trains (the warmup:
-        no gradient flows below the head, so autograd runs no backward
-        there)."""
-        k5 = self.kernel_launches_per_forward()["k5"]
-        return {"k5": k5, "k5_bwd": 0 if head_only else k5}
+        """K5 and K6 forward and backward launches of one train step: the
+        forward's, and as many backward ones unless only the head trains (the
+        warmup: no gradient flows below the head, so autograd runs no
+        backward there)."""
+        fwd = self.kernel_launches_per_forward()
+        return {"k5": fwd["k5"], "k5_bwd": 0 if head_only else fwd["k5"],
+                "k6": fwd["k6"], "k6_bwd": 0 if head_only else fwd["k6"]}
 
     def _carrier_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """[B, C, H, W] -> [B, nW*ct², C], window-major: the tokenizer's map

@@ -6,6 +6,8 @@ op, on one CUDA card.
     python -m deepfakedetection_tpu_torch.profile_forward --model faster_vit_2_224 \
         [--head-config official|tpu] [--train]       # FasterViT-2 forward or train step
     python -m deepfakedetection_tpu_torch.profile_forward --model efficientformerv2_s1
+    DFD_FUSED_ATTN=1 python -m deepfakedetection_tpu_torch.profile_forward \
+        --model faster_vit_2_224 [--train]           # FasterViT-2 through K6
 
 Runs the model at 224 px in bf16 with generator-seeded weights (the times do
 not depend on their values): B3 at batch 128, FasterViT-2's and
@@ -18,8 +20,9 @@ statistics, dropout and drop-path, backward (FasterViT: K5's forward and
 backward kernels), and AdamW over every tensor. Prints the
 device time per call against the wall time per call (host clock, device
 synchronised), so their gap is the device's idle time, then each device
-kernel's self time and launches per call, the largest first. This is the
-breakdown behind ``PERF.md`` section 5.
+kernel's self time and launches per call, the largest first, the port's
+hand-written kernels tagged with the TPU kernel each replaces (K1-K7). This
+is the breakdown behind ``PERF.md`` section 5.
 """
 
 from __future__ import annotations
@@ -38,6 +41,17 @@ from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_pre
 from deepfakedetection_tpu_torch.train.steps import train_step
 
 CALLS, WARMUP, ROWS = 5, 3, 30
+# the port's CUDA kernels (ops/csrc) by the TPU kernel each replaces
+TAGS = {"depthwise_silu_pool_kernel": "K1", "expand_dw_silu_pool_kernel": "K2",
+        "shear_pass_kernel": "K4", "window_attention_kernel": "K5",
+        "window_attention_bwd_kernel": "K5 bwd", "dbias_reduce_kernel": "K5 bwd",
+        "attn_block_kernel": "K6", "window_bwd_kernel": "K6 bwd", "gemm_nt_kernel": "K6 bwd",
+        "wgrad_kernel": "K6 bwd", "sum_partials_kernel": "K6 bwd", "attn4d_kernel": "K7"}
+
+
+def tag(kernel: str) -> str:
+    """The TPU kernel a device kernel's name says it replaces, or ""."""
+    return next((t for k, t in TAGS.items() if f"{k}<" in kernel or f"{k}(" in kernel), "")
 BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 256, "efficientformerv2_s1": 256}
 TRAIN_BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 128}
 
@@ -117,9 +131,9 @@ def main() -> None:
     print(f"{name} {what}, batch {batch}, bf16 ({torch.cuda.get_device_name(0)}): "
           f"{device_ms:.3f} ms of device time per call; wall time {plain_wall:.3f} ms "
           f"({wall:.3f} ms under the profiler); {host_ops:.0f} aten op calls per call (nested ones included)")
-    print(f"{'ms':>8} {'calls':>6}  kernel")
+    print(f"{'ms':>8} {'calls':>6} {'port':>6}  kernel")
     for ms, calls, name in kernels[:ROWS]:
-        print(f"{ms:8.3f} {calls:6.1f}  {name[:110]}")
+        print(f"{ms:8.3f} {calls:6.1f} {tag(name):>6}  {name[:110]}")
 
 
 if __name__ == "__main__":

@@ -125,11 +125,13 @@ _EFFICIENTNET_RECIPE = TrainRecipe(
     head_param_substrings=("classifier", "_fc", "fc"),
     color_jitter=(0.2, 0.2, 0.2, 0.05),
 )
-# unfreeze names the JAX package's modules; training EfficientFormerV2 on the
-# port (ROADMAP Queue 1 item 6) maps them onto timm's
+# the JAX package's unfreeze set (stages_3, blocks_3, norm_out, head: stage
+# 4's blocks, the final norm, both heads and every talking head; 116 of S1's
+# 357 tensors) in timm's names; "head" also selects the talking heads for
+# the warmup, as in the JAX package
 _EFFICIENTFORMER_RECIPE = TrainRecipe(
     head_param_substrings=("head",),
-    unfreeze=("stages_3", "blocks_3", "norm_out", "head"),
+    unfreeze=("stages.3.blocks", "norm.", "head"),
     early_stop_patience=None,
     color_jitter=(0.1, 0.1, 0.1, 0.05),
     default_train_toggles={"train_random_rotation": False, "train_random_erasing": False},

@@ -1,7 +1,7 @@
 """The device rule and the compute dtype, from the YAML config, the one
-numerics switch, ``DFD_EXACT_GELU``, and ``DFD_FUSED_ATTN``, which the port
-reads only to refuse it. The port has no dispatch flags: on the card the
-kernels are the path."""
+numerics switch, ``DFD_EXACT_GELU``, and the one kernel switch,
+``DFD_FUSED_ATTN`` (FasterViT's attention sub-block as K6). Otherwise the
+port has no dispatch flags: on the card the kernels are the path."""
 
 from __future__ import annotations
 
@@ -15,8 +15,9 @@ _FALSY = ("", "0", "false", "no")  # the JAX package's env_flag
 
 def fused_attn() -> bool:
     """``DFD_FUSED_ATTN`` set (the JAX package's opt-in fused qkv ->
-    attention -> proj FasterViT sub-block, K6). The port has no K6 yet, so a
-    FasterViT built with it set raises rather than ignore it."""
+    attention -> proj FasterViT sub-block): a bf16 FasterViT built with it
+    runs every attention through K6 (``ops/attn_block.py``) instead of the
+    qkv Linear, K5 and the proj Linear."""
     return os.environ.get("DFD_FUSED_ATTN", "").strip().lower() not in _FALSY
 
 

@@ -21,12 +21,12 @@ Port of ``deepfakedetection_tpu/train/loop.py`` (``TrainJob``,
   resumed run repeats the uninterrupted one.
 
 The families are EfficientNet and FasterViT (whose train step runs K5's
-forward and backward on the card); a FasterViT's head configuration comes
-from its ``init_weights`` tensors unless the config pins one, as the eval
-job picks it. Not ported: EfficientFormerV2 (ROADMAP Queue 1 item 6),
-``DFD_FUSED_ATTN`` (K6, Queue 2), ``remat``, ``async_checkpoint``,
-``profile_dir`` and more than one process raise ``NotImplementedError``
-(ROADMAP Queue 1 items 11 and 9).
+forward and backward on the card, or K6's with ``DFD_FUSED_ATTN`` set); a
+FasterViT's head configuration comes from its ``init_weights`` tensors unless
+the config pins one, as the eval job picks it. Not ported: EfficientFormerV2
+(ROADMAP Queue 1 item 6), ``remat``, ``async_checkpoint``, ``profile_dir``
+and more than one process raise ``NotImplementedError`` (ROADMAP Queue 1
+items 11 and 9).
 """
 
 from __future__ import annotations
@@ -54,7 +54,6 @@ from deepfakedetection_tpu_torch.registry import ModelSpec
 from deepfakedetection_tpu_torch.runtime import checkpoint as ckpt
 from deepfakedetection_tpu_torch.runtime import preempt
 from deepfakedetection_tpu_torch.runtime.convert import load_weights
-from deepfakedetection_tpu_torch.runtime.flags import fused_attn
 from deepfakedetection_tpu_torch.runtime.logging import (
     append_metrics,
     console,
@@ -141,9 +140,6 @@ def unported_options(job: TrainJob) -> list[str]:
     if job.spec.family not in ("efficientnet", "fastervit"):
         out.append(f"training {job.spec.family} on PyTorch is ROADMAP Queue 1 item 6 "
                    "(EfficientFormerV2 training)")
-    if job.spec.family == "fastervit" and fused_attn():
-        out.append("DFD_FUSED_ATTN (the fused attention sub-block, K6) on PyTorch is ROADMAP "
-                   "Queue 2")
     for name, on in (("training.remat", job.remat),
                      ("training.async_checkpoint", job.async_checkpoint),
                      ("profile_dir", bool(job.profile_dir))):

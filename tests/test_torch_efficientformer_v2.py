@@ -24,6 +24,10 @@ module layout.
     nonzero conv bias gives the logits of its folded form.
 (d) ``chip_smoke.py``'s logit gate for EfficientFormerV2-S1 separates the
     seeded model's sound bf16 run from wrong variants of its attention.
+(e) The port's EFv2 recipe selects, name by name through the converter's
+    name map, the JAX package's training sets on S1: its ``unfreeze`` keys
+    the 116 fine-tune tensors (stage 4's blocks, the final norm, both heads
+    and every talking head), its head substrings the 20 warmup tensors.
 """
 
 import importlib.util
@@ -38,13 +42,22 @@ import torch.nn.functional as F
 
 from deepfakedetection_tpu.models.efficientformer_v2 import _VARIANTS
 from deepfakedetection_tpu.models.efficientformer_v2 import EfficientFormerV2 as JaxEFv2
+from deepfakedetection_tpu.registry import get_model_spec as jax_model_spec
+from deepfakedetection_tpu.train import optim as jax_optim
 from deepfakedetection_tpu_torch.models import efficientformer_v2 as efv2
 from deepfakedetection_tpu_torch.models.efficientformer_v2 import (
     EfficientFormerV2,
     create_efficientformer_v2,
 )
 from deepfakedetection_tpu_torch.ops import attn4d as k7
-from deepfakedetection_tpu_torch.runtime.convert import load_state_dict_strict, state_dict_from_jax
+from deepfakedetection_tpu_torch.registry import get_model_spec as port_model_spec
+from deepfakedetection_tpu_torch.runtime.convert import (
+    _MAPS,
+    _flatten,
+    load_state_dict_strict,
+    state_dict_from_jax,
+)
+from deepfakedetection_tpu_torch.train import optim as port_optim
 from tests.torch_refs.efficientformer_v2_torch import EfficientFormerV2S1
 
 REPO = Path(__file__).resolve().parents[1]
@@ -301,3 +314,24 @@ def test_chip_smoke_gate_separates_wrong_attention(monkeypatch):
     for wrong in (_th1_transposed, _th2_bias_dropped):
         monkeypatch.setattr(efv2, "attn4d", wrong(attend))
         assert rel() > smoke.EFV2_GATE, wrong.__name__
+
+
+def test_training_sets_match_the_jax_package():
+    model = JaxEFv2(num_classes=2, dtype=jnp.float32, **S1)
+    shapes = jax.eval_shape(lambda key, x: model.init(key, x, train=False), jax.random.key(0),
+                            jnp.zeros((1, 224, 224, 3)))
+    jax_paths = jax_optim.param_path_strings(shapes["params"])
+    name_map = _MAPS["efficientformerv2"]({p[1] for p in _flatten(shapes)})
+    names = [n for n, _ in efv2.create_efficientformer_v2("s1").named_parameters()]
+    assert len(names) == len(jax_paths) == 357
+    jax_recipe, recipe = (jax_model_spec("efficientformerv2_s1").recipe,
+                          port_model_spec("efficientformerv2_s1").recipe)
+    for jax_pred, pred, size in (
+        (jax_optim.unfreeze_predicate(jax_recipe.unfreeze),
+         port_optim.unfreeze_predicate(recipe.unfreeze), 116),
+        (jax_optim.head_predicate(jax_recipe.head_param_substrings),
+         port_optim.head_predicate(recipe.head_param_substrings), 20),
+    ):
+        want = {p for p in jax_paths if jax_pred(p)}
+        got = {"/".join(name_map[n][0]) for n in names if pred(n)}
+        assert len(want) == size and got == want, sorted(got ^ want)[:8]

@@ -397,14 +397,20 @@ def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, check
     cfg.write_text(yaml.safe_dump(data))
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         port_orch.orchestrate(cfg, mode="training")
-    # FasterViT trains, but not with the fused sub-block (K6) switched on
-    data["selection"] = ["efficientnet_b3", "faster_vit_2_224"]
+    assert not (tmp_path / "out").exists()  # failed before any work
+    # FasterViT trains with the fused sub-block (K6) switched on as well: no
+    # refusal, the job reaches the trainer
+    data["selection"] = ["faster_vit_2_224"]
     cfg.write_text(yaml.safe_dump(data))
+    jobs = []
     with monkeypatch.context() as mp:
         mp.setenv("DFD_FUSED_ATTN", "1")
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            port_orch.orchestrate(cfg, mode="training")
-    assert not (tmp_path / "out").exists()  # failed before any work
+        mp.setattr(port_orch, "run_training",
+                   lambda job: jobs.append(job) or dataclasses.make_dataclass(
+                       "Stopped", [("interrupted", bool)])(True))
+        port_orch.orchestrate(cfg, mode="training")
+    assert [job.spec.name for job in jobs] == ["faster_vit_2_224"]
+    assert port_orch.unported_options(jobs[0]) == []
 
     data["selection"] = ["efficientnet_b3"]
     data["models"]["efficientnet_b3"]["inference"]["precision"] = "int8"

@@ -15,7 +15,7 @@ against the JAX package's Flax model, in both head configurations.
     each framework's own bf16 run sits 1.5e-2 to 5.3e-2 from its f32 one.
 (b) The full-width official FasterViT-2 has the wheel's keys and shapes
     (tests/torch_refs/fastervit_torch.py), and 13 K5 launches per bf16
-    forward in both configurations.
+    forward in both configurations (no K6 without ``DFD_FUSED_ATTN``).
 (c) ``chip_smoke.py``'s logit gate for FasterViT-2 separates the seeded
     full-width model's sound bf16 run from wrong variants of its attention.
 """
@@ -175,12 +175,13 @@ def test_official_full_width_takes_the_wheel_state_dict():
 @pytest.mark.parametrize("config", CONFIGS)
 def test_full_width_launches_k5_thirteen_times_per_forward(config):
     model = create_faster_vit("2", head_config=config)
-    assert model.kernel_launches_per_forward() == {"k5": 13}
+    assert model.kernel_launches_per_forward() == {"k5": 13, "k6": 0}
     # a fine-tune step runs the backward of each, the head-only warmup none
-    assert model.kernel_launches_per_step() == {"k5": 13, "k5_bwd": 13}
-    assert model.kernel_launches_per_step(head_only=True) == {"k5": 13, "k5_bwd": 0}
+    assert model.kernel_launches_per_step() == {"k5": 13, "k5_bwd": 13, "k6": 0, "k6_bwd": 0}
+    assert model.kernel_launches_per_step(head_only=True) == {"k5": 13, "k5_bwd": 0, "k6": 0,
+                                                              "k6_bwd": 0}
     f32 = create_faster_vit("2", head_config=config, dtype=torch.float32)
-    assert f32.kernel_launches_per_forward() == {"k5": 0}
+    assert f32.kernel_launches_per_forward() == {"k5": 0, "k6": 0}
 
 
 def _chip_smoke():
@@ -211,11 +212,34 @@ WRONG = {
 }
 
 
+@pytest.fixture(scope="module")
+def gate_references():
+    """Per configuration, computed once for the module: the seeded full-width
+    FasterViT-2 of ``seeded_fastervit_state``, its 8 seeded images, its f32
+    logits on the CPU (the reference) and the bf16 model that the sound run
+    and every wrong variant go through."""
+    smoke = _chip_smoke()
+    cache = {}
+
+    def get(config):
+        if config not in cache:
+            cpu = torch.device("cpu")
+            state = smoke.seeded_fastervit_state(config, seed=11 if config == "official" else 13)
+            x = smoke.seeded_images(8, torch.Generator().manual_seed(12))
+            f32 = smoke.fastervit_logits(state, config, x, cpu, torch.float32).double()
+            model = create_faster_vit("2", head_config=config, dtype=torch.bfloat16)
+            model.load_state_dict(state)
+            cache[config] = (smoke.FV_GATE[config], x, f32, model.eval())
+        return cache[config]
+
+    return get
+
+
 @pytest.mark.parametrize("config,wrong", [
     ("official", ("scale times 1.5", "scale doubled", "bias dropped", "one head's v")),
     ("tpu", ("scale times 1.5", "scale doubled", "one head's v")),
 ])
-def test_chip_smoke_gate_separates_wrong_attention(monkeypatch, config, wrong):
+def test_chip_smoke_gate_separates_wrong_attention(monkeypatch, gate_references, config, wrong):
     """``chip_smoke.FV_GATE[config]`` on the seeded full-width FasterViT-2 of
     ``seeded_fastervit_state``: the CPU's bf16 logits sit inside it against
     the f32 ones (measured 1.7e-3 official, 5.7e-4 tpu), and wrong variants
@@ -224,17 +248,13 @@ def test_chip_smoke_gate_separates_wrong_attention(monkeypatch, config, wrong):
     values for all 0.83 and 0.17)."""
     from deepfakedetection_tpu_torch.models import fastervit
 
-    smoke = _chip_smoke()
-    cpu = torch.device("cpu")
-    state = smoke.seeded_fastervit_state(config, seed=11 if config == "official" else 13)
-    x = smoke.seeded_images(8, torch.Generator().manual_seed(12))
-    f32 = smoke.fastervit_logits(state, config, x, cpu, torch.float32).double()
+    gate, x, f32, model = gate_references(config)
 
     def rel():
-        out = smoke.fastervit_logits(state, config, x, cpu, torch.bfloat16).double()
+        with torch.no_grad():
+            out = model(x).double()
         return float((out - f32).abs().max() / f32.abs().max())
 
-    gate = smoke.FV_GATE[config]
     assert rel() < gate
     attend = fastervit.window_attention
     for name in wrong:

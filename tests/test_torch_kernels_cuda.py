@@ -18,7 +18,11 @@ bit-identical dbias and dqkv over two runs; the autograd Function launches
 the forward once and the backward once. K7 (talking-head attention) at
 EfficientFormerV2-S1's shape and at ragged and small sizes: within two bf16
 steps of the output's scale, bit-identical over two runs; it refuses a
-gradient, and a full-width S1 forward launches it four times.
+gradient, and a full-width S1 forward launches it four times. K6 (the fused
+attention sub-block) at a FasterViT-2 stage-3 shape and an odd one: the
+output and dx within two bf16 steps of their scales, the f32 gradients within
+1e-2 of theirs, the backward's six outputs bit-identical over two runs; the
+autograd Function launches each once; sizes past the limits raise.
 
 Needs a CUDA card and imports no JAX, so it runs on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``;
@@ -297,3 +301,78 @@ def test_efficientformer_forward_launches_k7_four_times(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert k7.attn4d.launches == before + 4
     assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
+
+
+K6_CASES = [
+    # (windows, N, heads, d): a FasterViT-2 official stage-3 window, and an odd
+    # size (N past 64, a head_dim and C off the 16-byte loads, C 123 odd)
+    (64, 53, 8, 48), (8, 100, 3, 41),
+]
+K6_GRAD_TOL = 1e-2  # dW, db, dbias: max|d| over the scale (chip_smoke.K6_BWD_TOL)
+
+
+def _k6_inputs(B, N, h, d, device, seed):
+    rng = np.random.default_rng(seed)
+    C = h * d
+    x = _randn(rng, (B, N, C), 1.0, device).to(torch.bfloat16)
+    weights = [_randn(rng, (3 * C, C), C**-0.5, device), _randn(rng, (3 * C,), 0.1, device),
+               _randn(rng, (h, N, N), 1.0, device), _randn(rng, (C, C), C**-0.5, device),
+               _randn(rng, (C,), 0.1, device)]
+    dout = _randn(rng, (B, N, C), 1.0, device).to(torch.bfloat16)
+    return [x, *weights], dout
+
+
+def _two_steps(ref):
+    top = float(ref.float().abs().max())
+    return 2 * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,h,d", K6_CASES)
+def test_attn_subblock_kernels_match_plain_and_repeat(cuda, B, N, h, d):
+    from deepfakedetection_tpu_torch.ops import attn_block as k6
+
+    args, dout = _k6_inputs(B, N, h, d, cuda, seed=N + d)
+    before = (k6.attn_subblock.launches, k6.attn_subblock_bwd.launches)
+    out = k6.attn_subblock(*args, num_heads=h, scale=d**-0.5)
+    grads = k6.attn_subblock_bwd(*args[:5], dout, num_heads=h, scale=d**-0.5)
+    again = k6.attn_subblock_bwd(*args[:5], dout, num_heads=h, scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert (k6.attn_subblock.launches, k6.attn_subblock_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    ref = k6.attn_subblock_plain(*args, num_heads=h, scale=d**-0.5)
+    assert float((out.float() - ref.float()).abs().max()) <= _two_steps(ref)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # bit-identical
+    refs = k6.attn_subblock_bwd_plain(*args[:5], dout, num_heads=h, scale=d**-0.5)
+    for name, got, want in zip(("dx", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj"), grads,
+                               refs):
+        err = float((got.float() - want.float()).abs().max())
+        tol = _two_steps(want) if name == "dx" else K6_GRAD_TOL * float(want.abs().max())
+        assert err <= tol, f"{name}: max|d| {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.cuda
+def test_attn_subblock_function_runs_both_kernels(cuda):
+    from deepfakedetection_tpu_torch.ops import attn_block as k6
+
+    args, dout = _k6_inputs(16, 49, 6, 128, cuda, seed=5)
+    args = [a.requires_grad_() for a in args]
+    before = (k6.attn_subblock.launches, k6.attn_subblock_bwd.launches)
+    out = k6.attn_subblock(*args, num_heads=6, scale=128**-0.5)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (k6.attn_subblock.launches, k6.attn_subblock_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert [a.grad.dtype for a in args] == [torch.bfloat16] + [torch.float32] * 5
+
+
+@pytest.mark.cuda
+def test_attn_subblock_refuses_sizes_past_its_limits(cuda):
+    from deepfakedetection_tpu_torch.ops import attn_block as k6
+
+    args, dout = _k6_inputs(2, 129, 2, 16, cuda, seed=6)
+    with pytest.raises(ValueError, match="N <= 128"):
+        k6.attn_subblock(*args, num_heads=2, scale=0.25)
+    args, dout = _k6_inputs(1, 49, 32, 49, cuda, seed=7)  # FasterViT-4's stage 4
+    with pytest.raises(ValueError, match="shared memory"):
+        k6.attn_subblock_bwd(*args[:5], dout, num_heads=32, scale=49**-0.5)

@@ -2,8 +2,9 @@
 (tests/conftest.py imports jax into this one), import the port's
 orchestrator, eval job, training modules, model and kernel modules, run one
 CPU forward of a narrow EfficientNet through the K1/K2 wrappers, of a narrow
-FasterViT through the K5 wrapper and of a narrow EfficientFormerV2 through
-the K7 wrapper, and one CPU train step with the
+FasterViT through the K5 wrapper, of one built with ``DFD_FUSED_ATTN`` through
+the K6 wrapper (forward and backward) and of a narrow EfficientFormerV2
+through the K7 wrapper, and one CPU train step with the
 augmentation's shear rotation, and check that no jax, flax, optax or orbax
 module and no ``deepfakedetection_tpu`` module was loaded. Statically, no
 ``.py`` file of the port imports either (``chip_smoke.reference_imports``)."""
@@ -61,7 +62,7 @@ from deepfakedetection_tpu_torch.ops import window_attn
 
 vit = FasterViT(2, dim=16, in_dim=8, depths=(1, 1, 1, 1),
                 generator=torch.Generator().manual_seed(0)).eval()
-assert vit.kernel_launches_per_forward() == {"k5": 2}
+assert vit.kernel_launches_per_forward() == {"k5": 2, "k6": 0}
 calls = []
 plain = window_attn.window_attention_plain
 window_attn.window_attention_plain = lambda *a, **kw: calls.append(a[0].shape[1]) or plain(*a, **kw)
@@ -70,6 +71,26 @@ with torch.no_grad():
 window_attn.window_attention_plain = plain
 assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
 assert calls == [53, 49] and window_attn.window_attention.launches == 0, calls
+
+import os
+from deepfakedetection_tpu_torch.ops import attn_block
+
+os.environ["DFD_FUSED_ATTN"] = "1"
+fused = FasterViT(2, dim=16, in_dim=8, depths=(1, 1, 1, 1),
+                  generator=torch.Generator().manual_seed(0))
+del os.environ["DFD_FUSED_ATTN"]
+assert fused.kernel_launches_per_forward() == {"k5": 0, "k6": 3}
+fused_calls = []
+plain6 = attn_block.attn_subblock_plain
+attn_block.attn_subblock_plain = lambda *a, **kw: fused_calls.append(a[0].shape[1]) or plain6(*a, **kw)
+out = fused(torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(1)),
+            torch.Generator().manual_seed(2))
+out.sum().backward()
+attn_block.attn_subblock_plain = plain6
+assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
+assert fused.levels[3].blocks[0].attn.qkv.weight.grad is not None
+assert fused_calls == [16, 53, 49] and attn_block.attn_subblock.launches == 0, fused_calls
+assert attn_block.attn_subblock_bwd.launches == 0
 
 from deepfakedetection_tpu_torch.models.efficientformer_v2 import EfficientFormerV2
 from deepfakedetection_tpu_torch.ops import attn4d
