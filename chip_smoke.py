@@ -67,7 +67,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    fine-tune step, no K5, finite losses, the checkpoints; one full-width bf16
    step on the card against the CPU in both head configurations
    (``FV_STEP_BOUNDS``); the fine-tune step's time at batch 64 and 128 with
-   K6 and with the unfused path.
+   K6 and with the unfused path;
+9. B3 with ``DFD_FUSED_MBCONV`` set (inside the phase only), its 18 residual
+   blocks with an expansion through K3: the full-width forward from phase
+   2's weights (K1 2, K2 2, K3 18 launches), its bf16 logits against the
+   CPU's bf16 run with the switch and its f32 run (``check_logits``), forward
+   img/s at batch 128 and 256 with K3 and without the switch;
+   ``orchestrate(mode="inference")`` over phase 3's tree and ``.pth`` (K3 18
+   launches a batch), 16 test images against the CPU, the test pass's img/s.
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
@@ -83,7 +90,12 @@ forward at batch 256 and backward at 128 (plus odd sizes; the backward's six
 gradients bit-identical over two runs), with its times, its plain version's,
 the port's unfused path's (Linear, K5, Linear) and
 ``torch.nn.functional.multi_head_attention_forward``'s in bf16 (a yardstick
-the port never calls). Each kernel's bound is the larger of its bytes over the
+the port never calls), and K3 (the whole MBConv+SE block) at B3's six K3
+shapes (batch 8) and odd sizes within two bf16 steps of the output's scale,
+bit-identical run to run and through an MBConv block built with the switch,
+with its time, its plain version's and the unfused route's (K2, SE, project
+ConvBN, residual add) at batch 128 (no PyTorch call computes the block: its
+library time is none). Each kernel's bound is the larger of its bytes over the
 HBM rate and its operations over the card's peak rate for their type
 (``bound``).
 
@@ -189,6 +201,15 @@ K6_GRADS = ("dx", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj")
 K6_BWD_TOL = 1e-2
 K6_LAUNCHES = 21  # per FasterViT-2 forward with DFD_FUSED_ATTN: 8 + 8 + 5
 FV_FUSED_SPLITS = {"train": 256, "val": 64, "test": 64}  # phase 8's training tree
+# K3 (the whole MBConv+SE block, DFD_FUSED_MBCONV) at B3 @ 224's residual
+# blocks with an expansion: (H, W, C, k, blocks), Cmid 6C, Cse C // 4; then odd
+# sizes (H, W, C, k): H off the tiles, one map of 1 x 1, Cse 1, C 22 (Cmid 132)
+# and C 13 (Cmid 78) off the 16-byte loads and 4-byte pairs (the kernels'
+# one-element paths)
+K3_SHAPES = [(56, 56, 32, 3, 2), (28, 28, 48, 5, 2), (14, 14, 96, 3, 4), (14, 14, 136, 5, 4),
+             (7, 7, 232, 5, 5), (7, 7, 384, 3, 1)]
+K3_ODD = [(10, 12, 24, 5), (1, 1, 16, 5), (6, 6, 4, 3), (9, 11, 22, 3), (5, 7, 13, 5)]
+K3_LAUNCHES = {"k1": 2, "k2": 2, "k3": 18}  # per B3 forward with DFD_FUSED_MBCONV
 # the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes/s, dense
 # tensor-core bf16 and non-tensor f32 operations/s
 HBM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
@@ -343,6 +364,7 @@ def phase1(device, report):
     kernels["window_attention_bwd"] = phase1_k5_bwd(device)
     kernels["attn4d"] = phase1_k7(device)
     kernels["attn_subblock"], kernels["attn_subblock_bwd"] = phase1_k6(device)
+    kernels["fused_mbconv_se"] = phase1_k3(device)
     report["phase1"] = kernels
     return kernels
 
@@ -661,6 +683,144 @@ def phase1_k7(device) -> dict:
     bound_ms, bound_by = add_bounds(agg.pop("bounds"))
     log(f"  attn4d per EfficientFormerV2-S1 forward at batch {EF_BATCH} (4 launches): kernel "
         f"{agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms")
+    return {"rows": rows, "max_abs_err": worst, **agg, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def k3_inputs(B, H, W, C, k, seed, device):
+    """x bf16 and the ten f32 operands in the JAX layout, each product's
+    weights at unit gain (Cmid 6C, Cse C // 4 or 1)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    Cmid, Cse = 6 * C, max(C // 4, 1)
+    x = torch.randn(B, H, W, C, generator=g).to(torch.bfloat16)
+    ws = [torch.randn(C, Cmid, generator=g) * C ** -0.5, torch.randn(Cmid, generator=g) * 0.1,
+          torch.randn(k, k, Cmid, generator=g) / k, torch.randn(Cmid, generator=g) * 0.1,
+          torch.randn(Cmid, Cse, generator=g) * Cmid ** -0.5, torch.randn(Cse, generator=g) * 0.1,
+          torch.randn(Cse, Cmid, generator=g) * Cse ** -0.5, torch.randn(Cmid, generator=g) * 0.1,
+          torch.randn(Cmid, C, generator=g) * Cmid ** -0.5, torch.randn(C, generator=g) * 0.1]
+    return [t.to(device) for t in [x] + ws]
+
+
+def k3_bound(B: int, H: int, W: int, C: int, k: int) -> tuple[float, str]:
+    """x read, the operands read, out written; the expand and the project on
+    the tensor cores, the taps and the two SE products on the CUDA cores in
+    f32."""
+    px, Cmid, Cse = B * H * W, 6 * C, max(C // 4, 1)
+    weights = 2 * C * Cmid + (k * k + 3) * Cmid + 2 * Cmid * Cse + Cse + C
+    return bound(px * C * 2 * 2 + weights * 4,
+                 {"bf16": 4 * px * C * Cmid, "f32": 2 * k * k * px * Cmid + 4 * B * Cmid * Cse})
+
+
+@contextlib.contextmanager
+def env_switch(name: str, on: bool):
+    """The environment switch ``name`` set (or unset) for the models built
+    inside, then restored."""
+    old = os.environ.pop(name, None)
+    if on:
+        os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(name, None)
+        if old is not None:
+            os.environ[name] = old
+
+
+def k3_block(args, k: int, on: bool, device):
+    """A bf16 eval MBConv block (in == out, expand 6, stride 1) whose folded
+    weights are K3's operands ``args`` (BatchNorms at unit scale, zero mean,
+    variance 1 - eps: the fold multiplies by exactly 1), built with
+    ``DFD_FUSED_MBCONV`` (K3) or without it (the unfused route: K2, the bf16
+    SE, the project ConvBN, the residual add)."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientnet import BlockArgs, MBConv
+
+    w_exp, b_exp, w_dw, b_dw, w_r, b_r, w_e, b_e, w_p, b_p = (t.cpu() for t in args)
+    C, Cmid = w_exp.shape
+    r = k // 2
+    with env_switch("DFD_FUSED_MBCONV", on):
+        blk = MBConv(BlockArgs(C, C, 6, k, 1, 0.25, 0.0, ((r, r), (r, r))))
+    with torch.no_grad():
+        for conv, bn, w, b in ((blk._expand_conv, blk._bn0, w_exp.t(), b_exp),
+                               (blk._depthwise_conv, blk._bn1, w_dw.permute(2, 0, 1), b_dw),
+                               (blk._project_conv, blk._bn2, w_p.t(), b_p)):
+            conv.weight.copy_(w.reshape(conv.weight.shape))
+            bn.weight.fill_(1.0)
+            bn.running_mean.zero_()
+            bn.running_var.fill_(1.0 - bn.eps)
+            bn.bias.copy_(b)
+        blk._se_reduce.weight.copy_(w_r.t().reshape(blk._se_reduce.weight.shape))
+        blk._se_reduce.bias.copy_(b_r)
+        blk._se_expand.weight.copy_(w_e.t().reshape(blk._se_expand.weight.shape))
+        blk._se_expand.bias.copy_(b_e)
+    return blk.to(device).eval()
+
+
+def phase1_k3(device) -> dict:
+    """K3 against its plain version at B3's six K3 shapes (batch 8) and odd
+    sizes, within two bf16 steps of the output's scale, bit-identical over
+    two runs; an MBConv block built with the switch gives the wrapper's
+    output bit for bit. At batch 128: kernel, plain and unfused-route times
+    per shape (the route the block takes without the switch, on the same
+    weights) and the bound. No single PyTorch call computes the block
+    (library: none)."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import fused_mbconv as k3
+
+    def check(label, args, k):
+        before = k3.fused_mbconv_se.launches
+        out = k3.fused_mbconv_se(*args, kernel=k)
+        again = k3.fused_mbconv_se(*args, kernel=k)
+        torch.cuda.synchronize()
+        if k3.fused_mbconv_se.launches != before + 2:
+            raise AssertionError("fused_mbconv_se did not launch its kernels")
+        if not torch.equal(out, again):
+            raise AssertionError(f"fused_mbconv_se {label}: two runs differ")
+        ref = k3.fused_mbconv_se_plain(*args, kernel=k)
+        tol = two_steps(ref)
+        return check_close(f"fused_mbconv_se {label}", out, ref, tol, 0.0), tol, out
+
+    rows, worst, agg = [], 0.0, {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "bounds": []}
+    for i, (H, W, C, k, count) in enumerate(K3_SHAPES):
+        args = k3_inputs(8, H, W, C, k, seed=300 + i, device=device)
+        err, tol, out = check(f"{(H, W, C, k)}", args, k)
+        worst = max(worst, err)
+        with torch.no_grad():
+            by_block = k3_block(args[1:], k, True, device)(args[0].permute(0, 3, 1, 2))
+        if not torch.equal(by_block.permute(0, 2, 3, 1), out):
+            raise AssertionError(f"MBConv with DFD_FUSED_MBCONV {(H, W, C, k)}: not the "
+                                 "wrapper's output")
+        big = k3_inputs(128, H, W, C, k, seed=310 + i, device=device)
+        unfused, x_nchw = k3_block(big[1:], k, False, device), big[0].permute(0, 3, 1, 2)
+        with torch.no_grad():
+            t_k = spread(cuda_times(lambda: k3.fused_mbconv_se(*big, kernel=k), runs=25))
+            t_p = spread(cuda_times(lambda: k3.fused_mbconv_se_plain(*big, kernel=k), runs=10))
+            t_u = spread(cuda_times(lambda: unfused(x_nchw), runs=25))
+        b_ms, b_by = k3_bound(128, H, W, C, k)
+        rows.append({"shape": (H, W, C, k), "blocks_in_b3": count, "max_abs_err": err,
+                     "tolerance": tol, "ms": t_k, "plain_ms": t_p, "unfused_ms": t_u,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        agg["ms"] += count * t_k["median"]
+        agg["plain_ms"] += count * t_p["median"]
+        agg["unfused_ms"] += count * t_u["median"]
+        agg["bounds"].append((count, (b_ms, b_by)))
+        log(f"  fused_mbconv_se {(H, W, C, k)}: max|d|={err:.3e} (tol {tol:.3e}), bit-identical "
+            f"over two runs and through the MBConv block; batch 128: kernel "
+            f"{t_k['median']:.4f} ms (q1 {t_k['q1']:.4f}, q3 {t_k['q3']:.4f}), plain "
+            f"{t_p['median']:.4f} ms, unfused route {t_u['median']:.4f} ms (q1 {t_u['q1']:.4f}, "
+            f"q3 {t_u['q3']:.4f}), bound {b_ms:.4f} ms ({b_by})")
+    for i, (H, W, C, k) in enumerate(K3_ODD):
+        err, tol, _ = check(f"{(H, W, C, k)}", k3_inputs(8, H, W, C, k, 320 + i, device), k)
+        rows.append({"shape": (H, W, C, k), "max_abs_err": err, "tolerance": tol})
+        log(f"  fused_mbconv_se odd {(H, W, C, k)}: max|d|={err:.3e} (tol {tol:.3e})")
+    bound_ms, bound_by = add_bounds(agg.pop("bounds"))
+    log(f"  fused_mbconv_se per B3 forward at batch 128 (18 launches): kernel {agg['ms']:.4f} ms, "
+        f"plain {agg['plain_ms']:.4f} ms, unfused route {agg['unfused_ms']:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
     return {"rows": rows, "max_abs_err": worst, **agg, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
@@ -1088,13 +1248,11 @@ def phase2(device, report, state):
     g = torch.Generator().manual_seed(1)
     x = seeded_images(8, g)
     with torch.no_grad():
-        k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
-        logits = model(x.to(device).to(torch.bfloat16))
-        torch.cuda.synchronize()
-        launches = {"k1": k1.depthwise_silu_pool.launches, "k2": k2.expand_dw_silu_pool.launches}
+        logits, n = counted(lambda: model(x.to(device).to(torch.bfloat16)))
+        launches = {k: n[k] for k in ("k1", "k2", "k3")}
     agree = check_logits("B3 forward (card, bf16)", logits.float().cpu(), *cpu_logits(state, x))
     log(f"  launches per forward: K1={launches['k1']} K2={launches['k2']} (expected {expect})")
-    if launches != expect or expect != {"k1": 2, "k2": 20}:
+    if launches != expect or expect != {"k1": 2, "k2": 20, "k3": 0}:
         raise AssertionError(f"launches per forward {launches}, expected {expect}")
 
     timings = {}
@@ -1291,24 +1449,26 @@ def train_config(work: Path, data: Path, device, epochs: int) -> Path:
 
 def counted(fn):
     """Runs ``fn`` with every kernel's launch count at 0 before it and reads
-    them after it: (fn's result, {"k1", "k2", "k4", "k5", "k5_bwd", "k6",
-    "k6_bwd", "k7"})."""
+    them after it: (fn's result, {"k1", "k2", "k3", "k4", "k5", "k5_bwd",
+    "k6", "k6_bwd", "k7"})."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import attn4d as k7
     from deepfakedetection_tpu_torch.ops import attn_block as k6
     from deepfakedetection_tpu_torch.ops import depthwise_se as k1
     from deepfakedetection_tpu_torch.ops import expand_dw as k2
+    from deepfakedetection_tpu_torch.ops import fused_mbconv as k3
     from deepfakedetection_tpu_torch.ops import shear_rotate as k4
     from deepfakedetection_tpu_torch.ops import window_attn as k5
 
     k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
-    k4.rotate_batch.launches = k5.window_attention.launches = 0
+    k3.fused_mbconv_se.launches = k4.rotate_batch.launches = k5.window_attention.launches = 0
     k5.window_attention_bwd.launches = k7.attn4d.launches = 0
     k6.attn_subblock.launches = k6.attn_subblock_bwd.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"k1": k1.depthwise_silu_pool.launches, "k2": k2.expand_dw_silu_pool.launches,
+                 "k3": k3.fused_mbconv_se.launches,
                  "k4": k4.rotate_batch.launches, "k5": k5.window_attention.launches,
                  "k5_bwd": k5.window_attention_bwd.launches, "k6": k6.attn_subblock.launches,
                  "k6_bwd": k6.attn_subblock_bwd.launches, "k7": k7.attn4d.launches}
@@ -1345,7 +1505,7 @@ def phase4(device, report):
     steps = warmup_steps + ft_steps
     per_forward = create_efficientnet("b3").eval().kernel_launches_per_forward()
     want = {"k1": per_forward["k1"] * 2 * val_batches, "k2": per_forward["k2"] * 2 * val_batches,
-            "k4": 3 * steps, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0, "k7": 0}
+            "k3": 0, "k4": 3 * steps, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0, "k7": 0}
     log(f"  training (1 epoch): {steps} train steps, {2 * val_batches} val batches; launches "
         f"K4={launches['k4']} K1={launches['k1']} K2={launches['k2']}; wall {wall:.1f} s")
     if launches != want:
@@ -1726,8 +1886,8 @@ def phase5(device, report):
     res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[FV])
     wall = time.perf_counter() - t0
     batches = sum(-(-n // FV_BATCH) for n in SPLITS.values())
-    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * batches, "k5_bwd": 0, "k6": 0, "k6_bwd": 0,
-            "k7": 0}
+    want = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 13 * batches, "k5_bwd": 0, "k6": 0,
+            "k6_bwd": 0, "k7": 0}
     log(f"  main path: {batches} forward batches, launches {launches}; test pass "
         f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
     if launches != want:
@@ -1834,8 +1994,9 @@ def phase6(device, report):
     if (warm, ft) != ((13, 0), (13, 13)):
         raise AssertionError(f"K5 launches per warmup and fine-tune step: {warm}, {ft}")
     want_steps = [(False, *warm)] * warmup_steps + [(True, *ft)] * ft_steps
-    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 13 * (warmup_steps + ft_steps + 2 * val_batches),
-            "k5_bwd": 13 * ft_steps, "k6": 0, "k6_bwd": 0, "k7": 0}
+    want = {"k1": 0, "k2": 0, "k3": 0, "k4": 0,
+            "k5": 13 * (warmup_steps + ft_steps + 2 * val_batches), "k5_bwd": 13 * ft_steps,
+            "k6": 0, "k6_bwd": 0, "k7": 0}
     log(f"  training (1 epoch, tpu configuration): {warmup_steps} warmup steps at batch 64, "
         f"{ft_steps} fine-tune steps at 32 x 4, {2 * val_batches} val batches; launches "
         f"{launches}; K5 forward/backward per warmup step {per_step[0][1:]}, per fine-tune step "
@@ -2142,7 +2303,7 @@ def phase7(device, report):
     res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[EF])
     wall = time.perf_counter() - t0
     batches = sum(-(-n // EF_BATCH) for n in SPLITS.values())
-    want = {"k1": 0, "k2": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0,
+    want = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0,
             "k7": 4 * batches}
     log(f"  main path: {batches} forward batches, launches {launches}; test pass "
         f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
@@ -2179,34 +2340,24 @@ def phase7(device, report):
     return launches
 
 
-@contextlib.contextmanager
 def fused_attn(on: bool):
     """``DFD_FUSED_ATTN`` set (or unset) for the models built inside, then
     restored."""
-    old = os.environ.pop("DFD_FUSED_ATTN", None)
-    if on:
-        os.environ["DFD_FUSED_ATTN"] = "1"
-    try:
-        yield
-    finally:
-        os.environ.pop("DFD_FUSED_ATTN", None)
-        if old is not None:
-            os.environ["DFD_FUSED_ATTN"] = old
+    return env_switch("DFD_FUSED_ATTN", on)
 
 
-def fused_forward_times(state, g, device) -> dict:
-    """The bf16 FasterViT-2 official eval forward of ``state`` at batch 128
-    and 256 on random images (CUDA events, median and quartiles of 10), built
-    with ``DFD_FUSED_ATTN`` (K6) and without it (the unfused path: Linear,
-    K5, Linear), in turns."""
+def switched_forward_times(label: str, kernel: str, switch: str, build, state, g, device,
+                           runs: int) -> dict:
+    """The bf16 eval forward of ``build()`` with ``state`` at batch 128 and
+    256 on random images (CUDA events, median and quartiles of ``runs``),
+    built with the environment switch ``switch`` set (``kernel``) and
+    without it (the unfused path), in turns."""
     import torch
-
-    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
 
     models = {}
     for on in (True, False):
-        with fused_attn(on):
-            models[on] = create_faster_vit("2", head_config="official")
+        with env_switch(switch, on):
+            models[on] = build()
         models[on].load_state_dict(state)
         models[on] = models[on].to(device).eval()
     timings = {}
@@ -2214,12 +2365,12 @@ def fused_forward_times(state, g, device) -> dict:
         xb = torch.randn(batch, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
         xb = xb.contiguous(memory_format=torch.channels_last)
         with torch.no_grad():
-            t_k, t_u = (spread(cuda_times(lambda m=models[on]: m(xb), runs=10))
+            t_k, t_u = (spread(cuda_times(lambda m=models[on]: m(xb), runs=runs))
                         for on in (True, False))
-        timings[batch] = {"k6_ms": t_k, "unfused_ms": t_u,
+        timings[batch] = {f"{kernel.lower()}_ms": t_k, "unfused_ms": t_u,
                           "img_per_s": batch / (t_k["median"] / 1e3),
                           "unfused_img_per_s": batch / (t_u["median"] / 1e3)}
-        log(f"  FasterViT-2 official forward batch {batch}: K6 {t_k['median']:.3f} ms (q1 "
+        log(f"  {label} forward batch {batch}: {kernel} {t_k['median']:.3f} ms (q1 "
             f"{t_k['q1']:.3f}, q3 {t_k['q3']:.3f}) = {timings[batch]['img_per_s']:.1f} img/s; "
             f"unfused path {t_u['median']:.3f} ms (q1 {t_u['q1']:.3f}, q3 {t_u['q3']:.3f}) = "
             f"{timings[batch]['unfused_img_per_s']:.1f} img/s")
@@ -2285,6 +2436,7 @@ def phase8(device, report):
     import numpy as np
     import torch
 
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
     from deepfakedetection_tpu_torch.ops import attn_block as k6
     from deepfakedetection_tpu_torch.orchestrator import orchestrate
     from deepfakedetection_tpu_torch.train import loop
@@ -2294,7 +2446,8 @@ def phase8(device, report):
     weights = work / "faster_vit_2_224_seeded.pth"  # phase 5's
     state = torch.load(weights, weights_only=True)
     cpu = torch.device("cpu")
-    zero = {"k1": 0, "k2": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0, "k7": 0}
+    zero = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0,
+            "k7": 0}
     with fused_attn(True):
         cfg_path = eval_config(work, "inference_fastervit_fused.yaml", FV, "runs_fv_fused",
                                weights, FV_BATCH, device)
@@ -2318,7 +2471,9 @@ def phase8(device, report):
         against = {"official": fastervit_against_cpu(device, "official", state, x),
                    "tpu": fastervit_against_cpu(device, "tpu", seeded_fastervit_state("tpu", 13),
                                                 x)}
-    timings = fused_forward_times(state, g, device)
+    timings = switched_forward_times(
+        "FasterViT-2 official", "K6", "DFD_FUSED_ATTN",
+        lambda: create_faster_vit("2", head_config="official"), state, g, device, runs=10)
     eval_launches = launches
 
     train_work = REPO / "build" / "chip_smoke_fused"
@@ -2379,6 +2534,69 @@ def phase8(device, report):
     return eval_launches, launches
 
 
+def phase9(device, report, state):
+    """B3 with ``DFD_FUSED_MBCONV`` set (inside this phase only): the
+    full-width forward from phase 2's seeded state (K1 2, K2 2, K3 18
+    launches), its bf16 logits against the CPU's bf16 run with the switch
+    (plain versions) and its f32 run; forward times with K3 and without the
+    switch; ``orchestrate(mode="inference")`` over phase 3's JPEG tree and
+    weights, with K3's launches a batch and 16 test images against the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+
+    work = REPO / "build" / "chip_smoke"
+    data, weights = work / "data", work / "efficientnet_b3_seeded.pth"  # phase 3's
+    zero = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0,
+            "k7": 0}
+    g = torch.Generator().manual_seed(91)
+    x = seeded_images(8, g)
+    with env_switch("DFD_FUSED_MBCONV", True):
+        model = create_efficientnet("b3", num_classes=2, dtype=torch.bfloat16)
+        model.load_state_dict(state)
+        model = model.to(device).eval()
+        with torch.no_grad():
+            logits, per_forward = counted(lambda: model(x.to(device).to(torch.bfloat16)))
+        log(f"  launches per forward: {per_forward}")
+        if model.kernel_launches_per_forward() != K3_LAUNCHES \
+                or per_forward != {**zero, **K3_LAUNCHES}:
+            raise AssertionError(f"B3 with DFD_FUSED_MBCONV: launches per forward "
+                                 f"{per_forward}, expected {K3_LAUNCHES}")
+        agree = check_logits("B3 forward with K3 (card, bf16)", logits.float().cpu(),
+                             *cpu_logits(state, x))
+
+        cfg_path = eval_config(work, "inference_fused_mbconv.yaml", "efficientnet_b3",
+                               "runs_fused_mbconv", weights, EVAL_BATCH, device)
+        t0 = time.perf_counter()
+        res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[
+            "efficientnet_b3"])
+        wall = time.perf_counter() - t0
+        batches = sum(-(-n // EVAL_BATCH) for n in SPLITS.values())
+        want = {**zero, **{k: v * batches for k, v in K3_LAUNCHES.items()}}
+        log(f"  eval main path: {batches} forward batches, launches {launches}; test pass "
+            f"{res.images_per_s:.1f} img/s (decode included; phase 3 without the switch "
+            f"{report['phase3']['test_img_per_s']:.1f}); wall {wall:.1f} s")
+        if launches != want:
+            raise AssertionError(f"B3 eval with DFD_FUSED_MBCONV: launches {launches}, "
+                                 f"expected {want}")
+        if res.probs.shape != (SPLITS["test"], 2) or not np.isfinite(res.probs).all() \
+                or not np.allclose(res.probs.sum(-1), 1.0, atol=1e-5):
+            raise AssertionError(f"bad test probabilities {res.probs.shape}")
+        job = reference_check(res, data, lambda x: cpu_logits(state, x))
+    timings = switched_forward_times(
+        "B3", "K3", "DFD_FUSED_MBCONV",
+        lambda: create_efficientnet("b3", num_classes=2, dtype=torch.bfloat16), state, g, device,
+        runs=12)
+    report["phase9"] = {"launches_per_forward": per_forward, "against_cpu": agree,
+                        "eval_launches": launches, "batches": batches,
+                        "test_img_per_s": res.images_per_s, "wall_s": wall, "reference": job,
+                        "timings": timings}
+    return launches
+
+
 def main() -> int:
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -2422,6 +2640,8 @@ def main() -> int:
         "orchestrate(mode='training')")
     fused_eval, fused_train = phase8(device, report)
     launches["k6"], launches["k6_bwd"] = fused_eval["k6"], fused_train["k6_bwd"]
+    log("phase 9: B3 with DFD_FUSED_MBCONV (K3), orchestrate(mode='inference')")
+    launches["k3"] = phase9(device, report, state)["k3"]
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())
@@ -2434,6 +2654,8 @@ def main() -> int:
                                        "deepfakedetection_tpu/ops/pallas/depthwise_se.py:73"),
                "expand_dw_silu_pool": ("k2", "expand_dw.cu",
                                        "deepfakedetection_tpu/ops/pallas/expand_dw.py:88"),
+               "fused_mbconv_se": ("k3", "fused_mbconv.cu",
+                                   "deepfakedetection_tpu/ops/pallas/fused_mbconv.py:109"),
                "rotate_batch": ("k4", "shear_rotate.cu",
                                 "deepfakedetection_tpu/ops/pallas/shear_rotate.py:92"),
                "window_attention": ("k5", "window_attn.cu",

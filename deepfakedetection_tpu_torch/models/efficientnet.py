@@ -22,6 +22,14 @@ project, SE and head are cuDNN convolutions, as XLA computes them outside any
 Pallas kernel in the JAX package. In float32 the eligible blocks run the
 unfused f32 ConvBN chain, which is what the JAX package's default path
 computes.
+
+With ``DFD_FUSED_MBCONV`` set when the model is built (``runtime/flags``), a
+bf16 eval block that K2 would serve and that has a residual (in == out) runs
+whole through K3 (``ops/fused_mbconv.py``): expand, depthwise, SE, gate,
+project, bias and residual, on the BN-folded weights. The JAX package has no
+model route to its K3; under the switch the SE runs in f32 with
+bf16-rounded weights (bf16 on the unfused path), the gate product is rounded
+to bf16, and project, bias and residual are rounded once.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from torch import nn
 
 from deepfakedetection_tpu_torch.models.common import (
     ConvBN,
+    Derived,
     DropPath,
     Pads,
     SqueezeExcite,
@@ -43,6 +52,8 @@ from deepfakedetection_tpu_torch.models.common import (
     symmetric_pad,
 )
 from deepfakedetection_tpu_torch.ops.expand_dw import expand_dw_silu_pool
+from deepfakedetection_tpu_torch.ops.fused_mbconv import fused_mbconv_se
+from deepfakedetection_tpu_torch.runtime.flags import fused_mbconv
 
 # (expand_ratio, channels, repeats, stride, kernel) - base (B0) stages
 _BASE_BLOCKS = (
@@ -126,9 +137,11 @@ class MBConv(nn.Module):
         self.project = ConvBN(self._project_conv, self._bn2, dtype=dtype)
         self.residual = a.stride == 1 and a.in_features == a.out_features
         self.drop_path = DropPath(a.drop_rate)
+        self.whole_block = fused_mbconv()  # DFD_FUSED_MBCONV, read at build
+        self._k3_operands = Derived(self._gather_k3_operands)
 
     def fused(self) -> str | None:
-        """Which kernel serves this block at eval: "k2", "k1" or None."""
+        """Which kernel serves this block at eval: "k3", "k2", "k1" or None."""
         a = self.args
         if (
             self.training
@@ -138,11 +151,41 @@ class MBConv(nn.Module):
             or not symmetric_pad(a.dw_pads, a.kernel)
         ):
             return None
-        return "k2" if self.has_expand else "k1"
+        if not self.has_expand:
+            return "k1"
+        return "k3" if self.whole_block and self.residual else "k2"
+
+    def _k3_tensors(self) -> list[torch.Tensor]:
+        return (self.expand._params() + self.depthwise._params() + self.project._params()
+                + self.se._tensors())
+
+    def _gather_k3_operands(self) -> tuple[torch.Tensor, ...]:
+        """K3's operands in the JAX layout: the folded expand [C, Cmid],
+        depthwise [k, k, Cmid] and project [Cmid, C] with their biases, and
+        the SE FCs as [Cmid, Cse] and [Cse, Cmid] with theirs."""
+        k = self.args.kernel
+        w_exp, b_exp = self.expand(None, fold_only=True)  # [1, 1, C, Cmid]
+        w_dw, b_dw = self.depthwise(None, fold_only=True)  # [k, k, 1, Cmid]
+        w_proj, b_proj = self.project(None, fold_only=True)  # [1, 1, Cmid, C]
+        cse, mid = self._se_reduce.weight.shape[:2]
+        return (
+            w_exp.view(w_exp.shape[2], mid), b_exp, w_dw.view(k, k, mid), b_dw,
+            self._se_reduce.weight.view(cse, mid).t().contiguous(), self._se_reduce.bias.detach(),
+            self._se_expand.weight.view(mid, cse).t().contiguous(), self._se_expand.bias.detach(),
+            w_proj.view(mid, w_proj.shape[3]), b_proj,
+        )
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        served = self.fused()
+        if served == "k3":  # drop path is the identity at eval
+            y = fused_mbconv_se(
+                x.to(self.dtype).permute(0, 2, 3, 1),
+                *self._k3_operands.get(self._k3_tensors()),
+                kernel=self.args.kernel,
+            )
+            return y.permute(0, 3, 1, 2)
         shortcut = x
-        if self.fused() == "k2":
+        if served == "k2":
             k = self.args.kernel
             wexp, bexp = self.expand(None, fold_only=True)  # [1, 1, Cin, Ce]
             wdw, bdw = self.depthwise(None, fold_only=True)  # [k, k, 1, Ce]
@@ -254,9 +297,9 @@ class EfficientNet(nn.Module):
                 m.reset_parameters()
 
     def kernel_launches_per_forward(self) -> dict[str, int]:
-        """How many blocks K1 and K2 serve in one eval forward."""
+        """How many blocks K1, K2 and K3 serve in one eval forward."""
         served = [b.fused() for b in self._blocks]
-        return {"k1": served.count("k1"), "k2": served.count("k2")}
+        return {k: served.count(k) for k in ("k1", "k2", "k3")}
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """f32 logits. ``generator`` (on x's device) draws the drop-path and

@@ -34,6 +34,7 @@ _SIGNATURES = {
     "dfd_attn_subblock_bwd": [_P] * 17 + [_I] * 7 + [_F, _I, _P],
     "dfd_depthwise_silu_pool": [_P] * 6 + [_I] * 8 + [_P],
     "dfd_expand_dw_silu_pool": [_P] * 8 + [_I] * 9 + [_P],
+    "dfd_fused_mbconv_se": [_P] * 18 + [_I] * 10 + [_P],
     "dfd_shear_pass": [_P] * 3 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "dfd_window_attention": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _I, _P],
     "dfd_window_attention_bwd": [_P] * 6 + [_I] * 4 + [_L] * 4 + [_I, _F, _I, _P],

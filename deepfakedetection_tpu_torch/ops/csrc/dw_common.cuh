@@ -1,4 +1,5 @@
-// Pieces shared by the two MBConv kernels (depthwise_se.cu, expand_dw.cu).
+// Pieces shared by the MBConv kernels (depthwise_se.cu, expand_dw.cu,
+// fused_mbconv.cu).
 //
 // Both kernels work on one spatial tile of one image and one block of
 // channels: threadIdx.x walks the channels of the block (neighbouring
@@ -14,6 +15,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace dfd {
 
@@ -23,6 +25,23 @@ constexpr int kMaxSmemBytes = 232448;
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
 __device__ __forceinline__ float bf2f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// D += A B on the tensor cores: m16n8k16, bf16 in, f32 accumulate; a holds
+// the row-major A fragment, b0/b1 the col-major B fragment (k-major bf16
+// pairs).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 

@@ -21,11 +21,13 @@
 //   from there and writes only y and the pool partials. Shared memory rows
 //   are padded so the fragment loads hit 32 distinct banks. The wrapper
 //   sizes the tile so the worst EfficientNet-B3 case fits in 227 KB.
-#include <cstdint>
-
 #include "dw_common.cuh"
+#include "expand_dw.cuh"
 
 namespace {
+
+using dfd::mma_bf16_16816;
+using dfd::pack_bf16;
 
 struct Smem {
   int xs_words, ws_words, es_stride;  // row strides: x pixel, w pair-row (32-bit), e pixel (bf16)
@@ -53,20 +55,6 @@ __host__ __device__ inline Smem smem_layout(int TH, int TW, int H, int W, int Ci
   s.red = s.es + dfd::align16(sizeof(__nv_bfloat16) * HH * WW * s.es_stride);
   s.total = s.red + sizeof(float) * (256 / CB) * CB;
   return s;
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // grid (tiles, Ce blocks, B); block (CB channels, 256/CB pixel lanes); CB is
@@ -226,13 +214,12 @@ cudaError_t launch(const void* x, const void* wexp, const void* bexp, const void
 
 }  // namespace
 
-// Returns a cudaError_t: 0 on success. CB (Ce channels per block) is 32 or 64.
-extern "C" int dfd_expand_dw_silu_pool(const void* x, const void* wexp, const void* bexp,
-                                       const void* wdw, const void* bdw, void* y, void* partial,
-                                       void* pool, int B, int H, int W, int Cin, int Ce, int k,
-                                       int TH, int TW, int CB, void* stream) {
+cudaError_t dfd::launch_expand_dw_silu_pool(const void* x, const void* wexp, const void* bexp,
+                                            const void* wdw, const void* bdw, void* y,
+                                            void* partial, void* pool, int B, int H, int W,
+                                            int Cin, int Ce, int k, int TH, int TW, int CB,
+                                            cudaStream_t s) {
   if ((CB != 32 && CB != 64) || TH < 1 || TW < 1) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
     case 3:
       return launch<3>(x, wexp, bexp, wdw, bdw, y, partial, pool, B, H, W, Cin, Ce, TH, TW, CB, s);
@@ -241,4 +228,13 @@ extern "C" int dfd_expand_dw_silu_pool(const void* x, const void* wexp, const vo
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Returns a cudaError_t: 0 on success. CB (Ce channels per block) is 32 or 64.
+extern "C" int dfd_expand_dw_silu_pool(const void* x, const void* wexp, const void* bexp,
+                                       const void* wdw, const void* bdw, void* y, void* partial,
+                                       void* pool, int B, int H, int W, int Cin, int Ce, int k,
+                                       int TH, int TW, int CB, void* stream) {
+  return dfd::launch_expand_dw_silu_pool(x, wexp, bexp, wdw, bdw, y, partial, pool, B, H, W, Cin,
+                                         Ce, k, TH, TW, CB, static_cast<cudaStream_t>(stream));
 }

@@ -8,6 +8,8 @@ op, on one CUDA card.
     python -m deepfakedetection_tpu_torch.profile_forward --model efficientformerv2_s1
     DFD_FUSED_ATTN=1 python -m deepfakedetection_tpu_torch.profile_forward \
         --model faster_vit_2_224 [--train]           # FasterViT-2 through K6
+    DFD_FUSED_MBCONV=1 python -m deepfakedetection_tpu_torch.profile_forward
+                                                     # B3's residual blocks through K3
 
 Runs the model at 224 px in bf16 with generator-seeded weights (the times do
 not depend on their values): B3 at batch 128, FasterViT-2's and
@@ -21,8 +23,10 @@ backward kernels), and AdamW over every tensor. Prints the
 device time per call against the wall time per call (host clock, device
 synchronised), so their gap is the device's idle time, then each device
 kernel's self time and launches per call, the largest first, the port's
-hand-written kernels tagged with the TPU kernel each replaces (K1-K7). This
-is the breakdown behind ``PERF.md`` section 5.
+hand-written kernels tagged with the TPU kernel each replaces (K1-K7). K3's
+first stage is K2's kernel, so with ``DFD_FUSED_MBCONV`` the K2 row counts
+K3's 18 launches too (20 in all) and the K3 rows are its SE, weight-packing
+and gated-projection kernels. This is the breakdown behind ``PERF.md`` section 5.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ from deepfakedetection_tpu_torch.train.steps import train_step
 CALLS, WARMUP, ROWS = 5, 3, 30
 # the port's CUDA kernels (ops/csrc) by the TPU kernel each replaces
 TAGS = {"depthwise_silu_pool_kernel": "K1", "expand_dw_silu_pool_kernel": "K2",
+        "se_reduce_kernel": "K3", "se_expand_kernel": "K3", "pack_pairs_kernel": "K3",
+        "gated_proj_kernel": "K3",
         "shear_pass_kernel": "K4", "window_attention_kernel": "K5",
         "window_attention_bwd_kernel": "K5 bwd", "dbias_reduce_kernel": "K5 bwd",
         "attn_block_kernel": "K6", "window_bwd_kernel": "K6 bwd", "gemm_nt_kernel": "K6 bwd",

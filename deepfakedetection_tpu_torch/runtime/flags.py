@@ -1,7 +1,8 @@
 """The device rule and the compute dtype, from the YAML config, the one
-numerics switch, ``DFD_EXACT_GELU``, and the one kernel switch,
-``DFD_FUSED_ATTN`` (FasterViT's attention sub-block as K6). Otherwise the
-port has no dispatch flags: on the card the kernels are the path."""
+numerics switch, ``DFD_EXACT_GELU``, and the two opt-in kernel switches,
+``DFD_FUSED_ATTN`` (FasterViT's attention sub-block as K6) and
+``DFD_FUSED_MBCONV`` (B3's residual MBConv blocks as K3). Otherwise the port
+has no dispatch flags: on the card the kernels are the path."""
 
 from __future__ import annotations
 
@@ -19,6 +20,15 @@ def fused_attn() -> bool:
     runs every attention through K6 (``ops/attn_block.py``) instead of the
     qkv Linear, K5 and the proj Linear."""
     return os.environ.get("DFD_FUSED_ATTN", "").strip().lower() not in _FALSY
+
+
+def fused_mbconv() -> bool:
+    """``DFD_FUSED_MBCONV`` set: a bf16 EfficientNet built with it runs every
+    eval block that K3 takes (stride 1, an expansion, in == out, k 3 or 5,
+    symmetric pads) through ``ops/fused_mbconv.py`` instead of K2, the SE
+    gate, the project ConvBN and the residual add. The JAX package has no
+    model route to its K3."""
+    return os.environ.get("DFD_FUSED_MBCONV", "").strip().lower() not in _FALSY
 
 
 def exact_gelu() -> bool:

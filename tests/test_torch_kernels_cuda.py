@@ -22,7 +22,10 @@ gradient, and a full-width S1 forward launches it four times. K6 (the fused
 attention sub-block) at a FasterViT-2 stage-3 shape and an odd one: the
 output and dx within two bf16 steps of their scales, the f32 gradients within
 1e-2 of theirs, the backward's six outputs bit-identical over two runs; the
-autograd Function launches each once; sizes past the limits raise.
+autograd Function launches each once; sizes past the limits raise. K3 (the
+whole MBConv+SE block) at B3's six K3 shapes and odd sizes: within two bf16
+steps of the output's scale, bit-identical over two runs; a narrow B3 built
+with ``DFD_FUSED_MBCONV`` launches it three times a forward.
 
 Needs a CUDA card and imports no JAX, so it runs on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``;
@@ -39,6 +42,7 @@ from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficie
 from deepfakedetection_tpu_torch.ops import attn4d as k7
 from deepfakedetection_tpu_torch.ops import depthwise_se as k1
 from deepfakedetection_tpu_torch.ops import expand_dw as k2
+from deepfakedetection_tpu_torch.ops import fused_mbconv as k3
 from deepfakedetection_tpu_torch.ops import shear_rotate as k4
 from deepfakedetection_tpu_torch.ops import window_attn as k5
 
@@ -376,3 +380,66 @@ def test_attn_subblock_refuses_sizes_past_its_limits(cuda):
     args, dout = _k6_inputs(1, 49, 32, 49, cuda, seed=7)  # FasterViT-4's stage 4
     with pytest.raises(ValueError, match="shared memory"):
         k6.attn_subblock_bwd(*args[:5], dout, num_heads=32, scale=49**-0.5)
+
+
+K3_CASES = [
+    # (B, H, W, C, k): the six B3 K3 shapes, then odd sizes (H off the tiles,
+    # a 1 x 1 map, Cse 1, C 22 and 13 off the 16-byte loads and 4-byte pairs)
+    (8, 56, 56, 32, 3), (8, 28, 28, 48, 5), (8, 14, 14, 96, 3), (8, 14, 14, 136, 5),
+    (8, 7, 7, 232, 5), (8, 7, 7, 384, 3),
+    (8, 10, 12, 24, 5), (8, 1, 1, 16, 5), (8, 6, 6, 4, 3), (8, 9, 11, 22, 3), (8, 5, 7, 13, 5),
+]
+
+
+def _k3_inputs(B, H, W, C, k, device, seed):
+    rng = np.random.default_rng(seed)
+    Cmid, Cse = 6 * C, max(C // 4, 1)
+    x = _randn(rng, (B, H, W, C), 1.0, device).to(torch.bfloat16)
+    return [x, _randn(rng, (C, Cmid), C**-0.5, device), _randn(rng, (Cmid,), 0.1, device),
+            _randn(rng, (k, k, Cmid), 1.0 / k, device), _randn(rng, (Cmid,), 0.1, device),
+            _randn(rng, (Cmid, Cse), Cmid**-0.5, device), _randn(rng, (Cse,), 0.1, device),
+            _randn(rng, (Cse, Cmid), Cse**-0.5, device), _randn(rng, (Cmid,), 0.1, device),
+            _randn(rng, (Cmid, C), Cmid**-0.5, device), _randn(rng, (C,), 0.1, device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,k", K3_CASES)
+def test_fused_mbconv_se_kernel_matches_plain_and_repeats(cuda, B, H, W, C, k):
+    args = _k3_inputs(B, H, W, C, k, cuda, seed=H * C + k)
+    before = k3.fused_mbconv_se.launches
+    out = k3.fused_mbconv_se(*args, kernel=k)
+    again = k3.fused_mbconv_se(*args, kernel=k)
+    torch.cuda.synchronize()
+    assert k3.fused_mbconv_se.launches == before + 2
+    assert torch.equal(out, again)
+    ref = k3.fused_mbconv_se_plain(*args, kernel=k)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_two_steps(ref), rtol=0)
+
+
+@pytest.mark.cuda
+def test_b3_with_the_switch_launches_k3_on_the_card(cuda, monkeypatch):
+    """A narrow bf16 EfficientNet built with DFD_FUSED_MBCONV runs K3 three
+    times a forward on the card and never its plain version, and agrees with
+    its own CPU run (plain versions) within the logit gate of
+    tests/test_torch_efficientnet.py (1.5e-2 of the scale)."""
+    from deepfakedetection_tpu_torch.models import efficientnet
+
+    monkeypatch.setenv("DFD_FUSED_MBCONV", "1")
+    narrow = dict(num_classes=2, width_coefficient=0.25, depth_coefficient=0.5,
+                  native_resolution=32)
+    model = efficientnet.EfficientNet(**narrow, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(4, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model.eval()(x).float()
+
+    def refuse(*args, **kw):
+        raise AssertionError("the bf16 forward on the card ran fused_mbconv_se_plain")
+
+    monkeypatch.setattr(k3, "fused_mbconv_se_plain", refuse)
+    model = model.to(cuda)
+    before = k3.fused_mbconv_se.launches
+    with torch.no_grad():
+        out = model(x.to(cuda)).float().cpu()
+    torch.cuda.synchronize()
+    assert k3.fused_mbconv_se.launches == before + 3
+    assert float((out - want).abs().max()) <= 1.5e-2 * float(want.abs().max())

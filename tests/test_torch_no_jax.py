@@ -1,7 +1,8 @@
 """The port never imports JAX or the JAX package: in a fresh interpreter
 (tests/conftest.py imports jax into this one), import the port's
 orchestrator, eval job, training modules, model and kernel modules, run one
-CPU forward of a narrow EfficientNet through the K1/K2 wrappers, of a narrow
+CPU forward of a narrow EfficientNet through the K1/K2 wrappers, of one built
+with ``DFD_FUSED_MBCONV`` through the K3 wrapper, of a narrow
 FasterViT through the K5 wrapper, of one built with ``DFD_FUSED_ATTN`` through
 the K6 wrapper (forward and backward) and of a narrow EfficientFormerV2
 through the K7 wrapper, and one CPU train step with the
@@ -28,11 +29,24 @@ from deepfakedetection_tpu_torch.ops import depthwise_se, expand_dw
 
 model = EfficientNet(num_classes=2, width_coefficient=0.25, depth_coefficient=0.5,
                      native_resolution=32, generator=torch.Generator().manual_seed(0)).eval()
-assert model.kernel_launches_per_forward() == {"k1": 1, "k2": 5}
+assert model.kernel_launches_per_forward() == {"k1": 1, "k2": 5, "k3": 0}
 with torch.no_grad():
     out = model(torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(1)))
 assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
 assert depthwise_se.depthwise_silu_pool.launches == expand_dw.expand_dw_silu_pool.launches == 0
+
+import os
+from deepfakedetection_tpu_torch.ops import fused_mbconv
+
+os.environ["DFD_FUSED_MBCONV"] = "1"
+whole = EfficientNet(num_classes=2, width_coefficient=0.25, depth_coefficient=0.5,
+                     native_resolution=32, generator=torch.Generator().manual_seed(0)).eval()
+del os.environ["DFD_FUSED_MBCONV"]
+assert whole.kernel_launches_per_forward() == {"k1": 1, "k2": 2, "k3": 3}
+with torch.no_grad():
+    out = whole(torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(1)))
+assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
+assert fused_mbconv.fused_mbconv_se.launches == 0
 
 import deepfakedetection_tpu_torch.runtime.checkpoint
 import deepfakedetection_tpu_torch.runtime.preempt
