@@ -194,6 +194,11 @@ K6_BWD_SHAPES = [(config, B // 2, N, C, h, n) for config, B, N, C, h, n in K6_SH
 # odd (C 123)
 K6_ODD = [(8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 2, 64), (8, 53, 3, 20), (8, 20, 2, 63),
           (8, 33, 3, 41)]
+# the forward's last, partial window group and the cluster's empty block
+# (windows, N, heads, d): one window, three, 1,023 (two a block at N 53), and
+# 250 carrier-token windows (four a block at N 16)
+K6_TAILS = [(1, 53, 8, 48), (3, 53, 8, 48), (1023, 53, 8, 48), (250, 16, 8, 48)]
+BWD_ROUNDS = 3  # rounds of each backward yardstick, all logged
 K6_GRADS = ("dx", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj")
 # K6's f32 gradients against the plain backward, max|d| over each one's scale:
 # both sum over every row of every window in f32, in different orders, from
@@ -475,14 +480,32 @@ def two_steps(ref) -> float:
     return 2.0 * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
 
 
-def sdpa_bwd_ms(qkv, bias, dout, h: int, scale: float) -> tuple[float | None, str]:
+def grad_ms(out, inputs, dout, runs: int = 25, rounds: int = BWD_ROUNDS) -> dict:
+    """The backward alone of a forward already run (``out``, recorded by
+    autograd): ``torch.autograd.grad(out, inputs, dout, retain_graph=True)``
+    timed with CUDA events around each call, in ``rounds`` separate rounds of
+    ``runs`` calls. {"median": the median of the rounds' medians, "rounds":
+    each round's median, quartiles and extremes}."""
+    import torch
+
+    rs = [spread(cuda_times(lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True),
+                            runs=runs)) for _ in range(rounds)]
+    return {"median": statistics.median(r["median"] for r in rs), "rounds": rs}
+
+
+def rounds_text(t: dict) -> str:
+    return "; ".join(f"{r['median']:.4f} (q1 {r['q1']:.4f}, q3 {r['q3']:.4f})"
+                     for r in t["rounds"])
+
+
+def sdpa_bwd_ms(qkv, bias, dout, h: int, scale: float) -> tuple[dict | None, str]:
     """The yardstick for K5's backward: ``scaled_dot_product_attention`` with
     the bias as a bf16 ``attn_mask`` through autograd on the same q, k, v,
-    forward and backward time less the forward time, and the backend that
-    served it. Each backend is tried on its own (cuDNN, flash,
-    memory-efficient, math), first with the mask requiring grad; where none
-    returns the mask's gradient, the mask does not require grad, and the
-    backend's name says so."""
+    its backward alone (``grad_ms``: the forward runs once outside the timed
+    calls), and the backend that served it. Each backend is tried on its own
+    (cuDNN, flash, memory-efficient, math), first with the mask requiring
+    grad; where none returns the mask's gradient, the mask does not require
+    grad, and the backend's name says so."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -498,21 +521,14 @@ def sdpa_bwd_ms(qkv, bias, dout, h: int, scale: float) -> tuple[float | None, st
         mask = bias.to(torch.bfloat16)[None].requires_grad_(mask_grad)
         inputs = [q, k, v] + ([mask] if mask_grad else [])
         for backend in order:
-            def fwd():
-                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
-
-            def fwd_bwd():
-                torch.autograd.grad(fwd(), inputs, g)
-
             try:
                 with sdpa_kernel([backend]):
-                    both = statistics.median(cuda_times(fwd_bwd, runs=10))
-                    with torch.no_grad():
-                        alone = statistics.median(cuda_times(fwd, runs=10))
+                    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+                    times = grad_ms(out, inputs, g)
             except RuntimeError:
                 continue
             name = backend.name.lower() + ("" if mask_grad else ", mask without grad")
-            return both - alone, name
+            return times, name
     log(f"  scaled_dot_product_attention took no backward at {tuple(qkv.shape)}")
     return None, "none"
 
@@ -567,11 +583,13 @@ def phase1_k5_bwd(device) -> dict:
             lambda: k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=scale), runs=25))
         t_p = spread(cuda_times(lambda: k5.window_attention_bwd_plain(
             qkv, bias, dout, num_heads=h, scale=scale), runs=10))
-        lib, backend = sdpa_bwd_ms(qkv, bias, dout, h, scale)
+        lib_t, backend = sdpa_bwd_ms(qkv, bias, dout, h, scale)
+        lib = None if lib_t is None else lib_t["median"]
         b_ms, b_by = k5_bwd_bound(B, N, C, h)
         rows.append({"config": config, "shape": (B, N, C, h), "launches_per_step": count,
                      "max_abs_err": errs, "tolerance": tols, "ms": t_k, "plain_ms": t_p,
-                     "library_ms": lib, "library_backend": backend, "bound_ms": b_ms,
+                     "library_ms": lib, "library_rounds": lib_t and lib_t["rounds"],
+                     "library_backend": backend, "bound_ms": b_ms,
                      "bound_by": b_by, "windows_per_block": k5.bwd_windows_per_block(B, h)})
         agg = per.setdefault(config, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                                       "bounds": []})
@@ -584,7 +602,7 @@ def phase1_k5_bwd(device) -> dict:
             + ", ".join(f"{k} {errs[k]:.3e} (tol {tols[k]:.3e})" for k in errs)
             + f"; dbias bit-identical over two runs; kernel {t_k['median']:.4f} ms, plain "
             f"{t_p['median']:.4f} ms, sdpa backward {lib if lib is None else round(lib, 4)} ms "
-            f"({backend}), bound {b_ms:.4f} ms ({b_by})")
+            f"({backend}; rounds {lib_t and rounds_text(lib_t)}), bound {b_ms:.4f} ms ({b_by})")
     for B, N, h, d in K5_BWD_ODD:
         g = torch.Generator().manual_seed(600 + N * d + h)
         C = h * d
@@ -890,42 +908,38 @@ def mha_forward(x, wqkv, bqkv, bias, wproj, bproj, h: int):
         need_weights=False, attn_mask=mask)[0].transpose(0, 1)
 
 
-def backward_ms(fwd, inputs, dout, runs: int = 10) -> float:
-    """Median forward-and-backward time less the median forward time (CUDA
-    events) of ``fwd`` over ``inputs``, which require grad."""
-    import torch
-
-    def both():
-        torch.autograd.grad(fwd(), inputs, dout)
-
-    total = statistics.median(cuda_times(both, runs=runs))
-    with torch.no_grad():
-        alone = statistics.median(cuda_times(fwd, runs=runs))
-    return total - alone
-
-
 def phase1_k6(device) -> tuple[dict, dict]:
     """K6 against its plain version: the forward at the six FasterViT-2 eval
-    shapes (batch 256) and odd sizes, within two bf16 steps of each output's
-    scale (both round qkv, the probabilities, ctx and the output once, from
-    f32 sums in different orders); the backward at the six fine-tune shapes
-    (batch 128) and odd sizes, dx within two bf16 steps of its scale, the f32
-    gradients within ``K6_BWD_TOL`` of theirs, and all six bit-identical over
-    two runs. Times (CUDA events, medians) of K6, its plain version, the
-    port's unfused path (Linear, K5, Linear) and
-    ``multi_head_attention_forward`` in bf16, forward and (forward and
-    backward less the forward) backward, summed per forward and per
-    fine-tune step of each head configuration."""
+    shapes (batch 256), odd sizes and ``K6_TAILS``, within two bf16 steps of
+    each output's scale (both round qkv, the probabilities, ctx and the output
+    once, from f32 sums in different orders), bit-identical over two runs, its
+    launch plan (``fwd_plan``) the one the built kernel computes; the backward
+    at the six fine-tune shapes (batch 128) and odd sizes, dx within two bf16
+    steps of its scale, the f32 gradients within ``K6_BWD_TOL`` of theirs,
+    and all six bit-identical over two runs. Times (CUDA events, medians) of
+    K6, its plain version, the port's unfused path (Linear, K5, Linear) and
+    ``multi_head_attention_forward`` in bf16, forward and backward (the
+    backward alone after one forward, ``grad_ms``, in ``BWD_ROUNDS``
+    rounds), summed per forward and per fine-tune step of each head
+    configuration."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import attn_block as k6
 
     def fwd_check(label, args, h, scale):
+        B, N, C = args[0].shape
+        plan, built = k6.fwd_plan(B, N, C, h), k6.kernel_plan(B, N, C, h)
+        if plan != built:
+            raise AssertionError(f"attn_subblock {label}: fwd_plan {plan} is not the kernel's "
+                                 f"{built}")
         before = k6.attn_subblock.launches
         out = k6.attn_subblock(*args, num_heads=h, scale=scale)
+        again = k6.attn_subblock(*args, num_heads=h, scale=scale)
         torch.cuda.synchronize()
-        if k6.attn_subblock.launches != before + 1:
+        if k6.attn_subblock.launches != before + 2:
             raise AssertionError("attn_subblock did not launch its kernel")
+        if not torch.equal(out, again):
+            raise AssertionError(f"attn_subblock {label}: two runs differ")
         ref = k6.attn_subblock_plain(*args, num_heads=h, scale=scale)
         tol = two_steps(ref)
         return check_close(f"attn_subblock {label}", out, ref, tol, 0.0), tol
@@ -986,13 +1000,17 @@ def phase1_k6(device) -> tuple[dict, dict]:
             log(f"  multi_head_attention_forward refused {(B, N, C, h)}: {exc}")
             lib = None
         b = k6_bound(B, N, C, h)
+        plan = k6.fwd_plan(B, N, C, h)
         rows.append({"config": config, "shape": (B, N, C, h), "launches_per_forward": count,
                      "max_abs_err": err, "tolerance": tol, "ms": t_k, "plain_ms": t_p,
                      "unfused_ms": unfused, "library_ms": lib, "bound_ms": b[0],
-                     "bound_by": b[1]})
+                     "bound_by": b[1], "plan": plan._asdict(),
+                     "rows_per_weight_read": plan.rows_per_weight_read(N)})
         add(per, config, count, t_k, t_p, unfused, lib, b)
-        log(f"  attn_subblock {config} windows {B} N {N} C {C} heads {h}: max|d|={err:.3e} "
-            f"(tol {tol:.3e}); kernel {t_k['median']:.4f} ms (q1 {t_k['q1']:.4f}, q3 "
+        log(f"  attn_subblock {config} windows {B} N {N} C {C} heads {h} ({plan}, "
+            f"{plan.rows_per_weight_read(N)} rows a weight read): max|d|={err:.3e} "
+            f"(tol {tol:.3e}), bit-identical over two runs; kernel {t_k['median']:.4f} ms (q1 "
+            f"{t_k['q1']:.4f}, q3 "
             f"{t_k['q3']:.4f}), plain {t_p['median']:.4f} ms, unfused path {unfused:.4f} ms, "
             f"multi_head_attention_forward {lib if lib is None else round(lib, 4)} ms, bound "
             f"{b[0]:.4f} ms ({b[1]})")
@@ -1010,27 +1028,31 @@ def phase1_k6(device) -> tuple[dict, dict]:
         t_p = spread(cuda_times(lambda: k6.attn_subblock_bwd_plain(*args[:5], dout, num_heads=h,
                                                                    scale=scale), runs=10))
         leaves = [t.detach().clone().requires_grad_() for t in args]
-        unfused = backward_ms(lambda: unfused_subblock(*leaves, h, scale), leaves, dout)
+        unfused_t = grad_ms(unfused_subblock(*leaves, h, scale), leaves, dout)
+        unfused = unfused_t["median"]
         w16 = [t.to(torch.bfloat16).requires_grad_() for t in (x, wq, bq, wp, bp)]
         try:
-            lib = backward_ms(lambda: mha_forward(w16[0], w16[1], w16[2], bias, w16[3], w16[4],
-                                                  h), w16, dout)
+            lib_t = grad_ms(mha_forward(w16[0], w16[1], w16[2], bias, w16[3], w16[4], h), w16,
+                            dout)
+            lib = lib_t["median"]
         except RuntimeError as exc:
             log(f"  multi_head_attention_forward took no backward at {(B, N, C, h)}: {exc}")
-            lib = None
+            lib_t = lib = None
         b = k6_bwd_bound(B, N, C, h)
         rows.append({"config": config, "shape": (B, N, C, h), "launches_per_step": count,
                      "max_abs_err": errs, "tolerance": tols, "ms": t_k, "plain_ms": t_p,
-                     "unfused_ms": unfused, "library_ms": lib, "bound_ms": b[0],
-                     "bound_by": b[1], "windows_per_block":
+                     "unfused_ms": unfused, "unfused_rounds": unfused_t["rounds"],
+                     "library_ms": lib, "library_rounds": lib_t and lib_t["rounds"],
+                     "bound_ms": b[0], "bound_by": b[1], "windows_per_block":
                          k6.bwd_windows_per_block(B, N, C, C // h)})
         add(per, config, count, t_k, t_p, unfused, lib, b)
         log(f"  attn_subblock_bwd {config} windows {B} N {N} C {C} heads {h}: max|d| "
             + ", ".join(f"{k} {errs[k]:.3e} (tol {tols[k]:.3e})" for k in errs)
             + f"; bit-identical over two runs; kernel {t_k['median']:.4f} ms (q1 "
             f"{t_k['q1']:.4f}, q3 {t_k['q3']:.4f}), plain {t_p['median']:.4f} ms, unfused path "
-            f"backward {unfused:.4f} ms, multi_head_attention_forward backward "
-            f"{lib if lib is None else round(lib, 4)} ms, bound {b[0]:.4f} ms ({b[1]})")
+            f"backward {unfused:.4f} ms (rounds {rounds_text(unfused_t)}), "
+            f"multi_head_attention_forward backward {lib if lib is None else round(lib, 4)} ms "
+            f"(rounds {lib_t and rounds_text(lib_t)}), bound {b[0]:.4f} ms ({b[1]})")
     finish(per, "attn_subblock_bwd")
     bwd = {"rows": rows, "max_abs_err": worst, "per_step": per, **per["official"]}
 
@@ -1043,6 +1065,13 @@ def phase1_k6(device) -> tuple[dict, dict]:
         bwd["rows"].append({"shape": (B, N, h * d, h), "max_abs_err": errs})
         log(f"  attn_subblock {label}: forward max|d|={err:.3e} (tol {tol:.3e}); backward "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for i, (B, N, h, d) in enumerate(K6_TAILS):
+        args = k6_inputs(B, N, h * d, h, 970 + i, device)[:6]
+        label = f"tail {(B, N, h, d)} ({k6.fwd_plan(B, N, h * d, h)})"
+        err, tol = fwd_check(label, args, h, d**-0.5)
+        fwd["rows"].append({"shape": (B, N, h * d, h), "max_abs_err": err, "tolerance": tol})
+        log(f"  attn_subblock {label}: forward max|d|={err:.3e} (tol {tol:.3e}), bit-identical "
+            f"over two runs")
     return fwd, bwd
 
 

@@ -4,8 +4,11 @@ attention with a per-head bias -> proj Linear), forward and backward.
 Port of ``deepfakedetection_tpu/ops/pallas/attn_block.py`` (``_fwd_call``,
 ``_bwd_call`` and their custom_vjp ``attn_subblock``) together with its
 wrapper ``window_attn_subblock`` (``deepfakedetection_tpu/ops/attention.py``).
-The CUDA kernels are ``csrc/attn_block.cu`` (forward: one block per window,
-qkv and the probabilities kept in shared memory and registers) and
+The CUDA kernels are ``csrc/attn_block.cu`` (forward: a cluster of two
+blocks of several whole windows each, the weights streamed by TMA multicast
+through a ring of shared-memory tiles into ``wgmma`` products, qkv and the
+probabilities kept on chip, ctx through a scratch into a ``wgmma``
+projection; its launch plan is ``fwd_plan``) and
 ``csrc/attn_block_bwd.cu`` (backward: the per-window recompute and attention
 backward, hand-written GEMMs for dctx, dx and the weight gradients, every
 cross-block sum in a fixed order). Neither pads N: the kernels mask their own
@@ -29,6 +32,10 @@ launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
+import itertools
+from typing import NamedTuple
 
 import torch
 
@@ -95,11 +102,94 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def fwd_smem_bytes(N: int, C: int, d: int) -> int:
+_CLUSTER = 2  # forward blocks that share each weight tile (TMA multicast)
+_MAX_ROWS = 128  # a forward block's rows: two warpgroups of 64
+_RING_ROW_BYTES = 128  # one ring row: 64 bf16 input columns
+_ALIGN = 1024  # the ring's alignment, the 128-byte swizzle's period
+_MAX_STAGES = 8
+_UNITS = (192, 144, 128, 64, 48, 32)  # the forward's wgmma widths, widest first
+
+
+def fwd_smem_bytes(N: int, Cp: int, Dp: int, G: int, HG: int, NT: int, KB: int,
+                   stages: int, staged: int) -> int:
     """Shared memory of one forward block (``csrc/attn_block.cu``
-    ``fwd_smem_bytes``): the window's x, then ctx, and one head's q, k, v."""
-    Np, Cp, Dp = _pad16(N), _pad16(C), _pad16(d)
-    return (Np * (Cp + 8) + 3 * Np * (Dp + 8)) * 2
+    ``fwd_smem_bytes``) for G windows of N tokens, heads in groups of HG and a
+    ring of ``stages`` stages, each KB tiles of NT weight rows by 64 columns
+    (two such chunks a tile when the block's G N rows make one warpgroup row
+    group): alignment slack, the ring and its barriers, x (its G N rows
+    packed, in 64-column blocks of pad8(G N) 128-byte rows, then room for the
+    rest of the last 64-row warpgroup tile), one head group's q, k and v
+    (G pad16(N) rows), its f32 qkv bias and, when ``staged``, its f32 bias
+    tables."""
+    Mx = G * N
+    slots, groups, Mr = (1, 2, -(-Mx // 8) * 8) if Mx > 64 else (2, 1, -(-Mx // 8) * 8)
+    x_bytes = (-(-Cp // 64) * Mr + 64 * groups - Mr) * _RING_ROW_BYTES
+    return (_ALIGN + stages * KB * slots * NT * _RING_ROW_BYTES + 2 * stages * 8
+            + x_bytes + HG * 3 * G * _pad16(N) * (Dp + 8) * 2 + -(-3 * HG * Dp // 4) * 16
+            + (-(-HG * N * N // 4) * 16 if staged else 0))
+
+
+class FwdPlan(NamedTuple):
+    """The forward's launch plan (``csrc/attn_block.cu`` ``fwd_plan``)."""
+
+    windows: int  # G, whole windows a block
+    heads: int  # HG, heads whose q, k, v a block holds at once
+    chunk: int  # NT, weight rows (output features) a wgmma takes
+    kblocks: int  # KB, 64-column weight tiles a ring stage holds
+    stages: int  # the weight ring's depth
+    staged: int  # 1: each head group's bias tables staged in shared memory
+    smem: int  # shared memory of a block, bytes
+    blocks: int  # blocks launched: the window groups, rounded up to clusters
+
+    def rows_per_weight_read(self, N: int) -> int:
+        """Rows each weight tile read from L2 is multiplied against: a
+        cluster's blocks' wgmma rows (64 a warpgroup row group, the windows'
+        G N token rows packed in them)."""
+        return _CLUSTER * 64 * -(-self.windows * N // 64)
+
+
+@functools.cache
+def fwd_plan(B: int, N: int, C: int, heads: int) -> FwdPlan | None:
+    """The forward's plan, as ``fwd_plan`` in ``csrc/attn_block.cu`` (which
+    ``kernel_plan`` reads back on the card), or None when no plan fits a
+    block's shared memory: G the most windows whose N-token rows fit 128, but
+    no more than a cluster needs for 128 rows at a 16-row stride a window or
+    the card for about two blocks a SM; then the first that fits, with a ring
+    of four stages, else three, else two: NT the widest of 192, 144, 128, 64
+    and 48 that cuts the group's 3 HG Dp product columns into whole units, an
+    even count where a stage holds two (32 last, wasting), HG from the least
+    that gives each of the 8 consumer warps an attention item down to 1, the
+    bias tables staged in shared memory, else read from L2, KB 2 where that
+    leaves four stages or more, else 1, and as many stages as fit, up to 8."""
+    Cp, Dp = _pad16(C), _pad16(C // heads)
+    kt = _pad16(N) // 16
+    G = min(_MAX_ROWS // N, max(-(-64 // _pad16(N)), -(-B // (2 * _SMS))), B)
+    for G in range(G, 0, -1):
+        target = min(-(-8 // (G * kt)), heads)
+        for need, NT in itertools.product((4, 3, 2), _UNITS):
+            for HG in range(target, 0, -1):
+                units, rest = divmod(3 * HG * Dp, NT)  # NT 32 may waste, as the last resort
+                if NT != 32 and (rest or (G * N <= 64 and units % 2)):
+                    continue  # whole units, and an even count where a stage holds two
+                for staged, KB in itertools.product((1, 0), (2, 1)):
+                    least = max(need, 4) if KB == 2 else need
+                    for stages in range(_MAX_STAGES, least - 1, -1):
+                        smem = fwd_smem_bytes(N, Cp, Dp, G, HG, NT, KB, stages, staged)
+                        if smem <= MAX_SMEM_BYTES:
+                            blocks = -(-(-(-B // G)) // _CLUSTER) * _CLUSTER
+                            return FwdPlan(G, HG, NT, KB, stages, staged, smem, blocks)
+    return None
+
+
+def kernel_plan(B: int, N: int, C: int, heads: int) -> FwdPlan | None:
+    """The plan the built kernel computes for the shape (card only), to hold
+    ``fwd_plan`` to it."""
+    import ctypes
+
+    plan = (ctypes.c_int * 8)()
+    if build.library().dfd_attn_subblock_plan(B, N, C, heads, plan) != 0:
+        return None
+    return FwdPlan(*plan)
 
 
 def bwd_smem_bytes(N: int, C: int, d: int) -> int:
@@ -189,9 +279,12 @@ def _forward(x, wqkv, bqkv, bias, wproj, bproj, num_heads: int, scale: float) ->
     """The K6 forward without autograd: the kernel for a CUDA tensor, the
     plain version for a CPU one."""
     name = "attn_subblock"
-    N, C = x.shape[1], x.shape[2]
-    B, N, C, d = _check(name, x, wqkv, bqkv, bias, wproj, num_heads,
-                        fwd_smem_bytes(N, C, C // max(num_heads, 1)))
+    B, N, C = x.shape if x.dim() == 3 else (0, 0, 0)
+    h = max(num_heads, 1)
+    plan = fwd_plan(max(B, 1), N, C, h) if 1 <= N <= MAX_TOKENS else None
+    # a shape no plan fits reports the least any plan needs
+    smem = plan.smem if plan else fwd_smem_bytes(N, _pad16(C), _pad16(C // h), 1, 1, 32, 1, 2, 0)
+    B, N, C, d = _check(name, x, wqkv, bqkv, bias, wproj, num_heads, smem)
     if bproj.shape != (C,) or bproj.device != x.device:
         raise ValueError(f"{name}: bproj must be [{C}] on {x.device}, got {tuple(bproj.shape)}")
     if x.device.type == "cpu":
@@ -200,14 +293,17 @@ def _forward(x, wqkv, bqkv, bias, wproj, bproj, num_heads: int, scale: float) ->
     x, bias = x.contiguous(), bias.contiguous()
     wq, bq = _qkv_operands(wqkv, bqkv, num_heads, d, C)
     wp, bp = _proj_operand(wproj, C), bproj.float().contiguous()
+    # the weights are read by TMA, which needs 16-byte aligned rows and bases
+    wq, wp = (w if _aligned(w) else w.clone() for w in (wq, wp))
     out = torch.empty(B, N, C, dtype=torch.bfloat16, device=x.device)
+    ctx = torch.empty(B * N, _pad16(C), dtype=torch.bfloat16, device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.dfd_attn_subblock(
             x.data_ptr(), wq.data_ptr(), bq.data_ptr(), bias.data_ptr(), wp.data_ptr(),
-            bp.data_ptr(), out.data_ptr(), B, N, C, num_heads, float(scale),
-            int(C % 8 == 0 and _aligned(x, out)), stream,
+            bp.data_ptr(), out.data_ptr(), ctx.data_ptr(), B, N, C, num_heads, float(scale),
+            int(C % 8 == 0 and _aligned(x)), stream,
         )
     build.check(rc, name)
     attn_subblock.launches += 1

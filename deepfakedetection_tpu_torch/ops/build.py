@@ -30,7 +30,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # ctypes does not cut 64-bit addresses to a 32-bit int).
 _SIGNATURES = {
     "dfd_attn4d": [_P] * 9 + [_I] * 5 + [_L] * 6 + [_F, _I, _P],
-    "dfd_attn_subblock": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
+    "dfd_attn_subblock": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    "dfd_attn_subblock_plan": [_I] * 4 + [_P],
     "dfd_attn_subblock_bwd": [_P] * 17 + [_I] * 7 + [_F, _I, _P],
     "dfd_depthwise_silu_pool": [_P] * 6 + [_I] * 8 + [_P],
     "dfd_expand_dw_silu_pool": [_P] * 8 + [_I] * 9 + [_P],

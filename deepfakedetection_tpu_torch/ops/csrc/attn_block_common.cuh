@@ -1,11 +1,12 @@
-// Pieces shared by the K6 forward (attn_block.cu) and backward
-// (attn_block_bwd.cu): the block's product of its window's staged rows with a
-// weight read from device memory, the per-head qkv projection into shared
-// memory, and one head's attention over the window from staged q, k, v (the
-// softmax, p v, and the backward's row and column passes), with K5's
-// arithmetic (window_attn.cu, window_attn_bwd.cu). K5 keeps its own fused
-// loops: built on these helpers it measured 20% slower (official forward)
-// and 18% slower (tpu backward) on an H100.
+// Pieces of the K6 backward (attn_block_bwd.cu), two of them shared with the
+// forward (attn_block.cu): the block's product of its window's staged rows
+// with a weight read from device memory and the per-head qkv projection into
+// shared memory (backward only), and one head's attention over the window
+// from staged q, k, v (head_probs and probs_times_v, which the forward takes
+// too; the backward's row and column passes), with K5's arithmetic
+// (window_attn.cu, window_attn_bwd.cu). K5 keeps its own fused loops: built
+// on these helpers it measured 20% slower (official forward) and 18% slower
+// (tpu backward) on an H100.
 #pragma once
 
 #include <cuda_bf16.h>

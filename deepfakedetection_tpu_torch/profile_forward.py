@@ -51,7 +51,7 @@ TAGS = {"depthwise_silu_pool_kernel": "K1", "expand_dw_silu_pool_kernel": "K2",
         "gated_proj_kernel": "K3",
         "shear_pass_kernel": "K4", "window_attention_kernel": "K5",
         "window_attention_bwd_kernel": "K5 bwd", "dbias_reduce_kernel": "K5 bwd",
-        "attn_block_kernel": "K6", "window_bwd_kernel": "K6 bwd", "gemm_nt_kernel": "K6 bwd",
+        "attn_qkv_kernel": "K6", "attn_proj_kernel": "K6", "window_bwd_kernel": "K6 bwd", "gemm_nt_kernel": "K6 bwd",
         "wgrad_kernel": "K6 bwd", "sum_partials_kernel": "K6 bwd", "attn4d_kernel": "K7"}
 
 

@@ -311,6 +311,9 @@ K6_CASES = [
     # (windows, N, heads, d): a FasterViT-2 official stage-3 window, and an odd
     # size (N past 64, a head_dim and C off the 16-byte loads, C 123 odd)
     (64, 53, 8, 48), (8, 100, 3, 41),
+    # the forward's last, partial window group and the cluster's empty block
+    # (chip_smoke.K6_TAILS)
+    (1, 53, 8, 48), (3, 53, 8, 48), (1023, 53, 8, 48), (250, 16, 8, 48),
 ]
 K6_GRAD_TOL = 1e-2  # dW, db, dbias: max|d| over the scale (chip_smoke.K6_BWD_TOL)
 
