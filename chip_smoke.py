@@ -86,8 +86,11 @@ port never calls), and K7 (talking-head attention) at EfficientFormerV2-S1's
 shape at batch 256 and at ragged sizes, bit-identical run to run (no PyTorch
 call computes it: its library time is none), and K6 (the fused attention
 sub-block) at the six FasterViT-2 attentions of both head configurations,
-forward at batch 256 and backward at 128 (plus odd sizes; the backward's six
-gradients bit-identical over two runs), with its times, its plain version's,
+forward at batch 256 and backward at 128 (plus odd sizes and each
+direction's tails: partial window and head groups, empty cluster blocks; the
+backward's six gradients bit-identical over two runs; each direction's launch
+plan the built kernel's; the backward's per-kernel device split logged),
+with its times, its plain version's,
 the port's unfused path's (Linear, K5, Linear) and
 ``torch.nn.functional.multi_head_attention_forward``'s in bf16 (a yardstick
 the port never calls), and K3 (the whole MBConv+SE block) at B3's six K3
@@ -198,6 +201,12 @@ K6_ODD = [(8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 2, 64), (8, 53, 3, 20), (8, 2
 # (windows, N, heads, d): one window, three, 1,023 (two a block at N 53), and
 # 250 carrier-token windows (four a block at N 16)
 K6_TAILS = [(1, 53, 8, 48), (3, 53, 8, 48), (1023, 53, 8, 48), (250, 16, 8, 48)]
+# the backward's tails (windows, N, heads, d): a cluster's empty block (1, 3,
+# 511 and 127 windows), the last window group partial (250 carrier-token
+# windows, four a block), and a partial last head group (3 heads in groups of
+# 2, the tpu configuration's stage 3)
+K6_BWD_TAILS = [(1, 53, 8, 48), (3, 53, 8, 48), (511, 53, 8, 48), (127, 49, 16, 48),
+                (250, 16, 8, 48), (65, 53, 3, 128)]
 BWD_ROUNDS = 3  # rounds of each backward yardstick, all logged
 K6_GRADS = ("dx", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj")
 # K6's f32 gradients against the plain backward, max|d| over each one's scale:
@@ -914,9 +923,11 @@ def phase1_k6(device) -> tuple[dict, dict]:
     each output's scale (both round qkv, the probabilities, ctx and the output
     once, from f32 sums in different orders), bit-identical over two runs, its
     launch plan (``fwd_plan``) the one the built kernel computes; the backward
-    at the six fine-tune shapes (batch 128) and odd sizes, dx within two bf16
-    steps of its scale, the f32 gradients within ``K6_BWD_TOL`` of theirs,
-    and all six bit-identical over two runs. Times (CUDA events, medians) of
+    at the six fine-tune shapes (batch 128), odd sizes and ``K6_BWD_TAILS``,
+    dx within two bf16 steps of its scale, the f32 gradients within
+    ``K6_BWD_TOL`` of theirs, all six bit-identical over two runs, its plan
+    (``bwd_plan``) the built kernel's, and at the fine-tune shapes each of
+    its device kernels' time a call (``kernel_split``). Times (CUDA events, medians) of
     K6, its plain version, the port's unfused path (Linear, K5, Linear) and
     ``multi_head_attention_forward`` in bf16, forward and backward (the
     backward alone after one forward, ``grad_ms``, in ``BWD_ROUNDS``
@@ -945,6 +956,11 @@ def phase1_k6(device) -> tuple[dict, dict]:
         return check_close(f"attn_subblock {label}", out, ref, tol, 0.0), tol
 
     def bwd_check(label, args, dout, h, scale):
+        B, N, C = args[0].shape
+        plan, built = k6.bwd_plan(B, N, C, h), k6.kernel_bwd_plan(B, N, C, h)
+        if plan != built:
+            raise AssertionError(f"attn_subblock_bwd {label}: bwd_plan {plan} is not the "
+                                 f"kernel's {built}")
         before = k6.attn_subblock_bwd.launches
         grads = k6.attn_subblock_bwd(*args[:5], dout, num_heads=h, scale=scale)
         again = k6.attn_subblock_bwd(*args[:5], dout, num_heads=h, scale=scale)
@@ -1039,13 +1055,20 @@ def phase1_k6(device) -> tuple[dict, dict]:
             log(f"  multi_head_attention_forward took no backward at {(B, N, C, h)}: {exc}")
             lib_t = lib = None
         b = k6_bwd_bound(B, N, C, h)
+        plan = k6.bwd_plan(B, N, C, h)
+        split, kernels = kernel_split(lambda: k6.attn_subblock_bwd(*args[:5], dout, num_heads=h,
+                                                                   scale=scale))
         rows.append({"config": config, "shape": (B, N, C, h), "launches_per_step": count,
                      "max_abs_err": errs, "tolerance": tols, "ms": t_k, "plain_ms": t_p,
                      "unfused_ms": unfused, "unfused_rounds": unfused_t["rounds"],
                      "library_ms": lib, "library_rounds": lib_t and lib_t["rounds"],
-                     "bound_ms": b[0], "bound_by": b[1], "windows_per_block":
-                         k6.bwd_windows_per_block(B, N, C, C // h)})
+                     "bound_ms": b[0], "bound_by": b[1], "plan": plan._asdict(),
+                     "rows_per_weight_read": plan.rows_per_weight_read(N),
+                     "device_ms_per_kernel": split, "device_kernels_per_call": kernels})
         add(per, config, count, t_k, t_p, unfused, lib, b)
+        log(f"  attn_subblock_bwd {config} windows {B} N {N} C {C} heads {h}: {plan}, "
+            f"{kernels:g} device kernels a call, device ms a call: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
         log(f"  attn_subblock_bwd {config} windows {B} N {N} C {C} heads {h}: max|d| "
             + ", ".join(f"{k} {errs[k]:.3e} (tol {tols[k]:.3e})" for k in errs)
             + f"; bit-identical over two runs; kernel {t_k['median']:.4f} ms (q1 "
@@ -1072,7 +1095,37 @@ def phase1_k6(device) -> tuple[dict, dict]:
         fwd["rows"].append({"shape": (B, N, h * d, h), "max_abs_err": err, "tolerance": tol})
         log(f"  attn_subblock {label}: forward max|d|={err:.3e} (tol {tol:.3e}), bit-identical "
             f"over two runs")
+    for i, (B, N, h, d) in enumerate(K6_BWD_TAILS):
+        x, wq, bq, bias, wp, bp, dout = k6_inputs(B, N, h * d, h, 990 + i, device)
+        label = f"tail {(B, N, h, d)} ({k6.bwd_plan(B, N, h * d, h)})"
+        errs, _ = bwd_check(label, [x, wq, bq, bias, wp, bp], dout, h, d**-0.5)
+        bwd["rows"].append({"shape": (B, N, h * d, h), "max_abs_err": errs})
+        log(f"  attn_subblock_bwd {label}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + ", bit-identical over two runs")
     return fwd, bwd
+
+
+def kernel_split(fn, calls: int = 10) -> tuple[dict[str, float], float]:
+    """({device kernel: ms a call}, device kernels a call) of ``fn`` over
+    ``calls`` calls, from ``torch.profiler``."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split, launched = {}, 0
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = (re.findall(r"\w+_kernel", e.key) or [e.key])[0]
+            if name == "gemm_kernel":  # K6's GEMM, by its epilogue
+                name += "<" + ((re.findall(r"::(\w+Epi)>", e.key) or ["?"])[0]) + ">"
+            split[name] = split.get(name, 0.0) + e.device_time_total / 1e3 / calls
+            launched += e.count
+    return split, launched / calls
 
 
 def phase1_k4(device) -> dict:

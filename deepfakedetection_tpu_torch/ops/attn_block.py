@@ -9,9 +9,11 @@ blocks of several whole windows each, the weights streamed by TMA multicast
 through a ring of shared-memory tiles into ``wgmma`` products, qkv and the
 probabilities kept on chip, ctx through a scratch into a ``wgmma``
 projection; its launch plan is ``fwd_plan``) and
-``csrc/attn_block_bwd.cu`` (backward: the per-window recompute and attention
-backward, hand-written GEMMs for dctx, dx and the weight gradients, every
-cross-block sum in a fixed order). Neither pads N: the kernels mask their own
+``csrc/attn_block_bwd.cu`` (backward: the same recompute for one head group
+of several windows a block, the attention backward on chip, and
+``csrc/gemm_tma.cuh``'s TMA-ring ``wgmma`` GEMM for dctx, dx and the weight
+gradients, the weights read in their stored layout; every cross-block sum in
+a fixed order; its launch plan is ``bwd_plan``). Neither pads N: the kernels mask their own
 ragged edge, where the JAX wrapper pads rows to 16 and puts -1e9 on the
 padded keys.
 
@@ -50,10 +52,7 @@ from deepfakedetection_tpu_torch.ops.window_attn import (
 MAX_TOKENS = 128  # N and head_dim the kernels take
 MAX_HEAD_DIM = 128
 _SMS = 132  # an H100 SXM's streaming multiprocessors
-_SM_SMEM_BYTES = 233472  # shared memory of one H100 SM
-_WGRAD_TILE = 64  # the weight-gradient kernel's output tile
-# weight-gradient blocks per launch the row split aims at: four per SM
-_WGRAD_TARGET_BLOCKS = 4 * _SMS
+_GEMM_TILE = 128  # csrc/gemm_tma.cuh's output tile
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -110,6 +109,19 @@ _MAX_STAGES = 8
 _UNITS = (192, 144, 128, 64, 48, 32)  # the forward's wgmma widths, widest first
 
 
+def _slots(Mx: int) -> int:
+    """Units of weight rows a ring stage holds: one when a block's Mx rows make
+    two 64-row warpgroup tiles, else two (one a warpgroup)."""
+    return 1 if Mx > 64 else 2
+
+
+def _x_smem_bytes(Mx: int, Cp: int) -> int:
+    """x staged for ``wgmma``: Mx packed rows in 64-column blocks of pad8(Mx)
+    128-byte rows, then room for the rest of the last warpgroup tile."""
+    Mr = -(-Mx // 8) * 8
+    return (-(-Cp // 64) * Mr + 64 * (3 - _slots(Mx)) - Mr) * _RING_ROW_BYTES
+
+
 def fwd_smem_bytes(N: int, Cp: int, Dp: int, G: int, HG: int, NT: int, KB: int,
                    stages: int, staged: int) -> int:
     """Shared memory of one forward block (``csrc/attn_block.cu``
@@ -121,12 +133,16 @@ def fwd_smem_bytes(N: int, Cp: int, Dp: int, G: int, HG: int, NT: int, KB: int,
     rest of the last 64-row warpgroup tile), one head group's q, k and v
     (G pad16(N) rows), its f32 qkv bias and, when ``staged``, its f32 bias
     tables."""
-    Mx = G * N
-    slots, groups, Mr = (1, 2, -(-Mx // 8) * 8) if Mx > 64 else (2, 1, -(-Mx // 8) * 8)
-    x_bytes = (-(-Cp // 64) * Mr + 64 * groups - Mr) * _RING_ROW_BYTES
-    return (_ALIGN + stages * KB * slots * NT * _RING_ROW_BYTES + 2 * stages * 8
-            + x_bytes + HG * 3 * G * _pad16(N) * (Dp + 8) * 2 + -(-3 * HG * Dp // 4) * 16
-            + (-(-HG * N * N // 4) * 16 if staged else 0))
+    return (_ALIGN + stages * KB * _slots(G * N) * NT * _RING_ROW_BYTES + 2 * stages * 8
+            + _x_smem_bytes(G * N, Cp) + HG * 3 * G * _pad16(N) * (Dp + 8) * 2
+            + -(-3 * HG * Dp // 4) * 16 + (-(-HG * N * N // 4) * 16 if staged else 0))
+
+
+def _rows_per_weight_read(G: int, N: int) -> int:
+    """Rows each weight tile read from L2 is multiplied against: a cluster's
+    blocks' wgmma rows (64 a warpgroup row group, a block's G windows' N
+    token rows packed in them)."""
+    return _CLUSTER * 64 * -(-G * N // 64)
 
 
 class FwdPlan(NamedTuple):
@@ -142,10 +158,7 @@ class FwdPlan(NamedTuple):
     blocks: int  # blocks launched: the window groups, rounded up to clusters
 
     def rows_per_weight_read(self, N: int) -> int:
-        """Rows each weight tile read from L2 is multiplied against: a
-        cluster's blocks' wgmma rows (64 a warpgroup row group, the windows'
-        G N token rows packed in them)."""
-        return _CLUSTER * 64 * -(-self.windows * N // 64)
+        return _rows_per_weight_read(self.windows, N)
 
 
 @functools.cache
@@ -168,17 +181,28 @@ def fwd_plan(B: int, N: int, C: int, heads: int) -> FwdPlan | None:
         target = min(-(-8 // (G * kt)), heads)
         for need, NT in itertools.product((4, 3, 2), _UNITS):
             for HG in range(target, 0, -1):
-                units, rest = divmod(3 * HG * Dp, NT)  # NT 32 may waste, as the last resort
-                if NT != 32 and (rest or (G * N <= 64 and units % 2)):
-                    continue  # whole units, and an even count where a stage holds two
+                if not _whole_units(G * N, HG, Dp, NT):
+                    continue
                 for staged, KB in itertools.product((1, 0), (2, 1)):
                     least = max(need, 4) if KB == 2 else need
                     for stages in range(_MAX_STAGES, least - 1, -1):
                         smem = fwd_smem_bytes(N, Cp, Dp, G, HG, NT, KB, stages, staged)
                         if smem <= MAX_SMEM_BYTES:
-                            blocks = -(-(-(-B // G)) // _CLUSTER) * _CLUSTER
-                            return FwdPlan(G, HG, NT, KB, stages, staged, smem, blocks)
+                            return FwdPlan(G, HG, NT, KB, stages, staged, smem, _blocks(B, G))
     return None
+
+
+def _whole_units(Mx: int, HG: int, Dp: int, NT: int) -> bool:
+    """Whether NT-row units cut a head group's 3 HG Dp product columns
+    whole, an even count where a stage holds two (NT 32 may waste, as the
+    last resort)."""
+    units, rest = divmod(3 * HG * Dp, NT)
+    return NT == 32 or not (rest or (_slots(Mx) == 2 and units % 2))
+
+
+def _blocks(B: int, G: int) -> int:
+    """Blocks over B windows in groups of G, rounded up to whole clusters."""
+    return -(-(-(-B // G)) // _CLUSTER) * _CLUSTER
 
 
 def kernel_plan(B: int, N: int, C: int, heads: int) -> FwdPlan | None:
@@ -192,27 +216,84 @@ def kernel_plan(B: int, N: int, C: int, heads: int) -> FwdPlan | None:
     return FwdPlan(*plan)
 
 
-def bwd_smem_bytes(N: int, C: int, d: int) -> int:
-    """Shared memory of one backward window block (``csrc/attn_block_bwd.cu``
-    ``bwd_smem_bytes``): the window's x, one head's q, k, v and dctx, bf16 p
-    and ds."""
-    Np, Cp, Dp = _pad16(N), _pad16(C), _pad16(d)
-    return (Np * (Cp + 8) + 4 * Np * (Dp + 8) + 2 * Np * (Np + 8)) * 2
+def bwd_smem_bytes(N: int, Cp: int, Dp: int, G: int, HG: int, NT: int, stages: int,
+                   staged: int) -> int:
+    """Shared memory of one backward window block (``csrc/attn_block_bwd.cuh``
+    ``bwd_smem_bytes``) for G windows of N tokens and one group of HG heads:
+    alignment slack; the weight ring (one 64-column tile of each slot's NT
+    rows a stage) and x, or what takes their place after the products, the
+    larger: bf16 p and ds of each (window, head), the group's dctx columns
+    and, when ``staged``, its f32 bias tables; the group's q, k and v; its
+    f32 qkv bias; the barriers."""
+    Np = _pad16(N)
+    ring_x = stages * _slots(G * N) * NT * _RING_ROW_BYTES + _x_smem_bytes(G * N, Cp)
+    after = (G * HG * 2 * Np * (Np + 8) * 2 + HG * G * Np * (Dp + 8) * 2
+             + (-(-HG * N * N // 4) * 16 if staged else 0))
+    return (_ALIGN + max(ring_x, after) + HG * 3 * G * Np * (Dp + 8) * 2
+            + -(-3 * HG * Dp // 4) * 16 + 2 * stages * 8)
 
 
-def bwd_windows_per_block(B: int, N: int, C: int, d: int) -> int:
-    """Windows each backward window block loops over: as many as spread the
-    B windows over one wave of the card's blocks (as many a SM as its shared
-    memory holds), since each block writes a dbias partial."""
-    per_sm = max(1, _SM_SMEM_BYTES // (bwd_smem_bytes(N, C, d) + 1024))
-    return -(-B // (_SMS * per_sm))
+class BwdPlan(NamedTuple):
+    """The backward window kernel's launch plan (``csrc/attn_block_bwd.cu``
+    ``bwd_plan``)."""
+
+    windows: int  # G, whole windows a block
+    heads: int  # HG, the heads of a block (its head group)
+    chunk: int  # NT, weight rows (output features) a wgmma takes
+    stages: int  # the weight ring's depth, one 64-column tile a stage
+    staged: int  # 1: the head group's bias tables staged in shared memory
+    smem: int  # shared memory of a block, bytes
+    blocks: int  # window blocks: the window groups, rounded up to clusters
+    head_groups: int  # the grid's second dimension
+
+    def rows_per_weight_read(self, N: int) -> int:
+        return _rows_per_weight_read(self.windows, N)
 
 
-def wgrad_splits(M: int, F: int, K: int) -> int:
-    """Row chunks of the weight-gradient product G^T X (G [M, F], X [M, K]):
-    enough 64x64-tile blocks for the card and chunks of at least 512 rows."""
-    tiles = -(-F // _WGRAD_TILE) * -(-K // _WGRAD_TILE)
-    return max(1, min(-(-M // 512), _WGRAD_TARGET_BLOCKS // tiles))
+@functools.cache
+def bwd_plan(B: int, N: int, C: int, heads: int) -> BwdPlan | None:
+    """The backward's plan, as ``bwd_plan`` in ``csrc/attn_block_bwd.cu``
+    (which ``kernel_bwd_plan`` reads back on the card), or None when no plan
+    fits a block's shared memory: G the most windows whose rows fill one 64-row
+    warpgroup tile at a 16-row stride a window, at most 128 / N and B; HG's
+    target the least that gives each of the 8 consumer warps a row-pass item
+    (G HG kt >= 8), at most the heads; then the first that fits, with a ring
+    of three stages, else two: HG from the target down to 1, NT the widest of
+    192, 144, 128, 64 and 48 that cuts the group's 3 HG Dp columns into whole
+    units (32 last, wasting), the bias tables staged, else read from L2, and
+    as many stages as fit, up to 8; else the same with one window fewer."""
+    Cp, Dp = _pad16(C), _pad16(C // heads)
+    kt = _pad16(N) // 16
+    for G in range(min(-(-64 // _pad16(N)), _MAX_ROWS // N, B), 0, -1):
+        target = min(-(-8 // (G * kt)), heads)
+        for need, HG, NT in itertools.product((3, 2), range(target, 0, -1), _UNITS):
+            if not _whole_units(G * N, HG, Dp, NT):
+                continue
+            for staged, stages in itertools.product((1, 0), range(_MAX_STAGES, need - 1, -1)):
+                smem = bwd_smem_bytes(N, Cp, Dp, G, HG, NT, stages, staged)
+                if smem <= MAX_SMEM_BYTES:
+                    return BwdPlan(G, HG, NT, stages, staged, smem, _blocks(B, G), -(-heads // HG))
+    return None
+
+
+def kernel_bwd_plan(B: int, N: int, C: int, heads: int) -> BwdPlan | None:
+    """The backward plan the built kernel computes for the shape (card only),
+    to hold ``bwd_plan`` to it."""
+    import ctypes
+
+    plan = (ctypes.c_int * 8)()
+    if build.library().dfd_attn_subblock_bwd_plan(B, N, C, heads, plan) != 0:
+        return None
+    return BwdPlan(*plan)
+
+
+def wgrad_splits(M: int, C: int, heads: int) -> int:
+    """Row chunks of the two weight-gradient products (dqkv^T x and dout^T
+    ctx over M rows): about one 128 x 128 output tile a SM, chunks of at least
+    512 rows."""
+    n_tiles = -(-C // _GEMM_TILE)
+    tiles = -(-3 * heads * _pad16(C // heads) // _GEMM_TILE) * n_tiles + n_tiles * n_tiles
+    return max(1, min(-(-M // 512), -(-_SMS // tiles)))
 
 
 def _check(name: str, x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
@@ -275,6 +356,17 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def _tma_rows(t: torch.Tensor, C: int) -> tuple[torch.Tensor, int]:
+    """A contiguous [..., C] bf16 tensor as TMA reads it, with its row stride:
+    itself where C % 8 == 0 and it is 16-byte aligned, else a copy with rows
+    padded to a multiple of 16 (odd sizes only; FasterViT's C are
+    multiples of 16)."""
+    if C % 8 == 0 and _aligned(t):
+        return t, C
+    Cp = _pad16(C)
+    return torch.nn.functional.pad(t, (0, Cp - C)), Cp
+
+
 def _forward(x, wqkv, bqkv, bias, wproj, bproj, num_heads: int, scale: float) -> torch.Tensor:
     """The K6 forward without autograd: the kernel for a CUDA tensor, the
     plain version for a CPU one."""
@@ -321,9 +413,12 @@ def attn_subblock_bwd(
     stream for CUDA tensors (dx's product skipped without ``need_dx``), runs
     the plain version for CPU tensors, raises otherwise."""
     name = "attn_subblock_bwd"
-    N, C = x.shape[1], x.shape[2]
-    B, N, C, d = _check(name, x, wqkv, bqkv, bias, wproj, num_heads,
-                        bwd_smem_bytes(N, C, C // max(num_heads, 1)))
+    B, N, C = x.shape if x.dim() == 3 else (0, 0, 0)
+    h = max(num_heads, 1)
+    plan = bwd_plan(max(B, 1), N, C, h) if 1 <= N <= MAX_TOKENS and C >= h else None
+    # a shape no plan fits reports the least any plan needs
+    smem = plan.smem if plan else bwd_smem_bytes(N, _pad16(C), _pad16(C // h), 1, 1, 32, 2, 0)
+    B, N, C, d = _check(name, x, wqkv, bqkv, bias, wproj, num_heads, smem)
     if dout.shape != (B, N, C) or dout.dtype != torch.bfloat16 or dout.device != x.device:
         raise ValueError(f"{name}: dout must be bf16 {(B, N, C)} on {x.device}, got "
                          f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
@@ -331,39 +426,43 @@ def attn_subblock_bwd(
         grads = attn_subblock_bwd_plain(x, wqkv, bqkv, bias, wproj, dout, num_heads=num_heads,
                                         scale=scale)
         return (grads[0] if need_dx else None, *grads[1:])
-    x, bias, dout = x.contiguous(), bias.contiguous(), dout.contiguous()
+    bias = bias.contiguous()
+    (x, ldx), (dout, ldo) = _tma_rows(x.contiguous(), C), _tma_rows(dout.contiguous(), C)
     wq, bq = _qkv_operands(wqkv, bqkv, num_heads, d, C)
-    wprojT = wproj.to(torch.bfloat16).t().contiguous()
-    wqkvT = wqkv.to(torch.bfloat16).t().contiguous()
-    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
-    per_block = bwd_windows_per_block(B, N, C, d)
-    s_qkv, s_proj = wgrad_splits(B * N, 3 * C, C), wgrad_splits(B * N, C, C)
-    dctx = torch.empty(B, N, C, dtype=bf16, device=dev)
-    ctx = torch.empty(B, N, C, dtype=bf16, device=dev)
-    dqkv = torch.empty(B, N, 3 * C, dtype=bf16, device=dev)
-    dbias_part = torch.empty(-(-B // per_block), num_heads, N, N, dtype=f32, device=dev)
-    gqkv = torch.empty(3 * C * C + 3 * C, dtype=f32, device=dev)
-    gproj = torch.empty(C * C + C, dtype=f32, device=dev)
-    part_qkv = torch.empty(s_qkv if s_qkv > 1 else 0, gqkv.numel(), dtype=f32, device=dev)
-    part_proj = torch.empty(s_proj if s_proj > 1 else 0, gproj.numel(), dtype=f32, device=dev)
-    dbias = torch.empty(num_heads, N, N, dtype=f32, device=dev)
-    dx = torch.empty(B, N, C, dtype=bf16, device=dev) if need_dx else None
-    vec = int(C % 8 == 0 and _aligned(x, dout, dctx, ctx, dqkv))
+    wp = _proj_operand(wproj, C)
+    # the weights are read by TMA, which needs 16-byte aligned rows and bases
+    wq, wp = (w if _aligned(w) else w.clone() for w in (wq, wp))
+    dev = x.device
+    Cp, Dp, M = _pad16(C), _pad16(d), B * N
+    splits = wgrad_splits(M, C, num_heads)
+    plane = 4 * C * C + 4 * C  # dWqkv, dbqkv, dWproj, dbproj
+    # the kernels' scratch, one allocation: dctx and ctx [M, Cp] bf16, dqkv
+    # [M, 3 h Dp] bf16 (wqkv's padded row layout), the windows' dbias
+    # partials [B, h, N, N] and the row chunks' weight-gradient partials
+    # [splits, plane] f32 (none with one chunk)
+    sizes = (M * Cp * 2, M * Cp * 2, M * 3 * num_heads * Dp * 2, B * num_heads * N * N * 4,
+             splits * plane * 4 if splits > 1 else 0)
+    offsets = list(itertools.accumulate((-(-n // 256) * 256 for n in sizes), initial=0))
+    scratch = torch.empty(offsets[-1], dtype=torch.uint8, device=dev)
+    if Dp != d:  # dqkv's padding columns must be zero for dx
+        scratch[offsets[2]:offsets[3]].zero_()
+    dctx, ctx, dqkv, dbias_part, wpart = (scratch.data_ptr() + o for o in offsets[:5])
+    out = torch.empty(plane + num_heads * N * N, dtype=torch.float32, device=dev)
+    dx = torch.empty(B, N, C, dtype=torch.bfloat16, device=dev) if need_dx else None
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dfd_attn_subblock_bwd(
-            x.data_ptr(), wq.data_ptr(), bq.data_ptr(), bias.data_ptr(), wprojT.data_ptr(),
-            wqkvT.data_ptr(), dout.data_ptr(), dctx.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(),
-            dbias_part.data_ptr(), part_qkv.data_ptr(), part_proj.data_ptr(),
-            None if dx is None else dx.data_ptr(), dbias.data_ptr(), gqkv.data_ptr(),
-            gproj.data_ptr(), B, N, C, num_heads, per_block, s_qkv, s_proj, float(scale), vec,
-            stream,
+            x.data_ptr(), ldx, wq.data_ptr(), bq.data_ptr(), bias.data_ptr(), wp.data_ptr(),
+            dout.data_ptr(), ldo, dctx, ctx, dqkv, dbias_part, wpart,
+            None if dx is None else dx.data_ptr(), out.data_ptr() + plane * 4, out.data_ptr(), B,
+            N, C, num_heads, splits, float(scale), stream,
         )
     build.check(rc, name)
     attn_subblock_bwd.launches += 1
-    return (dx, gqkv[:3 * C * C].view(3 * C, C), gqkv[3 * C * C:], dbias,
-            gproj[:C * C].view(C, C), gproj[C * C:])
+    q, p = 3 * C * C, 3 * C * C + 3 * C
+    return (dx, out[:q].view(3 * C, C), out[q:p], out[plane:].view(num_heads, N, N),
+            out[p:p + C * C].view(C, C), out[p + C * C:plane])
 
 
 class AttnSubblock(torch.autograd.Function):

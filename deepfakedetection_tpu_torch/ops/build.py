@@ -32,7 +32,8 @@ _SIGNATURES = {
     "dfd_attn4d": [_P] * 9 + [_I] * 5 + [_L] * 6 + [_F, _I, _P],
     "dfd_attn_subblock": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     "dfd_attn_subblock_plan": [_I] * 4 + [_P],
-    "dfd_attn_subblock_bwd": [_P] * 17 + [_I] * 7 + [_F, _I, _P],
+    "dfd_attn_subblock_bwd": [_P, _I] + [_P] * 5 + [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
+    "dfd_attn_subblock_bwd_plan": [_I] * 4 + [_P],
     "dfd_depthwise_silu_pool": [_P] * 6 + [_I] * 8 + [_P],
     "dfd_expand_dw_silu_pool": [_P] * 8 + [_I] * 9 + [_P],
     "dfd_fused_mbconv_se": [_P] * 18 + [_I] * 10 + [_P],

@@ -54,9 +54,10 @@
 //     reading the group's bias tables from shared memory where the plan
 //     staged them (cp.async during the group's products), else from L2. ctx
 //     goes to the ctx scratch, rounded once.
-//  2. attn_proj_kernel: out = ctx . Wproj^T + bproj over 128 x 128 output
-//     tiles (two blocks a SM), ctx and Wproj tiles by TMA through a 3-stage
-//     ring, wgmma m64n128k16 with both operands in shared memory.
+//  2. out = ctx . Wproj^T + bproj: gemm_tma.cuh's gemm_kernel (128 x 128
+//     output tiles, two blocks a SM, ctx and Wproj tiles by TMA through a
+//     3-stage ring, wgmma m64n128k16 with both operands K-major in shared
+//     memory), with the bias add and one rounding as its epilogue.
 //  ctx leaves the chip because it does not fit beside what kernel 1 keeps:
 //  at FasterViT-2's stage 3 (two windows, C 384) x takes 88 KB and a head's
 //  q, k and v 43 KB (official) or 104 KB (tpu); ctx would add 81 KB (106
@@ -87,43 +88,10 @@
 #include <numeric>
 
 #include "attn_block_common.cuh"
+#include "gemm_tma.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kConsumers = 256;          // two warpgroups
-constexpr int kThreads = kConsumers + 32;  // and the producer warp
-constexpr int kCluster = 2;              // blocks sharing each weight tile
-constexpr int kKTile = 64;               // input columns of a weight tile
-constexpr int kRowBytes = kKTile * 2;    // one 128-byte swizzled row
-constexpr int kMaxRows = 128;            // the M rows of a block (2 x 64)
-constexpr int kAlign = 1024;             // the 128-byte swizzle's period
-constexpr int kSms = 132;                // an H100 SXM's SMs
-constexpr int kProjTile = 128;           // attn_proj_kernel's output tile
-constexpr int kProjStages = 3;          // two projection blocks a SM
-constexpr int kMaxStages = 8;
-constexpr int kMaxKB = 2;                // 64-column weight tiles a stage may hold
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-__host__ __device__ constexpr int pad8(int n) { return (n + 7) / 8 * 8; }
-
-// Units of NT weight rows a ring stage holds: one when the block's rows make
-// two warpgroup row groups, else two (one per warpgroup).
-__host__ __device__ constexpr int stage_slots(int Mx) { return Mx > 64 ? 1 : 2; }
-
-// x staged for wgmma: the block's Mx = G N token rows packed densely, in
-// 64-column blocks of pad8(Mx) 128-byte rows (128-byte swizzle), and after
-// the last block room for the rest of the last warpgroup tile's 64 rows
-// (read, never used).
-__host__ __device__ constexpr int x_smem_bytes(int Mx, int Cp) {
-  return (cdiv(Cp, kKTile) * pad8(Mx) + 64 * (Mx > 64 ? 2 : 1) - pad8(Mx)) * kRowBytes;
-}
-
-// A head group's f32 qkv bias (3 HG Dp) and, when staged, its f32 bias
-// tables (HG N N), each 16-byte rounded.
-__host__ __device__ constexpr int bias_smem_bytes(int N, int Dp, int HG, int staged) {
-  return cdiv(3 * HG * Dp, 4) * 16 + (staged ? cdiv(HG * N * N, 4) * 16 : 0);
-}
 
 // G windows of N tokens, q, k and v at a 16-row stride a window (G Np); ring
 // stages of KB 64-column tiles of NT weight rows a slot; the bias tables
@@ -136,9 +104,6 @@ __host__ __device__ constexpr int fwd_smem_bytes(int N, int Cp, int Dp, int G, i
          HG * 3 * G * pad16(N) * (Dp + 8) * 2 + bias_smem_bytes(N, Dp, HG, staged) +
          2 * stages * 8;
 }
-
-constexpr int kProjSmem = kAlign + kProjStages * 2 * kProjTile * kRowBytes + 2 * kProjStages * 8;
-constexpr int kUnits[6] = {192, 144, 128, 64, 48, 32};  // the wgmma widths, widest first
 
 struct FwdPlan {
   int G, HG, NT, KB, stages, staged, smem;  // G == 0: the shape does not fit
@@ -175,36 +140,6 @@ FwdPlan fwd_plan(int B, int N, int C, int heads) {
     }
   }
   return {0, 0, 0, 0, 0, 0, 0};
-}
-
-// One m64nNTk16 product: a single wgmma instruction a kernel instance, so
-// that consecutive products on the accumulator stay in flight together.
-template <int NT>
-__device__ __forceinline__ void wgmma_ss(float (&acc)[NT / 2], uint64_t a, uint64_t b) {
-  if constexpr (NT == 192)
-    wgmma_ss_n192(acc, a, b);
-  else if constexpr (NT == 144)
-    wgmma_ss_n144(acc, a, b);
-  else if constexpr (NT == 128)
-    wgmma_ss_n128(acc, a, b);
-  else if constexpr (NT == 64)
-    wgmma_ss_n64(acc, a, b);
-  else if constexpr (NT == 48)
-    wgmma_ss_n48(acc, a, b);
-  else
-    wgmma_ss_n32(acc, a, b);
-}
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((kAlign - (smem_u32(raw) & (kAlign - 1))) & (kAlign - 1));
-}
-
-// The row of wqkv ([3, heads, Dp] rows) behind column col of a head group's
-// products: the group's columns run part-major (q of its hn heads, then k,
-// then v); past 3 hn Dp they fall past the tensor (TMA reads zeros).
-__device__ __forceinline__ int group_row(int col, int hn, int heads, int h0, int Dp) {
-  const int part = col / (hn * Dp), rem = col % (hn * Dp);
-  return (part * heads + h0) * Dp + rem;
 }
 
 // One warp's attention item, rows [16 mt, 16 mt + 16) of one window and head:
@@ -451,133 +386,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   cluster_sync();  // no block leaves while its peer may still write to it
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    attn_proj_kernel(const __grid_constant__ CUtensorMap amap,
-                     const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bproj,
-                     __nv_bfloat16* __restrict__ out, int M, int C, int pair) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = aligned_smem(smem_raw);
-  constexpr int tile_bytes = kProjTile * kRowBytes, stage_bytes = 2 * tile_bytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kProjStages * stage_bytes);
-  uint64_t* empty = full + kProjStages;
-  const int Cp = pad16(C), nkb = cdiv(Cp, kKTile), ksteps = Cp / 16;
-  const int m0 = blockIdx.x * kProjTile, n0 = blockIdx.y * kProjTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kProjStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers / 32);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-  if (warp == kConsumers / 32) {
-    if (lane == 0) {
-      tma_prefetch_map(&amap);
-      tma_prefetch_map(&wmap);
-      for (int kb = 0; kb < nkb; ++kb) {
-        const int s = kb % kProjStages;
-        mbar_wait(&empty[s], ((kb / kProjStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], stage_bytes);
-        tma_load(ring + s * stage_bytes, &amap, &full[s], kb * kKTile, m0);
-        tma_load(ring + s * stage_bytes + tile_bytes, &wmap, &full[s], kb * kKTile, n0);
-      }
-    }
-    __syncwarp();
-    return;
-  }
-  const int wg = warp / 4, g = lane >> 2, t4 = lane & 3;
-  float acc[64];
-#pragma unroll
-  for (int j = 0; j < 64; ++j) acc[j] = 0.0f;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int s = kb % kProjStages;
-    mbar_wait(&full[s], (kb / kProjStages) & 1);
-    const uint64_t da = wgmma_desc(ring + s * stage_bytes + wg * 64 * kRowBytes);
-    const uint64_t db = wgmma_desc(ring + s * stage_bytes + tile_bytes);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kKTile / 16; ++ks) {
-      if (kb * (kKTile / 16) + ks >= ksteps) break;
-      wgmma_ss_n128(acc, da + 2 * ks, db + 2 * ks);
-    }
-    wgmma_commit();
-    if (kb > 0) {  // the previous stage's products are done: release it
-      wgmma_wait<1>();
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[(kb - 1) % kProjStages]);
-    }
-  }
-  wgmma_wait<0>();
-  const int row0 = m0 + 64 * wg + 16 * (warp % 4) + g;
-#pragma unroll
-  for (int j = 0; j < kProjTile / 8; ++j) {
-    const int c = n0 + j * 8 + 2 * t4;
-    if (c >= C) continue;
-    const float b0 = bproj[c], b1 = c + 1 < C ? bproj[c + 1] : 0.0f;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + 8 * half;
-      if (row >= M) continue;
-      const float lo = __fadd_rn(acc[4 * j + 2 * half], b0);
-      const float hi = __fadd_rn(acc[4 * j + 2 * half + 1], b1);
-      __nv_bfloat16* dst = out + static_cast<long long>(row) * C + c;
-      if (pair) {
-        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
-      } else {
-        dst[0] = __float2bfloat16_rn(lo);
-        if (c + 1 < C) dst[1] = __float2bfloat16_rn(hi);
-      }
-    }
-  }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in the libcuda the CUDA runtime loaded.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D bf16 tensor map (rows of `cols` elements, `row_bytes` apart) with
-// boxes of box_cols x box_rows and 128-byte swizzling; reads past the
-// tensor's edge fill zeros.
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int cols, long long rows,
-                       int row_bytes, int box_cols, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// Rows of the weight boxes TMA loads (half of them a block): the most that
-// divide a unit and a head, so that a box never straddles q, k and v.
-int granule(int NT, int Dp) { return std::gcd(NT, Dp); }
-
 template <int NT, int KT>
 cudaError_t launch_qkv(const CUtensorMap& wmap, const __nv_bfloat16* x, const float* bqkv,
                        const float* bias, __nv_bfloat16* ctx, int B, int N, int C, int heads,
@@ -618,6 +426,26 @@ cudaError_t launch_qkv(const CUtensorMap& wmap, const __nv_bfloat16* x, const fl
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// The projection's epilogue: + bproj in f32, one rounding, out [M, C].
+struct ProjEpi {
+  const float* __restrict__ bproj;
+  __nv_bfloat16* __restrict__ out;
+  int M, C, pair;
+  __device__ __forceinline__ void operator()(int, int row, int c, float v0, float v1) const {
+    if (c >= C || row >= M) return;
+    const float b0 = bproj[c], b1 = c + 1 < C ? bproj[c + 1] : 0.0f;
+    const float lo = __fadd_rn(v0, b0), hi = __fadd_rn(v1, b1);
+    __nv_bfloat16* dst = out + static_cast<long long>(row) * C + c;
+    if (pair) {
+      *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
+    } else {
+      dst[0] = __float2bfloat16_rn(lo);
+      if (c + 1 < C) dst[1] = __float2bfloat16_rn(hi);
+    }
+  }
+  __device__ void rowsum(int, int, int, float) const {}
+};
+
 }  // namespace
 
 // The forward's launch plan for a shape: {windows a block, heads a group,
@@ -652,8 +480,8 @@ extern "C" int dfd_attn_subblock(const void* x, const void* wqkv, const void* bq
   cudaError_t e =
       tensor_map(&wmap, wqkv, Cp, 3LL * heads * Dp, Cp * 2, kKTile, granule(p.NT, Dp) / kCluster);
   if (e == cudaSuccess)
-    e = tensor_map(&amap, ctx, C, static_cast<long long>(B) * N, Cp * 2, kKTile, kProjTile);
-  if (e == cudaSuccess) e = tensor_map(&pmap, wproj, Cp, Cp, Cp * 2, kKTile, kProjTile);
+    e = operand_map(&amap, ctx, C, static_cast<long long>(B) * N, Cp, false);
+  if (e == cudaSuccess) e = operand_map(&pmap, wproj, Cp, Cp, Cp, false);
   if (e != cudaSuccess) return static_cast<int>(e);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* bq = static_cast<const float*>(bqkv);
@@ -663,19 +491,11 @@ extern "C" int dfd_attn_subblock(const void* x, const void* wqkv, const void* bq
   e = N <= 64 ? launch_qkv<4>(wmap, xp, bq, bs, cp, B, N, C, heads, scale, p, vec, st)
              : launch_qkv<8>(wmap, xp, bq, bs, cp, B, N, C, heads, scale, p, vec, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  static unsigned sized = 0;  // set once a device
-  int dev = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && !(sized >> dev & 1u)) {
-    e = cudaFuncSetAttribute(attn_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kProjSmem);
-    if (e == cudaSuccess) sized |= 1u << dev;
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int M = B * N;
-  const dim3 grid(cdiv(M, kProjTile), cdiv(C, kProjTile));
-  attn_proj_kernel<<<grid, kThreads, kProjSmem, st>>>(amap, pmap, static_cast<const float*>(bproj),
-                                                      static_cast<__nv_bfloat16*>(out), M, C,
-                                                      C % 2 == 0);
-  return static_cast<int>(cudaGetLastError());
+  const GemmProblem proj = {cdiv(M, kGemmTile), cdiv(C, kGemmTile), C, C};
+  return static_cast<int>(launch_gemm<false, false, false>(
+      amap, pmap, amap, pmap, proj, GemmProblem{}, 1,
+      ProjEpi{static_cast<const float*>(bproj), static_cast<__nv_bfloat16*>(out), M, C,
+              C % 2 == 0},
+      st));
 }

@@ -1,0 +1,7 @@
+// K6 backward's window kernel (attn_block_bwd.cuh) at wgmma widths 128 and 64.
+#include "attn_block_bwd.cuh"
+
+template cudaError_t k6_bwd::launch_window<128>(const CUtensorMap&, const k6_bwd::Window&,
+                                                 const k6_bwd::Plan&, cudaStream_t);
+template cudaError_t k6_bwd::launch_window<64>(const CUtensorMap&, const k6_bwd::Window&,
+                                                 const k6_bwd::Plan&, cudaStream_t);

@@ -1,9 +1,8 @@
-// Pieces of the K6 backward (attn_block_bwd.cu), two of them shared with the
-// forward (attn_block.cu): the block's product of its window's staged rows
-// with a weight read from device memory and the per-head qkv projection into
-// shared memory (backward only), and one head's attention over the window
-// from staged q, k, v (head_probs and probs_times_v, which the forward takes
-// too; the backward's row and column passes), with K5's arithmetic
+// Pieces shared by K6's forward (attn_block.cu) and backward
+// (attn_block_bwd.cu): the shapes of the qkv recompute's shared memory (x
+// staged for wgmma, the weight ring's units and granules), and one head's
+// attention over a window from staged q, k, v (head_probs and probs_times_v;
+// the backward's row and column passes), with K5's arithmetic
 // (window_attn.cu, window_attn_bwd.cu). K5 keeps its own fused loops: built
 // on these helpers it measured 20% slower (official forward) and 18% slower
 // (tpu backward) on an H100.
@@ -14,88 +13,51 @@
 
 #include <cmath>
 #include <cstdint>
+#include <numeric>
 
+#include "hopper.cuh"
 #include "window_attn_common.cuh"
 
 namespace {
 
-constexpr int kBlockWarps = 8;  // warps of a K6 window block
+constexpr int kCluster = 2;     // blocks sharing each weight tile (TMA multicast)
+constexpr int kMaxRows = 128;   // the M rows of a block (2 x 64)
+constexpr int kSms = 132;       // an H100 SXM's SMs
+constexpr int kMaxStages = 8;   // the weight ring's depth, at most
+constexpr int kMaxKB = 2;       // 64-column weight tiles a stage may hold
+constexpr int kUnits[6] = {192, 144, 128, 64, 48, 32};  // the wgmma widths, widest first
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
 
-constexpr int kWeightSteps = 8;  // k steps of weight fragments a warp keeps in flight
+// Units of NT weight rows a ring stage holds: one when the block's rows make
+// two warpgroup row groups, else two (one per warpgroup).
+__host__ __device__ constexpr int stage_slots(int Mx) { return Mx > 64 ? 1 : 2; }
 
-// acc[m] = A[m*16 .. m*16+15, 0:K] . W[n0 .. n0+7, 0:K]^T for the m < kt row
-// tiles, on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate).
-// A is staged in shared memory (as32: rows of ldaw 32-bit words); W is a
-// row-major bf16 weight in device memory, K % 16 == 0, and wrow is this
-// lane's row of it, n0 + (lane / 4). Each W element is read once per call.
-// The W fragments of kWeightSteps k steps are loaded before their products:
-// one step's products take far less time than an L2 load.
-template <int KT>
-__device__ __forceinline__ void rows_times_wt(float (&acc)[KT][4], const uint32_t* as32, int ldaw,
-                                              int kt, const __nv_bfloat16* __restrict__ wrow,
-                                              int K) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int m = 0; m < KT; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.0f;
-  const uint32_t* w32 = reinterpret_cast<const uint32_t*>(wrow) + t4;
-  const uint32_t* a = as32 + g * ldaw + t4;
-  const int words = K / 2;  // 16 bf16 columns = 8 words a step
-  for (int k0 = 0; k0 < words; k0 += 8 * kWeightSteps) {
-    uint32_t b[kWeightSteps][2];
-#pragma unroll
-    for (int s = 0; s < kWeightSteps; ++s) {
-      const int k = k0 + 8 * s;
-      b[s][0] = k < words ? __ldg(w32 + k) : 0u;
-      b[s][1] = k < words ? __ldg(w32 + k + 4) : 0u;
-    }
-#pragma unroll
-    for (int s = 0; s < kWeightSteps; ++s) {
-      const int k = k0 + 8 * s;
-      if (k >= words) break;
-#pragma unroll
-      for (int m = 0; m < KT; ++m) {
-        if (m >= kt) continue;
-        const uint32_t* am = a + m * 16 * ldaw + k;
-        const uint32_t af[4] = {am[0], am[8 * ldaw], am[4], am[8 * ldaw + 4]};
-        mma_bf16_16816(acc[m], af, b[s][0], b[s][1]);
-      }
-    }
-  }
+// x staged for wgmma: the block's Mx = G N token rows packed densely, in
+// 64-column blocks of pad8(Mx) 128-byte rows (128-byte swizzle), and after
+// the last block room for the rest of the last warpgroup tile's 64 rows
+// (read, never used).
+__host__ __device__ constexpr int x_smem_bytes(int Mx, int Cp) {
+  return (cdiv(Cp, kKTile) * pad8(Mx) + 64 * (Mx > 64 ? 2 : 1) - pad8(Mx)) * kRowBytes;
 }
 
-// One head's q, k and v [Np, Dp] (row stride ld) into qs, ks, vs: the staged
-// window rows xs [Np, Cp] (row stride ldx) times the head's rows of the
-// padded weight wqkv [3, heads, Dp, Cp] plus its f32 bias bqkv [3, heads,
-// Dp], each sum rounded once to bf16; rows >= N are zero. The warps share
-// the 3 * Dp / 8 output column tiles.
-template <int KT>
-__device__ __forceinline__ void qkv_head(__nv_bfloat16* qs, __nv_bfloat16* ks, __nv_bfloat16* vs,
-                                         int ld, const __nv_bfloat16* xs, int ldx,
-                                         const __nv_bfloat16* __restrict__ wqkv,
-                                         const float* __restrict__ bqkv, int hh, int heads, int N,
-                                         int kt, int Dp, int Cp) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const uint32_t* xs32 = reinterpret_cast<const uint32_t*>(xs);
-  for (int j = warp; j < 3 * Dp / 8; j += kBlockWarps) {
-    const int part = j * 8 / Dp, col = j * 8 % Dp;
-    const long long row0 = static_cast<long long>(part * heads + hh) * Dp + col;
-    float acc[KT][4];
-    rows_times_wt<KT>(acc, xs32, ldx / 2, kt, wqkv + (row0 + g) * Cp, Cp);
-    const float b0 = bqkv[row0 + 2 * t4], b1 = bqkv[row0 + 2 * t4 + 1];
-    __nv_bfloat16* dst = (part == 0 ? qs : part == 1 ? ks : vs) + col + 2 * t4;
-#pragma unroll
-    for (int m = 0; m < KT; ++m) {
-      if (m >= kt) continue;
-      const int r0 = m * 16 + g, r1 = r0 + 8;
-      *reinterpret_cast<uint32_t*>(dst + r0 * ld) =
-          r0 < N ? pack_bf16(__fadd_rn(acc[m][0], b0), __fadd_rn(acc[m][1], b1)) : 0u;
-      *reinterpret_cast<uint32_t*>(dst + r1 * ld) =
-          r1 < N ? pack_bf16(__fadd_rn(acc[m][2], b0), __fadd_rn(acc[m][3], b1)) : 0u;
-    }
-  }
+// A head group's f32 qkv bias (3 HG Dp) and, when staged, its f32 bias
+// tables (HG N N), each 16-byte rounded.
+__host__ __device__ constexpr int bias_smem_bytes(int N, int Dp, int HG, int staged) {
+  return cdiv(3 * HG * Dp, 4) * 16 + (staged ? cdiv(HG * N * N, 4) * 16 : 0);
 }
+
+// The row of wqkv ([3, heads, Dp] rows) behind column col of a head group's
+// products: the group's columns run part-major (q of its hn heads, then k,
+// then v); past 3 hn Dp they fall past the tensor (TMA reads zeros).
+__host__ __device__ __forceinline__ int group_row(int col, int hn, int heads, int h0, int Dp) {
+  const int part = col / (hn * Dp), rem = col % (hn * Dp);
+  return (part * heads + h0) * Dp + rem;
+}
+
+// Rows of the weight boxes TMA loads (half of them a block): the most that
+// divide a unit and a head, so that a box never straddles q, k and v.
+inline int granule(int NT, int Dp) { return std::gcd(NT, Dp); }
 
 // One warp's query rows r0 = 16 mt + lane / 4 and r0 + 8 of one head:
 // p = softmax((q k^T accumulated in f32) * scale + bias_h) over the N keys,

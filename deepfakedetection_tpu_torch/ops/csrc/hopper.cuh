@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks for the K6 forward (attn_block.cu):
-// mbarriers, TMA tile loads (multicast across a thread-block cluster),
-// cluster barriers and remote arrivals, cp.async, wgmma descriptors and
-// products. Each wraps one or two PTX instructions (PTX ISA 8.x).
+// Hopper (sm_90a) building blocks for K6 (attn_block.cu, attn_block_bwd.cu,
+// gemm_tma.cuh): mbarriers, TMA tile loads (multicast across a thread-block
+// cluster), cluster barriers and remote arrivals, cp.async, wgmma
+// descriptors of K-major and MN-major tiles, and products. Each wraps one or
+// two PTX instructions (PTX ISA 8.x).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a plain struct; nothing is linked from libcuda)
@@ -10,6 +11,13 @@
 #include <cstdint>
 
 namespace {
+
+constexpr int kKTile = 64;             // columns of a 128-byte swizzled tile row (bf16)
+constexpr int kRowBytes = kKTile * 2;  // one 128-byte swizzled row
+constexpr int kAlign = 1024;           // the 128-byte swizzle's period
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int pad8(int n) { return (n + 7) / 8 * 8; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -121,6 +129,18 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+// Orders this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) before later async-proxy reads of it (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16-byte asynchronous copy (cp.async, L2 only); both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -145,6 +165,25 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
   desc |= (1024ull >> 4) << 32;         // stride byte offset: the next 8 rows
   desc |= 1ull << 62;                   // 128-byte swizzle
   return desc;
+}
+
+// wgmma descriptor of an MN-major bf16 tile written by TMA with 128-byte
+// swizzling: bands of 64 M (or N) elements, each its K rows of 128 bytes,
+// 8-row groups 1024 bytes apart (stride byte offset), band_bytes from one
+// band to the next (leading byte offset), the tile 1024-byte aligned. Adding
+// 128 per 16 K rows (2048 bytes) steps along K.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* tile, uint32_t band_bytes) {
+  uint64_t desc = (smem_u32(tile) & 0x3FFFF) >> 4;
+  desc |= static_cast<uint64_t>((band_bytes >> 4) & 0x3FFF) << 16;
+  desc |= (1024ull >> 4) << 32;
+  desc |= 1ull << 62;
+  return desc;
+}
+
+// The first kAlign-aligned byte of dynamic shared memory (which the kernels
+// size with kAlign bytes of slack).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((kAlign - (smem_u32(raw) & (kAlign - 1))) & (kAlign - 1));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -210,8 +249,10 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b) {
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d[0, 64) += A . B, m64n128k16: A and B K-major in shared memory
-// (descriptors a and b).
+// d[0, 64) += A . B, m64n128k16: A and B in shared memory (descriptors a
+// and b), each K-major, or MN-major where TA / TB is 1 (the transpose
+// immediates).
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -220,7 +261,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b) 
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
       "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, "
-      "p, 1, 1, 0, 0;\n"
+      "p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
@@ -232,7 +273,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b) 
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 // d[0, 72) += A . B, m64n144k16: A and B K-major in shared memory
@@ -290,6 +331,37 @@ __device__ __forceinline__ void wgmma_ss_n192(float* d, uint64_t a, uint64_t b) 
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
         "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// setmaxnreg: the calling warpgroup's registers a thread raised or lowered to
+// N (a multiple of 8), all four of its warps together.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// One m64nNTk16 product (A and B K-major in shared memory): a single wgmma
+// instruction a kernel instance, so that consecutive products on the
+// accumulator stay in flight together.
+template <int NT>
+__device__ __forceinline__ void wgmma_ss(float (&acc)[NT / 2], uint64_t a, uint64_t b) {
+  if constexpr (NT == 192)
+    wgmma_ss_n192(acc, a, b);
+  else if constexpr (NT == 144)
+    wgmma_ss_n144(acc, a, b);
+  else if constexpr (NT == 128)
+    wgmma_ss_n128(acc, a, b);
+  else if constexpr (NT == 64)
+    wgmma_ss_n64(acc, a, b);
+  else if constexpr (NT == 48)
+    wgmma_ss_n48(acc, a, b);
+  else
+    wgmma_ss_n32(acc, a, b);
 }
 
 }  // namespace

@@ -51,12 +51,17 @@ TAGS = {"depthwise_silu_pool_kernel": "K1", "expand_dw_silu_pool_kernel": "K2",
         "gated_proj_kernel": "K3",
         "shear_pass_kernel": "K4", "window_attention_kernel": "K5",
         "window_attention_bwd_kernel": "K5 bwd", "dbias_reduce_kernel": "K5 bwd",
-        "attn_qkv_kernel": "K6", "attn_proj_kernel": "K6", "window_bwd_kernel": "K6 bwd", "gemm_nt_kernel": "K6 bwd",
-        "wgrad_kernel": "K6 bwd", "sum_partials_kernel": "K6 bwd", "attn4d_kernel": "K7"}
+        "attn_qkv_kernel": "K6", "window_bwd_kernel": "K6 bwd", "sum_partials_kernel": "K6 bwd",
+        "attn4d_kernel": "K7"}
+# K6's GEMM (csrc/gemm_tma.cuh) by its epilogue: the forward's projection, or
+# the backward's dctx, dx and weight gradients
+GEMM_TAGS = {"ProjEpi": "K6", "StoreEpi": "K6 bwd", "WgradEpi": "K6 bwd"}
 
 
 def tag(kernel: str) -> str:
     """The TPU kernel a device kernel's name says it replaces, or ""."""
+    if "gemm_kernel<" in kernel:
+        return next((t for k, t in GEMM_TAGS.items() if f"::{k}>" in kernel), "")
     return next((t for k, t in TAGS.items() if f"{k}<" in kernel or f"{k}(" in kernel), "")
 BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 256, "efficientformerv2_s1": 256}
 TRAIN_BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 128}

@@ -6,19 +6,26 @@ configurations). Run from the repository root:
     python -m deepfakedetection_tpu_torch.profile_k6 --tree DIR   # ... of DIR's K6
     python -m deepfakedetection_tpu_torch.profile_k6 --phases     # per-phase clocks
     python -m deepfakedetection_tpu_torch.profile_k6 --plans      # every plan that fits
+    python -m deepfakedetection_tpu_torch.profile_k6 --bwd [--tree DIR]  # the backward's split
 
 The default times ``attn_subblock`` as ``chip_smoke.phase1_k6`` does (f32
 weights, CUDA events, median of 25) and each of its two kernels' device time
-(``torch.profiler``). ``--tree DIR`` does the same for the package of another
-checkout (say the parent commit, unpacked with ``git archive`` into a
-directory ``.gitignore`` lists), so two versions compare within one call.
+(``torch.profiler``). ``--tree DIR`` first holds this checkout's forward to
+the package of another (say the parent commit, unpacked with ``git archive``
+into a directory ``.gitignore`` lists): both libraries built, the same
+operands through each entry point at every shape, bit-identical or not, and
+their times in turns (other, this, this, other); then it times DIR's K6 as
+the default does, so two versions compare within one call.
 ``--phases`` builds a copy of the source with ``clock64`` counters in the
 first kernel and prints, per block, the microseconds (at 1.755 GHz) its
 consumer warps 0 and 4 spend staging x, waiting for weight tiles, issuing and
 retiring products, in the epilogue, attending and waiting at barriers.
 ``--plans`` builds a copy whose entry point takes a plan from the caller and
 times every plan that fits at each shape (the search behind ``fwd_plan``'s
-order), checking each against the plain version.
+order), checking each against the plain version. ``--bwd`` times
+``attn_subblock_bwd`` at ``chip_smoke.K6_BWD_SHAPES`` (FasterViT-2's fine-tune
+step at batch 128) and gives each of its kernels' device time a call and the
+kernels it launches a call; with ``--tree DIR`` it does so for DIR's K6.
 """
 
 from __future__ import annotations
@@ -49,8 +56,7 @@ def _edit(text: str, edits: list[tuple[str, str]]) -> str:
 # clock64 counters in attn_qkv_kernel: per block, warps 0 and 4 add their
 # phase times to g_phase (dfd_phase_read returns and clears them)
 PHASE_EDITS = [
-    ("namespace {\n\nconstexpr int kConsumers",
-     "__device__ unsigned long long g_phase[16];\nnamespace {\n\nconstexpr int kConsumers"),
+    ("\nnamespace {\n\n", "\n__device__ unsigned long long g_phase[16];\nnamespace {\n\n"),
     ("  extern __shared__ unsigned char smem_raw[];\n"
      "  unsigned char* ring = aligned_smem(smem_raw);\n  const int d = C / heads",
      "  extern __shared__ unsigned char smem_raw[];\n  long long t_start = clock64(), tq = 0, "
@@ -86,9 +92,9 @@ extern "C" int dfd_phase_read(unsigned long long* out) {
 """
 # the entry point takes the plan set by dfd_set_plan (all zero: its own)
 PLAN_EDITS = [
-    ("namespace {\n\nconstexpr int kConsumers",
-     "static int g_plan[8];\nextern \"C\" void dfd_set_plan(const int* p) {\n"
-     "  for (int i = 0; i < 8; ++i) g_plan[i] = p[i];\n}\nnamespace {\n\nconstexpr int kConsumers"),
+    ("\nnamespace {\n\n",
+     "\nstatic int g_plan[8];\nextern \"C\" void dfd_set_plan(const int* p) {\n"
+     "  for (int i = 0; i < 8; ++i) g_plan[i] = p[i];\n}\nnamespace {\n\n"),
     ("  const FwdPlan p = {plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};",
      "  const int* q = g_plan[0] ? g_plan : plan;\n"
      "  const FwdPlan p = {q[0], q[1], q[2], q[3], q[4], q[5], q[6]};"),
@@ -145,6 +151,43 @@ class Call:
             raise RuntimeError(f"dfd_attn_subblock failed: CUDA error {rc}")
 
 
+def compare_forward(tree: str) -> None:
+    """This checkout's K6 forward against the one in ``tree``: outputs
+    bit-identical or not, and the two times in turns, at every shape."""
+    import importlib.util
+
+    import chip_smoke as cs
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import build
+
+    spec = importlib.util.spec_from_file_location(
+        "other_build", Path(tree) / "deepfakedetection_tpu_torch" / "ops" / "build.py")
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    libs = {"other": other.library(), "this": build.library()}
+    totals = {"other": 0.0, "this": 0.0}
+    for i, shape in enumerate(cs.K6_SHAPES):
+        call = Call(shape, 800 + i, torch.device("cuda"))
+        outs = {}
+        for name, lib in libs.items():
+            call(lib)
+            torch.cuda.synchronize()
+            outs[name] = call.out.clone()
+        ms = {name: [] for name in libs}
+        for name in ("other", "this", "this", "other"):
+            ms[name] += cs.cuda_times(lambda: call(libs[name]), runs=13)
+        med = {name: statistics.median(t) for name, t in ms.items()}
+        for name in libs:
+            totals[name] += shape[5] * med[name]
+        print(f"forward {shape[0]} {call.shape}: bit-identical to {tree}'s "
+              f"{torch.equal(outs['other'], outs['this'])}; ms a call: this {med['this']:.4f}, "
+              f"{tree}'s {med['other']:.4f}", flush=True)
+    for name, total in totals.items():
+        print(f"forward per FasterViT-2 forward at batch 256, both configurations summed, "
+              f"{name}: {total:.4f} ms", flush=True)
+
+
 def times() -> None:
     import chip_smoke as cs
     import torch
@@ -169,6 +212,34 @@ def times() -> None:
               f"call: " + ", ".join(f"{k} {v:.4f}" for k, v in kernels.items()), flush=True)
     for config, total in per.items():
         print(f"per FasterViT-2 {config} forward at batch 256 (21 launches): {total:.4f} ms")
+
+
+def bwd_times() -> None:
+    import chip_smoke as cs
+
+    from deepfakedetection_tpu_torch.ops import attn_block as k6
+
+    per = {}
+    for i, (config, B, N, C, h, count) in enumerate(cs.K6_BWD_SHAPES):
+        x, wq, bq, bias, wp, _, dout = cs.k6_inputs(B, N, C, h, 900 + i, "cuda")
+        scale = (C // h) ** -0.5
+
+        def call():
+            return k6.attn_subblock_bwd(x, wq, bq, bias, wp, dout, num_heads=h, scale=scale)
+
+        ms = statistics.median(cs.cuda_times(call, runs=25))
+        split, launched = cs.kernel_split(call)
+        agg = per.setdefault(config, {"ms": 0.0, "device": {}})
+        agg["ms"] += count * ms
+        for k, v in split.items():
+            agg["device"][k] = agg["device"].get(k, 0.0) + count * v
+        print(f"{config} windows {B} N {N} C {C} heads {h}: {ms:.4f} ms a call, "
+              f"{launched:g} kernels a call; device ms a call: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+    for config, agg in per.items():
+        print(f"per FasterViT-2 {config} fine-tune step at batch 128 (21 launches): "
+              f"{agg['ms']:.4f} ms; device ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in agg["device"].items()), flush=True)
 
 
 def phases() -> None:
@@ -241,6 +312,8 @@ def main() -> None:
     group.add_argument("--tree", help="time the K6 of the checkout in this directory")
     group.add_argument("--phases", action="store_true", help="per-phase clocks of kernel 1")
     group.add_argument("--plans", action="store_true", help="time every plan that fits")
+    parser.add_argument("--bwd", action="store_true",
+                        help="the backward's time and per-kernel split (with --tree too)")
     args = parser.parse_args()
     import chip_smoke as cs
     import torch
@@ -248,6 +321,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_k6: no CUDA card")
     print(cs.smi(), flush=True)
+    if args.tree and not args.bwd:
+        compare_forward(args.tree)
     if args.tree:
         # this module stays; the package it times is the other checkout's
         root = str(Path(args.tree).resolve())
@@ -259,7 +334,9 @@ def main() -> None:
         if not os.path.abspath(build.__file__).startswith(root):
             raise SystemExit(f"profile_k6: {build.__file__} is not under {root}")
         print(f"K6 of {root}", flush=True)
-    (phases if args.phases else plans if args.plans else times)()
+    if args.bwd and (args.phases or args.plans):
+        raise SystemExit("profile_k6: --bwd goes with --tree only")
+    (bwd_times if args.bwd else phases if args.phases else plans if args.plans else times)()
 
 
 if __name__ == "__main__":

@@ -185,10 +185,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                 torch.zeros(3 * C), torch.zeros(h, 49, 49), torch.zeros(C, C), torch.zeros(C)]
 
     # C 2,048: one window's x alone fills a block's shared memory
+    t = wide(2048, 16)
     with pytest.raises(ValueError, match="shared memory"):
-        k6.attn_subblock(*wide(2048, 16), num_heads=16, scale=0.1)
-    # FasterViT-4's stage 4 (C 1,568, 32 heads): the forward fits, the backward does not
-    assert k6.attn_subblock(*wide(1568, 32), num_heads=32, scale=0.1).shape == (1, 49, 1568)
+        k6.attn_subblock(*t, num_heads=16, scale=0.1)
+    with pytest.raises(ValueError, match="shared memory"):
+        k6.attn_subblock_bwd(*t[:5], t[0], num_heads=16, scale=0.1)
+    # FasterViT-4's stage 4 (C 1,568, 32 heads): the forward and the backward fit
     t = wide(1568, 32)
-    with pytest.raises(ValueError, match="shared memory"):
-        k6.attn_subblock_bwd(*t[:5], t[0], num_heads=32, scale=0.1)
+    assert k6.attn_subblock(*t, num_heads=32, scale=0.1).shape == (1, 49, 1568)
+    assert k6.attn_subblock_bwd(*t[:5], t[0], num_heads=32, scale=0.1)[0].shape == (1, 49, 1568)

@@ -314,6 +314,12 @@ K6_CASES = [
     # the forward's last, partial window group and the cluster's empty block
     # (chip_smoke.K6_TAILS)
     (1, 53, 8, 48), (3, 53, 8, 48), (1023, 53, 8, 48), (250, 16, 8, 48),
+    # the backward's: a cluster's empty block, a partial last window group, a
+    # partial last head group (chip_smoke.K6_BWD_TAILS)
+    (511, 53, 8, 48), (127, 49, 16, 48), (65, 53, 3, 128),
+    # FasterViT-4's stage 4 (C 1,568, 32 heads), which the backward takes since
+    # its redesign
+    (2, 49, 32, 49),
 ]
 K6_GRAD_TOL = 1e-2  # dW, db, dbias: max|d| over the scale (chip_smoke.K6_BWD_TOL)
 
@@ -380,9 +386,9 @@ def test_attn_subblock_refuses_sizes_past_its_limits(cuda):
     args, dout = _k6_inputs(2, 129, 2, 16, cuda, seed=6)
     with pytest.raises(ValueError, match="N <= 128"):
         k6.attn_subblock(*args, num_heads=2, scale=0.25)
-    args, dout = _k6_inputs(1, 49, 32, 49, cuda, seed=7)  # FasterViT-4's stage 4
+    args, dout = _k6_inputs(1, 49, 16, 128, cuda, seed=7)  # C 2,048: x fills a block
     with pytest.raises(ValueError, match="shared memory"):
-        k6.attn_subblock_bwd(*args[:5], dout, num_heads=32, scale=49**-0.5)
+        k6.attn_subblock_bwd(*args[:5], dout, num_heads=16, scale=128**-0.5)
 
 
 K3_CASES = [
