@@ -11,8 +11,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``deepfakedetection_tpu_torch/ops/csrc`` with nvcc (timed);
 1. each kernel against its plain PyTorch version on the card, in bf16, at
    every EfficientNet-B3 @ 224 dispatch shape (batch 8) plus odd and ragged
-   sizes, with the JAX package's test tolerances; kernel and plain times at
-   batch 128 (CUDA events, median of 25 runs after warm-up);
+   sizes, with the JAX package's test tolerances, bit-identical over two
+   runs; kernel and plain times at batch 128 (CUDA events, median of 25 runs
+   after warm-up); for K2 also its launch plan against the built library's,
+   each shape's bound, what bounds it and GB/s, and, with ``--parent DIR``
+   (another checkout, say the parent commit unpacked with ``git archive``),
+   that checkout's K2 timed in turns with this one (``profile_k2.compare``);
 2. the full-width B3 forward with seeded weights and a head fitted to spread
    the probabilities: bf16 on the card through the kernels against bf16
    (plain versions) and float32 (unfused chain) on the CPU, logits relative
@@ -81,8 +85,9 @@ four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
 four fine-tune shapes at batch 128 (plus odd sizes and a repeat that must
 give bit-identical dbias), with their times, the plain versions' and
 ``torch.nn.functional.scaled_dot_product_attention``'s on the same q, k, v
-and bias (forward, or forward and backward less the forward: a yardstick the
-port never calls), and K7 (talking-head attention) at EfficientFormerV2-S1's
+and bias (forward, or its backward alone after one forward, ``grad_ms``,
+with the device time of the kernels it launches beside the event time: a
+yardstick the port never calls), and K7 (talking-head attention) at EfficientFormerV2-S1's
 shape at batch 256 and at ragged sizes, bit-identical run to run (no PyTorch
 call computes it: its library time is none), and K6 (the fused attention
 sub-block) at the six FasterViT-2 attentions of both head configurations,
@@ -106,6 +111,8 @@ The second-to-last lines are a JSON object with the kernels' numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 Without a CUDA card, or outside the repository, it exits non-zero at once.
+Run with no arguments it does all of the above; ``--parent DIR`` only adds
+phase 1's comparison with another checkout's K2.
 """
 
 from __future__ import annotations
@@ -139,7 +146,7 @@ K2_SHAPES = [
 # odd sizes: one tile smaller than the halo, ragged tiles and channel blocks, and
 # channel counts off the kernels' vector widths (their one-channel load paths)
 K1_ODD = [(9, 11, 128, 5), (37, 45, 72, 3), (13, 10, 20, 5)]
-K2_ODD = [(9, 11, 32, 192, 5), (30, 33, 24, 144, 5), (13, 10, 20, 42, 3)]
+K2_ODD = [(9, 11, 32, 192, 5), (30, 33, 24, 144, 5), (1, 1, 8, 48, 5), (13, 10, 20, 42, 3)]
 K1_TOL = {"y": (3e-2, 3e-2), "pool": (2e-3, 2e-3)}  # (atol, rtol)
 SPLITS = {"val": 256, "test": 1280}  # phase 3 images per split
 EVAL_BATCH = 128
@@ -333,8 +340,12 @@ def k2_inputs(B, H, W, Cin, Ce, k, seed, device):
     return [t.to(device) for t in (x, wexp, bexp, wdw, bdw)]
 
 
-def phase1(device, report):
-    """Kernels against their plain versions on the card."""
+def phase1(device, report, parent: str | None = None):
+    """Kernels against their plain versions on the card. With ``parent``
+    (another checkout's directory), K2 is also timed against that
+    checkout's K2 in turns at the B3 shapes (``profile_k2.compare``)."""
+    import torch
+
     from deepfakedetection_tpu_torch.ops import depthwise_se as k1
     from deepfakedetection_tpu_torch.ops import expand_dw as k2
 
@@ -350,29 +361,45 @@ def phase1(device, report):
             k = shape[-1]
             args = inputs(8, *shape, seed=100 + i, device=device)
             y, pool = fused(*args, **{kw: k})
+            again = fused(*args, **{kw: k})
+            if not (torch.equal(again[0], y) and torch.equal(again[1], pool)):
+                raise AssertionError(f"{name}{shape}: two runs differ")
             ry, rpool = plain(*args, **{kw: k})
             ey = check_close(f"{name}{shape} y", y, ry, *tol["y"])
             ep = check_close(f"{name}{shape} pool", pool, rpool, *tol["pool"])
             worst = max(worst, ey)
             row = {"shape": shape, "blocks_in_b3": count, "max_abs_err_y": ey,
                    "max_abs_err_pool": ep}
+            if mod is k2:  # the launch plan is the one the built kernel computes
+                for B in (8, 128):
+                    want = k2.plan(*shape, B, k2.sm_count(device))
+                    if want != k2.kernel_plan(B, *shape, k2.sm_count(device)):
+                        raise AssertionError(f"{name}{shape}: plan {want} is not the kernel's")
+                row["plan"] = vars(k2.plan(*shape, 128, k2.sm_count(device)))
             if count:  # time at the eval batch (128) for the B3 shapes
                 big = inputs(128, *shape, seed=200 + i, device=device)
-                bounds.append((count, kernel_bound(name, 128, shape)))
+                b_ms, b_by = kernel_bound(name, 128, shape)
+                bounds.append((count, (b_ms, b_by)))
                 t_k = spread(cuda_times(lambda: fused(*big, **{kw: k}), runs=25))
                 t_p = spread(cuda_times(lambda: plain(*big, **{kw: k}), runs=25))
-                row.update(ms=t_k, plain_ms=t_p)
+                row.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+                if mod is k2:
+                    row["gb_per_s"] = k2_bytes(128, shape) / t_k["median"] / 1e6
                 ms += count * t_k["median"]
                 plain_ms += count * t_p["median"]
             rows.append(row)
-            log(f"  {name} {shape}: max|dy|={ey:.3e} max|dpool|={ep:.3e}"
-                + (f" kernel {row['ms']['median']:.4f} ms plain {row['plain_ms']['median']:.4f} ms"
-                   " (batch 128)" if count else ""))
+            log(f"  {name} {shape}: max|dy|={ey:.3e} max|dpool|={ep:.3e}, bit-identical over two "
+                "runs" + (f"; kernel {row['ms']['median']:.4f} ms plain "
+                          f"{row['plain_ms']['median']:.4f} ms (batch 128), bound "
+                          f"{row['bound_ms']:.4f} ms ({row['bound_by']})" if count else "")
+                + (f", {row['gb_per_s']:.0f} GB/s, plan {row['plan']}" if "gb_per_s" in row
+                   else ""))
         bound_ms, bound_by = add_bounds(bounds)
         kernels[name] = {"rows": rows, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         log(f"  {name}: per B3 forward at batch 128 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
             f" bound {bound_ms:.4f} ms ({bound_by})")
+    kernels["expand_dw_silu_pool"]["parent"] = k2_parent(parent)
     kernels["rotate_batch"] = phase1_k4(device)
     kernels["window_attention"] = phase1_k5(device)
     kernels["window_attention_bwd"] = phase1_k5_bwd(device)
@@ -381,6 +408,28 @@ def phase1(device, report):
     kernels["fused_mbconv_se"] = phase1_k3(device)
     report["phase1"] = kernels
     return kernels
+
+
+def k2_parent(parent: str | None) -> dict | None:
+    """K2 of the checkout in ``parent`` against this one at the B3 shapes,
+    in turns (``profile_k2.compare``): per shape both times and whether the
+    outputs are bit-identical, and the sums per B3 forward. None without
+    ``parent``."""
+    if parent is None:
+        log("  expand_dw_silu_pool: the parent's K2 not measured (no --parent)")
+        return None
+    from deepfakedetection_tpu_torch import profile_k2
+
+    rows = profile_k2.compare(parent)
+    sums = {f"{who}_ms": sum(n * r[f"{who}_ms"] for r, (_, n) in zip(rows, K2_SHAPES))
+            for who in ("this", "other")}
+    for r, (shape, _) in zip(rows, K2_SHAPES):
+        if r["this_ms"] >= r["other_ms"]:
+            log(f"  expand_dw_silu_pool {shape}: NOT faster than the parent's "
+                f"({r['this_ms']:.4f} against {r['other_ms']:.4f} ms)")
+    log(f"  expand_dw_silu_pool per B3 forward at batch 128, in turns with {parent}'s: this "
+        f"{sums['this_ms']:.4f} ms, the parent's {sums['other_ms']:.4f} ms")
+    return {"tree": parent, "rows": rows, **sums}
 
 
 def kernel_bound(name: str, B: int, shape) -> tuple[float, str]:
@@ -394,8 +443,14 @@ def kernel_bound(name: str, B: int, shape) -> tuple[float, str]:
                      {"f32": 2 * k * k * px * C})
     H, W, Cin, Ce, k = shape
     px = B * H * W
-    return bound(px * (Cin + Ce) * 2 + (Cin * Ce + (k * k + 2) * Ce) * 4 + B * Ce * 4,
-                 {"bf16": 2 * px * Cin * Ce, "f32": 2 * k * k * px * Ce})
+    return bound(k2_bytes(B, shape), {"bf16": 2 * px * Cin * Ce, "f32": 2 * k * k * px * Ce})
+
+
+def k2_bytes(B: int, shape) -> int:
+    """The bytes K2 must move at batch B: x read, its f32 weights read, y
+    and the pool written."""
+    H, W, Cin, Ce, k = shape
+    return B * H * W * (Cin + Ce) * 2 + (Cin * Ce + (k * k + 2) * Ce) * 4 + B * Ce * 4
 
 
 def k5_bound(B: int, N: int, C: int, h: int) -> tuple[float, str]:
@@ -493,13 +548,20 @@ def grad_ms(out, inputs, dout, runs: int = 25, rounds: int = BWD_ROUNDS) -> dict
     """The backward alone of a forward already run (``out``, recorded by
     autograd): ``torch.autograd.grad(out, inputs, dout, retain_graph=True)``
     timed with CUDA events around each call, in ``rounds`` separate rounds of
-    ``runs`` calls. {"median": the median of the rounds' medians, "rounds":
-    each round's median, quartiles and extremes}."""
+    ``runs`` calls, and the device time of the kernels a call launches
+    (``kernel_split`` over ``runs`` calls), which leaves out the host's gaps
+    between them. {"median": the median of the rounds' medians, "rounds":
+    each round's median, quartiles and extremes, "device_ms": device ms a
+    call, "device_split": by kernel}."""
     import torch
 
-    rs = [spread(cuda_times(lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True),
-                            runs=runs)) for _ in range(rounds)]
-    return {"median": statistics.median(r["median"] for r in rs), "rounds": rs}
+    def call():
+        return torch.autograd.grad(out, inputs, dout, retain_graph=True)
+
+    rs = [spread(cuda_times(call, runs=runs)) for _ in range(rounds)]
+    split, _ = kernel_split(call, calls=runs)
+    return {"median": statistics.median(r["median"] for r in rs), "rounds": rs,
+            "device_ms": sum(split.values()), "device_split": split}
 
 
 def rounds_text(t: dict) -> str:
@@ -592,26 +654,34 @@ def phase1_k5_bwd(device) -> dict:
             lambda: k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=scale), runs=25))
         t_p = spread(cuda_times(lambda: k5.window_attention_bwd_plain(
             qkv, bias, dout, num_heads=h, scale=scale), runs=10))
+        dev = sum(kernel_split(lambda: k5.window_attention_bwd(qkv, bias, dout, num_heads=h,
+                                                               scale=scale))[0].values())
         lib_t, backend = sdpa_bwd_ms(qkv, bias, dout, h, scale)
         lib = None if lib_t is None else lib_t["median"]
+        lib_dev = None if lib_t is None else lib_t["device_ms"]
         b_ms, b_by = k5_bwd_bound(B, N, C, h)
         rows.append({"config": config, "shape": (B, N, C, h), "launches_per_step": count,
                      "max_abs_err": errs, "tolerance": tols, "ms": t_k, "plain_ms": t_p,
-                     "library_ms": lib, "library_rounds": lib_t and lib_t["rounds"],
+                     "device_ms": dev, "library_ms": lib, "library_device_ms": lib_dev,
+                     "library_rounds": lib_t and lib_t["rounds"],
+                     "library_device_split": lib_t and lib_t["device_split"],
                      "library_backend": backend, "bound_ms": b_ms,
                      "bound_by": b_by, "windows_per_block": k5.bwd_windows_per_block(B, h)})
-        agg = per.setdefault(config, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                                      "bounds": []})
+        agg = per.setdefault(config, {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
+                                      "library_ms": 0.0, "library_device_ms": 0.0, "bounds": []})
         agg["ms"] += count * t_k["median"]
         agg["plain_ms"] += count * t_p["median"]
-        agg["library_ms"] = None if lib is None or agg["library_ms"] is None \
-            else agg["library_ms"] + count * lib
+        agg["device_ms"] += count * dev
+        for key, v in (("library_ms", lib), ("library_device_ms", lib_dev)):
+            agg[key] = None if v is None or agg[key] is None else agg[key] + count * v
         agg["bounds"].append((count, (b_ms, b_by)))
         log(f"  window_attention_bwd {config} windows {B} N {N} C {C} heads {h}: max|d| "
             + ", ".join(f"{k} {errs[k]:.3e} (tol {tols[k]:.3e})" for k in errs)
-            + f"; dbias bit-identical over two runs; kernel {t_k['median']:.4f} ms, plain "
-            f"{t_p['median']:.4f} ms, sdpa backward {lib if lib is None else round(lib, 4)} ms "
-            f"({backend}; rounds {lib_t and rounds_text(lib_t)}), bound {b_ms:.4f} ms ({b_by})")
+            + f"; dbias bit-identical over two runs; kernel {t_k['median']:.4f} ms (device "
+            f"{dev:.4f}), plain {t_p['median']:.4f} ms, sdpa backward "
+            f"{lib if lib is None else round(lib, 4)} ms (device "
+            f"{lib_dev if lib_dev is None else round(lib_dev, 4)}; {backend}; rounds "
+            f"{lib_t and rounds_text(lib_t)}), bound {b_ms:.4f} ms ({b_by})")
     for B, N, h, d in K5_BWD_ODD:
         g = torch.Generator().manual_seed(600 + N * d + h)
         C = h * d
@@ -633,8 +703,9 @@ def phase1_k5_bwd(device) -> dict:
     for config, agg in per.items():
         agg["bound_ms"], agg["bound_by"] = add_bounds(agg.pop("bounds"))
         log(f"  window_attention_bwd per FasterViT-2 {config} fine-tune step at batch 128 (13 "
-            f"launches): kernel {agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, sdpa "
-            f"backward {agg['library_ms']} ms, bound {agg['bound_ms']:.4f} ms")
+            f"launches): kernel {agg['ms']:.4f} ms (device {agg['device_ms']:.4f}), plain "
+            f"{agg['plain_ms']:.4f} ms, sdpa backward {agg['library_ms']} ms (device "
+            f"{agg['library_device_ms']}), bound {agg['bound_ms']:.4f} ms")
     return {"rows": rows, "max_abs_err": worst, "per_step": per, **per["official"]}
 
 
@@ -1050,25 +1121,35 @@ def phase1_k6(device) -> tuple[dict, dict]:
         try:
             lib_t = grad_ms(mha_forward(w16[0], w16[1], w16[2], bias, w16[3], w16[4], h), w16,
                             dout)
-            lib = lib_t["median"]
+            lib, lib_dev = lib_t["median"], lib_t["device_ms"]
         except RuntimeError as exc:
             log(f"  multi_head_attention_forward took no backward at {(B, N, C, h)}: {exc}")
-            lib_t = lib = None
+            lib_t = lib = lib_dev = None
         b = k6_bwd_bound(B, N, C, h)
         plan = k6.bwd_plan(B, N, C, h)
         split, kernels = kernel_split(lambda: k6.attn_subblock_bwd(*args[:5], dout, num_heads=h,
                                                                    scale=scale))
         rows.append({"config": config, "shape": (B, N, C, h), "launches_per_step": count,
                      "max_abs_err": errs, "tolerance": tols, "ms": t_k, "plain_ms": t_p,
-                     "unfused_ms": unfused, "unfused_rounds": unfused_t["rounds"],
-                     "library_ms": lib, "library_rounds": lib_t and lib_t["rounds"],
+                     "device_ms": sum(split.values()), "unfused_ms": unfused,
+                     "unfused_device_ms": unfused_t["device_ms"],
+                     "unfused_rounds": unfused_t["rounds"], "library_ms": lib,
+                     "library_device_ms": lib_dev, "library_rounds": lib_t and lib_t["rounds"],
                      "bound_ms": b[0], "bound_by": b[1], "plan": plan._asdict(),
                      "rows_per_weight_read": plan.rows_per_weight_read(N),
                      "device_ms_per_kernel": split, "device_kernels_per_call": kernels})
         add(per, config, count, t_k, t_p, unfused, lib, b)
+        for key, v in (("device_ms", sum(split.values())),
+                       ("unfused_device_ms", unfused_t["device_ms"]),
+                       ("library_device_ms", lib_dev)):
+            prev = per[config].get(key, 0.0)
+            per[config][key] = None if v is None or prev is None else prev + count * v
         log(f"  attn_subblock_bwd {config} windows {B} N {N} C {C} heads {h}: {plan}, "
             f"{kernels:g} device kernels a call, device ms a call: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f"; device ms a call of the unfused path's backward {unfused_t['device_ms']:.4f}, "
+            f"of multi_head_attention_forward's "
+            f"{lib_dev if lib_dev is None else round(lib_dev, 4)}")
         log(f"  attn_subblock_bwd {config} windows {B} N {N} C {C} heads {h}: max|d| "
             + ", ".join(f"{k} {errs[k]:.3e} (tol {tols[k]:.3e})" for k in errs)
             + f"; bit-identical over two runs; kernel {t_k['median']:.4f} ms (q1 "
@@ -1077,6 +1158,10 @@ def phase1_k6(device) -> tuple[dict, dict]:
             f"multi_head_attention_forward backward {lib if lib is None else round(lib, 4)} ms "
             f"(rounds {lib_t and rounds_text(lib_t)}), bound {b[0]:.4f} ms ({b[1]})")
     finish(per, "attn_subblock_bwd")
+    for config, agg in per.items():
+        log(f"  attn_subblock_bwd per FasterViT-2 {config} step, device time: kernel "
+            f"{agg['device_ms']:.4f} ms, unfused path {agg['unfused_device_ms']:.4f} ms, "
+            f"multi_head_attention_forward {agg['library_device_ms']} ms")
     bwd = {"rows": rows, "max_abs_err": worst, "per_step": per, **per["official"]}
 
     for i, (B, N, h, d) in enumerate(K6_ODD):
@@ -2680,6 +2765,12 @@ def phase9(device, report, state):
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drives the PyTorch port on one CUDA card.")
+    parser.add_argument("--parent", help="another checkout (say the parent commit, unpacked with "
+                        "git archive) whose K2 phase 1 times against this one's")
+    args = parser.parse_args()
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
@@ -2704,7 +2795,7 @@ def main() -> int:
     log(f"  kernels built by nvcc in {report['build_s']:.1f} s -> {build.library_path().name}")
 
     log("phase 1: kernels against their plain versions (bf16)")
-    kernels = phase1(device, report)
+    kernels = phase1(device, report, args.parent)
     state = seeded_b3_state()
     log("phase 2: full-width B3 forward")
     phase2(device, report, state)

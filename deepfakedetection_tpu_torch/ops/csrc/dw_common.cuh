@@ -1,8 +1,8 @@
 // Pieces shared by the MBConv kernels (depthwise_se.cu, expand_dw.cu,
 // fused_mbconv.cu).
 //
-// Both kernels work on one spatial tile of one image and one block of
-// channels: threadIdx.x walks the channels of the block (neighbouring
+// K1 (depthwise_se.cu) works on one spatial tile of one image and one block
+// of channels: threadIdx.x walks the channels of the block (neighbouring
 // threads on neighbouring channels, so NHWC loads and stores coalesce) and
 // threadIdx.y walks the pixels of the tile. Every thread keeps one channel
 // for the whole tile, so its share of the SE pool is a plain register sum;

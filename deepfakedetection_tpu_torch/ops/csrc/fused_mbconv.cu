@@ -17,8 +17,9 @@
 // Design: the TPU kernel keeps one image's expanded map in VMEM (1.2 MB at
 //   B3's 56 x 56 x 192), and the SE gate needs the whole image's pool before
 //   any row can be projected; a Hopper block has 227 KB. So the stages run
-//   as kernels on the caller's stream: (a) K2's kernel unchanged
-//   (expand_dw.cuh), which writes the bf16 depthwise map and the f32 pool;
+//   as kernels on the caller's stream: (a) K2's kernels unchanged
+//   (expand_dw.cuh: wexp's packing and the persistent expand + depthwise
+//   kernel), which write the bf16 depthwise map and the f32 pool;
 //   (b) the SE gate as two small batched products, se_reduce_kernel (partial
 //   sums over chunks of 256 channels) and se_expand_kernel (the chunks summed
 //   in order, SiLU, the expand FC, sigmoid), each block taking a slice of
@@ -355,23 +356,23 @@ cudaError_t launch_proj(const void* dw, const void* gate, const uint32_t* pairs,
 
 }  // namespace
 
-// Returns a cudaError_t: 0 on success. dw [B,H,W,Cmid] bf16, partial
-// [B,tiles,Cmid] f32, pool [B,Cmid] f32, se_part [ceil(Cmid/256)][B][Cse]
-// f32, gate [B,Cmid] bf16 and pairs [ceil(Cmid/32)*16][ceil(C/64)*64] 32-bit
-// words are the caller's scratch; TH, TW, CB are K2's plan
-// (ops/expand_dw.py:plan).
+// Returns a cudaError_t: 0 on success. dw [B,H,W,Cmid] bf16, pool [B,Cmid]
+// f32, wpack (K2's weight scratch, expand_dw.cuh), se_part
+// [ceil(Cmid/256)][B][Cse] f32, gate [B,Cmid] bf16 and pairs
+// [ceil(Cmid/32)*16][ceil(C/64)*64] 32-bit words are the caller's scratch;
+// CB and RB are K2's plan (ops/expand_dw.py:plan).
 extern "C" int dfd_fused_mbconv_se(const void* x, const void* w_exp, const void* b_exp,
                                    const void* w_dw, const void* b_dw, const void* w_se_r,
                                    const void* b_se_r, const void* w_se_e, const void* b_se_e,
-                                   const void* w_proj, const void* b_proj, void* dw, void* partial,
-                                   void* pool, void* se_part, void* gate, void* pairs, void* out,
-                                   int B, int H, int W, int C, int Cmid, int Cse, int k, int TH,
-                                   int TW, int CB, void* stream) {
+                                   const void* w_proj, const void* b_proj, void* dw, void* pool,
+                                   void* wpack, void* se_part, void* gate, void* pairs, void* out,
+                                   int B, int H, int W, int C, int Cmid, int Cse, int k, int CB,
+                                   int RB, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rows = static_cast<long long>(B) * H * W;
   if (B < 1 || C < 1 || Cmid < 1 || Cse < 1 || rows > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err = dfd::launch_expand_dw_silu_pool(x, w_exp, b_exp, w_dw, b_dw, dw, partial, pool,
-                                                    B, H, W, C, Cmid, k, TH, TW, CB, s);
+  cudaError_t err = dfd::launch_expand_dw_silu_pool(x, w_exp, b_exp, w_dw, b_dw, dw, pool, wpack,
+                                                    B, H, W, C, Cmid, k, CB, RB, s);
   if (err != cudaSuccess) return err;
   const int chunks = (Cmid + kSeChunk - 1) / kSeChunk;
   const dim3 red_grid((Cse + 31) / 32, (B + kSeImages - 1) / kSeImages, chunks);

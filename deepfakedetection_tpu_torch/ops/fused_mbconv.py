@@ -17,7 +17,12 @@ import torch.nn.functional as F
 
 from deepfakedetection_tpu_torch.ops import build
 from deepfakedetection_tpu_torch.ops.depthwise_se import MAX_SMEM_BYTES
-from deepfakedetection_tpu_torch.ops.expand_dw import expand_dw_silu_pool_plain, plan
+from deepfakedetection_tpu_torch.ops.expand_dw import (
+    expand_dw_silu_pool_plain,
+    plan,
+    sm_count,
+    wpack_words,
+)
 
 
 def fused_mbconv_se_plain(
@@ -99,10 +104,10 @@ def fused_mbconv_se(
     kernel: int,
 ) -> torch.Tensor:
     """K3 (see ``fused_mbconv_se_plain`` for the contract). For a CUDA tensor
-    it enqueues the CUDA kernels on the current stream (K2's expand +
-    depthwise, the two SE products, w_proj's packing, the gated projection)
-    and counts one launch; for a CPU tensor it runs the plain version; on any
-    other device it raises."""
+    it enqueues the CUDA kernels on the current stream (K2's wexp packing and
+    expand + depthwise, the two SE products, w_proj's packing, the gated
+    projection) and counts one launch; for a CPU tensor it runs the plain
+    version; on any other device it raises."""
     weights = (w_exp, b_exp, w_dw, b_dw, w_se_r, b_se_r, w_se_e, b_se_e, w_proj, b_proj)
     _check(x, weights, kernel)
     if x.device.type == "cpu":
@@ -111,13 +116,14 @@ def fused_mbconv_se(
         raise ValueError(f"fused_mbconv_se: unsupported device {x.device}")
     B, H, W, C = x.shape
     Cmid, Cse = w_exp.shape[1], w_se_r.shape[1]
-    p = plan(H, W, C, Cmid, kernel)
-    if p.smem_bytes > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_mbconv_se: {p} needs more than {MAX_SMEM_BYTES} B")
     dev = x.device
+    p = plan(H, W, C, Cmid, kernel, B, sm_count(dev))
+    if p is None:
+        raise ValueError(f"fused_mbconv_se: no K2 launch plan fits {MAX_SMEM_BYTES} B at "
+                         f"{tuple(x.shape)} -> {Cmid}, k {kernel}")
     dw = torch.empty((B, H, W, Cmid), dtype=torch.bfloat16, device=dev)
-    partial = torch.empty((B, p.tiles, Cmid), dtype=torch.float32, device=dev)
     pool = torch.empty((B, Cmid), dtype=torch.float32, device=dev)
+    wpack = torch.empty(wpack_words(C, Cmid), dtype=torch.int32, device=dev)
     se_part = torch.empty((-(-Cmid // 256), B, Cse), dtype=torch.float32, device=dev)
     gate = torch.empty((B, Cmid), dtype=torch.bfloat16, device=dev)
     # w_proj as bf16 pairs in the mma B layout, Cmid padded to 32, C to 64
@@ -127,9 +133,9 @@ def fused_mbconv_se(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dfd_fused_mbconv_se(
-            x.data_ptr(), *(t.data_ptr() for t in weights), dw.data_ptr(), partial.data_ptr(),
-            pool.data_ptr(), se_part.data_ptr(), gate.data_ptr(), pairs.data_ptr(), out.data_ptr(),
-            B, H, W, C, Cmid, Cse, kernel, p.TH, p.TW, p.CB, stream,
+            x.data_ptr(), *(t.data_ptr() for t in weights), dw.data_ptr(), pool.data_ptr(),
+            wpack.data_ptr(), se_part.data_ptr(), gate.data_ptr(), pairs.data_ptr(), out.data_ptr(),
+            B, H, W, C, Cmid, Cse, kernel, p.CB, p.RB, stream,
         )
     build.check(rc, "fused_mbconv_se")
     fused_mbconv_se.launches += 1

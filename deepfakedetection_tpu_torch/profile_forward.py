@@ -46,7 +46,7 @@ from deepfakedetection_tpu_torch.train.steps import train_step
 
 CALLS, WARMUP, ROWS = 5, 3, 30
 # the port's CUDA kernels (ops/csrc) by the TPU kernel each replaces
-TAGS = {"depthwise_silu_pool_kernel": "K1", "expand_dw_silu_pool_kernel": "K2",
+TAGS = {"depthwise_silu_pool_kernel": "K1", "expand_dw_kernel": "K2", "pack_wexp_kernel": "K2",
         "se_reduce_kernel": "K3", "se_expand_kernel": "K3", "pack_pairs_kernel": "K3",
         "gated_proj_kernel": "K3",
         "shear_pass_kernel": "K4", "window_attention_kernel": "K5",

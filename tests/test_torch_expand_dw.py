@@ -100,7 +100,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(change):
 @pytest.mark.parametrize("H,W,Cin,Ce,k", B3_SHAPES + ODD_SHAPES)
 def test_launch_plan_fits_one_block(H, W, Cin, Ce, k):
     p = k2.plan(H, W, Cin, Ce, k)
-    assert p.smem_bytes <= k2.TWO_BLOCKS_PER_SM <= k2.MAX_SMEM_BYTES
-    assert 256 % p.CB == 0 and p.tiles == -(-H // p.TH) * -(-W // p.TW)
-    if max(H, W) <= 7:  # small maps are one tile: no expand recomputed on a halo
-        assert p.tiles == 1
+    assert p.smem_bytes <= k2.MAX_SMEM_BYTES
+    assert p.blocks_per_sm == (2 if p.smem_bytes <= k2.TWO_BLOCKS_PER_SM else 1)
+    assert k2.THREADS % (p.CB // 2) == 0 and p.items == -(-Ce // p.CB) * 128
+    assert p.steps == (1 if p.RB == H else -(-H // p.RB) + 1)
+    if max(H, W) <= 7:  # small maps are one band: the whole image expanded once
+        assert p.steps == 1

@@ -25,7 +25,8 @@ output and dx within two bf16 steps of their scales, the f32 gradients within
 autograd Function launches each once; sizes past the limits raise. K3 (the
 whole MBConv+SE block) at B3's six K3 shapes and odd sizes: within two bf16
 steps of the output's scale, bit-identical over two runs; a narrow B3 built
-with ``DFD_FUSED_MBCONV`` launches it three times a forward.
+with ``DFD_FUSED_MBCONV`` launches it three times a forward. K2 also repeats
+bit for bit over two runs, and its launch plan is the built library's.
 
 Needs a CUDA card and imports no JAX, so it runs on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``;
@@ -113,8 +114,12 @@ def test_expand_dw_silu_pool_kernel_matches_plain(cuda, H, W, Cin, Ce, k):
     wdw, bdw = _randn(rng, (k, k, Ce), 1.0 / k, cuda), _randn(rng, (Ce,), 0.1, cuda)
     before = k2.expand_dw_silu_pool.launches
     y, pool = k2.expand_dw_silu_pool(x, wexp, bexp, wdw, bdw, kernel=k)
+    again = k2.expand_dw_silu_pool(x, wexp, bexp, wdw, bdw, kernel=k)
     torch.cuda.synchronize()
-    assert k2.expand_dw_silu_pool.launches == before + 1
+    assert k2.expand_dw_silu_pool.launches == before + 2
+    assert torch.equal(again[0], y) and torch.equal(again[1], pool)  # no atomics
+    sms = k2.sm_count(x.device)
+    assert k2.kernel_plan(8, H, W, Cin, Ce, k, sms) == k2.plan(H, W, Cin, Ce, k, 8, sms)
     y_ref, pool_ref = k2.expand_dw_silu_pool_plain(x, wexp, bexp, wdw, bdw, kernel=k)
     torch.testing.assert_close(y.float(), y_ref.float(), atol=5e-2, rtol=5e-2)
     torch.testing.assert_close(pool, pool_ref, atol=2e-2, rtol=5e-2)
