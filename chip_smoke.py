@@ -14,9 +14,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    sizes, with the JAX package's test tolerances, bit-identical over two
    runs; kernel and plain times at batch 128 (CUDA events, median of 25 runs
    after warm-up); for K2 also its launch plan against the built library's,
-   each shape's bound, what bounds it and GB/s, and, with ``--parent DIR``
-   (another checkout, say the parent commit unpacked with ``git archive``),
-   that checkout's K2 timed in turns with this one (``profile_k2.compare``);
+   each shape's bound, what bounds it and GB/s;
 2. the full-width B3 forward with seeded weights and a head fitted to spread
    the probabilities: bf16 on the card through the kernels against bf16
    (plain versions) and float32 (unfused chain) on the CPU, logits relative
@@ -83,7 +81,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
 four fine-tune shapes at batch 128 (plus odd sizes and a repeat that must
-give bit-identical dbias), with their times, the plain versions' and
+give bit-identical dbias; its launch plan the built kernel's), with their
+times, the plain versions' and
 ``torch.nn.functional.scaled_dot_product_attention``'s on the same q, k, v
 and bias (forward, or its backward alone after one forward, ``grad_ms``,
 with the device time of the kernels it launches beside the event time: a
@@ -111,8 +110,12 @@ The second-to-last lines are a JSON object with the kernels' numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 Without a CUDA card, or outside the repository, it exits non-zero at once.
+Device times come from ``torch.profiler`` (``kernel_split``), which profiles
+a call once more when it records no device time or lacks a kernel the port's
+wrapper launches, and raises if the second take does too.
 Run with no arguments it does all of the above; ``--parent DIR`` only adds
-phase 1's comparison with another checkout's K2.
+phase 1's comparison with another checkout's K5 backward, in turns at the
+four fine-tune shapes (``profile_k5.compare``).
 """
 
 from __future__ import annotations
@@ -173,9 +176,14 @@ K5_SHAPES = [("official", 1024, 53, 384, 8, 8), ("official", 256, 49, 768, 16, 5
 K5_BWD_SHAPES = [("official", 512, 53, 384, 8, 8), ("official", 128, 49, 768, 16, 5),
                  ("tpu", 512, 53, 384, 3, 8), ("tpu", 128, 49, 768, 6, 5)]
 # odd sizes (windows, N, heads, d): the carrier-token attention's 16 tokens, one
-# token, ragged tiles past 64 tokens, head_dims off the 16-byte loads
+# token, ragged tiles past 64 tokens, head_dims off the 16-byte loads; then
+# many windows a block in every pipeline the plan picks: row warps without a
+# tile (N <= 48), the shared dbias sum past 64 tokens, the 2-slot / 1-buffer
+# and 1-slot / 1-buffer plans and the element-by-element copies
 K5_BWD_ODD = [(8, 16, 8, 48), (8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 1, 64), (8, 53, 8, 8),
-              (8, 37, 3, 100), (8, 20, 2, 4)]
+              (8, 37, 3, 100), (8, 20, 2, 4), (512, 37, 3, 100), (512, 16, 8, 48),
+              (512, 33, 4, 64), (512, 20, 2, 4), (256, 100, 2, 64), (256, 128, 1, 80),
+              (512, 128, 2, 32)]
 # dbias against the plain version, max|d| over its scale: both sum ds over the
 # windows in f32, in different orders (dbias summed over no window: ~1)
 K5_BWD_DBIAS_TOL = 1e-3
@@ -221,6 +229,8 @@ K6_GRADS = ("dx", "dwqkv", "dbqkv", "dbias", "dwproj", "dbproj")
 # bf16 dqkv and ctx that may each sit a rounding step apart
 K6_BWD_TOL = 1e-2
 K6_LAUNCHES = 21  # per FasterViT-2 forward with DFD_FUSED_ATTN: 8 + 8 + 5
+# device kernels every K6 backward call launches, by the names the profiler records
+K6_BWD_KERNELS = ("window_bwd_kernel", "sum_partials_kernel")
 FV_FUSED_SPLITS = {"train": 256, "val": 64, "test": 64}  # phase 8's training tree
 # K3 (the whole MBConv+SE block, DFD_FUSED_MBCONV) at B3 @ 224's residual
 # blocks with an expansion: (H, W, C, k, blocks), Cmid 6C, Cse C // 4; then odd
@@ -342,8 +352,8 @@ def k2_inputs(B, H, W, Cin, Ce, k, seed, device):
 
 def phase1(device, report, parent: str | None = None):
     """Kernels against their plain versions on the card. With ``parent``
-    (another checkout's directory), K2 is also timed against that
-    checkout's K2 in turns at the B3 shapes (``profile_k2.compare``)."""
+    (another checkout's directory), K5's backward is also timed against that
+    checkout's in turns at the fine-tune shapes (``profile_k5.compare``)."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import depthwise_se as k1
@@ -399,10 +409,10 @@ def phase1(device, report, parent: str | None = None):
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         log(f"  {name}: per B3 forward at batch 128 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
             f" bound {bound_ms:.4f} ms ({bound_by})")
-    kernels["expand_dw_silu_pool"]["parent"] = k2_parent(parent)
     kernels["rotate_batch"] = phase1_k4(device)
     kernels["window_attention"] = phase1_k5(device)
     kernels["window_attention_bwd"] = phase1_k5_bwd(device)
+    kernels["window_attention_bwd"]["parent"] = k5_bwd_parent(parent)
     kernels["attn4d"] = phase1_k7(device)
     kernels["attn_subblock"], kernels["attn_subblock_bwd"] = phase1_k6(device)
     kernels["fused_mbconv_se"] = phase1_k3(device)
@@ -410,26 +420,35 @@ def phase1(device, report, parent: str | None = None):
     return kernels
 
 
-def k2_parent(parent: str | None) -> dict | None:
-    """K2 of the checkout in ``parent`` against this one at the B3 shapes,
-    in turns (``profile_k2.compare``): per shape both times and whether the
-    outputs are bit-identical, and the sums per B3 forward. None without
-    ``parent``."""
+def k5_bwd_parent(parent: str | None) -> dict | None:
+    """K5's backward of the checkout in ``parent`` against this one at the
+    four fine-tune shapes, in turns (``profile_k5.compare``): per shape both
+    times, event and device, and whether dqkv is bit-identical, and the sums
+    per fine-tune step of each head configuration. None without ``parent``."""
     if parent is None:
-        log("  expand_dw_silu_pool: the parent's K2 not measured (no --parent)")
+        log("  window_attention_bwd: the parent's kernel not measured (no --parent)")
         return None
-    from deepfakedetection_tpu_torch import profile_k2
+    from deepfakedetection_tpu_torch import profile_k5
 
-    rows = profile_k2.compare(parent)
-    sums = {f"{who}_ms": sum(n * r[f"{who}_ms"] for r, (_, n) in zip(rows, K2_SHAPES))
-            for who in ("this", "other")}
-    for r, (shape, _) in zip(rows, K2_SHAPES):
-        if r["this_ms"] >= r["other_ms"]:
-            log(f"  expand_dw_silu_pool {shape}: NOT faster than the parent's "
-                f"({r['this_ms']:.4f} against {r['other_ms']:.4f} ms)")
-    log(f"  expand_dw_silu_pool per B3 forward at batch 128, in turns with {parent}'s: this "
-        f"{sums['this_ms']:.4f} ms, the parent's {sums['other_ms']:.4f} ms")
-    return {"tree": parent, "rows": rows, **sums}
+    rows = profile_k5.compare(parent)
+    sums = {}
+    for r, shape in zip(rows, K5_BWD_SHAPES):
+        config, count = shape[0], shape[5]
+        agg = sums.setdefault(config, {key: 0.0 for key in ("this_ms", "other_ms",
+                                                            "this_device_ms",
+                                                            "other_device_ms")})
+        for key in agg:
+            agg[key] += count * r[key]
+        if r["this_device_ms"] >= r["other_device_ms"] or r["this_ms"] >= r["other_ms"]:
+            log(f"  window_attention_bwd {shape[:5]}: NOT faster than the parent's ("
+                f"{r['this_ms']:.4f} against {r['other_ms']:.4f} ms, device "
+                f"{r['this_device_ms']:.4f} against {r['other_device_ms']:.4f})")
+    for config, agg in sums.items():
+        log(f"  window_attention_bwd per FasterViT-2 {config} fine-tune step at batch 128, in "
+            f"turns with {parent}'s: this {agg['this_ms']:.4f} ms (device "
+            f"{agg['this_device_ms']:.4f}), the parent's {agg['other_ms']:.4f} ms (device "
+            f"{agg['other_device_ms']:.4f})")
+    return {"tree": parent, "rows": rows, "per_step": sums}
 
 
 def kernel_bound(name: str, B: int, shape) -> tuple[float, str]:
@@ -531,10 +550,16 @@ def phase1_k5(device) -> dict:
     return {"rows": rows, "max_abs_err": worst, "per_forward": per, **per["official"]}
 
 
+def k5_bwd_bytes(B: int, N: int, C: int, h: int) -> int:
+    """The bytes K5's backward must move: qkv, dout and the bias read, dqkv
+    and dbias written."""
+    return B * N * 7 * C * 2 + 2 * h * N * N * 4
+
+
 def k5_bwd_bound(B: int, N: int, C: int, h: int) -> tuple[float, str]:
-    """qkv, dout and the bias read, dqkv and dbias written; the five products
-    (q k^T, do v^T, p^T do, ds k, ds^T q) on the tensor cores."""
-    return bound(B * N * 7 * C * 2 + 2 * h * N * N * 4, {"bf16": 10 * B * N * N * C})
+    """``k5_bwd_bytes``; the five products (q k^T, do v^T, p^T do, ds k,
+    ds^T q) on the tensor cores."""
+    return bound(k5_bwd_bytes(B, N, C, h), {"bf16": 10 * B * N * N * C})
 
 
 def two_steps(ref) -> float:
@@ -616,7 +641,14 @@ def phase1_k5_bwd(device) -> dict:
 
     from deepfakedetection_tpu_torch.ops import window_attn as k5
 
+    sms = k5.sm_count(device)
+
     def check(label, qkv, bias, dout, h, scale):
+        B, N, C3 = qkv.shape
+        plan = k5.bwd_plan(B, N, h, C3 // 3 // h, sms)
+        if plan != k5.kernel_bwd_plan(B, N, h, C3 // 3 // h, sms):
+            raise AssertionError(f"window_attention_bwd {label}: plan {plan} is not the kernel's "
+                                 f"{k5.kernel_bwd_plan(B, N, h, C3 // 3 // h, sms)}")
         before = k5.window_attention_bwd.launches
         dqkv, dbias = k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=scale)
         torch.cuda.synchronize()
@@ -655,7 +687,8 @@ def phase1_k5_bwd(device) -> dict:
         t_p = spread(cuda_times(lambda: k5.window_attention_bwd_plain(
             qkv, bias, dout, num_heads=h, scale=scale), runs=10))
         dev = sum(kernel_split(lambda: k5.window_attention_bwd(qkv, bias, dout, num_heads=h,
-                                                               scale=scale))[0].values())
+                                                               scale=scale),
+                               calls=25, expect=k5.BWD_KERNELS)[0].values())
         lib_t, backend = sdpa_bwd_ms(qkv, bias, dout, h, scale)
         lib = None if lib_t is None else lib_t["median"]
         lib_dev = None if lib_t is None else lib_t["device_ms"]
@@ -665,8 +698,9 @@ def phase1_k5_bwd(device) -> dict:
                      "device_ms": dev, "library_ms": lib, "library_device_ms": lib_dev,
                      "library_rounds": lib_t and lib_t["rounds"],
                      "library_device_split": lib_t and lib_t["device_split"],
-                     "library_backend": backend, "bound_ms": b_ms,
-                     "bound_by": b_by, "windows_per_block": k5.bwd_windows_per_block(B, h)})
+                     "library_backend": backend, "bound_ms": b_ms, "bound_by": b_by,
+                     "gb_per_s": k5_bwd_bytes(B, N, C, h) / dev / 1e6,
+                     "plan": k5.bwd_plan(B, N, h, C // h, sms)._asdict()})
         agg = per.setdefault(config, {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
                                       "library_ms": 0.0, "library_device_ms": 0.0, "bounds": []})
         agg["ms"] += count * t_k["median"]
@@ -681,7 +715,8 @@ def phase1_k5_bwd(device) -> dict:
             f"{dev:.4f}), plain {t_p['median']:.4f} ms, sdpa backward "
             f"{lib if lib is None else round(lib, 4)} ms (device "
             f"{lib_dev if lib_dev is None else round(lib_dev, 4)}; {backend}; rounds "
-            f"{lib_t and rounds_text(lib_t)}), bound {b_ms:.4f} ms ({b_by})")
+            f"{lib_t and rounds_text(lib_t)}), bound {b_ms:.4f} ms ({b_by}), "
+            f"{rows[-1]['gb_per_s']:.0f} GB/s by device time, plan {rows[-1]['plan']}")
     for B, N, h, d in K5_BWD_ODD:
         g = torch.Generator().manual_seed(600 + N * d + h)
         C = h * d
@@ -1128,7 +1163,8 @@ def phase1_k6(device) -> tuple[dict, dict]:
         b = k6_bwd_bound(B, N, C, h)
         plan = k6.bwd_plan(B, N, C, h)
         split, kernels = kernel_split(lambda: k6.attn_subblock_bwd(*args[:5], dout, num_heads=h,
-                                                                   scale=scale))
+                                                                   scale=scale),
+                                      expect=K6_BWD_KERNELS)
         rows.append({"config": config, "shape": (B, N, C, h), "launches_per_step": count,
                      "max_abs_err": errs, "tolerance": tols, "ms": t_k, "plain_ms": t_p,
                      "device_ms": sum(split.values()), "unfused_ms": unfused,
@@ -1190,11 +1226,39 @@ def phase1_k6(device) -> tuple[dict, dict]:
     return fwd, bwd
 
 
-def kernel_split(fn, calls: int = 10) -> tuple[dict[str, float], float]:
-    """({device kernel: ms a call}, device kernels a call) of ``fn`` over
-    ``calls`` calls, from ``torch.profiler``."""
-    import re
+class DeviceTimeMissing(RuntimeError):
+    """A profiled call that recorded no device kernel, no device time, or not
+    every kernel it was expected to launch."""
 
+
+def split_records(records, calls: int, expect=()) -> tuple[dict[str, float], float]:
+    """({device kernel: ms a call}, device kernels a call) from the profiler's
+    ``(key, count, device_time_total in us)`` records of ``calls`` calls.
+    Raises ``DeviceTimeMissing`` when no record has device time, or when a
+    kernel named in ``expect`` is absent or has none."""
+    split, launched = {}, 0
+    for key, count, device_us in records:
+        if device_us > 0:
+            name = (re.findall(r"\w+_kernel", key) or [key])[0]
+            if name == "gemm_kernel":  # K6's GEMM, by its epilogue
+                name += "<" + ((re.findall(r"::(\w+Epi)>", key) or ["?"])[0]) + ">"
+            split[name] = split.get(name, 0.0) + device_us / 1e3 / calls
+            launched += count
+    if not split:
+        raise DeviceTimeMissing(f"no device time in {len(records)} profiler records "
+                                f"{[key[:40] for key, _, _ in records[:6]]}")
+    missing = [name for name in expect if not split.get(name, 0.0) > 0]
+    if missing:
+        raise DeviceTimeMissing(f"expected kernels {missing} absent from {sorted(split)}")
+    return split, launched / calls
+
+
+def profile_records(fn, calls: int, settle: float = 0.05) -> list[tuple[str, int, float]]:
+    """``torch.profiler``'s (key, count, device_time_total) records of
+    ``calls`` calls of ``fn``, the card synchronised inside the window and
+    the window held open ``settle`` seconds more, so that the kernels'
+    activity records reach the profiler before it stops (short takes of the
+    port's kernels on the card sometimes came back without them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1202,15 +1266,29 @@ def kernel_split(fn, calls: int = 10) -> tuple[dict[str, float], float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    split, launched = {}, 0
-    for e in prof.key_averages():
-        if e.device_time_total > 0:
-            name = (re.findall(r"\w+_kernel", e.key) or [e.key])[0]
-            if name == "gemm_kernel":  # K6's GEMM, by its epilogue
-                name += "<" + ((re.findall(r"::(\w+Epi)>", e.key) or ["?"])[0]) + ">"
-            split[name] = split.get(name, 0.0) + e.device_time_total / 1e3 / calls
-            launched += e.count
-    return split, launched / calls
+        time.sleep(settle)
+    return [(e.key, e.count, e.device_time_total) for e in prof.key_averages()]
+
+
+def kernel_split(fn, calls: int = 10, expect=(), take=profile_records, pause: float = 1.0
+                 ) -> tuple[dict[str, float], float]:
+    """``split_records`` of ``calls`` calls of ``fn`` (``take``: the
+    profiler), taken once more when the first take has no device time or lacks
+    an expected kernel; a second such take raises. The retake comes after the
+    card has idled ``pause`` seconds and spans three times the calls: the
+    takes that came back empty on the card were short (ten calls of ~0.05 ms
+    kernels), followed another profiled call, and once came back empty twice
+    in a row."""
+    try:
+        return split_records(take(fn, calls), calls, expect)
+    except DeviceTimeMissing as exc:
+        log(f"  kernel_split: {exc}; profiling once more")
+    if pause:
+        import torch
+
+        torch.cuda.synchronize()
+        time.sleep(pause)
+    return split_records(take(fn, 3 * calls), 3 * calls, expect)
 
 
 def phase1_k4(device) -> dict:
@@ -2769,7 +2847,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Drives the PyTorch port on one CUDA card.")
     parser.add_argument("--parent", help="another checkout (say the parent commit, unpacked with "
-                        "git archive) whose K2 phase 1 times against this one's")
+                        "git archive) whose K5 backward phase 1 times against this one's")
     args = parser.parse_args()
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)

@@ -201,10 +201,15 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, boo
                : "memory");
 }
 
-// SiLU with the fast exponential and division: a few ulp of f32, far below
-// one bf16 step (the sums before it already differ from the plain version's
-// by more); with the precise expf and IEEE division the kernel ran 1.7x
-// slower on the H100.
+// SiLU with the fast exponential and division. Against builds with the
+// precise expf and IEEE division (profile_k2 --silu, B3's eight shapes at
+// batch 128, H100 at 700 W): it changes 0.0013-0.0035% of y's bf16 elements,
+// leaves y's largest error from the f32 plain version (12-25 bf16 steps of
+// each element) and the pool's unchanged, and K2 takes 2.64 ms a B3 forward
+// against 4.26. Phase 3's 16 images read 2.60e-2 / 4.24e-2 of the logit
+// scale (against the bf16 / f32 CPU) with it, 3.96e-2 / 2.45e-2 with the
+// precise one and 2.03e-2 / 3.25e-2 with only the exponential fast: the
+// same bf16 rounding noise drawn three ways, not a bias of the fast SiLU.
 __device__ __forceinline__ float silu(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
 
 __device__ __forceinline__ float2 unpack_bf16x2(uint32_t w) {

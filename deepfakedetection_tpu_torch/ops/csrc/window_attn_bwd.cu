@@ -21,91 +21,340 @@
 //            bf16-rounded o)
 //     dbias[h] += ds
 //     dq_h = bf16((bf16(ds) . k_h) * scale), dk_h = bf16((bf16(ds)^T . q_h) * scale).
-//   N <= 128, d <= 128, and the block's shared memory (below) within 227 KB.
+//   N <= 128, d <= 128, and a plan (below) within a block's 227 KB.
 //   No padding: rows past N are zero in shared memory and never stored,
 //   columns past N are -inf before the softmax.
 // Bound on the H100: HBM bytes. A window and head read q, k, v and do
 //   (4*N*d*2 bytes) and write dq, dk, dv (3*N*d*2) for five products of
 //   2*N*N*d flops: ~7 flops per byte at N 53, far below the ~295 flop/byte
-//   bf16 line. One FasterViT-2 fine-tune step at batch 128 moves ~1.5 GB over
-//   13 launches (~0.45 ms at 3.35 TB/s) for ~56 GFLOP (~0.06 ms).
-// Design: one block of 4 warps per (group of windows, head); the block loops
-//   over its windows. Per window it stages q_h, k_h, v_h and do_h in shared
-//   memory (16-byte loads when the strides allow). A row pass, each warp on
-//   16-query-row tiles, recomputes the scores on the tensor cores (mma.sync
-//   m16n8k16), the softmax on the accumulator registers, dp = do v^T, the
-//   row term and ds; it adds ds into the block's f32 dbias accumulator in
-//   shared memory, writes bf16(p) and bf16(ds) to shared memory and computes
-//   dq from the ds registers (the accumulator layout of two 8-column tiles is
-//   the A operand of one 16-column tile). A column pass, each warp on
-//   16-key-row tiles, reads p and ds transposed from shared memory for
-//   dv = p^T do and dk = ds^T q. dbias is a sum across blocks: Hopper's blocks
-//   run in no order, so instead of the TPU's revisited block in a sequential
-//   grid each block writes its partial sum (every element owned by one
-//   thread, adding its windows in order) and a second kernel sums the
-//   partials in group order. No float atomics: two runs give bit-identical
-//   dbias.
+//   bf16 line. A launch at official stage 3 (512 windows, N 53, C 384)
+//   moves 146 MB, 0.044 ms at 3.35 TB/s; one FasterViT-2 fine-tune step at
+//   batch 128 moves ~1.5 GB over 13 launches (0.450 ms).
+// Measured (chip_smoke.py phase 1, device time, H100 80GB HBM3 at 700 W):
+//   0.105 ms a launch at official stage 3 (1.39 TB/s, 2.4x the bound; the
+//   one-group-a-block kernel this replaced took 0.369 in turns), 1.124 ms
+//   per official fine-tune step and 0.892 per tpu one, where SDPA's backward
+//   takes 2.234 and 3.651.
+//
+// Design. Persistent blocks of 8 warps, one a SM: the grid holds H * P
+//   blocks, P = the SMs over the heads (at most the windows), and block
+//   (h, i) owns head h's windows [i B / P, (i + 1) B / P), a fixed, even
+//   split with no wave tail. In the block two warp groups run a pipeline
+//   over its windows through shared memory, synchronised by mbarriers:
+//   - the row group (warps 0-3, one 16-query-row tile a warp; two at
+//     N > 64; at N <= 48 the warps without a tile leave) recomputes
+//     s = q k^T and dp = do v^T on the tensor cores (mma.sync m16n8k16,
+//     both operands by ldmatrix), the softmax on the
+//     accumulator registers (the quotient from one reciprocal a row,
+//     corrected to IEEE division's result), the row term and ds; it adds ds
+//     into its thread's own dbias elements, in registers across the block's
+//     windows (in shared memory, at a padded stride, at N > 64), and writes
+//     bf16(p) and bf16(ds) to one of two p/ds buffers;
+//   - the column group (warps 4-7) stages the windows' q, k, v and do into
+//     a ring of slots with 16-byte cp.async (completion counted on the
+//     slot's mbarrier, cp.async.mbarrier.arrive.noinc), SLOTS - 1 windows
+//     ahead of the row group; where 16-byte copies are not allowed (d or a
+//     stride not a multiple of 8, an unaligned view) it copies element by
+//     element. It computes dq = bf16(ds) k (a query tile a warp), and dv =
+//     bf16(p)^T do and dk = bf16(ds)^T q on separate warps (warps 4-5 dv,
+//     6-7 dk, two key tiles each), every transposed operand by
+//     ldmatrix.trans, while the row group works on the next window.
+//   The bias of the block's head stays in the row group's registers, the
+//   mask folded in (at N > 64 it is read from L1). Each
+//   block writes its dbias partial once; a second kernel sums each head's P
+//   partials in order. No float atomics: two runs give bit-identical dqkv
+//   and dbias.
+// Plan (bwd_plan below; ops/window_attn.py bwd_plan mirrors it): the
+//   deepest ring of up to 4 slots that fits 227 KB with two p/ds buffers,
+//   else 2 slots and one buffer, else 1 and 1 (N 128 at d 80). FasterViT-2,
+//   fine-tune batch 128, 132 SMs:
+//     shape (windows, N, C, heads)  P  grid  windows/block  slots  buffers  shared memory
+//     official (512, 53, 384, 8)   16   128        32          4        2       151,680
+//     official (128, 49, 768, 16)   8   128        16          4        2       151,680
+//     tpu (512, 53, 384, 3)        44   132     11 - 12        2        2       176,256
+//     tpu (128, 49, 768, 6)        22   132      5 - 6         2        2       176,256
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "window_attn_common.cuh"
 
 namespace {
 
-__host__ __device__ constexpr size_t bwd_smem_bytes(int Np, int Dp) {
-  // q, k, v, do (bf16, row stride Dp + 8); p, ds (bf16, row stride Np + 8);
-  // the dbias accumulator (f32, Np x Np)
-  return (4 * static_cast<size_t>(Np) * (Dp + 8) + 2 * static_cast<size_t>(Np) * (Np + 8)) *
-             sizeof(__nv_bfloat16) +
-         static_cast<size_t>(Np) * Np * sizeof(float);
+constexpr int kGroupWarps = 4;                  // warps of the row group and of the column group
+constexpr int kGroup = 32 * kGroupWarps;        // threads of each group
+constexpr int kBwdThreads = 2 * kGroup;
+constexpr int kMaxSlots = 4;                    // the input ring's deepest
+constexpr int kBarrierBytes = 128;              // full[kMaxSlots], pfull[2], pempty[2]
+
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
+
+// Shared memory of a plan: the barriers, `slots` windows' q, k, v and do
+// (bf16, row stride Dp + 8), `buffers` pairs of bf16 p and ds (row stride
+// Np + 8), and at N > 64 the f32 dbias accumulator (row stride Np + 8).
+__host__ __device__ constexpr int bwd_smem_bytes(int Np, int Dp, int slots, int buffers) {
+  return kBarrierBytes + slots * 4 * Np * (Dp + 8) * 2 + buffers * 2 * Np * (Np + 8) * 2 +
+         (Np > 64 ? Np * (Np + 8) * 4 : 0);
+}
+
+struct BwdPlan {
+  int per_head;  // blocks a head, each owning a contiguous range of its windows
+  int slots;     // windows in the input ring
+  int buffers;   // p/ds buffers
+  int smem;      // bytes of dynamic shared memory
+};
+
+// The launch plan; slots == 0 when none fits.
+__host__ __device__ inline BwdPlan bwd_plan(int B, int N, int heads, int d, int sms) {
+  const int Np = pad16(N), Dp = pad16(d);
+  BwdPlan p{0, 0, 0, 0};
+  for (int s = kMaxSlots; s >= 2 && p.slots == 0; --s)
+    if (bwd_smem_bytes(Np, Dp, s, 2) <= kMaxSmemBytes) p = {0, s, 2, bwd_smem_bytes(Np, Dp, s, 2)};
+  for (int s = 2; s >= 1 && p.slots == 0; --s)
+    if (bwd_smem_bytes(Np, Dp, s, 1) <= kMaxSmemBytes) p = {0, s, 1, bwd_smem_bytes(Np, Dp, s, 1)};
+  const int fill = sms / heads;
+  p.per_head = fill < 1 ? 1 : (fill < B ? fill : B);
+  return p;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// a / b rounded to nearest from inv = 1 / b rounded to nearest: q = a inv
+// corrected by its exact residual a - b q (Markstein's theorem: the result is
+// IEEE division's, for the finite, normal a / b here: a in [0, 1], b >= 1),
+// without the division's range checks and slow path.
+__device__ __forceinline__ float quotient(float a, float b, float inv) {
+  const float q = __fmul_rn(a, inv);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), inv, q);
+}
+
+// One arrival on `bar` when all of this thread's earlier cp.async copies
+// have landed (the barrier's count includes it: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// The column group's copy of window b's q, k, v and do rows (head h) into a
+// ring slot (four [Np][ld] tiles), announced on `bar` by all its threads:
+// 16-byte cp.async where vec allows, else element by element.
+__device__ __forceinline__ void load_window(__nv_bfloat16* slot, const View (&src)[4], int b, int h,
+                                            int N, int d, int Np, int ld, bool vec, uint64_t* bar,
+                                            int t) {
+  if (vec) {
+    // the thread's 16-byte chunks (row r, column 8 c) step by kGroup chunks
+    const int chunks = d / 8, dr = kGroup / chunks, dc = kGroup - dr * chunks;
+    const __nv_bfloat16* base[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) base[i] = src[i].p + b * src[i].sb + h * src[i].sh;
+    int r = t / chunks, c = t - r * chunks;
+    for (; r < N; r += dr, c += dc) {
+      if (c >= chunks) {
+        c -= chunks;
+        if (++r >= N) break;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cp_async16(slot + i * Np * ld + r * ld + 8 * c, base[i] + r * src[i].sr + 8 * c);
+    }
+    cp_async_arrive(bar);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat16* base = src[i].p + b * src[i].sb + h * src[i].sh;
+      __nv_bfloat16* dst = slot + i * Np * ld;
+      for (int e = t; e < N * d; e += kGroup) {
+        const int r = e / d, c = e - r * d;
+        dst[r * ld + c] = base[r * src[i].sr + c];
+      }
+    }
+    mbar_arrive(bar);
+  }
 }
 
 // KT bounds the 16-token tiles (N <= 16 KT), DT the 16-wide d tiles (d <= 16 DT);
 // the loops run over the actual counts, kt and dt.
 template <int KT, int DT>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kBwdThreads, 1)
     window_attention_bwd_kernel(View q, View k, View v, View dout, const float* __restrict__ bias,
                                 __nv_bfloat16* __restrict__ dqkv, long long g_sb, long long g_sr,
                                 float* __restrict__ partial, int B, int N, int heads, int d,
-                                int per_block, float scale, int vec) {
+                                int per_head, int slots, int buffers, float scale, int vec) {
+  constexpr bool kRegAcc = KT <= 4;  // one query tile a row warp: dbias and bias in registers
   extern __shared__ __align__(16) unsigned char smem[];
   const int kt = (N + 15) / 16, dt = (d + 15) / 16;
-  const int Np = kt * 16, Dp = dt * 16, ld = Dp + 8, ldw = ld / 2, ldp = Np + 8;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + Np * ld;
-  __nv_bfloat16* vs = ks + Np * ld;
-  __nv_bfloat16* ds_ = vs + Np * ld;  // do_h
-  __nv_bfloat16* ps = ds_ + Np * ld;  // bf16(p)
-  __nv_bfloat16* gs = ps + Np * ldp;  // bf16(ds)
-  float* acc = reinterpret_cast<float*>(gs + Np * ldp);  // dbias partial, Np x Np
-  const int grp = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int b_first = grp * per_block, b_end = min(B, b_first + per_block);
+  const int Np = kt * 16, Dp = dt * 16, ld = Dp + 8, ldp = Np + 8;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // a slot's window has landed
+  uint64_t* pfull = full + kMaxSlots;                  // a buffer's p and ds are written
+  uint64_t* pempty = pfull + 2;                        // a buffer's p and ds are read
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + kBarrierBytes);
+  __nv_bfloat16* pds = ring + slots * 4 * Np * ld;
+  float* acc = reinterpret_cast<float*>(pds + buffers * 2 * Np * ldp);  // N > 64 only
+
+  const int h = blockIdx.x / per_head, part = blockIdx.x % per_head;
+  const int b_first = static_cast<int>(static_cast<long long>(part) * B / per_head);
+  const int windows = static_cast<int>(static_cast<long long>(part + 1) * B / per_head) - b_first;
   const int C = heads * d;
 
-  for (int i = threadIdx.x; i < Np * Np; i += blockDim.x) acc[i] = 0.0f;
+  // Rows past N and columns past d stay zero: the copies never write them.
+  {
+    uint4* z = reinterpret_cast<uint4*>(ring);
+    const int n16 = (bwd_smem_bytes(Np, Dp, slots, buffers) - kBarrierBytes) / 16;
+    for (int i = threadIdx.x; i < n16; i += kBwdThreads) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  // At N <= 48 the row warps past the last query tile have no work: they
+  // leave at once, and pfull counts only the row warps that own a tile (each
+  // of which waits on pempty before it writes a buffer and arrives).
+  const int row_warps = kt < kGroupWarps ? kt : kGroupWarps;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMaxSlots; ++s) mbar_init(&full[s], kGroup);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&pfull[i], 32 * row_warps);
+      mbar_init(&pempty[i], kGroup);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;  // mma group (row) and thread in group
-  const uint32_t* qs32 = reinterpret_cast<const uint32_t*>(qs);
-  const uint32_t* ks32 = reinterpret_cast<const uint32_t*>(ks);
-  const uint32_t* vs32 = reinterpret_cast<const uint32_t*>(vs);
-  const uint32_t* do32 = reinterpret_cast<const uint32_t*>(ds_);
+  const int tile_row = lane & 15, tile_col = (lane >> 4) * 8;  // ldmatrix: A rows, trans B rows
+  const int key_row = (lane & 7) + ((lane >> 4) << 3), key_col = ((lane >> 3) & 1) * 8;
+
+  if (warp >= kGroupWarps) {
+    // ---- column group: the ring's copies, then dq, dv and dk per window
+    const int cw = warp - kGroupWarps, t = threadIdx.x - kGroup;
+    const View src[4] = {q, k, v, dout};
+    const int first = windows < slots ? windows : slots;
+    for (int j = 0; j < first; ++j)
+      load_window(ring + j * 4 * Np * ld, src, b_first + j, h, N, d, Np, ld, vec, &full[j], t);
+    const bool is_dk = cw >= 2;  // warps 4-5: dv, 6-7: dk
+#pragma unroll 1
+    for (int j = 0; j < windows; ++j) {
+      const int s = j % slots, buf = j % buffers;
+      mbar_wait(&full[s], (j / slots) & 1);
+      mbar_wait(&pfull[buf], (j / buffers) & 1);
+      const __nv_bfloat16* qs = ring + s * 4 * Np * ld;
+      const __nv_bfloat16* ks = qs + Np * ld;
+      const __nv_bfloat16* dos = ks + 2 * Np * ld;
+      const __nv_bfloat16* ps = pds + buf * 2 * Np * ldp;
+      const __nv_bfloat16* gs = ps + Np * ldp;  // bf16(ds)
+      __nv_bfloat16* dq_bh = dqkv + (b_first + j) * g_sb + h * d;
+
+      // dq = bf16(ds) k * scale: ds rows as A, k [key][d] as B by ldmatrix.trans
+      for (int mt = cw; mt < kt; mt += kGroupWarps) {
+        float o[2 * DT][4];
+#pragma unroll
+        for (int nt = 0; nt < 2 * DT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nt][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          if (kk >= kt) continue;
+          uint32_t a[4];
+          ldmatrix_x4(a, gs + (mt * 16 + tile_row) * ldp + kk * 16 + tile_col);
+#pragma unroll
+          for (int np = 0; np < DT; ++np) {
+            if (np >= dt) continue;
+            uint32_t bb[4];
+            ldmatrix_x4_trans(bb, ks + (kk * 16 + tile_row) * ld + np * 16 + tile_col);
+            mma_bf16_16816(o[2 * np], a, bb[0], bb[1]);
+            mma_bf16_16816(o[2 * np + 1], a, bb[2], bb[3]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2 * DT; ++nt)
+          if (nt < 2 * dt)
+            store_pair_rows(dq_bh, g_sr, o[nt], mt * 16 + g, nt * 8 + 2 * t4, N, d, scale, vec);
+      }
+
+      // dv = bf16(p)^T do (warps 4-5), dk = bf16(ds)^T q * scale (warps 6-7):
+      // the transposed p or ds as A and do or q [query][d] as B, both by
+      // ldmatrix.trans, contracting over the query rows
+      const __nv_bfloat16* lhs = is_dk ? gs : ps;
+      const __nv_bfloat16* rhs = is_dk ? qs : dos;
+      __nv_bfloat16* out_bh = dq_bh + (is_dk ? C : 2 * C);
+      const float mult = is_dk ? scale : 1.0f;
+      for (int jt = cw & 1; jt < kt; jt += 2) {
+        float o[2 * DT][4];
+#pragma unroll
+        for (int nt = 0; nt < 2 * DT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nt][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          if (kk >= kt) continue;
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, lhs + (kk * 16 + key_row) * ldp + jt * 16 + key_col);
+#pragma unroll
+          for (int np = 0; np < DT; ++np) {
+            if (np >= dt) continue;
+            uint32_t bb[4];
+            ldmatrix_x4_trans(bb, rhs + (kk * 16 + tile_row) * ld + np * 16 + tile_col);
+            mma_bf16_16816(o[2 * np], a, bb[0], bb[1]);
+            mma_bf16_16816(o[2 * np + 1], a, bb[2], bb[3]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2 * DT; ++nt)
+          if (nt < 2 * dt)
+            store_pair_rows(out_bh, g_sr, o[nt], jt * 16 + g, nt * 8 + 2 * t4, N, d, mult, vec);
+      }
+      mbar_arrive(&pempty[buf]);
+      if (j + slots < windows) {
+        named_sync(1, kGroup);  // every column warp is done with slot s
+        load_window(ring + s * 4 * Np * ld, src, b_first + j + slots, h, N, d, Np, ld, vec,
+                    &full[s], t);
+      }
+    }
+    return;
+  }
+
+  // ---- row group: s, dp, the softmax and ds of one query tile a warp
+  if (warp >= row_warps) return;
   const float* bias_h = bias + static_cast<long long>(h) * N * N;
-
-  for (int b = b_first; b < b_end; ++b) {
-    __syncthreads();  // the previous window's column pass is done with the buffers
-    stage(qs, q.p + b * q.sb + h * q.sh, q.sr, N, d, Np, Dp, ld, vec);
-    stage(ks, k.p + b * k.sb + h * k.sh, k.sr, N, d, Np, Dp, ld, vec);
-    stage(vs, v.p + b * v.sb + h * v.sh, v.sr, N, d, Np, Dp, ld, vec);
-    stage(ds_, dout.p + b * dout.sb + h * dout.sh, dout.sr, N, d, Np, Dp, ld, vec);
-    __syncthreads();
-    __nv_bfloat16* dq_bh = dqkv + b * g_sb + h * d;
-
-    // ---- row pass: 16 query rows per warp and tile
-    for (int mt = warp; mt < kt; mt += kWarps) {
+  // At N <= 64 this thread's dbias elements and their bias stay in registers,
+  // the bias with the mask folded in: -inf on columns past N, 0 on rows past
+  // N (whose scores are 0: their q rows are zero), so s * scale + bias is the
+  // masked score everywhere.
+  float db[kRegAcc ? 2 * KT : 1][4] = {};
+  float br[kRegAcc ? 2 * KT : 1][4] = {};
+  if constexpr (kRegAcc) {
+    const int r0 = warp * 16 + g, r1 = r0 + 8;
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nt * 8 + 2 * t4 + e;
+        br[nt][e] = c >= N ? -INFINITY : r0 < N ? bias_h[r0 * N + c] : 0.0f;
+        br[nt][2 + e] = c >= N ? -INFINITY : r1 < N ? bias_h[r1 * N + c] : 0.0f;
+      }
+  }
+#pragma unroll 1
+  for (int j = 0; j < windows; ++j) {
+    const int s_ = j % slots, buf = j % buffers;
+    mbar_wait(&full[s_], (j / slots) & 1);
+    const __nv_bfloat16* qs = ring + s_ * 4 * Np * ld;
+    const __nv_bfloat16* ks = qs + Np * ld;
+    const __nv_bfloat16* vs = ks + Np * ld;
+    const __nv_bfloat16* dos = vs + Np * ld;
+    __nv_bfloat16* ps = pds + buf * 2 * Np * ldp;
+    __nv_bfloat16* gs = ps + Np * ldp;
+#pragma unroll 1
+    for (int mt = warp; mt < kt; mt += kGroupWarps) {
       const int r0 = mt * 16 + g, r1 = r0 + 8;  // the two rows this thread holds
 
       // s = q k^T and dp = do v^T: 2*kt tiles of 8 keys each.
@@ -117,17 +366,19 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
       for (int kk = 0; kk < DT; ++kk) {
         if (kk >= dt) continue;
-        const uint32_t* qa = qs32 + r0 * ldw + t4 + kk * 8;
-        const uint32_t* da = do32 + r0 * ldw + t4 + kk * 8;
-        const uint32_t aq[4] = {qa[0], qa[8 * ldw], qa[4], qa[8 * ldw + 4]};
-        const uint32_t ad[4] = {da[0], da[8 * ldw], da[4], da[8 * ldw + 4]};
+        uint32_t aq[4], ad[4];
+        ldmatrix_x4(aq, qs + (mt * 16 + tile_row) * ld + kk * 16 + tile_col);
+        ldmatrix_x4(ad, dos + (mt * 16 + tile_row) * ld + kk * 16 + tile_col);
 #pragma unroll
-        for (int nt = 0; nt < 2 * KT; ++nt) {
-          if (nt >= 2 * kt) continue;
-          const uint32_t* kb = ks32 + (nt * 8 + g) * ldw + kk * 8 + t4;
-          const uint32_t* vb = vs32 + (nt * 8 + g) * ldw + kk * 8 + t4;
-          mma_bf16_16816(s[nt], aq, kb[0], kb[4]);
-          mma_bf16_16816(dp[nt], ad, vb[0], vb[4]);
+        for (int np = 0; np < KT; ++np) {
+          if (np >= kt) continue;
+          uint32_t bk[4], bv[4];
+          ldmatrix_x4(bk, ks + (np * 16 + key_row) * ld + kk * 16 + key_col);
+          ldmatrix_x4(bv, vs + (np * 16 + key_row) * ld + kk * 16 + key_col);
+          mma_bf16_16816(s[2 * np], aq, bk[0], bk[1]);
+          mma_bf16_16816(s[2 * np + 1], aq, bk[2], bk[3]);
+          mma_bf16_16816(dp[2 * np], ad, bv[0], bv[1]);
+          mma_bf16_16816(dp[2 * np + 1], ad, bv[2], bv[3]);
         }
       }
 
@@ -142,7 +393,10 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int e = 0; e < 2; ++e) {
           const int c = nt * 8 + 2 * t4 + e;
           float v0 = -INFINITY, v1 = -INFINITY;
-          if (c < N) {
+          if constexpr (kRegAcc) {
+            v0 = __fadd_rn(__fmul_rn(s[nt][e], scale), br[kRegAcc ? nt : 0][e]);
+            v1 = __fadd_rn(__fmul_rn(s[nt][2 + e], scale), br[kRegAcc ? nt : 0][2 + e]);
+          } else if (c < N) {
             v0 = r0 < N ? __fadd_rn(__fmul_rn(s[nt][e], scale), brow0[c]) : 0.0f;
             v1 = r1 < N ? __fadd_rn(__fmul_rn(s[nt][2 + e], scale), brow1[c]) : 0.0f;
           }
@@ -174,15 +428,17 @@ __global__ void __launch_bounds__(kWarps * 32)
         l0 += __shfl_xor_sync(0xffffffffu, l0, off);
         l1 += __shfl_xor_sync(0xffffffffu, l1, off);
       }
-      // p in f32 (zero on rows past N); the row term sum(dp * p)
+      // p in f32 (zero on rows past N), the quotient correctly rounded from
+      // one reciprocal a row; the row term sum(dp * p)
+      const float i0 = __frcp_rn(l0), i1 = __frcp_rn(l1);
       float t0 = 0.0f, t1 = 0.0f;
 #pragma unroll
       for (int nt = 0; nt < 2 * KT; ++nt) {
         if (nt >= 2 * kt) continue;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          s[nt][e] = r0 < N ? __fdiv_rn(s[nt][e], l0) : 0.0f;
-          s[nt][2 + e] = r1 < N ? __fdiv_rn(s[nt][2 + e], l1) : 0.0f;
+          s[nt][e] = r0 < N ? quotient(s[nt][e], l0, i0) : 0.0f;
+          s[nt][2 + e] = r1 < N ? quotient(s[nt][2 + e], l1, i1) : 0.0f;
           t0 += __fmul_rn(dp[nt][e], s[nt][e]);
           t1 += __fmul_rn(dp[nt][2 + e], s[nt][2 + e]);
         }
@@ -193,8 +449,9 @@ __global__ void __launch_bounds__(kWarps * 32)
         t1 += __shfl_xor_sync(0xffffffffu, t1, off);
       }
 
-      // ds = p (dp - t) into dp's registers; the f32 dbias accumulator (each
-      // element owned by this thread); bf16(p) and bf16(ds) to shared memory.
+      // ds = p (dp - t) into dp's registers; this thread's dbias elements;
+      // bf16(p) and bf16(ds) to the buffer once the column group has read
+      // its previous window.
 #pragma unroll
       for (int nt = 0; nt < 2 * KT; ++nt) {
         if (nt >= 2 * kt) continue;
@@ -203,129 +460,120 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int e = 0; e < 2; ++e) {
           dp[nt][e] = __fmul_rn(s[nt][e], __fsub_rn(dp[nt][e], t0));
           dp[nt][2 + e] = __fmul_rn(s[nt][2 + e], __fsub_rn(dp[nt][2 + e], t1));
-          acc[r0 * Np + c + e] = __fadd_rn(acc[r0 * Np + c + e], dp[nt][e]);
-          acc[r1 * Np + c + e] = __fadd_rn(acc[r1 * Np + c + e], dp[nt][2 + e]);
         }
+        if constexpr (kRegAcc) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) db[nt][e] = __fadd_rn(db[nt][e], dp[nt][e]);
+        } else {
+          float2* a0 = reinterpret_cast<float2*>(acc + r0 * ldp + c);
+          float2* a1 = reinterpret_cast<float2*>(acc + r1 * ldp + c);
+          const float2 x0 = *a0, x1 = *a1;
+          *a0 = make_float2(__fadd_rn(x0.x, dp[nt][0]), __fadd_rn(x0.y, dp[nt][1]));
+          *a1 = make_float2(__fadd_rn(x1.x, dp[nt][2]), __fadd_rn(x1.y, dp[nt][3]));
+        }
+      }
+      if (j >= buffers) mbar_wait(&pempty[buf], ((j / buffers) - 1) & 1);
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+        if (nt >= 2 * kt) continue;
+        const int c = nt * 8 + 2 * t4;
         *reinterpret_cast<uint32_t*>(ps + r0 * ldp + c) = pack_bf16(s[nt][0], s[nt][1]);
         *reinterpret_cast<uint32_t*>(ps + r1 * ldp + c) = pack_bf16(s[nt][2], s[nt][3]);
         *reinterpret_cast<uint32_t*>(gs + r0 * ldp + c) = pack_bf16(dp[nt][0], dp[nt][1]);
         *reinterpret_cast<uint32_t*>(gs + r1 * ldp + c) = pack_bf16(dp[nt][2], dp[nt][3]);
       }
-
-      // dq = bf16(ds) k * scale: bf16(ds) as the A fragments (key tile j is
-      // the score tiles 2j and 2j+1), k as the B operand.
-      uint32_t a[KT][4];
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        if (j >= kt) continue;
-        a[j][0] = pack_bf16(dp[2 * j][0], dp[2 * j][1]);
-        a[j][1] = pack_bf16(dp[2 * j][2], dp[2 * j][3]);
-        a[j][2] = pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]);
-        a[j][3] = pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2 * DT; ++nt) {
-        if (nt >= 2 * dt) continue;
-        float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < KT; ++j) {
-          if (j >= kt) continue;
-          const __nv_bfloat16* kp = ks + (j * 16 + 2 * t4) * ld + g + nt * 8;
-          mma_bf16_16816(o, a[j], pack_raw(kp[0], kp[ld]), pack_raw(kp[8 * ld], kp[9 * ld]));
-        }
-        store_pair_rows(dq_bh, g_sr, o, r0, nt * 8 + 2 * t4, N, d, scale, vec);
-      }
     }
-    __syncthreads();
+    mbar_arrive(&pfull[buf]);
+  }
 
-    // ---- column pass: 16 key rows per warp and tile; dv = bf16(p)^T do,
-    // then dk = bf16(ds)^T q * scale, both contracting over the query rows.
-#pragma unroll 1
-    for (int which = 0; which < 2; ++which) {
-      const __nv_bfloat16* lhs = which ? gs : ps;
-      const __nv_bfloat16* rhs = which ? qs : ds_;
-      __nv_bfloat16* out_bh = dq_bh + (which ? C : 2 * C);
-      const float mult = which ? scale : 1.0f;
-      for (int jt = warp; jt < kt; jt += kWarps) {
-        const int j0 = jt * 16;
+  // This block's dbias partial, each element written by its owner.
+  float* out = partial + (static_cast<long long>(h) * per_head + part) * N * N;
+  for (int mt = warp; mt < kt; mt += kGroupWarps) {
+    const int r0 = mt * 16 + g;
 #pragma unroll
-        for (int nt = 0; nt < 2 * DT; ++nt) {
-          if (nt >= 2 * dt) continue;
-          float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int nt = 0; nt < 2 * KT; ++nt) {
+      if (nt >= 2 * kt) continue;
 #pragma unroll
-          for (int kk = 0; kk < KT; ++kk) {
-            if (kk >= kt) continue;
-            // A[key j0 + r][query kk*16 + c] = lhs[kk*16 + c][j0 + r]
-            const __nv_bfloat16* lp = lhs + (kk * 16 + 2 * t4) * ldp + j0 + g;
-            const uint32_t af[4] = {pack_raw(lp[0], lp[ldp]), pack_raw(lp[8], lp[ldp + 8]),
-                                    pack_raw(lp[8 * ldp], lp[9 * ldp]),
-                                    pack_raw(lp[8 * ldp + 8], lp[9 * ldp + 8])};
-            // B[query kk*16 + r][column nt*8 + c] = rhs[kk*16 + r][nt*8 + c]
-            const __nv_bfloat16* rp = rhs + (kk * 16 + 2 * t4) * ld + g + nt * 8;
-            mma_bf16_16816(o, af, pack_raw(rp[0], rp[ld]), pack_raw(rp[8 * ld], rp[9 * ld]));
-          }
-          store_pair_rows(out_bh, g_sr, o, j0 + g, nt * 8 + 2 * t4, N, d, mult, vec);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + (e >> 1) * 8, c = nt * 8 + 2 * t4 + (e & 1);
+        if (r >= N || c >= N) continue;
+        out[r * N + c] = kRegAcc ? db[kRegAcc ? nt : 0][e] : acc[r * ldp + c];
       }
     }
   }
-  __syncthreads();
-  float* part = partial + (static_cast<long long>(grp) * heads + h) * N * N;
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) part[i] = acc[(i / N) * Np + i % N];
 }
 
-// dbias[i] = the sum of the groups' partials at i, in group order.
+// dbias[h][i] = the sum of head h's `parts` partials at i, in order.
 __global__ void dbias_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dbias,
-                                    int groups, long long plane) {
+                                    int parts, long long plane, long long total) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= plane) return;
+  if (i >= total) return;
+  const long long h = i / plane, e = i - h * plane;
+  const float* src = partial + h * parts * plane + e;
   float sum = 0.0f;
-  for (int gi = 0; gi < groups; ++gi) sum = __fadd_rn(sum, partial[gi * plane + i]);
+  for (int p = 0; p < parts; ++p) sum = __fadd_rn(sum, src[p * plane]);
   dbias[i] = sum;
 }
 
 template <int KT, int DT>
 cudaError_t launch(View q, View k, View v, View dout, const float* bias, __nv_bfloat16* dqkv,
-                   float* partial, float* dbias, int B, int N, int heads, int d, int per_block,
+                   float* partial, float* dbias, int B, int N, int heads, int d, const BwdPlan& p,
                    float scale, int vec, cudaStream_t stream) {
-  const int Np = (N + 15) / 16 * 16, Dp = (d + 15) / 16 * 16;
-  const size_t smem = bwd_smem_bytes(Np, Dp);
-  if (smem > static_cast<size_t>(kMaxSmemBytes)) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(window_attention_bwd_kernel<KT, DT>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
+  auto kernel = window_attention_bwd_kernel<KT, DT>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (e != cudaSuccess) return e;
   }
-  const int groups = (B + per_block - 1) / per_block;
   const long long C = static_cast<long long>(heads) * d;
-  window_attention_bwd_kernel<KT, DT><<<groups * heads, kWarps * 32, smem, stream>>>(
-      q, k, v, dout, bias, dqkv, N * 3 * C, 3 * C, partial, B, N, heads, d, per_block, scale, vec);
+  kernel<<<heads * p.per_head, kBwdThreads, p.smem, stream>>>(
+      q, k, v, dout, bias, dqkv, N * 3 * C, 3 * C, partial, B, N, heads, d, p.per_head, p.slots,
+      p.buffers, scale, vec);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const long long plane = static_cast<long long>(heads) * N * N;
+  const long long plane = static_cast<long long>(N) * N, total = heads * plane;
   const int threads = 256;
-  dbias_reduce_kernel<<<static_cast<unsigned>((plane + threads - 1) / threads), threads, 0,
-                        stream>>>(partial, dbias, groups, plane);
+  dbias_reduce_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0,
+                        stream>>>(partial, dbias, p.per_head, plane, total);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The backward's launch plan for a shape on a card of `sms` SMs: {blocks a
+// head, slots, p/ds buffers, shared memory bytes}. Returns a cudaError_t: 0,
+// or cudaErrorInvalidValue (and zeros) when the shape is out of range or no
+// plan fits.
+extern "C" int dfd_window_attention_bwd_plan(int B, int N, int heads, int d, int sms, int* plan) {
+  for (int i = 0; i < 4; ++i) plan[i] = 0;
+  if (B < 1 || N < 1 || N > 128 || heads < 1 || d < 1 || d > 128 || sms < 1)
+    return cudaErrorInvalidValue;
+  const BwdPlan p = bwd_plan(B, N, heads, d, sms);
+  if (p.slots == 0) return cudaErrorInvalidValue;
+  plan[0] = p.per_head;
+  plan[1] = p.slots;
+  plan[2] = p.buffers;
+  plan[3] = p.smem;
+  return cudaSuccess;
+}
+
 // Returns a cudaError_t: 0 on success. qkv [B, N, 3C] and dout [B, N, C]
 // with unit feature stride and (batch, row) strides in elements; dqkv
-// contiguous [B, N, 3C]; partial [ceil(B / per_block), heads, N, N] f32
-// scratch; dbias [heads, N, N] f32. vec = 1 promises d % 8 == 0, every stride
-// % 8 == 0 and 16-byte aligned qkv, dout and dqkv, for 16-byte loads and
-// 4-byte stores.
+// contiguous [B, N, 3C]; partial f32 scratch of `planes` [N, N] planes, at
+// least heads x the plan's blocks a head (for a card of `sms` SMs); dbias
+// [heads, N, N] f32. vec = 1 promises d % 8 == 0, every stride % 8 == 0 and
+// 16-byte aligned qkv, dout and dqkv, for 16-byte copies and 4-byte stores.
 extern "C" int dfd_window_attention_bwd(const void* qkv, const void* dout, const void* bias,
-                                        void* dqkv, void* partial, void* dbias, int B, int N,
-                                        int heads, int d, long long qkv_sb, long long qkv_sr,
-                                        long long do_sb, long long do_sr, int per_block,
-                                        float scale, int vec, void* stream) {
-  if (B < 1 || N < 1 || N > 128 || heads < 1 || d < 1 || d > 128 || per_block < 1 ||
-      static_cast<long long>((B + per_block - 1) / per_block) * heads > 0x7fffffffLL)
+                                        void* dqkv, void* partial, long long planes, void* dbias,
+                                        int B, int N, int heads, int d, long long qkv_sb,
+                                        long long qkv_sr, long long do_sb, long long do_sr,
+                                        int sms, float scale, int vec, void* stream) {
+  int plan[4];
+  const int rc = dfd_window_attention_bwd_plan(B, N, heads, d, sms, plan);
+  if (rc != 0 || static_cast<long long>(heads) * plan[0] > planes ||
+      static_cast<long long>(heads) * plan[0] > 0x7fffffffLL)
     return cudaErrorInvalidValue;
+  const BwdPlan p{plan[0], plan[1], plan[2], plan[3]};
   const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(qkv);
   const long long C = static_cast<long long>(heads) * d;
   const View qv{base, qkv_sb, qkv_sr, d};
@@ -340,13 +588,13 @@ extern "C" int dfd_window_attention_bwd(const void* qkv, const void* dout, const
   const bool small_n = N <= 64, small_d = d <= 64;
   if (small_n && small_d)
     return static_cast<int>(
-        launch<4, 4>(qv, kv, vv, dv, bs, g, part, db, B, N, heads, d, per_block, scale, vec, st));
+        launch<4, 4>(qv, kv, vv, dv, bs, g, part, db, B, N, heads, d, p, scale, vec, st));
   if (small_n)
     return static_cast<int>(
-        launch<4, 8>(qv, kv, vv, dv, bs, g, part, db, B, N, heads, d, per_block, scale, vec, st));
+        launch<4, 8>(qv, kv, vv, dv, bs, g, part, db, B, N, heads, d, p, scale, vec, st));
   if (small_d)
     return static_cast<int>(
-        launch<8, 4>(qv, kv, vv, dv, bs, g, part, db, B, N, heads, d, per_block, scale, vec, st));
+        launch<8, 4>(qv, kv, vv, dv, bs, g, part, db, B, N, heads, d, p, scale, vec, st));
   return static_cast<int>(
-      launch<8, 8>(qv, kv, vv, dv, bs, g, part, db, B, N, heads, d, per_block, scale, vec, st));
+      launch<8, 8>(qv, kv, vv, dv, bs, g, part, db, B, N, heads, d, p, scale, vec, st));
 }

@@ -10,8 +10,9 @@ forward that FasterViT's ``TokenAttention`` takes for N >= 32),
 three backwards of ``window_attention_v2``'s custom_vjp. Each group computes
 one function; their differences fit it to the TPU's lanes. The CUDA kernels
 are ``csrc/window_attn.cu`` (forward) and ``csrc/window_attn_bwd.cu``
-(backward, dqkv and dbias summed over windows, deterministically), one launch
-per call, reading q, k and v through strides: ``window_attention`` takes the
+(backward, dqkv and dbias summed over windows, deterministically; its launch
+plan is ``bwd_plan``), one launch per call, reading q, k and v through
+strides: ``window_attention`` takes the
 natural qkv [B, N, 3C] layout (three views of one tensor, no copy),
 ``window_attention_heads`` the v1 layout. Neither pads N: the kernels mask
 their own ragged edge.
@@ -33,17 +34,23 @@ raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from deepfakedetection_tpu_torch.ops import build
+from deepfakedetection_tpu_torch.ops.expand_dw import sm_count
 
 MAX_TOKENS = 128  # N and d the kernels take
 MAX_HEAD_DIM = 128
 MAX_SMEM_BYTES = 232448  # shared memory one H100 block may use
-# backward blocks per launch the window grouping aims at: four per SM of an
-# H100's 132, so each block loops over several windows and its dbias partial
-# covers them all
-_BWD_TARGET_BLOCKS = 528
+H100_SMS = 132
+BWD_MAX_SLOTS = 4  # the backward's deepest input ring
+_BWD_BARRIER_BYTES = 128
+# the backward's device kernels, by the names the profiler records
+BWD_KERNELS = ("window_attention_bwd_kernel", "dbias_reduce_kernel")
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -224,18 +231,56 @@ def window_attention(
     return _forward(qkv, bias, num_heads, scale)
 
 
-def bwd_smem_bytes(N: int, d: int) -> int:
+def bwd_smem_bytes(N: int, d: int, slots: int = 1, buffers: int = 1) -> int:
     """Shared memory of one backward block (``csrc/window_attn_bwd.cu``
-    ``bwd_smem_bytes``): q, k, v and dout rows, bf16 p and ds, the f32 dbias
-    accumulator."""
+    ``bwd_smem_bytes``) with ``slots`` windows of q, k, v and dout in its
+    input ring and ``buffers`` pairs of bf16 p and ds (the least plan by
+    default), plus the f32 dbias accumulator at N > 64."""
     Np, Dp = -(-N // 16) * 16, -(-d // 16) * 16
-    return (4 * Np * (Dp + 8) + 2 * Np * (Np + 8)) * 2 + Np * Np * 4
+    return (_BWD_BARRIER_BYTES + slots * 4 * Np * (Dp + 8) * 2 + buffers * 2 * Np * (Np + 8) * 2
+            + (Np * (Np + 8) * 4 if Np > 64 else 0))
 
 
-def bwd_windows_per_block(B: int, heads: int) -> int:
-    """Windows each backward block loops over: enough blocks for the card
-    (``_BWD_TARGET_BLOCKS``) and no more, since each writes a dbias partial."""
-    return max(1, B * heads // _BWD_TARGET_BLOCKS)
+class BwdPlan(NamedTuple):
+    """The backward's launch plan (``csrc/window_attn_bwd.cu`` ``bwd_plan``)."""
+
+    per_head: int  # blocks a head, each owning a contiguous range of its windows
+    slots: int  # windows in the input ring
+    buffers: int  # p/ds buffers
+    smem: int  # bytes of dynamic shared memory a block
+
+    def blocks(self, heads: int) -> int:
+        return heads * self.per_head
+
+    def windows(self, B: int, part: int) -> range:
+        """The windows, in the order it sums them, of a head's block ``part``."""
+        return range(part * B // self.per_head, (part + 1) * B // self.per_head)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(B: int, N: int, heads: int, d: int, sms: int = H100_SMS) -> BwdPlan | None:
+    """The backward's plan on a card of ``sms`` SMs, as ``bwd_plan`` in
+    ``csrc/window_attn_bwd.cu`` (which ``kernel_bwd_plan`` reads back on the
+    card), or None when none fits a block's shared memory: the deepest input
+    ring of up to ``BWD_MAX_SLOTS`` windows that fits with two p/ds buffers,
+    else two slots and one buffer, else one and one; as many blocks a head as
+    the SMs hold for all the heads, at most one a window."""
+    fits = [(s, 2) for s in range(BWD_MAX_SLOTS, 1, -1)] + [(2, 1), (1, 1)]
+    for slots, buffers in fits:
+        smem = bwd_smem_bytes(N, d, slots, buffers)
+        if smem <= MAX_SMEM_BYTES:
+            return BwdPlan(max(1, min(B, sms // heads)), slots, buffers, smem)
+    return None
+
+
+def kernel_bwd_plan(B: int, N: int, heads: int, d: int, sms: int) -> BwdPlan | None:
+    """The plan the built kernel computes for the shape (card only), to hold
+    ``bwd_plan`` to it."""
+    plan = (ctypes.c_int * 4)()
+    if build.library().dfd_window_attention_bwd_plan(B, N, heads, d, sms, plan) != 0:
+        return None
+    return BwdPlan(*plan)
+
 
 
 def window_attention_bwd(
@@ -245,7 +290,8 @@ def window_attention_bwd(
     bias [h, N, N] f32, dout [B, N, C] bf16, each with a unit stride along
     features -> (dqkv [B, N, 3C] bf16, dbias [h, N, N] f32). Launches the CUDA
     kernel (and its fixed-order dbias reduction) on the current stream for
-    CUDA tensors, runs the plain version for CPU tensors, raises otherwise."""
+    CUDA tensors, runs the plain version for CPU tensors, raises otherwise or
+    when no plan fits (``bwd_plan``)."""
     name = "window_attention_bwd"
     B, N, C, d = _check_qkv(name, qkv, bias, num_heads)
     if (dout.shape != (B, N, C) or dout.dtype != torch.bfloat16 or dout.stride(2) != 1
@@ -255,18 +301,18 @@ def window_attention_bwd(
             f"{qkv.device}, got {tuple(dout.shape)} {dout.dtype} strides {dout.stride()} on "
             f"{dout.device}"
         )
-    if bwd_smem_bytes(N, d) > MAX_SMEM_BYTES:
+    if bwd_plan(B, N, num_heads, d) is None:
         raise ValueError(
             f"{name}: N={N}, head_dim={d} needs {bwd_smem_bytes(N, d)} bytes of shared memory "
             f"a block, more than the {MAX_SMEM_BYTES} an H100 block has"
         )
     if qkv.device.type == "cpu":
         return window_attention_bwd_plain(qkv, bias, dout, num_heads=num_heads, scale=scale)
-    per_block = bwd_windows_per_block(B, num_heads)
+    sms = sm_count(qkv.device)
+    plan = bwd_plan(B, N, num_heads, d, sms)
     dqkv = torch.empty(B, N, 3 * C, dtype=torch.bfloat16, device=qkv.device)
     dbias = torch.empty(num_heads, N, N, dtype=torch.float32, device=qkv.device)
-    partial = torch.empty(-(-B // per_block), num_heads, N, N, dtype=torch.float32,
-                          device=qkv.device)
+    partial = torch.empty(plan.blocks(num_heads), N, N, dtype=torch.float32, device=qkv.device)
     strides = (qkv.stride(0), qkv.stride(1), dout.stride(0), dout.stride(1))
     vec = int(d % 8 == 0 and all(s % 8 == 0 for s in strides)
               and all(t.data_ptr() % 16 == 0 for t in (qkv, dout, dqkv)))
@@ -275,8 +321,8 @@ def window_attention_bwd(
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         rc = lib.dfd_window_attention_bwd(
             qkv.data_ptr(), dout.data_ptr(), bias.data_ptr(), dqkv.data_ptr(),
-            partial.data_ptr(), dbias.data_ptr(), B, N, num_heads, d, *strides, per_block,
-            float(scale), vec, stream,
+            partial.data_ptr(), partial.shape[0], dbias.data_ptr(), B, N, num_heads, d,
+            *strides, sms, float(scale), vec, stream,
         )
     build.check(rc, name)
     window_attention_bwd.launches += 1

@@ -40,6 +40,7 @@ from torch.profiler import ProfilerActivity, profile
 from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
 from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
 from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+from deepfakedetection_tpu_torch.ops import window_attn
 from deepfakedetection_tpu_torch.runtime.seeding import fold_in, root_generator
 from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
 from deepfakedetection_tpu_torch.train.steps import train_step
@@ -50,7 +51,7 @@ TAGS = {"depthwise_silu_pool_kernel": "K1", "expand_dw_kernel": "K2", "pack_wexp
         "se_reduce_kernel": "K3", "se_expand_kernel": "K3", "pack_pairs_kernel": "K3",
         "gated_proj_kernel": "K3",
         "shear_pass_kernel": "K4", "window_attention_kernel": "K5",
-        "window_attention_bwd_kernel": "K5 bwd", "dbias_reduce_kernel": "K5 bwd",
+        **dict.fromkeys(window_attn.BWD_KERNELS, "K5 bwd"),
         "attn_qkv_kernel": "K6", "window_bwd_kernel": "K6 bwd", "sum_partials_kernel": "K6 bwd",
         "attn4d_kernel": "K7"}
 # K6's GEMM (csrc/gemm_tma.cuh) by its epilogue: the forward's projection, or

@@ -5,6 +5,7 @@ repository root:
     python -m deepfakedetection_tpu_torch.profile_k2              # times a shape
     python -m deepfakedetection_tpu_torch.profile_k2 --tree DIR   # ... against DIR's K2
     python -m deepfakedetection_tpu_torch.profile_k2 --plans      # every plan that fits
+    python -m deepfakedetection_tpu_torch.profile_k2 --silu       # K2's SiLU variants
 
 The default times ``expand_dw_silu_pool`` as ``chip_smoke.phase1`` does (CUDA
 events, median of 25) with its bound, the bytes it must move over its time,
@@ -17,11 +18,22 @@ within ``chip_smoke.K2_TOL``) and times them in turns (other, this, this,
 other). ``--plans`` times every launch plan (CB, RB) that fits at each
 shape through the entry point, which takes the plan from its caller, each
 checked against the plain version, beside the one ``plan`` picks.
+``--silu`` builds copies of ``expand_dw.cu`` (with ``depthwise_se.cu``, K1,
+beside it) under ``build/profile_k2/silu_<name>/`` that differ only in the
+SiLU of both stages (``SILUS``: the precise ``expf`` and IEEE division, the
+shipped fast ``__expf`` and ``__fdividef``, and the two mixtures), and for
+each: at every B3 shape (batch 128) the share of y's bf16 elements that
+differ from the precise build's, the largest error of y in bf16 steps and of
+the pool against the plain version computed in f32 (TF32 off, y unrounded;
+a step is that of each element, floored at 2**-8 of y's scale),
+K2's time per B3 forward, and ``chip_smoke.phase3``'s 16-image check against
+the CPU with that build serving K1 and K2.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import hashlib
 import importlib.util
@@ -139,7 +151,8 @@ def times() -> None:
         ms = statistics.median(cs.cuda_times(lambda: k2.expand_dw_silu_pool(*args, kernel=k),
                                              runs=25))
         b_ms, by = cs.kernel_bound("expand_dw_silu_pool", 128, shape)
-        split = cs.kernel_split(lambda: k2.expand_dw_silu_pool(*args, kernel=k))[0]
+        split = cs.kernel_split(lambda: k2.expand_dw_silu_pool(*args, kernel=k),
+                                expect=("pack_wexp_kernel", "expand_dw_kernel"))[0]
         total["ms"] += count * ms
         total["bound"] += count * b_ms
         print(f"K2 {shape} x{count} ({p}): {ms:.4f} ms a call, bound {b_ms:.4f} ({by}), "
@@ -196,11 +209,107 @@ def plans() -> None:
                   f"{' <- plan' if p == chosen else ''}", flush=True)
 
 
+# K2's SiLU, as shipped (``expand_dw.cu``), and the variants ``--silu`` builds
+SILU_SHIPPED = ("__device__ __forceinline__ float silu(float v) { return __fdividef(v, 1.0f + "
+                "__expf(-v)); }")
+SILUS = {"precise": "v / (1.0f + expf(-v))", "fast": "__fdividef(v, 1.0f + __expf(-v))",
+         "fast exp": "v / (1.0f + __expf(-v))", "fast div": "__fdividef(v, 1.0f + expf(-v))"}
+
+
+def _silu_library(name: str, body: str) -> ctypes.CDLL:
+    """K1 and K2 built from copies of their sources with K2's SiLU replaced
+    by ``body``, into build/profile_k2/silu_<name>/lib.so, with the K1 and K2
+    entry points' argument types set."""
+    from deepfakedetection_tpu_torch.ops import build
+
+    out = build.BUILD_DIR.parent / "profile_k2" / f"silu_{name.replace(' ', '_')}"
+    out.mkdir(parents=True, exist_ok=True)
+    text = (build.CSRC / "expand_dw.cu").read_text()
+    if text.count(SILU_SHIPPED) != 1:
+        raise RuntimeError("expand_dw.cu changed: its SiLU line is not SILU_SHIPPED")
+    (out / "expand_dw.cu").write_text(text.replace(
+        SILU_SHIPPED, f"__device__ __forceinline__ float silu(float v) {{ return {body}; }}"))
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-shared", "-o",
+                    str(out / "lib.so"), str(out / "expand_dw.cu"),
+                    str(build.CSRC / "depthwise_se.cu")], check=True)
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    for fn in ("dfd_depthwise_silu_pool", "dfd_expand_dw_plan", "dfd_expand_dw_silu_pool"):
+        getattr(lib, fn).argtypes = build._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.dfd_error_string.argtypes = [ctypes.c_int]
+    lib.dfd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _plain_f32(x, wexp, bexp, wdw, bdw, k):
+    """The plain version's f32 activation before its last rounding (its
+    expanded map rounded to bf16, as the kernel rounds it) and its pool."""
+    import torch
+    import torch.nn.functional as F
+
+    Ce = wexp.shape[1]
+    e = x.float() @ wexp.to(torch.bfloat16).float() + bexp
+    e = F.silu(e).to(torch.bfloat16).float().permute(0, 3, 1, 2)
+    wf = wdw.permute(2, 0, 1).reshape(Ce, 1, k, k)
+    yf = F.silu(F.conv2d(e, wf, None, 1, k // 2, 1, Ce) + bdw.view(1, Ce, 1, 1))
+    return yf.permute(0, 2, 3, 1), yf.mean(dim=(2, 3))
+
+
+def silu() -> None:
+    import chip_smoke as cs
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import build
+    from deepfakedetection_tpu_torch.ops import expand_dw as k2
+
+    device = torch.device("cuda", 0)
+    with concurrent.futures.ThreadPoolExecutor(len(SILUS)) as pool:  # the nvcc runs together
+        libs = dict(zip(SILUS, pool.map(_silu_library, SILUS, SILUS.values())))
+    shipped = build.library
+    state = cs.seeded_b3_state()
+    ys = {}
+    try:
+        for name, lib in libs.items():
+            build.library = lambda lib=lib: lib
+            total = 0.0
+            for i, (shape, count) in enumerate(cs.K2_SHAPES):
+                args, k = _inputs(shape, 200 + i, device), shape[-1]
+                y, pool = k2.expand_dw_silu_pool(*args, kernel=k)
+                tf32 = torch.backends.cudnn.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False  # the reference in full f32
+                try:
+                    yf, pf = _plain_f32(*args, k)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = tf32
+                step = 2.0 ** (torch.floor(torch.log2(yf.abs().clamp_min(
+                    2.0**-8 * float(yf.abs().max())))) - 7)
+                steps = float(((y.float() - yf).abs() / step).max())
+                dpool = float((pool - pf).abs().max() / pf.abs().max())
+                ys.setdefault(i, {})[name] = y
+                differ = float((y != ys[i]["precise"]).float().mean())
+                ms = statistics.median(cs.cuda_times(
+                    lambda: k2.expand_dw_silu_pool(*args, kernel=k), runs=25))
+                total += count * ms
+                print(f"silu {name!r} K2 {shape}: y differs from the precise build's in "
+                      f"{differ:.4%} of elements; max|y - y_f32| {steps:.3f} bf16 steps; "
+                      f"max|dpool|/scale {dpool:.3e}; {ms:.4f} ms a call", flush=True)
+            print(f"silu {name!r}: K2 per B3 forward at batch 128 {total:.4f} ms", flush=True)
+            report = {"phase2": {"timings": {cs.EVAL_BATCH: {"kernels_ms": {"median": 18.0}}}}}
+            cs.phase3(device, report, state)
+            ref = report["phase3"]["reference"]
+            print(f"silu {name!r}: phase 3's 16 images max|dlogit|/scale "
+                  f"{ref['max_rel_dlogit_bf16']:.4e} against bf16 CPU, "
+                  f"{ref['max_rel_dlogit_f32']:.4e} against f32 CPU", flush=True)
+    finally:
+        build.library = shipped
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     group = parser.add_mutually_exclusive_group()
     group.add_argument("--tree", help="compare with the K2 of the checkout in this directory")
     group.add_argument("--plans", action="store_true", help="time every plan that fits")
+    group.add_argument("--silu", action="store_true", help="K2's SiLU variants, phase 3 each")
     args = parser.parse_args()
     import chip_smoke as cs
     import torch
@@ -212,6 +321,8 @@ def main() -> None:
         compare(args.tree)
     elif args.plans:
         plans()
+    elif args.silu:
+        silu()
     else:
         times()
 

@@ -228,7 +228,7 @@ def bwd_times() -> None:
             return k6.attn_subblock_bwd(x, wq, bq, bias, wp, dout, num_heads=h, scale=scale)
 
         ms = statistics.median(cs.cuda_times(call, runs=25))
-        split, launched = cs.kernel_split(call)
+        split, launched = cs.kernel_split(call, expect=cs.K6_BWD_KERNELS)
         agg = per.setdefault(config, {"ms": 0.0, "device": {}})
         agg["ms"] += count * ms
         for k, v in split.items():

@@ -194,7 +194,11 @@ def test_window_attention_heads_kernel_matches_plain(cuda):
 
 
 K5_BWD_CASES = K5_CASES[:4] + [(8, 16, 8, 48), (8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 1, 64),
-                               (8, 53, 8, 8), (8, 37, 3, 100), (8, 20, 2, 4)]
+                               (8, 53, 8, 8), (8, 37, 3, 100), (8, 20, 2, 4)] + [
+    # many windows a block: row warps without a tile, the shared dbias sum,
+    # the shallow-ring plans, the element-by-element copies
+    (512, 37, 3, 100), (512, 16, 8, 48), (512, 33, 4, 64), (512, 20, 2, 4), (256, 100, 2, 64),
+    (256, 128, 1, 80), (512, 128, 2, 32)]
 
 
 def _k5_bwd_close(got, want):
