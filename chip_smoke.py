@@ -80,13 +80,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
-four fine-tune shapes at batch 128 (plus odd sizes and a repeat that must
-give bit-identical dbias; its launch plan the built kernel's), with their
-times, the plain versions' and
+four fine-tune shapes at batch 128 (each plus odd sizes with many windows a
+block, an unaligned view and a repeat that must be bit-identical; each
+launch plan the built kernel's), with their times, the plain versions' and
 ``torch.nn.functional.scaled_dot_product_attention``'s on the same q, k, v
-and bias (forward, or its backward alone after one forward, ``grad_ms``,
-with the device time of the kernels it launches beside the event time: a
-yardstick the port never calls), and K7 (talking-head attention) at EfficientFormerV2-S1's
+and bias (forward, or its backward alone after one forward, ``grad_ms``),
+each with the device time of the kernels a call launches beside the event
+time (SDPA is a yardstick the port never calls), and K7 (talking-head attention) at EfficientFormerV2-S1's
 shape at batch 256 and at ragged sizes, bit-identical run to run (no PyTorch
 call computes it: its library time is none), and K6 (the fused attention
 sub-block) at the six FasterViT-2 attentions of both head configurations,
@@ -114,8 +114,8 @@ Device times come from ``torch.profiler`` (``kernel_split``), which profiles
 a call once more when it records no device time or lacks a kernel the port's
 wrapper launches, and raises if the second take does too.
 Run with no arguments it does all of the above; ``--parent DIR`` only adds
-phase 1's comparison with another checkout's K5 backward, in turns at the
-four fine-tune shapes (``profile_k5.compare``).
+phase 1's comparison with another checkout's K5 forward and backward, in
+turns at the four eval and the four fine-tune shapes (``k5_parent``).
 """
 
 from __future__ import annotations
@@ -171,6 +171,15 @@ TRAIN_TF = {"ensure_rgb": True, "train_random_resized_crop": True,
 # window of 49, in each head configuration
 K5_SHAPES = [("official", 1024, 53, 384, 8, 8), ("official", 256, 49, 768, 16, 5),
              ("tpu", 1024, 53, 384, 3, 8), ("tpu", 256, 49, 768, 6, 5)]
+# odd sizes (windows, N, heads, d): the carrier-token attention's 16 tokens, one
+# token, ragged tiles past 64 tokens, head_dims off the 16-byte copies; then
+# many windows a block in every pipeline the plan picks: warps without a query
+# tile (N <= 48), two tiles a warp (N > 64), element-by-element copies (d 100,
+# d 4), two and four warp groups, rings of 4, 3, 2 and 1 slots a group
+K5_ODD = [(8, 16, 8, 48), (8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 1, 128), (8, 53, 8, 8),
+          (8, 37, 3, 100), (8, 20, 2, 4), (512, 37, 3, 100), (512, 16, 8, 48),
+          (1024, 33, 4, 64), (2048, 20, 2, 4), (512, 80, 2, 16), (512, 100, 4, 64),
+          (1024, 128, 2, 32), (192, 128, 8, 128)]
 # K5's backward at the FasterViT-2 fine-tune shapes, batch 128: (config,
 # windows, N, C, heads, launches per step)
 K5_BWD_SHAPES = [("official", 512, 53, 384, 8, 8), ("official", 128, 49, 768, 16, 5),
@@ -352,8 +361,9 @@ def k2_inputs(B, H, W, Cin, Ce, k, seed, device):
 
 def phase1(device, report, parent: str | None = None):
     """Kernels against their plain versions on the card. With ``parent``
-    (another checkout's directory), K5's backward is also timed against that
-    checkout's in turns at the fine-tune shapes (``profile_k5.compare``)."""
+    (another checkout's directory), K5's forward and backward are also timed
+    against that checkout's in turns at the eval and fine-tune shapes
+    (``k5_parent``)."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import depthwise_se as k1
@@ -411,8 +421,9 @@ def phase1(device, report, parent: str | None = None):
             f" bound {bound_ms:.4f} ms ({bound_by})")
     kernels["rotate_batch"] = phase1_k4(device)
     kernels["window_attention"] = phase1_k5(device)
+    kernels["window_attention"]["parent"] = k5_parent(parent, fwd=True)
     kernels["window_attention_bwd"] = phase1_k5_bwd(device)
-    kernels["window_attention_bwd"]["parent"] = k5_bwd_parent(parent)
+    kernels["window_attention_bwd"]["parent"] = k5_parent(parent, fwd=False)
     kernels["attn4d"] = phase1_k7(device)
     kernels["attn_subblock"], kernels["attn_subblock_bwd"] = phase1_k6(device)
     kernels["fused_mbconv_se"] = phase1_k3(device)
@@ -420,19 +431,24 @@ def phase1(device, report, parent: str | None = None):
     return kernels
 
 
-def k5_bwd_parent(parent: str | None) -> dict | None:
-    """K5's backward of the checkout in ``parent`` against this one at the
-    four fine-tune shapes, in turns (``profile_k5.compare``): per shape both
-    times, event and device, and whether dqkv is bit-identical, and the sums
-    per fine-tune step of each head configuration. None without ``parent``."""
+def k5_parent(parent: str | None, fwd: bool) -> dict | None:
+    """K5's forward (``fwd``) or backward of the checkout in ``parent``
+    against this one, in turns (``profile_k5.compare_fwd`` at the four eval
+    shapes, ``profile_k5.compare`` at the four fine-tune shapes): per shape
+    both times, event and device, and whether the outputs are bit-identical,
+    and the sums per forward or fine-tune step of each head configuration.
+    None without ``parent``."""
+    name = "window_attention" if fwd else "window_attention_bwd"
     if parent is None:
-        log("  window_attention_bwd: the parent's kernel not measured (no --parent)")
+        log(f"  {name}: the parent's kernel not measured (no --parent)")
         return None
     from deepfakedetection_tpu_torch import profile_k5
 
-    rows = profile_k5.compare(parent)
+    rows = profile_k5.compare_fwd(parent) if fwd else profile_k5.compare(parent)
+    shapes, unit = ((K5_SHAPES, f"forward at batch {FV_BATCH}") if fwd
+                    else (K5_BWD_SHAPES, "fine-tune step at batch 128"))
     sums = {}
-    for r, shape in zip(rows, K5_BWD_SHAPES):
+    for r, shape in zip(rows, shapes):
         config, count = shape[0], shape[5]
         agg = sums.setdefault(config, {key: 0.0 for key in ("this_ms", "other_ms",
                                                             "this_device_ms",
@@ -440,15 +456,14 @@ def k5_bwd_parent(parent: str | None) -> dict | None:
         for key in agg:
             agg[key] += count * r[key]
         if r["this_device_ms"] >= r["other_device_ms"] or r["this_ms"] >= r["other_ms"]:
-            log(f"  window_attention_bwd {shape[:5]}: NOT faster than the parent's ("
-                f"{r['this_ms']:.4f} against {r['other_ms']:.4f} ms, device "
-                f"{r['this_device_ms']:.4f} against {r['other_device_ms']:.4f})")
+            log(f"  {name} {shape[:5]}: NOT faster than the parent's ({r['this_ms']:.4f} against "
+                f"{r['other_ms']:.4f} ms, device {r['this_device_ms']:.4f} against "
+                f"{r['other_device_ms']:.4f})")
     for config, agg in sums.items():
-        log(f"  window_attention_bwd per FasterViT-2 {config} fine-tune step at batch 128, in "
-            f"turns with {parent}'s: this {agg['this_ms']:.4f} ms (device "
-            f"{agg['this_device_ms']:.4f}), the parent's {agg['other_ms']:.4f} ms (device "
-            f"{agg['other_device_ms']:.4f})")
-    return {"tree": parent, "rows": rows, "per_step": sums}
+        log(f"  {name} per FasterViT-2 {config} {unit}, in turns with {parent}'s: this "
+            f"{agg['this_ms']:.4f} ms (device {agg['this_device_ms']:.4f}), the parent's "
+            f"{agg['other_ms']:.4f} ms (device {agg['other_device_ms']:.4f})")
+    return {"tree": parent, "rows": rows, "per_pass": sums}
 
 
 def kernel_bound(name: str, B: int, shape) -> tuple[float, str]:
@@ -475,78 +490,146 @@ def k2_bytes(B: int, shape) -> int:
 def k5_bound(B: int, N: int, C: int, h: int) -> tuple[float, str]:
     """qkv and the bias read, the output written; q k^T and p v on the tensor
     cores."""
-    return bound(B * N * 4 * C * 2 + h * N * N * 4, {"bf16": 4 * B * N * N * C})
+    return bound(k5_bytes(B, N, C, h), {"bf16": 4 * B * N * N * C})
 
 
-def sdpa_ms(qkv, bias, h: int, scale: float) -> float | None:
+def sdpa_ms(qkv, bias, h: int, scale: float) -> tuple[float | None, float | None]:
     """``scaled_dot_product_attention`` on the same q, k, v (strided views of
     qkv) and bias (in bf16, as it takes a mask of the inputs' type): the
-    library yardstick. None, with the reason logged, when it refuses them."""
+    library yardstick, (CUDA-event ms a call, median of 25; the device time of
+    the kernels a call launches, ``kernel_split`` over 25 calls). (None, None),
+    with the reason logged, when it refuses them."""
     import torch
     import torch.nn.functional as F
 
     B, N, C3 = qkv.shape
     q, k, v = qkv.view(B, N, 3, h, C3 // 3 // h).permute(2, 0, 3, 1, 4)
     mask = bias.to(torch.bfloat16)[None]
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
     try:
-        return statistics.median(cuda_times(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
-            runs=25))
+        return (statistics.median(cuda_times(call, runs=25)),
+                sum(kernel_split(call, calls=25)[0].values()))
     except RuntimeError as exc:
         log(f"  scaled_dot_product_attention refused {tuple(qkv.shape)}: {exc}")
-        return None
+        return None, None
+
+
+def k5_inputs(shape, seed: int, device):
+    """(qkv, bias, heads, scale) at a ``K5_SHAPES`` row, as phase 1 makes them."""
+    import torch
+
+    _, B, N, C, h, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * C, generator=g).to(torch.bfloat16).to(device)
+    bias = torch.randn(h, N, N, generator=g).to(device)
+    return qkv, bias, h, (C // h) ** -0.5
+
+
+def k5_bytes(B: int, N: int, C: int, h: int) -> int:
+    """The bytes K5's forward must move: qkv and the bias read, the output
+    written."""
+    return B * N * 4 * C * 2 + h * N * N * 4
 
 
 def phase1_k5(device) -> dict:
     """K5 against its plain version at the four FasterViT-2 shapes (batch
-    256), within two bf16 steps of the output's scale (both round the
-    probabilities and the output once, from f32 sums in different orders);
-    kernel, plain and library times, summed per forward of each head
-    configuration."""
+    256) and ``K5_ODD``, within two bf16 steps of the output's scale (both
+    round the probabilities and the output once, from f32 sums in different
+    orders), bit-identical over two runs, its launch plan the built kernel's;
+    an unaligned view of qkv (the element-by-element copies). Kernel, plain
+    and library times (CUDA events, and the device time of the kernels a call
+    launches), summed per forward of each head configuration."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import window_attn as k5
 
-    rows, worst, per = [], 0.0, {}
-    for i, (config, B, N, C, h, count) in enumerate(K5_SHAPES):
-        g = torch.Generator().manual_seed(400 + i)
-        qkv = torch.randn(B, N, 3 * C, generator=g).to(torch.bfloat16).to(device)
-        bias = torch.randn(h, N, N, generator=g).to(device)
-        scale = (C // h) ** -0.5
+    sms = k5.sm_count(device)
+
+    def check(label, qkv, bias, h, scale):
+        B, N, C3 = qkv.shape
+        d = C3 // 3 // h
+        plan = k5.fwd_plan(B, N, h, d, sms)
+        if plan != k5.kernel_fwd_plan(B, N, h, d, sms):
+            raise AssertionError(f"window_attention {label}: plan {plan} is not the kernel's "
+                                 f"{k5.kernel_fwd_plan(B, N, h, d, sms)}")
         before = k5.window_attention.launches
         out = k5.window_attention(qkv, bias, num_heads=h, scale=scale)
         torch.cuda.synchronize()
         if k5.window_attention.launches != before + 1:
             raise AssertionError("window_attention did not launch its kernel")
+        again = k5.window_attention(qkv, bias, num_heads=h, scale=scale)
+        torch.cuda.synchronize()
+        if not torch.equal(again, out):
+            raise AssertionError(f"window_attention {label}: two runs differ")
         ref = k5.window_attention_plain(qkv, bias, num_heads=h, scale=scale)
         tol = two_steps(ref)
-        err = check_close(f"window_attention {config} {(B, N, C, h)}", out, ref, tol, 0.0)
+        return check_close(f"window_attention {label}", out, ref, tol, 0.0), tol, plan
+
+    rows, worst, per = [], 0.0, {}
+    for i, shape in enumerate(K5_SHAPES):
+        config, B, N, C, h, count = shape
+        qkv, bias, h, scale = k5_inputs(shape, 400 + i, device)
+        err, tol, plan = check(f"{config} {(B, N, C, h)}", qkv, bias, h, scale)
         worst = max(worst, err)
-        t_k = spread(cuda_times(lambda: k5.window_attention(qkv, bias, num_heads=h, scale=scale),
-                                runs=25))
+
+        def call():
+            return k5.window_attention(qkv, bias, num_heads=h, scale=scale)
+
+        t_k = spread(cuda_times(call, runs=25))
+        dev = sum(kernel_split(call, calls=25, expect=k5.FWD_KERNELS)[0].values())
         t_p = spread(cuda_times(
             lambda: k5.window_attention_plain(qkv, bias, num_heads=h, scale=scale), runs=10))
-        lib = sdpa_ms(qkv, bias, h, scale)
+        lib, lib_dev = sdpa_ms(qkv, bias, h, scale)
         b_ms, b_by = k5_bound(B, N, C, h)
         rows.append({"config": config, "shape": (B, N, C, h), "launches_per_forward": count,
-                     "max_abs_err": err, "tolerance": tol, "ms": t_k, "plain_ms": t_p,
-                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
-        agg = per.setdefault(config, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                                      "bounds": []})
+                     "max_abs_err": err, "tolerance": tol, "ms": t_k, "device_ms": dev,
+                     "plain_ms": t_p, "library_ms": lib, "library_device_ms": lib_dev,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "gb_per_s": k5_bytes(B, N, C, h) / dev / 1e6, "plan": plan._asdict()})
+        agg = per.setdefault(config, {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                                      "library_ms": 0.0, "library_device_ms": 0.0, "bounds": []})
         agg["ms"] += count * t_k["median"]
+        agg["device_ms"] += count * dev
         agg["plain_ms"] += count * t_p["median"]
-        agg["library_ms"] = None if lib is None or agg["library_ms"] is None \
-            else agg["library_ms"] + count * lib
+        for key, v in (("library_ms", lib), ("library_device_ms", lib_dev)):
+            agg[key] = None if v is None or agg[key] is None else agg[key] + count * v
         agg["bounds"].append((count, (b_ms, b_by)))
         log(f"  window_attention {config} windows {B} N {N} C {C} heads {h}: max|d|={err:.3e} "
-            f"(tol {tol:.3e}); kernel {t_k['median']:.4f} ms, plain "
-            f"{t_p['median']:.4f} ms, sdpa {lib if lib is None else round(lib, 4)} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"(tol {tol:.3e}), bit-identical over two runs; kernel {t_k['median']:.4f} ms "
+            f"(device {dev:.4f}), plain {t_p['median']:.4f} ms, sdpa "
+            f"{lib if lib is None else round(lib, 4)} ms (device "
+            f"{lib_dev if lib_dev is None else round(lib_dev, 4)}), bound {b_ms:.4f} ms "
+            f"({b_by}), {rows[-1]['gb_per_s']:.0f} GB/s by device time, plan {rows[-1]['plan']}")
+    for B, N, h, d in K5_ODD:
+        g = torch.Generator().manual_seed(700 + N * d + h)
+        qkv = torch.randn(B, N, 3 * h * d, generator=g).to(torch.bfloat16).to(device)
+        bias = torch.randn(h, N, N, generator=g).to(device)
+        err, tol, plan = check(f"{(B, N, h, d)}", qkv, bias, h, d**-0.5)
+        rows.append({"shape": (B, N, h * d, h), "max_abs_err": err, "tolerance": tol,
+                     "plan": plan._asdict()})
+        log(f"  window_attention odd {(B, N, h, d)}: max|d|={err:.3e} (tol {tol:.3e}), "
+            f"bit-identical over two runs, plan {plan._asdict()}")
+    # an unaligned strided view of qkv, many windows a block: the element copies
+    g = torch.Generator().manual_seed(8)
+    qkv = torch.randn(512, 53, 3 * 384, generator=g).to(torch.bfloat16).to(device)
+    wide = torch.zeros(512, 53, 3 * 384 + 2, dtype=torch.bfloat16, device=device)
+    wide[..., 1:-1] = qkv
+    bias = torch.randn(8, 53, 53, generator=g).to(device)
+    err, tol, _ = check("unaligned view", wide[..., 1:-1], bias, 8, 48**-0.5)
+    log(f"  window_attention unaligned view (512, 53, 8, 48): max|d|={err:.3e} (tol {tol:.3e}), "
+        "bit-identical over two runs")
     for config, agg in per.items():
         agg["bound_ms"], agg["bound_by"] = add_bounds(agg.pop("bounds"))
         log(f"  window_attention per FasterViT-2 {config} forward at batch {FV_BATCH} (13 "
-            f"launches): kernel {agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, sdpa "
-            f"{agg['library_ms']} ms, bound {agg['bound_ms']:.4f} ms")
+            f"launches): kernel {agg['ms']:.4f} ms (device {agg['device_ms']:.4f}), plain "
+            f"{agg['plain_ms']:.4f} ms, sdpa {agg['library_ms']} ms (device "
+            f"{agg['library_device_ms']}), bound {agg['bound_ms']:.4f} ms")
+        if agg["library_device_ms"] is not None and agg["device_ms"] >= agg["library_device_ms"]:
+            log(f"  window_attention per FasterViT-2 {config} forward: NOT below SDPA's device "
+                "time")
     return {"rows": rows, "max_abs_err": worst, "per_forward": per, **per["official"]}
 
 
@@ -2847,7 +2930,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Drives the PyTorch port on one CUDA card.")
     parser.add_argument("--parent", help="another checkout (say the parent commit, unpacked with "
-                        "git archive) whose K5 backward phase 1 times against this one's")
+                        "git archive) whose K5 forward and backward phase 1 times against this "
+                        "one's")
     args = parser.parse_args()
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)

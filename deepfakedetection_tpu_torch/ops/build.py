@@ -39,7 +39,8 @@ _SIGNATURES = {
     "dfd_expand_dw_silu_pool": [_P] * 8 + [_I] * 8 + [_P],
     "dfd_fused_mbconv_se": [_P] * 18 + [_I] * 9 + [_P],
     "dfd_shear_pass": [_P] * 3 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
-    "dfd_window_attention": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _I, _P],
+    "dfd_window_attention": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_I, _F, _I, _P],
+    "dfd_window_attention_plan": [_I] * 5 + [_P],
     "dfd_window_attention_bwd": [_P] * 5 + [_L, _P] + [_I] * 4 + [_L] * 4 + [_I, _F, _I, _P],
     "dfd_window_attention_bwd_plan": [_I] * 5 + [_P],
 }

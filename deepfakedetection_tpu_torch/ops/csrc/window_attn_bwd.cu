@@ -81,16 +81,13 @@
 
 #include "hopper.cuh"
 #include "window_attn_common.cuh"
+#include "window_attn_pipe.cuh"
 
 namespace {
 
-constexpr int kGroupWarps = 4;                  // warps of the row group and of the column group
-constexpr int kGroup = 32 * kGroupWarps;        // threads of each group
 constexpr int kBwdThreads = 2 * kGroup;
 constexpr int kMaxSlots = 4;                    // the input ring's deepest
 constexpr int kBarrierBytes = 128;              // full[kMaxSlots], pfull[2], pempty[2]
-
-__host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
 
 // Shared memory of a plan: the barriers, `slots` windows' q, k, v and do
 // (bf16, row stride Dp + 8), `buffers` pairs of bf16 p and ds (row stride
@@ -118,71 +115,6 @@ __host__ __device__ inline BwdPlan bwd_plan(int B, int N, int heads, int d, int 
   const int fill = sms / heads;
   p.per_head = fill < 1 ? 1 : (fill < B ? fill : B);
   return p;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-
-// a / b rounded to nearest from inv = 1 / b rounded to nearest: q = a inv
-// corrected by its exact residual a - b q (Markstein's theorem: the result is
-// IEEE division's, for the finite, normal a / b here: a in [0, 1], b >= 1),
-// without the division's range checks and slow path.
-__device__ __forceinline__ float quotient(float a, float b, float inv) {
-  const float q = __fmul_rn(a, inv);
-  return __fmaf_rn(__fmaf_rn(-q, b, a), inv, q);
-}
-
-// One arrival on `bar` when all of this thread's earlier cp.async copies
-// have landed (the barrier's count includes it: .noinc).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// The column group's copy of window b's q, k, v and do rows (head h) into a
-// ring slot (four [Np][ld] tiles), announced on `bar` by all its threads:
-// 16-byte cp.async where vec allows, else element by element.
-__device__ __forceinline__ void load_window(__nv_bfloat16* slot, const View (&src)[4], int b, int h,
-                                            int N, int d, int Np, int ld, bool vec, uint64_t* bar,
-                                            int t) {
-  if (vec) {
-    // the thread's 16-byte chunks (row r, column 8 c) step by kGroup chunks
-    const int chunks = d / 8, dr = kGroup / chunks, dc = kGroup - dr * chunks;
-    const __nv_bfloat16* base[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) base[i] = src[i].p + b * src[i].sb + h * src[i].sh;
-    int r = t / chunks, c = t - r * chunks;
-    for (; r < N; r += dr, c += dc) {
-      if (c >= chunks) {
-        c -= chunks;
-        if (++r >= N) break;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        cp_async16(slot + i * Np * ld + r * ld + 8 * c, base[i] + r * src[i].sr + 8 * c);
-    }
-    cp_async_arrive(bar);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat16* base = src[i].p + b * src[i].sb + h * src[i].sh;
-      __nv_bfloat16* dst = slot + i * Np * ld;
-      for (int e = t; e < N * d; e += kGroup) {
-        const int r = e / d, c = e - r * d;
-        dst[r * ld + c] = base[r * src[i].sr + c];
-      }
-    }
-    mbar_arrive(bar);
-  }
 }
 
 // KT bounds the 16-token tiles (N <= 16 KT), DT the 16-wide d tiles (d <= 16 DT);

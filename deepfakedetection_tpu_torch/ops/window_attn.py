@@ -9,10 +9,10 @@ forward that FasterViT's ``TokenAttention`` takes for N >= 32),
 ``fused_window_attention_v5_bwd`` and ``_headed_window_attention_bwd``, the
 three backwards of ``window_attention_v2``'s custom_vjp. Each group computes
 one function; their differences fit it to the TPU's lanes. The CUDA kernels
-are ``csrc/window_attn.cu`` (forward) and ``csrc/window_attn_bwd.cu``
-(backward, dqkv and dbias summed over windows, deterministically; its launch
-plan is ``bwd_plan``), one launch per call, reading q, k and v through
-strides: ``window_attention`` takes the
+are ``csrc/window_attn.cu`` (forward; its launch plan is ``fwd_plan``) and
+``csrc/window_attn_bwd.cu`` (backward, dqkv and dbias summed over windows,
+deterministically; its launch plan is ``bwd_plan``), one launch per call,
+reading q, k and v through strides: ``window_attention`` takes the
 natural qkv [B, N, 3C] layout (three views of one tensor, no copy),
 ``window_attention_heads`` the v1 layout. Neither pads N: the kernels mask
 their own ragged edge.
@@ -47,9 +47,13 @@ MAX_TOKENS = 128  # N and d the kernels take
 MAX_HEAD_DIM = 128
 MAX_SMEM_BYTES = 232448  # shared memory one H100 block may use
 H100_SMS = 132
+FWD_MAX_GROUPS = 4  # the forward's most warp groups a block
+FWD_MAX_SLOTS = 4  # the forward's deepest ring a group
+_FWD_BARRIER_BYTES = 8 * FWD_MAX_GROUPS * FWD_MAX_SLOTS
 BWD_MAX_SLOTS = 4  # the backward's deepest input ring
 _BWD_BARRIER_BYTES = 128
-# the backward's device kernels, by the names the profiler records
+# the forward's and the backward's device kernels, by the names the profiler records
+FWD_KERNELS = ("window_attention_kernel",)
 BWD_KERNELS = ("window_attention_bwd_kernel", "dbias_reduce_kernel")
 
 
@@ -142,10 +146,73 @@ def _check_sizes(name: str, N: int, d: int) -> None:
         )
 
 
+def fwd_groups(N: int, d: int) -> int:
+    """The forward's warp groups a block (``csrc/window_attn.cu``
+    ``fwd_groups``): four at N <= 64 and head_dim <= 64, else two."""
+    return 4 if N <= 64 and d <= 64 else 2
+
+
+def fwd_smem_bytes(N: int, d: int, slots: int = 1) -> int:
+    """Shared memory of one forward block (``csrc/window_attn.cu``
+    ``fwd_smem_bytes``): each of its ``fwd_groups`` warp groups' ring of
+    ``slots`` windows of q, k and v (one slot by default, the least plan)."""
+    Np, Dp = -(-N // 16) * 16, -(-d // 16) * 16
+    return _FWD_BARRIER_BYTES + fwd_groups(N, d) * slots * 3 * Np * (Dp + 8) * 2
+
+
+class FwdPlan(NamedTuple):
+    """The forward's launch plan (``csrc/window_attn.cu`` ``fwd_plan``)."""
+
+    per_head: int  # blocks a head, each owning a contiguous range of its windows
+    groups: int  # warp groups a block
+    slots: int  # windows in each warp group's ring
+    smem: int  # bytes of dynamic shared memory a block
+
+    def blocks(self, heads: int) -> int:
+        return heads * self.per_head
+
+    def windows(self, B: int, part: int, group: int) -> range:
+        """The windows a head's block ``part`` gives its warp group ``group``,
+        in the order the group computes them (every ``groups``-th window of
+        the block's contiguous range)."""
+        first, end = part * B // self.per_head, (part + 1) * B // self.per_head
+        return range(first + group, end, self.groups)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(B: int, N: int, heads: int, d: int, sms: int = H100_SMS) -> FwdPlan | None:
+    """The forward's plan on a card of ``sms`` SMs, as ``fwd_plan`` in
+    ``csrc/window_attn.cu`` (which ``kernel_fwd_plan`` reads back on the
+    card), or None when none fits a block's shared memory: ``fwd_groups``
+    warp groups, each with the deepest ring of up to ``FWD_MAX_SLOTS``
+    windows that fits; as many blocks a head as the SMs hold for all the
+    heads, at most one a window."""
+    for slots in range(FWD_MAX_SLOTS, 0, -1):
+        smem = fwd_smem_bytes(N, d, slots)
+        if smem <= MAX_SMEM_BYTES:
+            return FwdPlan(max(1, min(B, sms // heads)), fwd_groups(N, d), slots, smem)
+    return None
+
+
+def kernel_fwd_plan(B: int, N: int, heads: int, d: int, sms: int) -> FwdPlan | None:
+    """The plan the built kernel computes for the shape (card only), to hold
+    ``fwd_plan`` to it."""
+    plan = (ctypes.c_int * 4)()
+    if build.library().dfd_window_attention_plan(B, N, heads, d, sms, plan) != 0:
+        return None
+    return FwdPlan(*plan)
+
+
 def _launch(name, q, k, v, bias, out, strides, B: int, N: int, heads: int, d: int,
             scale: float) -> None:
     """One kernel launch. ``strides`` holds the (batch, row, head) strides of
-    q, k, v and out, in elements."""
+    q, k, v and out, in elements. Raises when no plan fits (``fwd_plan``)."""
+    sms = sm_count(q.device)
+    if fwd_plan(B, N, heads, d, sms) is None:
+        raise ValueError(
+            f"{name}: N={N}, head_dim={d} needs {fwd_smem_bytes(N, d)} bytes of shared memory "
+            f"a block, more than the {MAX_SMEM_BYTES} an H100 block has"
+        )
     flat = [s for st in strides for s in st]
     vec = int(d % 8 == 0 and all(s % 8 == 0 for s in flat)
               and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
@@ -154,7 +221,7 @@ def _launch(name, q, k, v, bias, out, strides, B: int, N: int, heads: int, d: in
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dfd_window_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B, N, heads, d, *flat, float(scale), vec, stream,
+            B, N, heads, d, *flat, sms, float(scale), vec, stream,
         )
     build.check(rc, name)
 

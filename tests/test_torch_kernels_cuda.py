@@ -8,10 +8,12 @@ and a zero angle: one bf16 step per pass on images in [0, 1] (3 * 2**-8),
 and at most one element in a thousand different at all (both sides round
 the same f32 operations). K5 (window attention) at the four FasterViT-2
 shapes of the eval path (64 windows each), at ragged and small token counts,
-head_dims off the 16-byte loads, a strided view that takes the kernel's
-one-element path, and the v1 [B, h, N, d] layout: within two bf16 steps of the
-output's scale (both sides round the probabilities and the output once, from
-f32 sums taken in different orders). K5's backward at the same shapes: dq, dk
+head_dims off the 16-byte loads, many windows a block in every pipeline its
+launch plan picks, a strided view that takes the kernel's one-element path,
+and the v1 [B, h, N, d] layout: within two bf16 steps of the output's scale
+(both sides round the probabilities and the output once, from f32 sums taken
+in different orders), bit-identical over two runs, its plan the built
+library's. K5's backward at the same shapes: dq, dk
 and dv within two bf16 steps of each one's scale, dbias within 1e-3 of its
 scale (f32 on both sides, summed over the windows in other orders), and
 bit-identical dbias and dqkv over two runs; the autograd Function launches
@@ -76,6 +78,12 @@ K5_CASES = [
     (64, 53, 3, 128), (64, 49, 6, 128),  # the tpu configuration
     (8, 16, 8, 48), (8, 1, 2, 16), (8, 100, 2, 64), (8, 128, 1, 128), (8, 53, 8, 8),
     (8, 37, 3, 100), (8, 20, 2, 4),
+    # many windows a block in every pipeline the forward's plan picks: warps
+    # without a query tile (N <= 48), two tiles a warp (N > 64), the
+    # element-by-element copies, two and four warp groups, rings of 4, 3, 2
+    # and 1 slots a group
+    (512, 37, 3, 100), (512, 16, 8, 48), (1024, 33, 4, 64), (2048, 20, 2, 4), (512, 80, 2, 16),
+    (512, 100, 4, 64), (1024, 128, 2, 32), (192, 128, 8, 128),
 ]
 
 
@@ -163,20 +171,27 @@ def _k5_close(got, ref):
 @pytest.mark.parametrize("B,N,h,d", K5_CASES)
 def test_window_attention_kernel_matches_plain(cuda, B, N, h, d):
     qkv, bias = _k5_inputs(B, N, h, d, cuda, seed=N * d + h)
+    sms = k5.sm_count(qkv.device)
+    assert k5.kernel_fwd_plan(B, N, h, d, sms) == k5.fwd_plan(B, N, h, d, sms)
     before = k5.window_attention.launches
     out = k5.window_attention(qkv, bias, num_heads=h, scale=d**-0.5)
+    again = k5.window_attention(qkv, bias, num_heads=h, scale=d**-0.5)
     torch.cuda.synchronize()
-    assert k5.window_attention.launches == before + 1
+    assert k5.window_attention.launches == before + 2
+    assert torch.equal(again, out)  # no race between the ring's slots
     _k5_close(out, k5.window_attention_plain(qkv, bias, num_heads=h, scale=d**-0.5))
 
 
 @pytest.mark.cuda
-def test_window_attention_kernel_takes_an_unaligned_view(cuda):
-    qkv, bias = _k5_inputs(16, 53, 8, 48, cuda, seed=5)
-    wide = torch.zeros(16, 53, qkv.shape[-1] + 2, dtype=torch.bfloat16, device=cuda)
+@pytest.mark.parametrize("B", [16, 512])
+def test_window_attention_kernel_takes_an_unaligned_view(cuda, B):
+    qkv, bias = _k5_inputs(B, 53, 8, 48, cuda, seed=5)
+    wide = torch.zeros(B, 53, qkv.shape[-1] + 2, dtype=torch.bfloat16, device=cuda)
     wide[..., 1:-1] = qkv
     out = k5.window_attention(wide[..., 1:-1], bias, num_heads=8, scale=48**-0.5)
+    again = k5.window_attention(wide[..., 1:-1], bias, num_heads=8, scale=48**-0.5)
     torch.cuda.synchronize()
+    assert torch.equal(again, out)
     _k5_close(out, k5.window_attention_plain(qkv, bias, num_heads=8, scale=48**-0.5))
 
 
