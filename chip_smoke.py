@@ -98,11 +98,12 @@ with its times, its plain version's,
 the port's unfused path's (Linear, K5, Linear) and
 ``torch.nn.functional.multi_head_attention_forward``'s in bf16 (a yardstick
 the port never calls), and K3 (the whole MBConv+SE block) at B3's six K3
-shapes (batch 8) and odd sizes within two bf16 steps of the output's scale,
-bit-identical run to run and through an MBConv block built with the switch,
-with its time, its plain version's and the unfused route's (K2, SE, project
-ConvBN, residual add) at batch 128 (no PyTorch call computes the block: its
-library time is none). Each kernel's bound is the larger of its bytes over the
+shapes (batch 8) and odd sizes (every projection plan), within two bf16
+steps of the output's scale, bit-identical run to run and through an MBConv
+block built with the switch (a warm forward launches no packing kernel), the
+plan the built kernel's, with its event and device time, its plain version's
+and the unfused route's (K2, SE, project ConvBN, residual add) at batch 128
+(no PyTorch call computes the block: its library time is none). Each kernel's bound is the larger of its bytes over the
 HBM rate and its operations over the card's peak rate for their type
 (``bound``).
 
@@ -115,7 +116,8 @@ a call once more when it records no device time or lacks a kernel the port's
 wrapper launches, and raises if the second take does too.
 Run with no arguments it does all of the above; ``--parent DIR`` only adds
 phase 1's comparison with another checkout's K5 forward and backward, in
-turns at the four eval and the four fine-tune shapes (``k5_parent``).
+turns at the four eval and the four fine-tune shapes (``k5_parent``), and
+with its K3 at B3's six K3 shapes (``k3_parent``).
 """
 
 from __future__ import annotations
@@ -242,13 +244,18 @@ K6_LAUNCHES = 21  # per FasterViT-2 forward with DFD_FUSED_ATTN: 8 + 8 + 5
 K6_BWD_KERNELS = ("window_bwd_kernel", "sum_partials_kernel")
 FV_FUSED_SPLITS = {"train": 256, "val": 64, "test": 64}  # phase 8's training tree
 # K3 (the whole MBConv+SE block, DFD_FUSED_MBCONV) at B3 @ 224's residual
-# blocks with an expansion: (H, W, C, k, blocks), Cmid 6C, Cse C // 4; then odd
-# sizes (H, W, C, k): H off the tiles, one map of 1 x 1, Cse 1, C 22 (Cmid 132)
-# and C 13 (Cmid 78) off the 16-byte loads and 4-byte pairs (the kernels'
+# blocks with an expansion: (H, W, C, k, blocks), Cmid 6C, Cse C // 4 (their
+# projection plans: wgmma BN 32, 48, 128, 144, 128 x 2 and 192 x 2); then odd
+# sizes (H, W, C, k) at batch 8 that with them cover every projection plan
+# (BN 64 at C 64, 192 x 1 at C 192, 128 x 2 at C 200, the mma.sync kernel
+# where Cmid % 8 != 0: C 22 and 13): H off the tiles, fewer rows than a tile
+# (a 1 x 1 map), Cmid under one 64-channel stage (C 4), Cse 1, and C 4, 13,
+# 20 and 22 off the 16-byte loads and 4-byte pairs (the kernels'
 # one-element paths)
 K3_SHAPES = [(56, 56, 32, 3, 2), (28, 28, 48, 5, 2), (14, 14, 96, 3, 4), (14, 14, 136, 5, 4),
              (7, 7, 232, 5, 5), (7, 7, 384, 3, 1)]
-K3_ODD = [(10, 12, 24, 5), (1, 1, 16, 5), (6, 6, 4, 3), (9, 11, 22, 3), (5, 7, 13, 5)]
+K3_ODD = [(10, 12, 24, 5), (1, 1, 16, 5), (6, 6, 4, 3), (9, 11, 22, 3), (5, 7, 13, 5),
+          (13, 16, 64, 3), (9, 10, 192, 3), (7, 9, 200, 5), (30, 30, 20, 5)]
 K3_LAUNCHES = {"k1": 2, "k2": 2, "k3": 18}  # per B3 forward with DFD_FUSED_MBCONV
 # the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes/s, dense
 # tensor-core bf16 and non-tensor f32 operations/s
@@ -427,6 +434,7 @@ def phase1(device, report, parent: str | None = None):
     kernels["attn4d"] = phase1_k7(device)
     kernels["attn_subblock"], kernels["attn_subblock_bwd"] = phase1_k6(device)
     kernels["fused_mbconv_se"] = phase1_k3(device)
+    kernels["fused_mbconv_se"]["parent"] = k3_parent(parent)
     report["phase1"] = kernels
     return kernels
 
@@ -976,18 +984,27 @@ def k3_block(args, k: int, on: bool, device):
 
 
 def phase1_k3(device) -> dict:
-    """K3 against its plain version at B3's six K3 shapes (batch 8) and odd
-    sizes, within two bf16 steps of the output's scale, bit-identical over
-    two runs; an MBConv block built with the switch gives the wrapper's
-    output bit for bit. At batch 128: kernel, plain and unfused-route times
-    per shape (the route the block takes without the switch, on the same
-    weights) and the bound. No single PyTorch call computes the block
-    (library: none)."""
+    """K3 against its plain version at B3's six K3 shapes and ``K3_ODD``
+    (batch 8), within two bf16 steps of the output's scale, bit-identical
+    over two runs and through an MBConv block built with the switch (whose
+    cached weights are packed once: a warm forward launches no packing
+    kernel), the projection's plan equal to the built kernel's. At batch
+    128, on weights packed once (as MBConv runs it): CUDA-event and device times (the
+    kernels ``plan.kernels()`` names, ``kernel_split``), the packing kernel's
+    device time a call, the plain version's and the unfused route's times
+    (the route the block takes without the switch, on the same weights), the
+    bound and x off (device time over the bound). No single PyTorch call
+    computes the block (library: none)."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import fused_mbconv as k3
 
     def check(label, args, k):
+        B, H, W, C = args[0].shape
+        Cmid = args[1].shape[1]
+        want = k3.choose_plan(C, Cmid)
+        if want != k3.kernel_plan(C, Cmid):
+            raise AssertionError(f"fused_mbconv_se {label}: plan {want} is not the kernel's")
         before = k3.fused_mbconv_se.launches
         out = k3.fused_mbconv_se(*args, kernel=k)
         again = k3.fused_mbconv_se(*args, kernel=k)
@@ -998,47 +1015,102 @@ def phase1_k3(device) -> dict:
             raise AssertionError(f"fused_mbconv_se {label}: two runs differ")
         ref = k3.fused_mbconv_se_plain(*args, kernel=k)
         tol = two_steps(ref)
-        return check_close(f"fused_mbconv_se {label}", out, ref, tol, 0.0), tol, out
+        err = check_close(f"fused_mbconv_se {label}", out, ref, tol, 0.0)
+        block = k3_block(args[1:], k, True, device)
+        with torch.no_grad():
+            by_block = block(args[0].permute(0, 3, 1, 2))
+        if not torch.equal(by_block.permute(0, 2, 3, 1), out):
+            raise AssertionError(f"MBConv with DFD_FUSED_MBCONV {label}: not the wrapper's output")
+        plan = k3.plan(B, H, W, C, Cmid, k, k3.k2.sm_count(device))
+        return err, tol, plan, block
 
-    rows, worst, agg = [], 0.0, {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "bounds": []}
+    rows, worst = [], 0.0
+    agg = {"ms": 0.0, "device_ms": 0.0, "pack_device_ms": 0.0, "plain_ms": 0.0,
+           "unfused_ms": 0.0, "unfused_device_ms": 0.0, "bounds": []}
     for i, (H, W, C, k, count) in enumerate(K3_SHAPES):
         args = k3_inputs(8, H, W, C, k, seed=300 + i, device=device)
-        err, tol, out = check(f"{(H, W, C, k)}", args, k)
+        err, tol, plan, block = check(f"{(H, W, C, k)}", args, k)
         worst = max(worst, err)
+        x_nchw = args[0].permute(0, 3, 1, 2)
         with torch.no_grad():
-            by_block = k3_block(args[1:], k, True, device)(args[0].permute(0, 3, 1, 2))
-        if not torch.equal(by_block.permute(0, 2, 3, 1), out):
-            raise AssertionError(f"MBConv with DFD_FUSED_MBCONV {(H, W, C, k)}: not the "
-                                 "wrapper's output")
+            warm, _ = kernel_split(lambda: block(x_nchw), calls=5, expect=plan.kernels())
+        if any("pack" in name for name in warm):
+            raise AssertionError(f"MBConv with DFD_FUSED_MBCONV {(H, W, C, k)}: a warm forward "
+                                 f"launched a packing kernel ({sorted(warm)})")
         big = k3_inputs(128, H, W, C, k, seed=310 + i, device=device)
+        packed = k3.pack(big[1], big[7], big[9])
         unfused, x_nchw = k3_block(big[1:], k, False, device), big[0].permute(0, 3, 1, 2)
         with torch.no_grad():
-            t_k = spread(cuda_times(lambda: k3.fused_mbconv_se(*big, kernel=k), runs=25))
+            t_k = spread(cuda_times(lambda: k3.fused_mbconv_se(*big, kernel=k, packed=packed),
+                                    runs=25))
+            dev_k = launch_ms(lambda: k3.fused_mbconv_se(*big, kernel=k, packed=packed),
+                              plan.kernels(), calls=25)
+            dev_pack = launch_ms(lambda: k3.pack(big[1], big[7], big[9]), ("pack_kernel",))
             t_p = spread(cuda_times(lambda: k3.fused_mbconv_se_plain(*big, kernel=k), runs=10))
             t_u = spread(cuda_times(lambda: unfused(x_nchw), runs=25))
+            dev_u = sum(kernel_split(lambda: unfused(x_nchw), calls=25)[0].values())
         b_ms, b_by = k3_bound(128, H, W, C, k)
-        rows.append({"shape": (H, W, C, k), "blocks_in_b3": count, "max_abs_err": err,
-                     "tolerance": tol, "ms": t_k, "plain_ms": t_p, "unfused_ms": t_u,
-                     "bound_ms": b_ms, "bound_by": b_by})
+        rows.append({"shape": (H, W, C, k), "blocks_in_b3": count, "plan": plan.describe(),
+                     "max_abs_err": err, "tolerance": tol, "ms": t_k, "device_ms": dev_k,
+                     "pack_device_ms": dev_pack, "plain_ms": t_p, "unfused_ms": t_u,
+                     "unfused_device_ms": dev_u, "bound_ms": b_ms, "bound_by": b_by,
+                     "x_off": dev_k / b_ms})
         agg["ms"] += count * t_k["median"]
+        agg["device_ms"] += count * dev_k
+        agg["pack_device_ms"] += count * dev_pack
         agg["plain_ms"] += count * t_p["median"]
         agg["unfused_ms"] += count * t_u["median"]
+        agg["unfused_device_ms"] += count * dev_u
         agg["bounds"].append((count, (b_ms, b_by)))
-        log(f"  fused_mbconv_se {(H, W, C, k)}: max|d|={err:.3e} (tol {tol:.3e}), bit-identical "
-            f"over two runs and through the MBConv block; batch 128: kernel "
-            f"{t_k['median']:.4f} ms (q1 {t_k['q1']:.4f}, q3 {t_k['q3']:.4f}), plain "
-            f"{t_p['median']:.4f} ms, unfused route {t_u['median']:.4f} ms (q1 {t_u['q1']:.4f}, "
-            f"q3 {t_u['q3']:.4f}), bound {b_ms:.4f} ms ({b_by})")
+        log(f"  fused_mbconv_se {(H, W, C, k)} [{plan.describe()}]: max|d|={err:.3e} (tol "
+            f"{tol:.3e}), bit-identical over two runs and through the MBConv block (no packing "
+            f"kernel in its forward); batch 128: kernel {t_k['median']:.4f} ms (q1 "
+            f"{t_k['q1']:.4f}, q3 {t_k['q3']:.4f}), device {dev_k:.4f} ms (packing once "
+            f"{dev_pack:.4f}), plain {t_p['median']:.4f} ms, unfused route {t_u['median']:.4f} ms "
+            f"(device {dev_u:.4f}), bound {b_ms:.4f} ms ({b_by}), {dev_k / b_ms:.1f}x off")
+        if dev_k >= dev_u:
+            log(f"  fused_mbconv_se {(H, W, C, k)}: NOT faster than the unfused route by device "
+                "time")
     for i, (H, W, C, k) in enumerate(K3_ODD):
-        err, tol, _ = check(f"{(H, W, C, k)}", k3_inputs(8, H, W, C, k, 320 + i, device), k)
-        rows.append({"shape": (H, W, C, k), "max_abs_err": err, "tolerance": tol})
-        log(f"  fused_mbconv_se odd {(H, W, C, k)}: max|d|={err:.3e} (tol {tol:.3e})")
+        err, tol, plan, _ = check(f"{(H, W, C, k)}", k3_inputs(8, H, W, C, k, 320 + i, device), k)
+        rows.append({"shape": (H, W, C, k), "plan": plan.describe(), "max_abs_err": err,
+                     "tolerance": tol})
+        log(f"  fused_mbconv_se odd {(H, W, C, k)} [{plan.describe()}]: max|d|={err:.3e} (tol "
+            f"{tol:.3e}), bit-identical over two runs and through the MBConv block")
     bound_ms, bound_by = add_bounds(agg.pop("bounds"))
-    log(f"  fused_mbconv_se per B3 forward at batch 128 (18 launches): kernel {agg['ms']:.4f} ms, "
-        f"plain {agg['plain_ms']:.4f} ms, unfused route {agg['unfused_ms']:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by})")
+    log(f"  fused_mbconv_se per B3 forward at batch 128 (18 launches): kernel {agg['ms']:.4f} ms "
+        f"(device {agg['device_ms']:.4f}; packing every call would add {agg['pack_device_ms']:.4f}"
+        f"), plain {agg['plain_ms']:.4f} ms, unfused route {agg['unfused_ms']:.4f} ms (device "
+        f"{agg['unfused_device_ms']:.4f}), bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{agg['device_ms'] / bound_ms:.1f}x off")
     return {"rows": rows, "max_abs_err": worst, **agg, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+def k3_parent(parent: str | None) -> dict | None:
+    """K3 of the checkout in ``parent`` against this one
+    (``profile_k3.compare``): at the six B3 shapes both times in turns,
+    event and device, with each kernel's share, and the sums per B3 forward
+    (18 launches at batch 128); at every shape and ``K3_ODD`` whether the
+    outputs are bit-identical. None without ``parent``."""
+    if parent is None:
+        log("  fused_mbconv_se: the parent's kernel not measured (no --parent)")
+        return None
+    from deepfakedetection_tpu_torch import profile_k3
+
+    rows = profile_k3.compare(parent)
+    sums = {key: 0.0 for key in ("this_ms", "other_ms", "this_device_ms", "other_device_ms")}
+    for r, shape in zip(rows, K3_SHAPES):
+        for key in sums:
+            sums[key] += shape[4] * r[key]
+        if r["this_device_ms"] >= r["other_device_ms"]:
+            log(f"  fused_mbconv_se {shape[:4]}: NOT faster than the parent's by device time "
+                f"({r['this_device_ms']:.4f} against {r['other_device_ms']:.4f} ms)")
+    log(f"  fused_mbconv_se per B3 forward at batch 128 (18 launches), in turns with {parent}'s: "
+        f"this {sums['this_ms']:.4f} ms (device {sums['this_device_ms']:.4f}), the parent's "
+        f"{sums['other_ms']:.4f} ms (device {sums['other_device_ms']:.4f}); device ratio "
+        f"{sums['this_device_ms'] / sums['other_device_ms']:.3f}")
+    return {"tree": parent, "rows": rows, "per_forward": sums}
 
 
 def k6_inputs(B, N, C, h, seed, device):
@@ -1372,6 +1444,32 @@ def kernel_split(fn, calls: int = 10, expect=(), take=profile_records, pause: fl
         torch.cuda.synchronize()
         time.sleep(pause)
     return split_records(take(fn, 3 * calls), 3 * calls, expect)
+
+
+def launch_ms(fn, kernels, calls: int = 10) -> float:
+    """Device ms a call of ``fn``, which launches each of ``kernels`` (names as
+    ``split_records`` keys them) once: the sum of each kernel's mean duration
+    a record. A take that lost some kernels' records (short takes on the card
+    sometimes do) leaves the means unbiased where ``kernel_split``'s per-call
+    sums fall short; a take without one of them is taken once more, then
+    raises."""
+    for attempt in range(2):
+        records = profile_records(fn, calls if attempt == 0 else 3 * calls)
+        total, count = {}, {}
+        for key, n, device_us in records:
+            if device_us > 0:
+                name = (re.findall(r"\w+_kernel", key) or [key])[0]
+                total[name] = total.get(name, 0.0) + device_us / 1e3
+                count[name] = count.get(name, 0) + n
+        if all(count.get(name) for name in kernels):
+            return sum(total[name] / count[name] for name in kernels)
+        log(f"  launch_ms: {sorted(set(kernels) - set(count))} absent from {sorted(count)}; "
+            "profiling once more")
+        import torch
+
+        torch.cuda.synchronize()
+        time.sleep(1.0)
+    raise DeviceTimeMissing(f"expected kernels {list(kernels)} absent")
 
 
 def phase1_k4(device) -> dict:
@@ -2930,8 +3028,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Drives the PyTorch port on one CUDA card.")
     parser.add_argument("--parent", help="another checkout (say the parent commit, unpacked with "
-                        "git archive) whose K5 forward and backward phase 1 times against this "
-                        "one's")
+                        "git archive) whose K5 forward and backward and K3 phase 1 times against "
+                        "this one's")
     args = parser.parse_args()
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)

@@ -26,7 +26,8 @@ computes.
 With ``DFD_FUSED_MBCONV`` set when the model is built (``runtime/flags``), a
 bf16 eval block that K2 would serve and that has a residual (in == out) runs
 whole through K3 (``ops/fused_mbconv.py``): expand, depthwise, SE, gate,
-project, bias and residual, on the BN-folded weights. The JAX package has no
+project, bias and residual, on the BN-folded weights, packed into the
+kernels' layouts once per set of parameters. The JAX package has no
 model route to its K3; under the switch the SE runs in f32 with
 bf16-rounded weights (bf16 on the unfused path), the gate product is rounded
 to bf16, and project, bias and residual are rounded once.
@@ -52,7 +53,7 @@ from deepfakedetection_tpu_torch.models.common import (
     symmetric_pad,
 )
 from deepfakedetection_tpu_torch.ops.expand_dw import expand_dw_silu_pool
-from deepfakedetection_tpu_torch.ops.fused_mbconv import fused_mbconv_se
+from deepfakedetection_tpu_torch.ops.fused_mbconv import fused_mbconv_se, pack
 from deepfakedetection_tpu_torch.runtime.flags import fused_mbconv
 
 # (expand_ratio, channels, repeats, stride, kernel) - base (B0) stages
@@ -139,6 +140,7 @@ class MBConv(nn.Module):
         self.drop_path = DropPath(a.drop_rate)
         self.whole_block = fused_mbconv()  # DFD_FUSED_MBCONV, read at build
         self._k3_operands = Derived(self._gather_k3_operands)
+        self._k3_packed = Derived(self._pack_k3_operands)
 
     def fused(self) -> str | None:
         """Which kernel serves this block at eval: "k3", "k2", "k1" or None."""
@@ -175,13 +177,21 @@ class MBConv(nn.Module):
             w_proj.view(mid, w_proj.shape[3]), b_proj,
         )
 
+    def _pack_k3_operands(self):
+        """K3's weights in its kernels' layouts (``ops/fused_mbconv.pack``),
+        packed on the card once per set of parameters; None on the CPU."""
+        ops = self._k3_operands.get(self._k3_tensors())
+        return pack(ops[0], ops[6], ops[8]) if ops[0].is_cuda else None
+
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         served = self.fused()
         if served == "k3":  # drop path is the identity at eval
+            tensors = self._k3_tensors()
             y = fused_mbconv_se(
                 x.to(self.dtype).permute(0, 2, 3, 1),
-                *self._k3_operands.get(self._k3_tensors()),
+                *self._k3_operands.get(tensors),
                 kernel=self.args.kernel,
+                packed=self._k3_packed.get(tensors),
             )
             return y.permute(0, 3, 1, 2)
         shortcut = x

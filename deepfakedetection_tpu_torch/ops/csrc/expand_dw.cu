@@ -481,10 +481,12 @@ cudaError_t dfd::launch_expand_dw_silu_pool(const void* x, const void* wexp, con
   const Plan pl = make_plan(B, H, W, Cin, Ce, k, CB, RB, sms);
   if (pl.smem > dfd::kMaxSmemBytes) return cudaErrorInvalidValue;
   const int rows = cdiv(Cin, 16) * 8, Cep = cdiv(Ce, 64) * 64;
-  pack_wexp_kernel<<<cdiv(rows * Cep, 256), 256, 0, s>>>(
-      static_cast<const float*>(wexp), static_cast<uint32_t*>(wpack), Cin, Ce, rows, Cep);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (wexp != nullptr) {  // null: wpack already holds the packed weights
+    pack_wexp_kernel<<<cdiv(rows * Cep, 256), 256, 0, s>>>(
+        static_cast<const float*>(wexp), static_cast<uint32_t*>(wpack), Cin, Ce, rows, Cep);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   Params prm;
   prm.x = static_cast<const __nv_bfloat16*>(x);
   prm.wpack = static_cast<const uint32_t*>(wpack);

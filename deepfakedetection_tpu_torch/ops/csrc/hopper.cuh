@@ -202,7 +202,7 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // d[0, 16) += A . B, m64n32k16: A and B K-major in shared memory
 // (descriptors a and b).
-__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -212,12 +212,12 @@ __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b) {
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d[0, 24) += A . B, m64n48k16: A and B K-major in shared memory
 // (descriptors a and b).
-__device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t a, uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
@@ -228,12 +228,12 @@ __device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t a, uint64_t b) {
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d[0, 32) += A . B, m64n64k16: A and B K-major in shared memory
 // (descriptors a and b).
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -246,14 +246,14 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b) {
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d[0, 64) += A . B, m64n128k16: A and B in shared memory (descriptors a
 // and b), each K-major, or MN-major where TA / TB is 1 (the transpose
 // immediates).
 template <int TA = 0, int TB = 0>
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -273,12 +273,12 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b) 
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // d[0, 72) += A . B, m64n144k16: A and B K-major in shared memory
 // (descriptors a and b).
-__device__ __forceinline__ void wgmma_ss_n144(float* d, uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_ss_n144(float* d, uint64_t a, uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 "
@@ -299,12 +299,12 @@ __device__ __forceinline__ void wgmma_ss_n144(float* d, uint64_t a, uint64_t b) 
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
         "+f"(d[70]), "+f"(d[71])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d[0, 96) += A . B, m64n192k16: A and B K-major in shared memory
 // (descriptors a and b).
-__device__ __forceinline__ void wgmma_ss_n192(float* d, uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_ss_n192(float* d, uint64_t a, uint64_t b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
@@ -330,7 +330,7 @@ __device__ __forceinline__ void wgmma_ss_n192(float* d, uint64_t a, uint64_t b) 
         "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
         "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // setmaxnreg: the calling warpgroup's registers a thread raised or lowered to
@@ -347,21 +347,24 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // One m64nNTk16 product (A and B K-major in shared memory): a single wgmma
 // instruction a kernel instance, so that consecutive products on the
-// accumulator stay in flight together.
+// accumulator stay in flight together. Every product here takes scale_d:
+// 0 writes A . B over the accumulator without reading it (a first product
+// needs no zeroed registers), 1 (the default) adds to it.
 template <int NT>
-__device__ __forceinline__ void wgmma_ss(float (&acc)[NT / 2], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_ss(float (&acc)[NT / 2], uint64_t a, uint64_t b,
+                                         int scale_d = 1) {
   if constexpr (NT == 192)
-    wgmma_ss_n192(acc, a, b);
+    wgmma_ss_n192(acc, a, b, scale_d);
   else if constexpr (NT == 144)
-    wgmma_ss_n144(acc, a, b);
+    wgmma_ss_n144(acc, a, b, scale_d);
   else if constexpr (NT == 128)
-    wgmma_ss_n128(acc, a, b);
+    wgmma_ss_n128(acc, a, b, scale_d);
   else if constexpr (NT == 64)
-    wgmma_ss_n64(acc, a, b);
+    wgmma_ss_n64(acc, a, b, scale_d);
   else if constexpr (NT == 48)
-    wgmma_ss_n48(acc, a, b);
+    wgmma_ss_n48(acc, a, b, scale_d);
   else
-    wgmma_ss_n32(acc, a, b);
+    wgmma_ss_n32(acc, a, b, scale_d);
 }
 
 }  // namespace

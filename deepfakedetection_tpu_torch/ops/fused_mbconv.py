@@ -3,26 +3,139 @@
 Port of ``deepfakedetection_tpu/ops/pallas/fused_mbconv.py``
 (``fused_mbconv_se``): expand 1x1 + SiLU -> depthwise k x k + SiLU -> SE
 (pool, FC + SiLU, FC + sigmoid) -> gate -> project 1x1 + bias + residual, on
-BN-folded weights. The CUDA kernels are ``csrc/fused_mbconv.cu``;
-``fused_mbconv_se_plain`` is the same contract in plain PyTorch, with the
-Pallas kernel's rounding points, which the wrapper runs for CPU tensors and
-the tests and ``chip_smoke.py`` hold the kernels against. Layout is NHWC, as
-in the JAX package, and the weights come in the JAX wrapper's layout.
+BN-folded weights. The CUDA kernels are ``csrc/fused_mbconv.cu``: K2's kernel
+writes the depthwise map and its pool, two SE kernels compute the gate, and
+the gated projection runs on wgmma, fed by TMA. ``plan`` mirrors the
+kernels' launch plan (K2's and ``choose_plan`` in the ``.cu``); ``pack``
+packs the weights into the layouts the kernels take, once per model in
+``MBConv``. ``fused_mbconv_se_plain`` is the same contract in plain PyTorch,
+with the Pallas kernel's rounding points, which the wrapper runs for CPU
+tensors and the tests and ``chip_smoke.py`` hold the kernels against. Layout
+is NHWC, as in the JAX package, and the weights come in the JAX wrapper's
+layout.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from deepfakedetection_tpu_torch.ops import build
-from deepfakedetection_tpu_torch.ops.depthwise_se import MAX_SMEM_BYTES
-from deepfakedetection_tpu_torch.ops.expand_dw import (
-    expand_dw_silu_pool_plain,
-    plan,
-    sm_count,
-    wpack_words,
-)
+from deepfakedetection_tpu_torch.ops import expand_dw as k2
+from deepfakedetection_tpu_torch.ops.expand_dw import expand_dw_silu_pool_plain
+
+# Mirrors the constants of csrc/fused_mbconv.cu (and hopper.cuh's kAlign).
+PROJ_ROWS = 128  # output rows a projection block
+PROJ_STAGES = 3  # the TMA ring's depth
+PROJ_WIDTHS = (32, 48, 64, 128, 144, 192)  # BN: one wgmma's N
+MMA_COLS = 64  # the mma.sync projection's output columns a block
+K_TILE = 64  # Cmid channels a ring stage (128-byte rows)
+SMS = k2.SMS
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def proj_smem(BN: int) -> int:
+    """``proj_smem``: a wgmma projection block's shared memory in bytes, the
+    1024-byte alignment slack, three stages of 128 map rows and BN w_proj^T
+    rows of 128 bytes, and the ring's barriers."""
+    return 1024 + PROJ_STAGES * (PROJ_ROWS + BN) * 2 * K_TILE + 2 * PROJ_STAGES * 8
+
+
+def choose_plan(C: int, Cmid: int) -> tuple:
+    """``choose_plan`` in csrc/fused_mbconv.cu: (projection, BN, column
+    tiles, shared bytes). wgmma where Cmid % 8 == 0 (TMA's 16-byte rows), the
+    BN of PROJ_WIDTHS that wastes the fewest columns counting 32 more for
+    each column tile, the narrower on a tie; else the mma.sync kernel (64
+    columns a block)."""
+    if Cmid % 8:
+        return "mma", MMA_COLS, _cdiv(C, MMA_COLS), 0
+    best = PROJ_WIDTHS[0]
+    for w in PROJ_WIDTHS:
+        if _cdiv(C, w) * (w + 32) < _cdiv(C, best) * (best + 32):
+            best = w
+    return "wgmma", best, _cdiv(C, best), proj_smem(best)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """K3's launch plan: K2's (``k2``), then the projection's: ``proj``
+    "wgmma" or "mma", BN output columns a block, ``tiles`` column tiles and
+    ``smem_bytes`` a wgmma block."""
+
+    k2: k2.Plan
+    proj: str
+    BN: int
+    tiles: int
+    smem_bytes: int
+
+    def describe(self) -> str:
+        return (f"K2 CB {self.k2.CB}, RB {self.k2.RB}; {self.proj} projection BN {self.BN} x "
+                f"{self.tiles}")
+
+    def kernels(self) -> tuple[str, ...]:
+        """The device kernels a launch runs, by the names the profiler
+        records (weights packed beforehand)."""
+        proj = "gated_proj_kernel" if self.proj == "wgmma" else "gated_proj_mma_kernel"
+        return ("expand_dw_kernel", "se_reduce_kernel", "se_expand_kernel", proj)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, H: int, W: int, C: int, Cmid: int, k: int, sms: int = SMS) -> Plan:
+    """The launch plan at batch B on a card of ``sms`` SMs (cached: the
+    model's forward asks for it every call); raises when K2 has none."""
+    p2 = k2.plan(H, W, C, Cmid, k, B, sms)
+    if p2 is None:
+        raise ValueError(f"fused_mbconv_se: no launch plan fits {k2.MAX_SMEM_BYTES} B at "
+                         f"{(B, H, W, C)} -> {Cmid}, k {k}")
+    return Plan(p2, *choose_plan(C, Cmid))
+
+
+def kernel_plan(C: int, Cmid: int) -> tuple | None:
+    """``choose_plan`` as the built library computes it (card only), to hold
+    the mirror to it."""
+    out = (ctypes.c_int * 4)()
+    if build.library().dfd_fused_mbconv_plan(C, Cmid, out) != 0:
+        return None
+    proj, BN, tiles, smem = out
+    return ("wgmma" if proj == 1 else "mma", BN, tiles, smem)
+
+
+class Packed(NamedTuple):
+    """The weights in the kernels' layouts (``pack``): wexp [ceil(Cmid/64)*64]
+    [ceil(C/16)*8] 32-bit words of bf16 pairs (K2's), see = bf16(w_se_e)
+    [Cse][Cmid] and wpt = bf16(w_proj^T) [C][ceil(Cmid/64)*64], zero past
+    Cmid."""
+
+    wexp: torch.Tensor
+    see: torch.Tensor
+    wpt: torch.Tensor
+
+
+def pack(w_exp: torch.Tensor, w_se_e: torch.Tensor, w_proj: torch.Tensor) -> Packed:
+    """Packs K3's f32 weights on their CUDA card (one kernel launch,
+    ``pack_kernel``); MBConv does this once and keeps the result."""
+    C, Cmid = w_exp.shape
+    Cse, dev = w_se_e.shape[0], w_exp.device
+    packed = Packed(
+        torch.empty((_cdiv(Cmid, 64) * 64, _cdiv(C, 16) * 8), dtype=torch.int32, device=dev),
+        torch.empty((Cse, Cmid), dtype=torch.bfloat16, device=dev),
+        torch.empty((C, _cdiv(Cmid, K_TILE) * K_TILE), dtype=torch.bfloat16, device=dev),
+    )
+    with torch.cuda.device(dev):
+        rc = build.library().dfd_fused_mbconv_pack(
+            w_exp.data_ptr(), w_se_e.data_ptr(), w_proj.data_ptr(),
+            *(t.data_ptr() for t in packed), C, Cmid, Cse,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "fused_mbconv_se pack")
+    return packed
 
 
 def fused_mbconv_se_plain(
@@ -102,12 +215,13 @@ def fused_mbconv_se(
     b_proj: torch.Tensor,
     *,
     kernel: int,
+    packed: Packed | None = None,
 ) -> torch.Tensor:
     """K3 (see ``fused_mbconv_se_plain`` for the contract). For a CUDA tensor
-    it enqueues the CUDA kernels on the current stream (K2's wexp packing and
-    expand + depthwise, the two SE products, w_proj's packing, the gated
-    projection) and counts one launch; for a CPU tensor it runs the plain
-    version; on any other device it raises."""
+    it packs the weights (unless ``packed``, from ``pack``, already holds
+    them), enqueues its four kernels on the current stream and counts one
+    launch; for a CPU tensor it runs the plain version; on any other device
+    it raises."""
     weights = (w_exp, b_exp, w_dw, b_dw, w_se_r, b_se_r, w_se_e, b_se_e, w_proj, b_proj)
     _check(x, weights, kernel)
     if x.device.type == "cpu":
@@ -117,25 +231,22 @@ def fused_mbconv_se(
     B, H, W, C = x.shape
     Cmid, Cse = w_exp.shape[1], w_se_r.shape[1]
     dev = x.device
-    p = plan(H, W, C, Cmid, kernel, B, sm_count(dev))
-    if p is None:
-        raise ValueError(f"fused_mbconv_se: no K2 launch plan fits {MAX_SMEM_BYTES} B at "
-                         f"{tuple(x.shape)} -> {Cmid}, k {kernel}")
-    dw = torch.empty((B, H, W, Cmid), dtype=torch.bfloat16, device=dev)
-    pool = torch.empty((B, Cmid), dtype=torch.float32, device=dev)
-    wpack = torch.empty(wpack_words(C, Cmid), dtype=torch.int32, device=dev)
-    se_part = torch.empty((-(-Cmid // 256), B, Cse), dtype=torch.float32, device=dev)
-    gate = torch.empty((B, Cmid), dtype=torch.bfloat16, device=dev)
-    # w_proj as bf16 pairs in the mma B layout, Cmid padded to 32, C to 64
-    pairs = torch.empty((-(-Cmid // 32) * 16, -(-C // 64) * 64), dtype=torch.int32, device=dev)
+    p = plan(B, H, W, C, Cmid, kernel, k2.sm_count(dev))
+    if packed is None:
+        packed = pack(w_exp, w_se_e, w_proj)
     out = torch.empty_like(x)
-    lib = build.library()
+    scratch = (torch.empty((B, H, W, Cmid), dtype=torch.bfloat16, device=dev),
+               torch.empty((B, Cmid), dtype=torch.float32, device=dev),
+               torch.empty((-(-Cmid // 256), B, Cse), dtype=torch.float32, device=dev),
+               torch.empty((B, Cmid), dtype=torch.bfloat16, device=dev))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dfd_fused_mbconv_se(
-            x.data_ptr(), *(t.data_ptr() for t in weights), dw.data_ptr(), pool.data_ptr(),
-            wpack.data_ptr(), se_part.data_ptr(), gate.data_ptr(), pairs.data_ptr(), out.data_ptr(),
-            B, H, W, C, Cmid, Cse, kernel, p.CB, p.RB, stream,
+        rc = build.library().dfd_fused_mbconv_se(
+            x.data_ptr(), packed.wexp.data_ptr(), b_exp.data_ptr(), w_dw.data_ptr(),
+            b_dw.data_ptr(), w_se_r.data_ptr(), b_se_r.data_ptr(), packed.see.data_ptr(),
+            b_se_e.data_ptr(), packed.wpt.data_ptr(), b_proj.data_ptr(),
+            *(t.data_ptr() for t in scratch), out.data_ptr(),
+            B, H, W, C, Cmid, Cse, kernel, p.k2.CB, p.k2.RB, int(p.proj == "wgmma"), p.BN,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(rc, "fused_mbconv_se")
     fused_mbconv_se.launches += 1

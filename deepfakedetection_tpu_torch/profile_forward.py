@@ -24,9 +24,10 @@ device time per call against the wall time per call (host clock, device
 synchronised), so their gap is the device's idle time, then each device
 kernel's self time and launches per call, the largest first, the port's
 hand-written kernels tagged with the TPU kernel each replaces (K1-K7). K3's
-first stage is K2's kernel, so with ``DFD_FUSED_MBCONV`` the K2 row counts
-K3's 18 launches too (20 in all) and the K3 rows are its SE, weight-packing
-and gated-projection kernels. This is the breakdown behind ``PERF.md`` section 5.
+first kernel is K2's, so with ``DFD_FUSED_MBCONV`` the K2 rows count those
+launches too and the K3 rows are its SE and gated-projection kernels (and its
+packing kernel, once a model). This is the breakdown behind ``PERF.md``
+section 5.
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ from deepfakedetection_tpu_torch.train.steps import train_step
 CALLS, WARMUP, ROWS = 5, 3, 30
 # the port's CUDA kernels (ops/csrc) by the TPU kernel each replaces
 TAGS = {"depthwise_silu_pool_kernel": "K1", "expand_dw_kernel": "K2", "pack_wexp_kernel": "K2",
-        "se_reduce_kernel": "K3", "se_expand_kernel": "K3", "pack_pairs_kernel": "K3",
-        "gated_proj_kernel": "K3",
+        "se_reduce_kernel": "K3", "se_expand_kernel": "K3", "gated_proj_kernel": "K3",
+        "gated_proj_mma_kernel": "K3", "pack_kernel": "K3",
         "shear_pass_kernel": "K4", **dict.fromkeys(window_attn.FWD_KERNELS, "K5"),
         **dict.fromkeys(window_attn.BWD_KERNELS, "K5 bwd"),
         "attn_qkv_kernel": "K6", "window_bwd_kernel": "K6 bwd", "sum_partials_kernel": "K6 bwd",

@@ -15,9 +15,10 @@ builds the K2 of another checkout (say the parent commit, unpacked with
 ``expand_dw.cu`` alone, runs the same operands through both entry points at
 every shape (outputs bit-identical or not, each against the plain version
 within ``chip_smoke.K2_TOL``) and times them in turns (other, this, this,
-other). ``--plans`` times every launch plan (CB, RB) that fits at each
-shape through the entry point, which takes the plan from its caller, each
-checked against the plain version, beside the one ``plan`` picks.
+other), by CUDA events and by device time. ``--plans`` times every launch
+plan (CB, RB) that fits at each shape through the entry point, which takes
+the plan from its caller, each checked against the plain version, beside the
+one ``plan`` picks.
 ``--silu`` builds copies of ``expand_dw.cu`` (with ``depthwise_se.cu``, K1,
 beside it) under ``build/profile_k2/silu_<name>/`` that differ only in the
 SiLU of both stages (``SILUS``: the precise ``expf`` and IEEE division, the
@@ -42,6 +43,10 @@ import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+
+# K2's device kernels, by the names the profiler records
+KERNELS = ("pack_wexp_kernel", "expand_dw_kernel")
 
 
 def _inputs(shape, seed, device, B=128):
@@ -109,7 +114,9 @@ def compare(tree: str, shapes=None) -> list[dict]:
     """This checkout's K2 against ``tree``'s at ``shapes`` (default
     ``chip_smoke.K2_SHAPES``): both held to the plain version within
     ``K2_TOL``, whether their outputs are bit-identical, and each one's time
-    (median of 13 calls in each of the turns other, this, this, other)."""
+    (median of 13 calls in each of the turns other, this, this, other) and,
+    where both launch ``KERNELS``, its device time (``chip_smoke.launch_ms``
+    in each of the same turns, the mean)."""
     import chip_smoke as cs
     import torch
 
@@ -127,14 +134,23 @@ def compare(tree: str, shapes=None) -> list[dict]:
             cs.check_close(f"{name} K2 {shape} y", outs[name][0], ry, *cs.K2_TOL["y"])
             cs.check_close(f"{name} K2 {shape} pool", outs[name][1], rpool, *cs.K2_TOL["pool"])
         ms = {name: [] for name in runs}
+        dev = {name: [] for name in runs}
         for name in ("other", "this", "this", "other"):
             ms[name] += cs.cuda_times(runs[name], runs=13)
+            if not other.tiled:  # the same two kernels in both
+                dev[name].append(cs.launch_ms(runs[name], KERNELS))
         row = {"shape": shape, "bit_identical": all(torch.equal(a, b) for a, b in
                                                      zip(outs["other"], outs["this"])),
-               **{f"{name}_ms": statistics.median(t) for name, t in ms.items()}}
+               **{f"{name}_ms": statistics.median(t) for name, t in ms.items()},
+               **{f"{name}_device_ms": statistics.mean(t) for name, t in dev.items() if t}}
         rows.append(row)
-        print(f"K2 {shape}: within K2_TOL both; bit-identical to {tree}'s {row['bit_identical']}; "
-              f"ms a call: this {row['this_ms']:.4f}, {tree}'s {row['other_ms']:.4f}", flush=True)
+        text = (f"K2 {shape}: within K2_TOL both; bit-identical to {tree}'s "
+                f"{row['bit_identical']}; ms a call: this {row['this_ms']:.4f}, {tree}'s "
+                f"{row['other_ms']:.4f}")
+        if dev["this"]:
+            text += (f"; device ms a call: this {row['this_device_ms']:.4f}, {tree}'s "
+                     f"{row['other_device_ms']:.4f}")
+        print(text, flush=True)
     return rows
 
 

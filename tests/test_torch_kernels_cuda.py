@@ -417,10 +417,15 @@ def test_attn_subblock_refuses_sizes_past_its_limits(cuda):
 
 K3_CASES = [
     # (B, H, W, C, k): the six B3 K3 shapes, then odd sizes (H off the tiles,
-    # a 1 x 1 map, Cse 1, C 22 and 13 off the 16-byte loads and 4-byte pairs)
+    # a 1 x 1 map, Cse 1, C 4, 13, 20 and 22 off the 16-byte loads and 4-byte
+    # pairs; with the six, every projection plan: wgmma BN 32, 48, 64, 128,
+    # 144, 192, one or two column tiles, and the mma.sync kernel where Cmid %
+    # 8 != 0), then one B3 shape at batch 128 (many 128-row tiles)
     (8, 56, 56, 32, 3), (8, 28, 28, 48, 5), (8, 14, 14, 96, 3), (8, 14, 14, 136, 5),
     (8, 7, 7, 232, 5), (8, 7, 7, 384, 3),
     (8, 10, 12, 24, 5), (8, 1, 1, 16, 5), (8, 6, 6, 4, 3), (8, 9, 11, 22, 3), (8, 5, 7, 13, 5),
+    (8, 13, 16, 64, 3), (8, 9, 10, 192, 3), (8, 7, 9, 200, 5), (8, 30, 30, 20, 5),
+    (128, 14, 14, 136, 5),
 ]
 
 
@@ -447,6 +452,52 @@ def test_fused_mbconv_se_kernel_matches_plain_and_repeats(cuda, B, H, W, C, k):
     assert torch.equal(out, again)
     ref = k3.fused_mbconv_se_plain(*args, kernel=k)
     torch.testing.assert_close(out.float(), ref.float(), atol=_two_steps(ref), rtol=0)
+
+
+def _k3_block(args, k, device, monkeypatch):
+    """A bf16 eval MBConv block (in == out, expand 6, stride 1) built with
+    DFD_FUSED_MBCONV whose folded weights are K3's operands ``args``
+    (BatchNorms at unit scale, zero mean, variance 1 - eps: the fold
+    multiplies by exactly 1)."""
+    from deepfakedetection_tpu_torch.models.efficientnet import BlockArgs, MBConv
+
+    w_exp, b_exp, w_dw, b_dw, w_r, b_r, w_e, b_e, w_p, b_p = (t.cpu() for t in args)
+    C, r = w_exp.shape[0], k // 2
+    monkeypatch.setenv("DFD_FUSED_MBCONV", "1")
+    blk = MBConv(BlockArgs(C, C, 6, k, 1, 0.25, 0.0, ((r, r), (r, r))))
+    with torch.no_grad():
+        for conv, bn, w, b in ((blk._expand_conv, blk._bn0, w_exp.t(), b_exp),
+                               (blk._depthwise_conv, blk._bn1, w_dw.permute(2, 0, 1), b_dw),
+                               (blk._project_conv, blk._bn2, w_p.t(), b_p)):
+            conv.weight.copy_(w.reshape(conv.weight.shape))
+            bn.weight.fill_(1.0)
+            bn.running_mean.zero_()
+            bn.running_var.fill_(1.0 - bn.eps)
+            bn.bias.copy_(b)
+        blk._se_reduce.weight.copy_(w_r.t().reshape(blk._se_reduce.weight.shape))
+        blk._se_reduce.bias.copy_(b_r)
+        blk._se_expand.weight.copy_(w_e.t().reshape(blk._se_expand.weight.shape))
+        blk._se_expand.bias.copy_(b_e)
+    return blk.to(device).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,k", K3_CASES)
+def test_fused_mbconv_se_plan_is_the_kernels_and_an_mbconv_block_gives_its_output(
+        cuda, monkeypatch, B, H, W, C, k):
+    """The built library's projection plan is the Python mirror's, and an
+    MBConv block built with the switch (weights packed once, in its cache)
+    gives the wrapper's output bit for bit, twice."""
+    args = _k3_inputs(B, H, W, C, k, cuda, seed=H * C + k)
+    assert k3.kernel_plan(C, 6 * C) == k3.choose_plan(C, 6 * C)
+    out = k3.fused_mbconv_se(*args, kernel=k)
+    block = _k3_block(args[1:], k, cuda, monkeypatch)
+    x = args[0].permute(0, 3, 1, 2)
+    with torch.no_grad():
+        first, second = block(x), block(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first.permute(0, 2, 3, 1), out)
+    assert torch.equal(second, first)
 
 
 @pytest.mark.cuda
