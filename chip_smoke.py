@@ -86,9 +86,11 @@ launch plan the built kernel's), with their times, the plain versions' and
 ``torch.nn.functional.scaled_dot_product_attention``'s on the same q, k, v
 and bias (forward, or its backward alone after one forward, ``grad_ms``),
 each with the device time of the kernels a call launches beside the event
-time (SDPA is a yardstick the port never calls), and K7 (talking-head attention) at EfficientFormerV2-S1's
-shape at batch 256 and at ragged sizes, bit-identical run to run (no PyTorch
-call computes it: its library time is none), and K6 (the fused attention
+time (SDPA is a yardstick the port never calls), and K7 (talking-head
+attention) at EfficientFormerV2-S1's shape at batch 256 and at ragged sizes
+(every kind of launch plan, each the built kernel's), bit-identical run to
+run, with its event and device time (no PyTorch call computes it: its
+library time is none), and K6 (the fused attention
 sub-block) at the six FasterViT-2 attentions of both head configurations,
 forward at batch 256 and backward at 128 (plus odd sizes and each
 direction's tails: partial window and head groups, empty cluster blocks; the
@@ -116,8 +118,10 @@ a call once more when it records no device time or lacks a kernel the port's
 wrapper launches, and raises if the second take does too.
 Run with no arguments it does all of the above; ``--parent DIR`` only adds
 phase 1's comparison with another checkout's K5 forward and backward, in
-turns at the four eval and the four fine-tune shapes (``k5_parent``), and
-with its K3 at B3's six K3 shapes (``k3_parent``).
+turns at the four eval and the four fine-tune shapes (``k5_parent``), with
+its K7 at EfficientFormerV2-S1's shape (``k7_parent``: in turns, by events
+and device time; outputs bit-identical there and at every ``K7_ODD`` size),
+and with its K3 at B3's six K3 shapes (``k3_parent``).
 """
 
 from __future__ import annotations
@@ -203,10 +207,15 @@ FV_BATCH = 256
 # K7 at EfficientFormerV2-S1's eval shape, batch 256: (B, N, heads, d, dv,
 # launches per forward): the 7x7 tokens of the last two blocks of stages 3
 # and 4; then ragged and small sizes (the narrow test model's 16 tokens, one
-# token, N past 64, value widths off the 16-byte loads)
+# token, N past 64, value widths off the 16-byte loads) that reach every kind
+# of plan (ops/attn4d.plan): a whole image a row group, several groups (one
+# tile each at N 128), rings deeper and shallower than the heads, and
+# batches past the SMs whose last block takes fewer images
 K7_SHAPES = [(256, 49, 8, 32, 128, 4)]
 K7_ODD = [(8, 25, 4, 16, 64), (8, 16, 8, 32, 128), (8, 1, 2, 16, 8), (8, 100, 3, 32, 40),
-          (8, 128, 8, 16, 16), (8, 64, 8, 32, 128)]
+          (8, 128, 8, 16, 16), (8, 64, 8, 32, 128), (133, 49, 8, 32, 128), (8, 17, 5, 16, 24),
+          (8, 48, 6, 32, 64), (8, 65, 8, 32, 128), (8, 128, 8, 32, 128), (20, 49, 1, 16, 8),
+          (200, 128, 7, 32, 72)]
 EF = "efficientformerv2_s1"
 EF_BATCH = 256
 # K6 (the fused attention sub-block, DFD_FUSED_ATTN) at the FasterViT-2 eval
@@ -432,6 +441,7 @@ def phase1(device, report, parent: str | None = None):
     kernels["window_attention_bwd"] = phase1_k5_bwd(device)
     kernels["window_attention_bwd"]["parent"] = k5_parent(parent, fwd=False)
     kernels["attn4d"] = phase1_k7(device)
+    kernels["attn4d"]["parent"] = k7_parent(parent)
     kernels["attn_subblock"], kernels["attn_subblock_bwd"] = phase1_k6(device)
     kernels["fused_mbconv_se"] = phase1_k3(device)
     kernels["fused_mbconv_se"]["parent"] = k3_parent(parent)
@@ -858,13 +868,23 @@ def phase1_k7(device) -> dict:
     """K7 against its plain version at EfficientFormerV2-S1's shape (batch
     256) and ragged sizes, within two bf16 steps of the output's scale (both
     round p2 and the output once, from f32 sums in different orders),
-    bit-identical over two runs; kernel and plain times per S1 forward. No
-    single PyTorch call computes talking-head attention (library: none)."""
+    bit-identical over two runs, the plan the built kernel's; kernel and
+    plain times per S1 forward, the kernel's by CUDA events and by its device
+    time (``kernel_split``). No single PyTorch call computes talking-head
+    attention (library: none)."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import attn4d as k7
+    from deepfakedetection_tpu_torch.profile_k7 import KERNELS
+
+    sms = k7.sm_count(device)
 
     def check(label, args, h, d):
+        B, N = args[0].shape[:2]
+        dv = args[2].shape[2] // h
+        if k7.plan(B, N, h, d, dv, sms) != k7.kernel_plan(B, N, h, d, dv, sms):
+            raise AssertionError(f"attn4d {label}: plan {k7.plan(B, N, h, d, dv, sms)} is not "
+                                 "the kernel's")
         before = k7.attn4d.launches
         out = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
         again = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
@@ -877,28 +897,36 @@ def phase1_k7(device) -> dict:
         tol = two_steps(ref)
         return check_close(f"attn4d {label}", out, ref, tol, 0.0), tol
 
-    rows, worst, agg = [], 0.0, {"ms": 0.0, "plain_ms": 0.0, "bounds": []}
+    rows, worst = [], 0.0
+    agg = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bounds": []}
     for i, (B, N, h, d, dv, count) in enumerate(K7_SHAPES):
         args = k7_inputs(B, N, h, d, dv, seed=700 + i, device=device)
         err, tol = check(f"{(B, N, h, d, dv)}", args, h, d)
         worst = max(worst, err)
         t_k = spread(cuda_times(lambda: k7.attn4d(*args, num_heads=h, scale=d**-0.5), runs=25))
+        dev_k = sum(kernel_split(lambda: k7.attn4d(*args, num_heads=h, scale=d**-0.5), calls=25,
+                                 expect=KERNELS)[0].values())
         t_p = spread(cuda_times(lambda: k7.attn4d_plain(*args, num_heads=h, scale=d**-0.5),
                                 runs=10))
         b_ms, b_by = k7_bound(B, N, h, d, dv)
+        plan = k7.plan(B, N, h, d, dv, sms)
         rows.append({"shape": (B, N, h, d, dv), "launches_per_forward": count, "max_abs_err": err,
-                     "tolerance": tol, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
-                     "bound_by": b_by})
+                     "tolerance": tol, "plan": plan._asdict(), "ms": t_k, "device_ms": dev_k,
+                     "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by, "x_off": dev_k / b_ms})
         agg["ms"] += count * t_k["median"]
+        agg["device_ms"] += count * dev_k
         agg["plain_ms"] += count * t_p["median"]
         agg["bounds"].append((count, (b_ms, b_by)))
-        log(f"  attn4d {(B, N, h, d, dv)}: max|d|={err:.3e} (tol {tol:.3e}), bit-identical over "
-            f"two runs; kernel {t_k['median']:.4f} ms (q1 {t_k['q1']:.4f}, q3 {t_k['q3']:.4f}), "
-            f"plain {t_p['median']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        log(f"  attn4d {(B, N, h, d, dv)} [{plan}]: max|d|={err:.3e} (tol {tol:.3e}), "
+            f"bit-identical over two runs; kernel {t_k['median']:.4f} ms (q1 {t_k['q1']:.4f}, q3 "
+            f"{t_k['q3']:.4f}), device {dev_k:.4f} ms, plain {t_p['median']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {dev_k / b_ms:.1f}x off")
     for i, (B, N, h, d, dv) in enumerate(K7_ODD):
         err, tol = check(f"{(B, N, h, d, dv)}", k7_inputs(B, N, h, d, dv, 710 + i, device), h, d)
-        rows.append({"shape": (B, N, h, d, dv), "max_abs_err": err, "tolerance": tol})
-        log(f"  attn4d odd {(B, N, h, d, dv)}: max|d|={err:.3e} (tol {tol:.3e})")
+        plan = k7.plan(B, N, h, d, dv, sms)
+        rows.append({"shape": (B, N, h, d, dv), "max_abs_err": err, "tolerance": tol,
+                     "plan": plan._asdict()})
+        log(f"  attn4d odd {(B, N, h, d, dv)} [{plan}]: max|d|={err:.3e} (tol {tol:.3e})")
     # q and k as unaligned views of one wider tensor: the kernel's one-element path
     args = k7_inputs(16, 49, 8, 32, 128, seed=720, device=device)
     wide = torch.zeros(16, 49, 2 * 256 + 2, dtype=torch.bfloat16, device=device)
@@ -906,9 +934,37 @@ def phase1_k7(device) -> dict:
     check("unaligned views", [wide[..., 1:257], wide[..., 257:513]] + args[2:], 8, 32)
     bound_ms, bound_by = add_bounds(agg.pop("bounds"))
     log(f"  attn4d per EfficientFormerV2-S1 forward at batch {EF_BATCH} (4 launches): kernel "
-        f"{agg['ms']:.4f} ms, plain {agg['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms")
+        f"{agg['ms']:.4f} ms (device {agg['device_ms']:.4f}), plain {agg['plain_ms']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms, {agg['device_ms'] / bound_ms:.1f}x off")
     return {"rows": rows, "max_abs_err": worst, **agg, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+def k7_parent(parent: str | None) -> dict | None:
+    """K7 of the checkout in ``parent`` against this one
+    (``profile_k7.compare``): at ``K7_SHAPES`` both times in turns, event
+    and device, and their sums per S1 forward; at every shape and ``K7_ODD``
+    the outputs must be bit-identical (raises otherwise). None without
+    ``parent``."""
+    if parent is None:
+        log("  attn4d: the parent's kernel not measured (no --parent)")
+        return None
+    from deepfakedetection_tpu_torch import profile_k7
+
+    rows = profile_k7.compare(parent)
+    differ = [r["shape"] for r in rows if not r["bit_identical"]]
+    if differ:
+        raise AssertionError(f"attn4d: outputs not bit-identical to {parent}'s at {differ}")
+    sums = {key: 0.0 for key in ("this_ms", "other_ms", "this_device_ms", "other_device_ms")}
+    for r, shape in zip(rows, K7_SHAPES):
+        for key in sums:
+            sums[key] += shape[5] * r[key]
+    log(f"  attn4d per EfficientFormerV2-S1 forward at batch {EF_BATCH} (4 launches), in turns "
+        f"with {parent}'s: this {sums['this_ms']:.4f} ms (device {sums['this_device_ms']:.4f}), "
+        f"the parent's {sums['other_ms']:.4f} ms (device {sums['other_device_ms']:.4f}); device "
+        f"ratio {sums['this_device_ms'] / sums['other_device_ms']:.3f}; bit-identical at every "
+        "shape")
+    return {"tree": parent, "rows": rows, "per_forward": sums}
 
 
 def k3_inputs(B, H, W, C, k, seed, device):
@@ -3028,8 +3084,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Drives the PyTorch port on one CUDA card.")
     parser.add_argument("--parent", help="another checkout (say the parent commit, unpacked with "
-                        "git archive) whose K5 forward and backward and K3 phase 1 times against "
-                        "this one's")
+                        "git archive) whose K5 forward and backward, K7 and K3 phase 1 times "
+                        "against this one's")
     args = parser.parse_args()
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)

@@ -6,8 +6,10 @@ and its unpadded wrapper ``attn4d_pallas``). Per image and output head g:
 then ``out_g = (sum_h th2[h, g] * p_h + th2_b[g]).to(bf16) @ v_g`` with f32
 accumulation. The talking-head tables are in the flax orientation
 ``[h_in, g_out]``. The CUDA kernel is ``csrc/attn4d.cu``: one launch per call,
-no padding of N (it masks the ragged edge itself), q, k and v read through
-(batch, row) strides.
+persistent blocks that each own whole images, no padding of N (it masks the
+ragged edge itself), q, k and v read through (batch, row) strides. Its launch
+plan is ``plan`` here, the mirror of the kernel's, which ``kernel_plan``
+reads back on the card; the C entry takes the card's SM count.
 
 ``attn4d_plain`` is the same function in PyTorch ops at the same rounding
 points (f32 scores, mixes and softmax with a division, p2 rounded to the
@@ -20,13 +22,78 @@ raises. Like the TPU kernel it has no backward.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from deepfakedetection_tpu_torch.ops import build
-from deepfakedetection_tpu_torch.ops.window_attn import _acc, _heads, _merge
+from deepfakedetection_tpu_torch.ops.expand_dw import sm_count
+from deepfakedetection_tpu_torch.ops.window_attn import (
+    H100_SMS,
+    MAX_SMEM_BYTES,
+    _acc,
+    _heads,
+    _merge,
+)
 
 MAX_TOKENS = 128  # N the kernel takes
 MAX_HEADS = 8
+MAX_SLOTS = 8  # the v ring's deepest (csrc/attn4d.cu kMaxSlots)
+HEADER_BYTES = 1024  # barriers and tables ahead of the operands (kHeader)
+
+
+class Plan(NamedTuple):
+    """The kernel's launch plan (``csrc/attn4d.cu`` ``plan``)."""
+
+    blocks: int  # persistent blocks
+    images: int  # images a block, at most
+    tiles: int  # 16-row query tiles a row group
+    slots: int  # v ring slots
+    smem: int  # bytes of dynamic shared memory a block
+
+
+def layout_bytes(N: int, heads: int, d: int, dv: int, tiles: int) -> tuple[int, int]:
+    """(bytes ahead of the v ring, bytes of one ring slot) of a block's
+    shared memory (``csrc/attn4d.cu`` ``Layout``): the header, q of a row
+    group's rows < N, k of the image's rows, the f32 scores of every head
+    over the group's rows, one zero row of v; each slot one head of v's N
+    rows."""
+    Np = -(-N // 16) * 16
+    rows = min(16 * tiles, N)
+    ldq = heads * d + 8
+    lds = max(-(-N // 4) * 4, Np // 2)
+    lds += 4 if lds % 8 == 0 else 0
+    ldv = dv + (8 if (dv // 8) % 2 == 0 else 16)
+    return HEADER_BYTES + (rows + N) * ldq * 2 + heads * rows * lds * 4 + ldv * 2, N * ldv * 2
+
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, N: int, heads: int, d: int, dv: int, sms: int = H100_SMS) -> Plan | None:
+    """The plan on a card of ``sms`` SMs, as ``plan`` in ``csrc/attn4d.cu``
+    (which ``kernel_plan`` reads back on the card), or None when none fits a
+    block's shared memory: the most query tiles a row group (all of them
+    when they fit) that leave room for a v ring of two slots, else one tile
+    and one slot; the deepest ring of up to ``MAX_SLOTS`` that fits; as many
+    blocks as the SMs hold with every block taking the same number of
+    images, give or take one."""
+    for tiles in range(-(-N // 16), 0, -1):
+        base, slot = layout_bytes(N, heads, d, dv, tiles)
+        slots = min((MAX_SMEM_BYTES - base) // slot, MAX_SLOTS) if base <= MAX_SMEM_BYTES else 0
+        if slots >= 2 or (tiles == 1 and slots == 1):
+            images = -(-B // min(B, sms))
+            return Plan(-(-B // images), images, tiles, slots, base + slots * slot)
+    return None
+
+
+def kernel_plan(B: int, N: int, heads: int, d: int, dv: int, sms: int) -> Plan | None:
+    """The plan the built kernel computes for the shape (card only), to hold
+    ``plan`` to it."""
+    out = (ctypes.c_int * 5)()
+    if build.library().dfd_attn4d_plan(B, N, heads, d, dv, sms, out) != 0:
+        return None
+    return Plan(*out)
 
 
 def _mix(t: torch.Tensor, table: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -94,6 +161,10 @@ def attn4d(q, k, v, bias, th1, th1_b, th2, th2_b, *, num_heads: int,
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         raise ValueError("attn4d: the kernel is inference-only (no backward); run it under "
                          "torch.no_grad()")
+    sms = sm_count(q.device)
+    if plan(B, N, num_heads, d, dv, sms) is None:
+        raise ValueError(f"attn4d: no plan fits a block's {MAX_SMEM_BYTES} bytes of shared memory "
+                         f"at N={N}, heads={num_heads}, d={d}, dv={dv}")
     out = torch.empty(B, N, num_heads * dv, dtype=torch.bfloat16, device=q.device)
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
     vec = int(all(s % 8 == 0 for s in strides) and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
@@ -101,7 +172,7 @@ def attn4d(q, k, v, bias, th1, th1_b, th2, th2_b, *, num_heads: int,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dfd_attn4d(*(t.data_ptr() for t in args), out.data_ptr(), B, N, num_heads, d,
-                            dv, *strides, float(scale), vec, stream)
+                            dv, *strides, sms, float(scale), vec, stream)
     build.check(rc, "attn4d")
     attn4d.launches += 1
     return out

@@ -1,6 +1,6 @@
 // Pieces shared by the K5 forward (window_attn.cu) and backward
-// (window_attn_bwd.cu): the bf16 tensor-core product, bf16 packing, a strided
-// view of one head, and the staging of one head's rows into shared memory.
+// (window_attn_bwd.cu), K6 and K7: the bf16 tensor-core product, bf16
+// packing, a strided view of one head, and the paired-column output store.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,7 +10,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
 constexpr int kMaxSmemBytes = 232448;  // shared memory one sm_90 block may use
 
 // d += a . b on the tensor cores: m16n8k16, bf16 in, f32 accumulate.
@@ -37,28 +36,6 @@ struct View {
   const __nv_bfloat16* p;
   long long sb, sr, sh;  // batch, row and head strides, in elements
 };
-
-// Stages rows [0, Np) x columns [0, Dp) of one head of `src` into `dst`
-// (row stride ld), zero past N rows and d columns.
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, long long sr,
-                                      int N, int d, int Np, int Dp, int ld, bool vec) {
-  if (vec) {  // d % 8 == 0, strides % 8 == 0, 16-byte aligned base
-    const int chunks = Dp / 8;
-    for (int i = threadIdx.x; i < Np * chunks; i += blockDim.x) {
-      const int row = i / chunks, ch = i % chunks;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row < N && ch * 8 < d) v = *reinterpret_cast<const uint4*>(src + row * sr + ch * 8);
-      *reinterpret_cast<uint4*>(dst + row * ld + ch * 8) = v;
-    }
-  } else {
-    for (int i = threadIdx.x; i < Np * Dp; i += blockDim.x) {
-      const int row = i / Dp, col = i % Dp;
-      __nv_bfloat16 v = __float2bfloat16(0.0f);
-      if (row < N && col < d) v = src[row * sr + col];
-      dst[row * ld + col] = v;
-    }
-  }
-}
 
 // Stores one 16x8 accumulator tile's two rows (r0 and r0 + 8) of two columns
 // (c, c + 1) times `mult`, rounded to bf16, skipping rows >= N and columns

@@ -1,7 +1,7 @@
 // Pieces of the K5 forward's (window_attn.cu) and backward's
 // (window_attn_bwd.cu) pipelines: a warp group, its ring copies of one
-// window's head rows counted on an mbarrier, the ldmatrix operand loads and
-// the quotient from one reciprocal a row.
+// window's head rows counted on an mbarrier, the ldmatrix operand loads (K7's
+// too) and the quotient from one reciprocal a row.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -13,9 +13,9 @@ shape (each held to the plain version within two bf16 steps of the output's
 scale; outputs bit-identical or not) and times them at the six B3 shapes in
 turns (other, this, this, other), by CUDA events and by the device time of
 their kernels, with each kernel's share. This checkout's K3 runs on weights
-packed once, as ``MBConv`` runs it; the other tree's packs them every call,
-as its design did. ``chip_smoke.py --parent DIR`` runs this comparison in its
-phase 1.
+packed once, as ``MBConv`` runs it; so does the other tree's where its design
+packs them once, else it packs them every call, as that design did.
+``chip_smoke.py --parent DIR`` runs this comparison in its phase 1.
 """
 
 from __future__ import annotations
@@ -27,24 +27,29 @@ import statistics
 import subprocess
 from pathlib import Path
 
-# the device kernels of the parent's design (K2's two, two SE products, w_proj's
-# packing, the gated projection), by the names the profiler records
+# the device kernels of the design before weights were packed once (K2's two,
+# two SE products, w_proj's packing, the gated projection), by the names the
+# profiler records
 PARENT_KERNELS = ("pack_wexp_kernel", "expand_dw_kernel", "se_reduce_kernel",
                   "se_expand_kernel", "pack_pairs_kernel", "gated_proj_kernel")
 
 
 class Other:
-    """K3 of the checkout in ``tree`` in the parent's design (``fused_mbconv.cu``
-    running K2's kernels, two SE kernels, a packing kernel and the gated
-    projection; its C entry takes every scratch buffer), built alone into
-    ``build/profile_k3/`` at first use and called through its C entry
-    point."""
+    """K3 of the checkout in ``tree``, built alone into ``build/profile_k3/``
+    at first use and called through its C entry point, in either design:
+    weights packed once (``dfd_fused_mbconv_pack`` exported; called as this
+    checkout's wrapper calls it, with the other build's own plans), or the
+    one before, packing every call (``fused_mbconv.cu`` running K2's
+    kernels, two SE kernels, a packing kernel and the gated projection; its
+    C entry takes every scratch buffer)."""
 
     ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
     def __init__(self, tree: str):
         self.csrc = Path(tree) / "deepfakedetection_tpu_torch" / "ops" / "csrc"
         self.fn = None
+        self.lib = None
+        self.packed = False
 
     def _entry(self):
         from deepfakedetection_tpu_torch.ops import build
@@ -59,15 +64,65 @@ class Other:
                 subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out),
                                 str(self.csrc / "fused_mbconv.cu"),
                                 str(self.csrc / "expand_dw.cu")], check=True)
-            self.fn = ctypes.CDLL(str(out)).dfd_fused_mbconv_se
-            self.fn.argtypes, self.fn.restype = self.ARGTYPES, ctypes.c_int
+            self.lib = ctypes.CDLL(str(out))
+            self.packed = hasattr(self.lib, "dfd_fused_mbconv_pack")
+            names = ("dfd_fused_mbconv_se", "dfd_fused_mbconv_pack", "dfd_fused_mbconv_plan",
+                     "dfd_expand_dw_plan") if self.packed else ()
+            for name in names:
+                fn = getattr(self.lib, name)
+                fn.argtypes, fn.restype = build._SIGNATURES[name], ctypes.c_int
+            self.fn = self.lib.dfd_fused_mbconv_se
+            if not self.packed:
+                self.fn.argtypes, self.fn.restype = self.ARGTYPES, ctypes.c_int
         return self.fn
 
-    def __call__(self, x, *weights, kernel: int):
+    def pack(self, w_exp, w_se_e, w_proj):
+        """The weights packed by the other build (``fused_mbconv.pack``'s
+        layouts), or None in the design that packs every call."""
+        import torch
+
+        from deepfakedetection_tpu_torch.ops import fused_mbconv as k3
+
+        self._entry()
+        if not self.packed:
+            return None
+        C, Cmid = w_exp.shape
+        Cse, dev = w_se_e.shape[0], w_exp.device
+        packed = k3.Packed(
+            torch.empty((-(-Cmid // 64) * 64, -(-C // 16) * 8), dtype=torch.int32, device=dev),
+            torch.empty((Cse, Cmid), dtype=torch.bfloat16, device=dev),
+            torch.empty((C, -(-Cmid // k3.K_TILE) * k3.K_TILE), dtype=torch.bfloat16,
+                        device=dev))
+        rc = self.lib.dfd_fused_mbconv_pack(
+            w_exp.data_ptr(), w_se_e.data_ptr(), w_proj.data_ptr(),
+            *(t.data_ptr() for t in packed), C, Cmid, Cse, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the other tree's dfd_fused_mbconv_pack failed: CUDA error {rc}")
+        return packed
+
+    def plan(self, B, H, W, C, Cmid, kernel):
+        """(K2's CB and RB, 1 for the wgmma projection, its BN, the device
+        kernels a call launches) as the other build computes them."""
+        from deepfakedetection_tpu_torch.ops import expand_dw as k2
+
+        self._entry()
+        k2p = (ctypes.c_int * 8)()
+        rc = self.lib.dfd_expand_dw_plan(B, H, W, C, Cmid, kernel, k2.sm_count("cuda"), k2p)
+        proj = (ctypes.c_int * 4)()
+        rc = rc or self.lib.dfd_fused_mbconv_plan(C, Cmid, proj)
+        if rc:
+            raise RuntimeError(f"the other tree has no plan for {(B, H, W, C, Cmid, kernel)}")
+        name = "gated_proj_kernel" if proj[0] == 1 else "gated_proj_mma_kernel"
+        return (k2p[0], k2p[1], proj[0], proj[1],
+                ("expand_dw_kernel", "se_reduce_kernel", "se_expand_kernel", name))
+
+    def __call__(self, x, *weights, kernel: int, packed=None):
         import torch
 
         from deepfakedetection_tpu_torch.ops import expand_dw as k2
 
+        if self._entry() and self.packed:
+            return self._call_packed(x, weights, kernel, packed)
         B, H, W, C = x.shape
         Cmid, Cse = weights[0].shape[1], weights[4].shape[1]
         dev = x.device
@@ -84,6 +139,30 @@ class Other:
             x.data_ptr(), *(t.data_ptr() for t in weights), dw.data_ptr(), pool.data_ptr(),
             wpack.data_ptr(), se_part.data_ptr(), gate.data_ptr(), pairs.data_ptr(),
             out.data_ptr(), B, H, W, C, Cmid, Cse, kernel, p.CB, p.RB,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the other tree's dfd_fused_mbconv_se failed: CUDA error {rc}")
+        return out
+
+    def _call_packed(self, x, weights, kernel: int, packed):
+        import torch
+
+        B, H, W, C = x.shape
+        w_exp, b_exp, w_dw, b_dw, w_se_r, b_se_r, w_se_e, b_se_e, w_proj, b_proj = weights
+        Cmid, Cse, dev = w_exp.shape[1], w_se_r.shape[1], x.device
+        CB, RB, wgmma, BN, _ = self.plan(B, H, W, C, Cmid, kernel)
+        packed = packed or self.pack(w_exp, w_se_e, w_proj)
+        out = torch.empty_like(x)
+        scratch = (torch.empty((B, H, W, Cmid), dtype=torch.bfloat16, device=dev),
+                   torch.empty((B, Cmid), dtype=torch.float32, device=dev),
+                   torch.empty((-(-Cmid // 256), B, Cse), dtype=torch.float32, device=dev),
+                   torch.empty((B, Cmid), dtype=torch.bfloat16, device=dev))
+        rc = self.fn(
+            x.data_ptr(), packed.wexp.data_ptr(), b_exp.data_ptr(), w_dw.data_ptr(),
+            b_dw.data_ptr(), w_se_r.data_ptr(), b_se_r.data_ptr(), packed.see.data_ptr(),
+            b_se_e.data_ptr(), packed.wpt.data_ptr(), b_proj.data_ptr(),
+            *(t.data_ptr() for t in scratch), out.data_ptr(),
+            B, H, W, C, Cmid, Cse, kernel, CB, RB, wgmma, BN,
             torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"the other tree's dfd_fused_mbconv_se failed: CUDA error {rc}")
@@ -130,7 +209,8 @@ def compare(tree: str, shapes=None, odd=None) -> list[dict]:
     for i, ((H, W, C, k), B, timed) in enumerate(cases):
         args = cs.k3_inputs(B, H, W, C, k, seed=600 + i, device="cuda")
         packed = k3.pack(args[1], args[7], args[9])  # once, as MBConv does
-        runs = {"other": lambda: other(*args, kernel=k),
+        other_packed = other.pack(args[1], args[7], args[9])  # the same, where it packs at all
+        runs = {"other": lambda: other(*args, kernel=k, packed=other_packed),
                 "this": lambda: k3.fused_mbconv_se(*args, kernel=k, packed=packed)}
         ref = k3.fused_mbconv_se_plain(*args, kernel=k)
         plan = k3.plan(B, H, W, C, 6 * C, k, k3.k2.sm_count(args[0].device))
@@ -146,7 +226,8 @@ def compare(tree: str, shapes=None, odd=None) -> list[dict]:
                "max_diff_bf16_steps": diff / max(cs.two_steps(ref) / 2, 1e-30),
                "plan": plan.describe()}
         if timed:
-            expect = {"other": PARENT_KERNELS, "this": plan.kernels()}
+            expect = {"other": other.plan(B, H, W, C, 6 * C, k)[4] if other.packed
+                      else PARENT_KERNELS, "this": plan.kernels()}
             row.update(turns(runs, expect))
         rows.append(row)
         text = (f"K3 {(B, H, W, C, k)} [{row['plan']}]: within two bf16 steps both; "

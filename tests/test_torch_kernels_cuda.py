@@ -19,8 +19,9 @@ scale (f32 on both sides, summed over the windows in other orders), and
 bit-identical dbias and dqkv over two runs; the autograd Function launches
 the forward once and the backward once. K7 (talking-head attention) at
 EfficientFormerV2-S1's shape and at ragged and small sizes: within two bf16
-steps of the output's scale, bit-identical over two runs; it refuses a
-gradient, and a full-width S1 forward launches it four times. K6 (the fused
+steps of the output's scale, bit-identical over two runs, its plan the
+built library's, at every kind of plan; it refuses a gradient, and a
+full-width S1 forward launches it four times. K6 (the fused
 attention sub-block) at a FasterViT-2 stage-3 shape and an odd one: the
 output and dx within two bf16 steps of their scales, the f32 gradients within
 1e-2 of theirs, the backward's six outputs bit-identical over two runs; the
@@ -266,6 +267,11 @@ K7_CASES = [
     (64, 49, 8, 32, 128),  # EfficientFormerV2-S1's 7x7 attention
     (8, 25, 4, 16, 64), (8, 16, 8, 32, 128), (8, 1, 2, 16, 8), (8, 100, 3, 32, 40),
     (8, 128, 8, 16, 16), (8, 64, 8, 32, 128),
+    # every kind of plan: several row groups (one tile each at N 128), rings
+    # shallower and deeper than the heads, more images than SMs with a last
+    # block that takes fewer
+    (300, 49, 8, 32, 128), (133, 17, 5, 16, 24), (8, 48, 6, 32, 64), (8, 65, 8, 32, 128),
+    (8, 128, 8, 32, 128), (20, 49, 1, 16, 8), (150, 128, 3, 16, 40),
 ]
 
 
@@ -281,6 +287,8 @@ def _k7_inputs(B, N, h, d, dv, device, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,h,d,dv", K7_CASES)
 def test_attn4d_kernel_matches_plain_and_repeats(cuda, B, N, h, d, dv):
+    sms = k2.sm_count(cuda)
+    assert k7.plan(B, N, h, d, dv, sms) == k7.kernel_plan(B, N, h, d, dv, sms)
     args = _k7_inputs(B, N, h, d, dv, cuda, seed=N * dv + h)
     before = k7.attn4d.launches
     out = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
