@@ -13,8 +13,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    every EfficientNet-B3 @ 224 dispatch shape (batch 8) plus odd and ragged
    sizes, with the JAX package's test tolerances, bit-identical over two
    runs; kernel and plain times at batch 128 (CUDA events, median of 25 runs
-   after warm-up); for K2 also its launch plan against the built library's,
-   each shape's bound, what bounds it and GB/s;
+   after warm-up); for K1 and K2 also the launch plan against the built
+   library's, for K1 its device time and its SiLU's guard over every f32 it
+   may keep (``k1_silu_check``), each shape's bound, what bounds it and GB/s;
+   K4 (one launch a rotation) bit-identical to its plain version at every
+   ``K4_CASES`` case, its plan the built library's, event and device time;
 2. the full-width B3 forward with seeded weights and a head fitted to spread
    the probabilities: bf16 on the card through the kernels against bf16
    (plain versions) and float32 (unfused chain) on the CPU, logits relative
@@ -30,7 +33,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    32 x 4 = 128, rotation, flip, jitter, resized crop and erasing on) over a
    seeded JPEG tree, validation after each epoch, then a resume from
    ``latest.ckpt`` and ``orchestrate(mode="inference", weights: auto)``: K4
-   launches 3 times per train step, K1 and K2 in validation, finite losses,
+   launches once per train step, K1 and K2 in validation, finite losses,
    the checkpoints; one train step on the card against the CPU from the same
    weights and augmentation draws (f32 with TF32 off, and bf16); the train
    step's time at batch 64 and 128 (CUDA events) and the phase's img/s;
@@ -117,11 +120,14 @@ Device times come from ``torch.profiler`` (``kernel_split``), which profiles
 a call once more when it records no device time or lacks a kernel the port's
 wrapper launches, and raises if the second take does too.
 Run with no arguments it does all of the above; ``--parent DIR`` only adds
-phase 1's comparison with another checkout's K5 forward and backward, in
-turns at the four eval and the four fine-tune shapes (``k5_parent``), with
-its K7 at EfficientFormerV2-S1's shape (``k7_parent``: in turns, by events
-and device time; outputs bit-identical there and at every ``K7_ODD`` size),
-and with its K3 at B3's six K3 shapes (``k3_parent``).
+phase 1's comparison with another checkout's K1 at B3's two stage-0 shapes
+(``k1_parent``: in turns, by events and device time; y bit-identical there and
+at every ``K1_ODD`` size), its K4 at the B3 fine-tune canvas (``k4_parent``:
+in turns; outputs bit-identical at every ``K4_CASES`` case), its K5 forward
+and backward, in turns at the four eval and the four fine-tune shapes
+(``k5_parent``), its K7 at EfficientFormerV2-S1's shape (``k7_parent``: in
+turns, by events and device time; outputs bit-identical there and at every
+``K7_ODD`` size), and its K3 at B3's six K3 shapes (``k3_parent``).
 """
 
 from __future__ import annotations
@@ -391,7 +397,7 @@ def phase1(device, report, parent: str | None = None):
         ("expand_dw_silu_pool", k2, K2_SHAPES, K2_ODD, K2_TOL, k2_inputs, "kernel"),
     ):
         fused, plain = getattr(mod, name), getattr(mod, name + "_plain")
-        rows, worst, ms, plain_ms, bounds = [], 0.0, 0.0, 0.0, []
+        rows, worst, ms, plain_ms, bounds, device_ms = [], 0.0, 0.0, 0.0, [], 0.0
         cases = [(s, n) for s, n in shapes] + [(s, 0) for s in odd]
         for i, (shape, count) in enumerate(cases):
             k = shape[-1]
@@ -406,12 +412,19 @@ def phase1(device, report, parent: str | None = None):
             worst = max(worst, ey)
             row = {"shape": shape, "blocks_in_b3": count, "max_abs_err_y": ey,
                    "max_abs_err_pool": ep}
+            sms = k2.sm_count(device)
             if mod is k2:  # the launch plan is the one the built kernel computes
                 for B in (8, 128):
-                    want = k2.plan(*shape, B, k2.sm_count(device))
-                    if want != k2.kernel_plan(B, *shape, k2.sm_count(device)):
+                    want = k2.plan(*shape, B, sms)
+                    if want != k2.kernel_plan(B, *shape, sms):
                         raise AssertionError(f"{name}{shape}: plan {want} is not the kernel's")
-                row["plan"] = vars(k2.plan(*shape, 128, k2.sm_count(device)))
+                row["plan"] = vars(k2.plan(*shape, 128, sms))
+            else:
+                for B in (8, 128):
+                    want = k1.plan(B, *shape, sms)
+                    if want != k1.kernel_plan(B, *shape, sms):
+                        raise AssertionError(f"{name}{shape}: plan {want} is not the kernel's")
+                row["plan"] = vars(k1.plan(128, *shape, sms))
             if count:  # time at the eval batch (128) for the B3 shapes
                 big = inputs(128, *shape, seed=200 + i, device=device)
                 b_ms, b_by = kernel_bound(name, 128, shape)
@@ -419,13 +432,19 @@ def phase1(device, report, parent: str | None = None):
                 t_k = spread(cuda_times(lambda: fused(*big, **{kw: k}), runs=25))
                 t_p = spread(cuda_times(lambda: plain(*big, **{kw: k}), runs=25))
                 row.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+                if mod is k1:  # device time: the one kernel a call launches
+                    row["device_ms"] = launch_ms(lambda: fused(*big, **{kw: k}),
+                                                 ("depthwise_silu_pool_kernel",), calls=10)
+                    device_ms += count * row["device_ms"]
                 if mod is k2:
                     row["gb_per_s"] = k2_bytes(128, shape) / t_k["median"] / 1e6
                 ms += count * t_k["median"]
                 plain_ms += count * t_p["median"]
             rows.append(row)
             log(f"  {name} {shape}: max|dy|={ey:.3e} max|dpool|={ep:.3e}, bit-identical over two "
-                "runs" + (f"; kernel {row['ms']['median']:.4f} ms plain "
+                "runs" + (f"; kernel {row['ms']['median']:.4f} ms"
+                          + (f" (device {row['device_ms']:.4f})" if "device_ms" in row else "")
+                          + " plain "
                           f"{row['plain_ms']['median']:.4f} ms (batch 128), bound "
                           f"{row['bound_ms']:.4f} ms ({row['bound_by']})" if count else "")
                 + (f", {row['gb_per_s']:.0f} GB/s, plan {row['plan']}" if "gb_per_s" in row
@@ -433,9 +452,14 @@ def phase1(device, report, parent: str | None = None):
         bound_ms, bound_by = add_bounds(bounds)
         kernels[name] = {"rows": rows, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        if mod is k1:
+            kernels[name]["device_ms"] = device_ms
+            kernels[name]["silu_check"] = k1_silu_check(device)
         log(f"  {name}: per B3 forward at batch 128 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
             f" bound {bound_ms:.4f} ms ({bound_by})")
+    kernels["depthwise_silu_pool"]["parent"] = k1_parent(parent)
     kernels["rotate_batch"] = phase1_k4(device)
+    kernels["rotate_batch"]["parent"] = k4_parent(parent)
     kernels["window_attention"] = phase1_k5(device)
     kernels["window_attention"]["parent"] = k5_parent(parent, fwd=True)
     kernels["window_attention_bwd"] = phase1_k5_bwd(device)
@@ -447,6 +471,52 @@ def phase1(device, report, parent: str | None = None):
     kernels["fused_mbconv_se"]["parent"] = k3_parent(parent)
     report["phase1"] = kernels
     return kernels
+
+
+def k1_silu_check(device) -> dict:
+    """K1's SiLU keeps the fast quotient only where it rounds to the precise
+    one's bf16: the kernel's own check over every f32 its fast path may keep
+    (``dfd_silu_check``) must count no mismatch."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import build
+
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        build.check(build.library().dfd_silu_check(
+            counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream), "silu_check")
+    bad, slow = (int(v) for v in counts.cpu())
+    log(f"  depthwise_silu_pool SiLU over every f32 >= -16: {bad} fast quotients "
+        f"round to another bf16 than the precise one's; {slow} inputs take the precise one")
+    if bad:
+        raise AssertionError(f"depthwise_silu_pool: the SiLU's guard lets {bad} values through")
+    return {"mismatches": bad, "precise": slow}
+
+
+def k1_parent(parent: str | None) -> dict | None:
+    """K1 of the checkout in ``parent`` against this one
+    (``profile_k1.compare``): at ``K1_SHAPES`` both times in turns, event
+    and device, and their sums per B3 forward; at every shape and ``K1_ODD``
+    y must be bit-identical and the pools within 1e-5 of the pool's scale
+    (raises otherwise). None without ``parent``."""
+    if parent is None:
+        log("  depthwise_silu_pool: the parent's kernel not measured (no --parent)")
+        return None
+    from deepfakedetection_tpu_torch import profile_k1
+
+    rows = profile_k1.compare(parent)
+    differ = [r["shape"] for r in rows if not r["y_bit_identical"] or r["pool_rel_diff"] > 1e-5]
+    if differ:
+        raise AssertionError(f"depthwise_silu_pool: not the parent's y and pool at {differ}")
+    sums = {key: 0.0 for key in ("this_ms", "other_ms", "this_device_ms", "other_device_ms")}
+    for r, (_, count) in zip(rows, K1_SHAPES):
+        for key in sums:
+            sums[key] += count * r[key]
+    log(f"  depthwise_silu_pool per B3 forward at batch 128 (2 launches), in turns with "
+        f"{parent}'s: this {sums['this_ms']:.4f} ms (device {sums['this_device_ms']:.4f}), the "
+        f"parent's {sums['other_ms']:.4f} ms (device {sums['other_device_ms']:.4f}); device ratio "
+        f"{sums['this_device_ms'] / sums['other_device_ms']:.3f}; y bit-identical at every shape")
+    return {"tree": parent, "rows": rows, "per_forward": sums}
 
 
 def k5_parent(parent: str | None, fwd: bool) -> dict | None:
@@ -1528,49 +1598,88 @@ def launch_ms(fn, kernels, calls: int = 10) -> float:
     raise DeviceTimeMissing(f"expected kernels {list(kernels)} absent")
 
 
+def k4_inputs(B, H, W, largest, seed, device):
+    """Images in [0, 1) and angles within +-largest (both ends included when
+    nonzero)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(B, H, W, 3, generator=g).to(torch.bfloat16).to(device)
+    thetas = ((torch.rand(B, generator=g) * 2 - 1) * largest).to(device)
+    if largest:
+        thetas[0], thetas[-1] = largest, -largest
+    return x, thetas
+
+
 def phase1_k4(device) -> dict:
-    """K4 (three launches per rotation) against its plain version."""
+    """K4 (one launch per rotation) against its plain version: bit-identical
+    at every case, the plan the built kernel's; kernel (events and device
+    time) and plain times at the B3 fine-tune canvas."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import shear_rotate as k4
+    from deepfakedetection_tpu_torch.profile_k4 import KERNELS
 
     rows, worst, timed = [], 0.0, {}
     for i, (B, H, W, max_theta, largest) in enumerate(K4_CASES):
-        g = torch.Generator().manual_seed(300 + i)
-        x = torch.rand(B, H, W, 3, generator=g).to(torch.bfloat16).to(device)
-        thetas = ((torch.rand(B, generator=g) * 2 - 1) * largest).to(device)
-        if largest:
-            thetas[0], thetas[-1] = largest, -largest
+        x, thetas = k4_inputs(B, H, W, largest, seed=300 + i, device=device)
+        if k4.plan(H, W, 3, max_theta) != k4.kernel_plan(H, W, 3, max_theta):
+            raise AssertionError(f"rotate_batch{(B, H, W)}: plan {k4.plan(H, W, 3, max_theta)} "
+                                 "is not the kernel's")
         before = k4.rotate_batch.launches
         y = k4.rotate_batch(x, thetas, max_theta=max_theta)
         torch.cuda.synchronize()
-        if k4.rotate_batch.launches != before + 3:
-            raise AssertionError("rotate_batch did not launch its three passes")
+        if k4.rotate_batch.launches != before + 1:
+            raise AssertionError("rotate_batch did not launch its kernel")
         ref = k4.rotate_batch_plain(x, thetas, max_theta=max_theta)
         err = check_close(f"rotate_batch{(B, H, W)} theta<={largest}", y, ref, K4_TOL, 0.0)
-        differ = float((y != ref).float().mean())
-        if differ > 1e-3 or (not largest and not torch.equal(y, x)):
-            raise AssertionError(f"rotate_batch{(B, H, W)}: {differ:.2e} of the elements differ")
+        if not torch.equal(y, ref) or (not largest and not torch.equal(y, x)):
+            raise AssertionError(f"rotate_batch{(B, H, W)}: not the plain version's output, "
+                                 f"{float((y != ref).float().mean()):.2e} of the elements differ")
         worst = max(worst, err)
         row = {"shape": (B, H, W, 3), "max_theta": max_theta, "largest_angle": largest,
-               "max_abs_err": err, "share_differing": differ}
+               "max_abs_err": err, "plan": vars(k4.plan(H, W, 3, max_theta))}
         if i == 0:  # the B3 fine-tune canvas
-            row["ms"] = timed["ms"] = spread(cuda_times(
-                lambda: k4.rotate_batch(x, thetas, max_theta=max_theta), runs=25))
+            call = lambda: k4.rotate_batch(x, thetas, max_theta=max_theta)  # noqa: E731
+            row["ms"] = timed["ms"] = spread(cuda_times(call, runs=25))
+            row["device_ms"] = timed["device_ms"] = launch_ms(call, KERNELS, calls=25)
             row["plain_ms"] = timed["plain_ms"] = spread(cuda_times(
                 lambda: k4.rotate_batch_plain(x, thetas, max_theta=max_theta), runs=25))
         rows.append(row)
-        log(f"  rotate_batch {(B, H, W, 3)} max_theta {max_theta}: max|d|={err:.3e}, "
-            f"{differ:.2e} of the elements differ"
-            + (f"; kernel {row['ms']['median']:.4f} ms plain {row['plain_ms']['median']:.4f} ms"
-               if "ms" in row else ""))
+        log(f"  rotate_batch {(B, H, W, 3)} max_theta {max_theta}: bit-identical to the plain "
+            f"version, plan {row['plan']}"
+            + (f"; kernel {row['ms']['median']:.4f} ms (device {row['device_ms']:.4f}), plain "
+               f"{row['plain_ms']['median']:.4f} ms" if "ms" in row else ""))
     B, H, W, _, _ = K4_CASES[0]
     n = B * H * W * 3
     bound_ms, bound_by = bound(2 * n * 2 + B * 4, {"f32": 3 * 2 * 2 * n})
-    log(f"  rotate_batch bound at {(B, H, W, 3)}: {bound_ms:.4f} ms ({bound_by})")
+    log(f"  rotate_batch bound at {(B, H, W, 3)}: {bound_ms:.4f} ms ({bound_by}), device time "
+        f"{timed['device_ms'] / bound_ms:.1f}x off")
     return {"rows": rows, "max_abs_err": worst, "ms": timed["ms"]["median"],
-            "plain_ms": timed["plain_ms"]["median"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "device_ms": timed["device_ms"], "plain_ms": timed["plain_ms"]["median"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def k4_parent(parent: str | None) -> dict | None:
+    """K4 of the checkout in ``parent`` against this one
+    (``profile_k4.compare``): at ``K4_CASES[0]`` both times in turns, event
+    and device; at every case the outputs must be bit-identical (raises
+    otherwise). None without ``parent``."""
+    if parent is None:
+        log("  rotate_batch: the parent's kernel not measured (no --parent)")
+        return None
+    from deepfakedetection_tpu_torch import profile_k4
+
+    rows = profile_k4.compare(parent)
+    differ = [r["shape"] for r in rows if not r["bit_identical"]]
+    if differ:
+        raise AssertionError(f"rotate_batch: outputs not bit-identical to {parent}'s at {differ}")
+    r = rows[0]
+    log(f"  rotate_batch at {r['shape']}, in turns with {parent}'s: this {r['this_ms']:.4f} ms "
+        f"(device {r['this_device_ms']:.4f}), the parent's {r['other_ms']:.4f} ms (device "
+        f"{r['other_device_ms']:.4f}); device ratio "
+        f"{r['this_device_ms'] / r['other_device_ms']:.3f}; bit-identical at every case")
+    return {"tree": parent, "rows": rows}
 
 
 def calibrate_bn(model, x) -> None:
@@ -1987,7 +2096,7 @@ def phase4(device, report):
     steps = warmup_steps + ft_steps
     per_forward = create_efficientnet("b3").eval().kernel_launches_per_forward()
     want = {"k1": per_forward["k1"] * 2 * val_batches, "k2": per_forward["k2"] * 2 * val_batches,
-            "k3": 0, "k4": 3 * steps, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0, "k7": 0}
+            "k3": 0, "k4": steps, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0, "k7": 0}
     log(f"  training (1 epoch): {steps} train steps, {2 * val_batches} val batches; launches "
         f"K4={launches['k4']} K1={launches['k1']} K2={launches['k2']}; wall {wall:.1f} s")
     if launches != want:
@@ -2012,7 +2121,7 @@ def phase4(device, report):
     if ("atepoch1(best=" not in "".join(log_text2.split())  # the console wraps lines
             or res2.epochs_run != 1 or state["counters"]["epoch"] != 1
             or [r["epoch"] for r in records] != [1, 2]
-            or launches2["k4"] != 3 * ft_steps
+            or launches2["k4"] != ft_steps
             or not all(np.isfinite(r["train_loss"]) for r in records)):
         raise AssertionError(f"resume: {res2}, counters {state['counters']}, records {records}, "
                              f"launches {launches2}")
@@ -3084,8 +3193,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Drives the PyTorch port on one CUDA card.")
     parser.add_argument("--parent", help="another checkout (say the parent commit, unpacked with "
-                        "git archive) whose K5 forward and backward, K7 and K3 phase 1 times "
-                        "against this one's")
+                        "git archive) whose K1, K4, K5 forward and backward, K7 and K3 phase 1 "
+                        "times against this one's")
     args = parser.parse_args()
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)

@@ -35,13 +35,16 @@ _SIGNATURES = {
     "dfd_attn_subblock_plan": [_I] * 4 + [_P],
     "dfd_attn_subblock_bwd": [_P, _I] + [_P] * 5 + [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
     "dfd_attn_subblock_bwd_plan": [_I] * 4 + [_P],
-    "dfd_depthwise_silu_pool": [_P] * 6 + [_I] * 8 + [_P],
+    "dfd_depthwise_plan": [_I] * 6 + [_P],
+    "dfd_depthwise_silu_pool": [_P] * 5 + [_I] * 5 + [_P],
     "dfd_expand_dw_plan": [_I] * 7 + [_P],
     "dfd_expand_dw_silu_pool": [_P] * 8 + [_I] * 8 + [_P],
     "dfd_fused_mbconv_pack": [_P] * 6 + [_I] * 3 + [_P],
     "dfd_fused_mbconv_plan": [_I] * 2 + [_P],
     "dfd_fused_mbconv_se": [_P] * 16 + [_I] * 11 + [_P],
-    "dfd_shear_pass": [_P] * 3 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    "dfd_shear_plan": [_I] * 5 + [_P],
+    "dfd_silu_check": [_P, _P],
+    "dfd_shear_rotate": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_P],
     "dfd_window_attention": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_I, _F, _I, _P],
     "dfd_window_attention_plan": [_I] * 5 + [_P],
     "dfd_window_attention_bwd": [_P] * 5 + [_L, _P] + [_I] * 4 + [_L] * 4 + [_I, _F, _I, _P],

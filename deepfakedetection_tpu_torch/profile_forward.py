@@ -51,7 +51,7 @@ CALLS, WARMUP, ROWS = 5, 3, 30
 TAGS = {"depthwise_silu_pool_kernel": "K1", "expand_dw_kernel": "K2", "pack_wexp_kernel": "K2",
         "se_reduce_kernel": "K3", "se_expand_kernel": "K3", "gated_proj_kernel": "K3",
         "gated_proj_mma_kernel": "K3", "pack_kernel": "K3",
-        "shear_pass_kernel": "K4", **dict.fromkeys(window_attn.FWD_KERNELS, "K5"),
+        "shear_rotate_kernel": "K4", **dict.fromkeys(window_attn.FWD_KERNELS, "K5"),
         **dict.fromkeys(window_attn.BWD_KERNELS, "K5 bwd"),
         "attn_qkv_kernel": "K6", "window_bwd_kernel": "K6 bwd", "sum_partials_kernel": "K6 bwd",
         "attn4d_kernel": "K7"}

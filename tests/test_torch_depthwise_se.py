@@ -77,7 +77,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(change):
 
 @pytest.mark.parametrize("H,W,C,k", B3_SHAPES + SHAPES + [(37, 45, 72, 3), (13, 10, 20, 5)])
 def test_launch_plan_fits_one_block(H, W, C, k):
-    p = k1.plan(H, W, C, k)
-    assert p.smem_bytes <= k1.MAX_SMEM_BYTES
-    assert p.TH <= 16 and p.TW <= 16 and p.tiles == -(-H // p.TH) * -(-W // p.TW)
-    assert 1 <= p.CB <= 64 and 256 // p.CB >= 1
+    p = k1.plan(128, H, W, C, k)
+    assert p.smem <= k1.MAX_SMEM_BYTES
+    assert p.CB == min(C, 64) and p.G == -(-p.CB // 8) * 2 and p.items == -(-C // p.CB) * 128
+    assert 1 <= p.RB <= min(H, k1.MAX_RB) and p.NR == 2 * p.RB + k - 1
+    assert p.T * p.G == p.threads <= k1.MAX_THREADS and p.grid == min(p.items, k1.SMS)
