@@ -79,7 +79,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU's bf16 run with the switch and its f32 run (``check_logits``), forward
    img/s at batch 128 and 256 with K3 and without the switch;
    ``orchestrate(mode="inference")`` over phase 3's tree and ``.pth`` (K3 18
-   launches a batch), 16 test images against the CPU, the test pass's img/s.
+   launches a batch), 16 test images against the CPU, the test pass's img/s;
+10. the EfficientFormerV2-S1 training path: ``orchestrate(mode="training")``
+   with the shipped recipe, transforms and batch (224 px, batch 128: a
+   head-only warmup, then the fine-tune over the recipe's 116 tensors) over a
+   small seeded tree, validation after each: K7 0 launches in every train
+   step (it has no backward; the train forward attends in plain ops) and 4 a
+   val batch, finite losses, the checkpoints, then ``orchestrate(mode=
+   "inference", weights: auto)``; one full-width step's loss and gradients
+   on the card against the CPU (f32 with TF32 off, and bf16;
+   ``EFV2_STEP_BOUNDS``); the step's time at batch 128 (CUDA events) over the
+   recipe's tensors and over every tensor;
+11. ``python -m deepfakedetection_tpu_torch.predict`` (its ``main``) with
+   ``--json`` and with ``--json --cam`` for ``config/inference.yaml``'s three
+   models from the seeded ``.pth`` files of phases 3, 5 and 7, over 8 images
+   of phase 3's tree: K1 2, K2 20, K5 13 and K7 4 launches a forward (twice
+   that with ``--cam``: the prediction's and the map's), the card's
+   probabilities against the CPU's bf16 and f32 runs of the same CLI
+   (``check_logits`` with each model's gate), the triptych PNGs at
+   ``EXPORT_SCALE``, each model's Grad-CAM on the card against the CPU's
+   (``CAM_GATE``) and its milliseconds an image to predict and for the map.
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
@@ -2665,12 +2684,13 @@ def _loss_and_grads(model, x, labels, ce):
     return loss.detach(), dict(zip((n for n, _ in named), grads))
 
 
-def fv_step_readings(card, cpu) -> dict:
-    """The loss's relative gap and, per parameter group, max|dg| over the
-    group's largest |g| (the CPU's as the scale)."""
+def fv_step_readings(card, cpu, groups=None) -> dict:
+    """The loss's relative gap and, per parameter group (``FV_GROUPS`` by
+    default), max|dg| over the group's largest |g| (the CPU's as the
+    scale)."""
     (l_card, g_card), (l_cpu, g_cpu) = card, cpu
     out = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel": abs(l_card - l_cpu) / abs(l_cpu)}
-    for group, member in FV_GROUPS.items():
+    for group, member in (groups or FV_GROUPS).items():
         names = [n for n in g_cpu if member(n)]
         top = max(float(g_cpu[n].abs().max()) for n in names)
         out[group] = max(float((g_card[n] - g_cpu[n]).abs().max()) for n in names) / top
@@ -3188,6 +3208,391 @@ def phase9(device, report, state):
     return launches
 
 
+EF_TRAIN_SPLITS = FV_FUSED_SPLITS  # phase 10's training tree
+EF_TRAIN_BATCH = 128  # config/train.yaml's EfficientFormerV2 batch (a CPU test holds them equal)
+EFV2_STEP_BATCH = 4  # images of the card-against-CPU step (full width, 224 px)
+ZERO_LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0,
+                 "k6_bwd": 0, "k7": 0}
+
+
+def ef_train_config(work: Path, data: Path, device) -> Path:
+    """The shipped EfficientFormerV2-S1 block of ``config/train.yaml`` (its
+    transforms, batch 128, the recipe's warmup and fine-tune) for one epoch
+    over ``data``, into ``work / "runs"``."""
+    import yaml
+
+    shipped = yaml.safe_load((REPO / "config" / "train.yaml").read_text())["models"][EF]
+    cfg = {
+        "seed": 1,
+        "device": str(device),
+        "data": {"root": str(data), "train_split": "train", "val_split": "val",
+                 "test_split": "test", "num_classes": 2, "img_size": 224},
+        "models": {EF: {
+            "output_dir": str(work / "runs"),
+            "transforms": shipped["transforms"],
+            "training": {**shipped["training"], "epochs": 1, "batch_size": EF_TRAIN_BATCH},
+            "inference": {"weights": "auto", "split": "test", "batch_size": EF_TRAIN_BATCH,
+                          "num_workers": 8, "img_size": 224},
+        }},
+        "selection": [EF],
+    }
+    path = work / "train_ef.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def phase10(device, report):
+    """The EfficientFormerV2-S1 training path: orchestrate(mode="training")
+    with the shipped recipe, transforms and batch from the seeded init over a
+    small seeded tree (warmup and fine-tune at batch 128, validation
+    after each), the inference handoff, one full-width step on the card
+    against the CPU's, and the step's time."""
+    import numpy as np
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import attn4d as k7
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+    from deepfakedetection_tpu_torch.train import loop
+
+    work = REPO / "build" / "chip_smoke_ef_train"
+    shutil.rmtree(work, ignore_errors=True)
+    data = work / "data"
+    write_jpeg_tree(data, EF_TRAIN_SPLITS, seed=10)
+    n_train, n_val, n_test = (EF_TRAIN_SPLITS[k] for k in ("train", "val", "test"))
+    warmup_steps = ft_steps = n_train // EF_TRAIN_BATCH
+    val_batches = -(-n_val // EF_TRAIN_BATCH)
+    per_step = []
+    real_step = loop.train_step
+
+    def step_spy(model, opt, *args, **kw):
+        before = k7.attn4d.launches
+        out = real_step(model, opt, *args, **kw)
+        per_step.append(k7.attn4d.launches - before)
+        return out
+
+    loop.train_step = step_spy
+    try:
+        t0 = time.perf_counter()
+        res, launches = counted(lambda: orchestrate(ef_train_config(work, data, device),
+                                                    mode="training")[EF])
+        wall = time.perf_counter() - t0
+    finally:
+        loop.train_step = real_step
+    want = {**ZERO_LAUNCHES, "k7": 4 * 2 * val_batches}
+    log(f"  training (1 epoch from the seeded init): {warmup_steps} warmup and {ft_steps} "
+        f"fine-tune steps at batch {EF_TRAIN_BATCH}, {2 * val_batches} val batches; launches "
+        f"{launches}; K7 per train step {per_step}; wall {wall:.1f} s")
+    if launches != want or per_step != [0] * (warmup_steps + ft_steps):
+        raise AssertionError(f"EfficientFormerV2 training launches {launches} (expected {want}), "
+                             f"K7 per train step {per_step}")
+    (run,) = sorted((work / "runs").iterdir())
+    ckpts = run / "checkpoints"
+    for name in ("latest.ckpt", "best.ckpt", f"{EF}.pth"):
+        if not (ckpts / name).is_file():
+            raise AssertionError(f"EfficientFormerV2 training wrote no {name}")
+    log_text = (run / "logs" / "train.log").read_text()
+    flat = "".join(log_text.split())
+    speeds = logged_speeds(log_text)
+    losses = [float(x) for x in re.findall(r": loss=(\S+) \|", log_text)]
+    if (len(losses) != 2 or not all(np.isfinite(losses)) or res.interrupted
+            or "head-only(20/357paramtensors)" not in flat or "trainable=116/357" not in flat):
+        raise AssertionError(f"bad EfficientFormerV2 training run: losses {losses}, {res}")
+    log(f"  losses {[round(x, 4) for x in losses]}; val acc {res.best_val_acc:.4f}; img/s "
+        f"(host clock, device synced at each epoch's end) {speeds}")
+
+    ires, ilaunch = counted(lambda: orchestrate(ef_train_config(work, data, device),
+                                                mode="inference")[EF])
+    batches = -(-n_test // EF_TRAIN_BATCH) + val_batches
+    if ires.probs.shape != (n_test, 2) or not np.isfinite(ires.probs).all() \
+            or ilaunch != {**ZERO_LAUNCHES, "k7": 4 * batches}:
+        raise AssertionError(f"inference on the trained EfficientFormerV2: {ires.probs.shape} "
+                             f"{ilaunch}")
+    log(f"  inference with weights: auto ({ckpts / f'{EF}.pth'}): accuracy "
+        f"{ires.metrics['accuracy']:.4f}, K7 {ilaunch['k7']}")
+
+    agree = ef_step_against_cpu(device)
+    timing = ef_step_times(device)
+    report["phase10"] = {"launches": launches, "per_step": per_step, "losses": losses,
+                         "val_acc": res.best_val_acc, "logged_img_per_s": speeds, "wall_s": wall,
+                         "inference_launches": ilaunch, "cpu_check": agree,
+                         "step_times": timing}
+    return launches
+
+
+# parameter groups of the EfficientFormerV2 step comparison, by the port's names
+EFV2_GROUPS = {
+    "attention": lambda n: (".token_mixer." in n or ".downsample.attn." in n)
+    and "talking_head" not in n and "attention_biases" not in n,
+    "talking heads and tables": lambda n: "talking_head" in n or "attention_biases" in n,
+    "conv stages": lambda n: n.startswith(("stem.", "stages.0.", "stages.1.")),
+    "head": lambda n: n.startswith(("head.", "head_dist.", "norm.")),
+}
+
+
+def ef_gradients(state, x, labels, device, dtype):
+    """One EfficientFormerV2-S1 fine-tune step's loss and gradients (every
+    tensor) of ``state`` on ``device`` in ``dtype``, on the CPU in f32, and
+    the kernel launches it made."""
+    from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
+    from deepfakedetection_tpu_torch.train.objectives import smoothed_cross_entropy
+
+    model = create_efficientformer_v2("s1", dtype=dtype)
+    model.load_state_dict(state)
+    model = model.to(device).train()
+    labels = labels.to(device)
+    (loss, grads), launches = counted(lambda: _loss_and_grads(model, x.to(device), labels,
+                                                              smoothed_cross_entropy))
+    return float(loss), {n: g.float().cpu() for n, g in grads.items()}, launches
+
+
+# the bounds of ef_step_against_cpu, each near the geometric middle of the
+# sound reading (H100 80GB HBM3 against its host's CPU, batch 4) and the
+# mildest wrong variant's that moves it (the CPU patched against the sound
+# CPU, same weights and images):
+#   f32 loss 8.9e-8 sound, 8.4e-5 with the erf GELU in place of the tanh one;
+#   attention 4.3e-6 sound, 5.5e-4 erf GELU; talking heads and tables 7.1e-6,
+#   6.8e-4; conv stages 8.3e-6, 1.0e-3; head 4.3e-6, 6.3e-4.
+#   bf16 loss 6.4e-5 sound, 1.45e-3 with the final norm's variance unbiased
+#   (4.9e-4 erf GELU); attention 2.1e-2 sound, 0.15 with talking_head1
+#   transposed; talking heads and tables 1.3e-2, 0.15; conv stages 3.2e-2,
+#   0.31; head 1.0e-2, 0.14. In bf16 the erf GELU (1.1-1.7e-2), the
+#   unbiased norm (3.2e-3-9.1e-3) and the attention's output rounded to bf16
+#   before the local-v sum (the kernel branch's rounding, 4.3e-3-1.3e-2) stay
+#   inside the sound spread of the groups: the f32 bounds and the CPU tests
+#   hold those.
+EFV2_STEP_BOUNDS = {
+    "f32": {"loss_rel": 3e-6, "attention": 5e-5, "talking heads and tables": 7e-5,
+            "conv stages": 1e-4, "head": 5e-5},
+    "bf16": {"loss_rel": 3e-4, "attention": 6e-2, "talking heads and tables": 5e-2,
+             "conv stages": 0.1, "head": 4e-2},
+}
+
+
+def ef_step_against_cpu(device) -> dict:
+    """One full-width EfficientFormerV2-S1 step (forward, loss, gradients of
+    every tensor) on the card and on the CPU from the same seeded weights
+    (phase 7's kind) and images, in f32 (TF32 off) and in bf16, both through
+    the plain attention (no K7: it has no backward), held to
+    ``EFV2_STEP_BOUNDS``."""
+    import torch
+
+    state = seeded_efficientformer_state(seed=41)
+    g = torch.Generator().manual_seed(42)
+    x = seeded_images(EFV2_STEP_BATCH, g)
+    labels = torch.arange(EFV2_STEP_BATCH) % 2
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        if dtype == torch.float32:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            l_card, g_card, launches = ef_gradients(state, x, labels, device, dtype)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        t0 = time.perf_counter()
+        l_cpu, g_cpu, _ = ef_gradients(state, x, labels, torch.device("cpu"), dtype)
+        row = out[name] = {**fv_step_readings((l_card, g_card), (l_cpu, g_cpu), EFV2_GROUPS),
+                           "launches": launches, "cpu_s": time.perf_counter() - t0}
+        log(f"  EfficientFormerV2-S1 step, card against CPU ({name}, batch {EFV2_STEP_BATCH}): "
+            f"loss {l_card:.6f} / {l_cpu:.6f} (rel {row['loss_rel']:.2e}); max|dg|/scale "
+            + ", ".join(f"{k} {row[k]:.2e}" for k in EFV2_GROUPS)
+            + f"; K7 launches {launches['k7']}; CPU {row['cpu_s']:.1f} s")
+        over = {k: (row[k], b) for k, b in EFV2_STEP_BOUNDS[name].items() if not row[k] <= b}
+        if over or launches != ZERO_LAUNCHES or not math.isfinite(l_card):
+            raise AssertionError(f"the card's {name} EfficientFormerV2 step disagrees with the "
+                                 f"CPU's: {over} (reading, bound); {row}")
+    return out
+
+
+def ef_step_times(device) -> dict:
+    """The bf16 EfficientFormerV2-S1 train step (forward, backward, AdamW) at
+    batch 128: CUDA events, median and quartiles of 10, over the recipe's
+    116-tensor fine-tune set and over every tensor."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
+    from deepfakedetection_tpu_torch.registry import get_model_spec
+    from deepfakedetection_tpu_torch.runtime.seeding import fold_in, root_generator
+    from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
+    from deepfakedetection_tpu_torch.train.steps import train_step
+
+    g = torch.Generator().manual_seed(43)
+    model = create_efficientformer_v2("s1", generator=g).to(device)
+    root = root_generator(4)
+    x = torch.randn(EF_TRAIN_BATCH, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    labels = (torch.arange(EF_TRAIN_BATCH) % 2).to(device)
+    mask = torch.ones(EF_TRAIN_BATCH, dtype=torch.bool, device=device)
+    out = {}
+    for sets, policy in (("recipe", get_model_spec(EF).recipe.unfreeze), ("all", "all")):
+        opt = PhaseOptimizer(list(model.named_parameters()), lr=1e-4, weight_decay=5e-2,
+                             trainable=unfreeze_predicate(policy))
+        torch.cuda.reset_peak_memory_stats(device)
+        t = spread(cuda_times(lambda: train_step(
+            model, opt, x, labels, mask, fold_in(root, opt.count, device=device)), runs=10))
+        out[sets] = {"step_ms": t, "img_per_s": EF_TRAIN_BATCH / (t["median"] / 1e3),
+                     "trainable": opt.n_train,
+                     "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+        log(f"  EfficientFormerV2-S1 train step batch {EF_TRAIN_BATCH} ({opt.n_train} tensors): "
+            f"{t['median']:.3f} ms (q1 {t['q1']:.3f}, q3 {t['q3']:.3f}) = "
+            f"{out[sets]['img_per_s']:.1f} img/s; peak {out[sets]['peak_gib']:.1f} GiB")
+    return out
+
+
+PREDICT_IMAGES = 8  # phase 11's images, the first and last 4 of phase 3's test split
+PREDICT_LAUNCHES = {"efficientnet_b3": {"k1": 2, "k2": 20}, FV: {"k5": 13}, EF: {"k7": 4}}
+# max|d| of the card's Grad-CAM (bf16, kernels) against the CPU's (bf16, plain
+# versions) on the [0, 1] map, each model on phase 11's 8 images. Sound (H100
+# 80GB HBM3): B3 1.55e-2, FasterViT-2 1.46e-2, EfficientFormerV2-S1 9.7e-3;
+# the CPU's own bf16 maps sit 1.4e-2, 1.4e-2 and 8.3e-3 from its f32 ones.
+CAM_GATE = 5e-2
+
+
+def predict_config(work: Path, device, precision: str) -> Path:
+    """``config/inference.yaml``'s selection with the seeded ``.pth`` files of
+    phases 3, 5 and 7, on ``device`` in ``precision``."""
+    import yaml
+
+    shipped = yaml.safe_load((REPO / "config" / "inference.yaml").read_text())
+    models = {name: {
+        "output_dir": str(work / "runs" / name),
+        "transforms": shipped["models"][name]["transforms"],
+        "inference": {"weights": str(REPO / "build" / "chip_smoke" / f"{name}_seeded.pth"),
+                      "img_size": 224},
+    } for name in shipped["selection"]}
+    cfg = {"seed": 1, "device": str(device), "precision": precision,
+           "data": {"root": str(work), "num_classes": 2, "img_size": 224},
+           "models": models, "selection": shipped["selection"]}
+    path = work / f"predict_{device.type}_{precision}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def run_predict(argv: list[str]) -> list[dict]:
+    """``python -m deepfakedetection_tpu_torch.predict ARGV`` in this process:
+    its JSON records."""
+    import contextlib
+    import io
+
+    from deepfakedetection_tpu_torch import predict
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        predict.main(argv)
+    return [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+
+
+def phase11(device, report):
+    """``predict --json`` and ``predict --json --cam`` for the three models of
+    ``config/inference.yaml``'s selection from the seeded ``.pth`` files of
+    phases 3, 5 and 7, over 8 images of phase 3's tree: launches a forward,
+    the card's probabilities against the CPU's, the triptych PNGs, the card's
+    Grad-CAM maps against the CPU's and the milliseconds an image."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from deepfakedetection_tpu_torch import web_ui
+    from deepfakedetection_tpu_torch.cam import compute_cam
+    from deepfakedetection_tpu_torch.data.pipeline import scan_image_folder
+
+    work = REPO / "build" / "chip_smoke_predict"
+    shutil.rmtree(work, ignore_errors=True)
+    ds = scan_image_folder(REPO / "build" / "chip_smoke" / "data" / "test")  # phase 3's
+    picked = ds.samples[: PREDICT_IMAGES // 2] + ds.samples[-PREDICT_IMAGES // 2:]
+    for path, label in picked:
+        dest = work / "images" / ds.classes[label] / path.name
+        dest.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(path, dest)
+    images = work / "images"
+    configs = {name: predict_config(work, dev, precision) for name, dev, precision in (
+        ("card", device, "bfloat16"), ("cpu16", torch.device("cpu"), "bfloat16"),
+        ("cpu32", torch.device("cpu"), "float32"))}
+    export_dir = web_ui.EXPORT_DIR
+    web_ui.EXPORT_DIR = work / "cam_exports"
+    try:
+        t0 = time.perf_counter()
+        card, launches = counted(lambda: run_predict(
+            ["--config", str(configs["card"]), "--input", str(images), "--json"]))
+        predict_s = time.perf_counter() - t0
+        cpu = {name: run_predict(["--config", str(configs[name]), "--input", str(images),
+                                  "--json"]) for name in ("cpu16", "cpu32")}
+        t0 = time.perf_counter()
+        summaries, cam_launches = counted(lambda: run_predict(
+            ["--config", str(configs["card"]), "--input", str(images), "--json", "--cam"]))
+        cam_s = time.perf_counter() - t0
+    finally:
+        web_ui.EXPORT_DIR = export_dir
+    per_image = {k: sum(v.get(k, 0) for v in PREDICT_LAUNCHES.values()) for k in ZERO_LAUNCHES}
+    want = {k: PREDICT_IMAGES * v for k, v in per_image.items()}
+    log(f"  predict --json over {PREDICT_IMAGES} images: launches {launches}; --cam {cam_launches} "
+        f"(a forward for the prediction and one for the map); wall {predict_s:.1f} s and "
+        f"{cam_s:.1f} s")
+    if launches != want or cam_launches != {k: 2 * v for k, v in want.items()}:
+        raise AssertionError(f"predict launches {launches} / {cam_launches}, expected {want} and "
+                             "twice that with --cam")
+    if len(card) != PREDICT_IMAGES \
+            or [r["image"] for r in card] != [r["image"] for r in cpu["cpu16"]]:
+        raise AssertionError(f"predict --json records: {card}")
+    gates = {"efficientnet_b3": 5e-2, FV: FV_GATE["official"], EF: EFV2_GATE}
+
+    def logit_diffs(records, name):
+        p = torch.tensor([r["predictions"][name]["probs"] for r in records], dtype=torch.float64)
+        return torch.stack([torch.zeros(len(p), dtype=p.dtype), p[:, 1].log() - p[:, 0].log()], -1)
+
+    agree = {name: check_logits(f"predict --json {name} (card against CPU)",
+                                logit_diffs(card, name), logit_diffs(cpu["cpu16"], name),
+                                logit_diffs(cpu["cpu32"], name), gate=gate)
+             for name, gate in gates.items()}
+
+    pngs = sorted((work / "cam_exports").glob("*.png"))
+    scale = web_ui.EXPORT_SCALE
+    sizes = set()
+    for png in pngs:
+        with Image.open(png) as img:
+            sizes.add(img.size)
+    if len(summaries) != PREDICT_IMAGES or not pngs \
+            or sizes != {(len(gates) * 224 * scale, 224 * scale)} \
+            or any(len(s["summary"]) != len(gates) + 1 for s in summaries):
+        raise AssertionError(f"predict --cam: {len(summaries)} records, PNG sizes {sizes}")
+
+    bundles = {}
+    for name in ("card", "cpu16"):
+        web_ui.initialize_from_config(configs[name])
+        bundles[name] = list(web_ui.MODEL_CACHE)
+    cams, times = {}, {}
+    for b_card, b_cpu in zip(bundles["card"], bundles["cpu16"]):
+        worst, t_pred, t_cam = 0.0, [], []
+        for i, (path, _) in enumerate([(p, 0) for p, _ in picked] * 2):
+            with Image.open(path) as img:
+                t0 = time.perf_counter()
+                x = b_card.prepare(img)
+                cls_idx = int(b_card.probs(x).argmax())
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                cam = compute_cam(b_card.model, x, cls_idx)[0].cpu()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if i >= PREDICT_IMAGES:  # the second pass, warm
+                    t_pred.append(1e3 * (t1 - t0))
+                    t_cam.append(1e3 * (t2 - t1))
+                    ref = compute_cam(b_cpu.model, b_cpu.prepare(img), cls_idx)[0]
+                    worst = max(worst, float((cam - ref).abs().max()))
+        cams[b_card.name] = worst
+        times[b_card.name] = {"predict_ms": statistics.median(t_pred),
+                              "cam_ms": statistics.median(t_cam)}
+        log(f"  {b_card.name}: Grad-CAM max|d| card against CPU {worst:.3e} (gate {CAM_GATE}); "
+            f"per image {times[b_card.name]['predict_ms']:.2f} ms to predict and "
+            f"{times[b_card.name]['cam_ms']:.2f} ms for the map (host clock, device synced, "
+            f"median of {PREDICT_IMAGES}; {smi()})")
+    if any(v > CAM_GATE for v in cams.values()):
+        raise AssertionError(f"Grad-CAM maps, card against CPU: {cams}")
+    report["phase11"] = {"launches": launches, "cam_launches": cam_launches,
+                         "against_cpu": agree, "cam_max_abs_diff": cams, "ms_per_image": times,
+                         "pngs": len(pngs), "wall_s": {"predict": predict_s, "cam": cam_s}}
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -3240,6 +3645,10 @@ def main() -> int:
     launches["k6"], launches["k6_bwd"] = fused_eval["k6"], fused_train["k6_bwd"]
     log("phase 9: B3 with DFD_FUSED_MBCONV (K3), orchestrate(mode='inference')")
     launches["k3"] = phase9(device, report, state)["k3"]
+    log("phase 10: EfficientFormerV2-S1 training path, orchestrate(mode='training')")
+    phase10(device, report)
+    log("phase 11: predict --json and --cam for config/inference.yaml's selection")
+    phase11(device, report)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())

@@ -66,15 +66,20 @@ def _decode_to_square(
     return arr
 
 
+def decode_pil_eval(img: Image.Image, plan: EvalTransformPlan) -> np.ndarray:
+    """An open PIL image -> uint8 [img_size, img_size, 3]."""
+    if img.mode != "RGB":  # three channels even with ensure_rgb off
+        img = img.convert("RGB")
+    return _decode_to_square(
+        img, plan.img_size, resize=plan.resize, crop=plan.center_crop,
+        resize_target=plan.resize_size or plan.img_size,
+    )
+
+
 def decode_eval(path: str | Path, plan: EvalTransformPlan) -> np.ndarray:
     """An image file -> uint8 [img_size, img_size, 3]."""
     with Image.open(path) as img:
-        if img.mode != "RGB":  # three channels even with ensure_rgb off
-            img = img.convert("RGB")
-        return _decode_to_square(
-            img, plan.img_size, resize=plan.resize, crop=plan.center_crop,
-            resize_target=plan.resize_size or plan.img_size,
-        )
+        return decode_pil_eval(img, plan)
 
 
 def decode_train(path: str | Path, plan: TrainTransformPlan) -> np.ndarray:

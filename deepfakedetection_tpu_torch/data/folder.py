@@ -3,7 +3,7 @@
 The port's copy of ``deepfakedetection_tpu/data/folder.py``: classes are the
 sorted child directory names (so fake = 0, real = 1) and samples the sorted
 image paths of each class, as torchvision's ``ImageFolder``. A split kept as
-tar shards is not read by the port yet (ROADMAP Queue 1 item 1).
+tar shards is not read by the port yet (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def scan_image_folder(root: str | Path) -> ImageFolderDataset:
     if not classes and any(root.glob("*.tar")):
         raise NotImplementedError(
             f"{root} holds tar shards; the PyTorch port reads ImageFolder trees only "
-            "(ROADMAP Queue 1 item 1)"
+            "(ROADMAP Queue 1 item 13)"
         )
     class_to_idx = {c: i for i, c in enumerate(classes)}
     samples = [

@@ -103,6 +103,17 @@ def pick_head_config(family: str, model_kwargs: dict[str, Any],
     return {**model_kwargs, "head_config": config}
 
 
+def builder_kwargs(family: str, model_kwargs: dict[str, Any],
+                   state: dict[str, torch.Tensor] | None, img_size: int) -> dict[str, Any]:
+    """The builder's keyword arguments: ``pick_head_config``'s, and for an
+    EfficientFormerV2 the ``img_size`` its attention bias tables are sized
+    for."""
+    kwargs = pick_head_config(family, dict(model_kwargs), state)
+    if family == "efficientformerv2":
+        kwargs["img_size"] = img_size
+    return kwargs
+
+
 def load_model_for_eval(job: EvalJob) -> torch.nn.Module:
     """Build the model (init from a generator seeded 0), load the weights
     when the file exists (a warning and the init weights when it does not),
@@ -112,14 +123,11 @@ def load_model_for_eval(job: EvalJob) -> torch.nn.Module:
     ``img_size`` (its attention bias tables' sizes depend on it)."""
     wpath = Path(job.weights) if job.weights is not None else None
     state = load_weights(wpath) if wpath is not None and wpath.exists() else None
-    model_kwargs = pick_head_config(job.spec.family, dict(job.model_kwargs), state)
-    if job.spec.family == "efficientformerv2":
-        model_kwargs["img_size"] = job.img_size
     model = job.spec.builder(
         job.num_classes,
         dtype=job.compute_dtype,
         generator=torch.Generator().manual_seed(0),
-        **model_kwargs,
+        **builder_kwargs(job.spec.family, job.model_kwargs, state, job.img_size),
     )
     if job.compute_dtype == torch.float32 and job.spec.family in _F32_NOTE:
         console.print(f"  precision float32: {_F32_NOTE[job.spec.family]}")

@@ -28,12 +28,23 @@ rounds once). float32 models attend in plain f32 ops. The attention-assisted
 downsample is plain attention (no talking heads, 196 x 784 and 49 x 196
 tokens at 224 px) in PyTorch ops, as the JAX package leaves it to XLA.
 
-Training is not ported (ROADMAP Queue 1 item 6): a forward in training mode
-raises.
+In training (``model.train()``) it follows the JAX ``train=True`` path: every
+ConvNorm with batch statistics and its running-statistic update at decay 0.9
+(``ConvBN``'s train numerics), the final ``norm`` through ``batch_norm_train``,
+and Attention4D through ``attn4d_plain`` at the JAX XLA branch's rounding (the
+f32 output summed with the local-v branch before one cast), as the JAX
+package never takes its kernel in training; the bias tables, talking heads and
+the query's local conv are read from their parameters on every call, so their
+gradients flow. There is no drop path (the JAX builder fixes its rate at 0).
+
+``cam_features`` returns the Grad-CAM map, the final norm's output in the
+compute dtype (the JAX model's ``cam_features``); ``forward`` is ``classify``
+of it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -42,7 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepfakedetection_tpu_torch.models.common import ConvBN, Derived, gelu
+from deepfakedetection_tpu_torch.models.common import ConvBN, Derived, batch_norm_train, gelu
 from deepfakedetection_tpu_torch.ops.attn4d import attn4d, attn4d_plain
 from deepfakedetection_tpu_torch.ops.window_attn import _heads, _merge, _probs
 
@@ -61,8 +72,6 @@ _VARIANTS: dict[str, dict[str, Any]] = {
                        3: [4, 4, 4, 3, 3, 3, 3, 4, 4, 4]}},
 }
 _LAYER_SCALE_INIT = 1e-5
-_TRAINING = ("training EfficientFormerV2 on PyTorch is ROADMAP Queue 1 item 6 (EFv2 training: "
-             "the train forward, the recipe's unfreeze keys, the optimizer's head predicate)")
 
 
 def bias_index(q_res: int, k_res: int, stride: int = 1) -> np.ndarray:
@@ -204,10 +213,14 @@ class Attention2d(nn.Module):
                              f"{H}x{W}: build the model at the input's img_size")
         v = self.v(x)
         v_local = self.v_local(v)
-        bias, th1, th1_b, th2, th2_b = self._tables.get(self._sources())
-        attend = attn4d if self.uses_kernel() else attn4d_plain
-        out = attend(_tokens(self.q(x)), _tokens(self.k(x)), _tokens(v), bias, th1, th1_b, th2,
-                     th2_b, num_heads=self.num_heads, scale=self.scale)
+        if self.training:
+            tables, attend = self._gather(), functools.partial(attn4d_plain,
+                                                               out_dtype=torch.float32)
+        else:
+            tables = self._tables.get(self._sources())
+            attend = attn4d if self.uses_kernel() else attn4d_plain
+        out = attend(_tokens(self.q(x)), _tokens(self.k(x)), _tokens(v), *tables,
+                     num_heads=self.num_heads, scale=self.scale)
         out = (_map(out, H, W).float() + v_local.float()).to(self.dtype)
         if self.stride is not None:
             out = F.interpolate(out, size=(H0, W0), mode="bilinear", align_corners=False)
@@ -225,13 +238,17 @@ class LocalGlobalQuery(nn.Module):
         self.local = nn.Conv2d(cin, cin, 3, 2, 1, groups=cin)
         self.proj = ConvNorm(cin, cout, dtype=dtype)
         # the weight rounded to the compute dtype, taken by the conv as f32
-        # (exact products, f32 accumulation), and the bias in the compute dtype
-        self._local = Derived(lambda: (
-            self.local.weight.to(dtype).float().contiguous(memory_format=torch.channels_last),
-            self.local.bias.to(dtype).view(1, -1, 1, 1)))
+        # (exact products, f32 accumulation), and the bias in the compute
+        # dtype: cached at eval, cast on every call in training
+        self._local = Derived(self._cast)
+
+    def _cast(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return (self.local.weight.to(self.dtype).float().contiguous(
+            memory_format=torch.channels_last), self.local.bias.to(self.dtype).view(1, -1, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self._local.get([self.local.weight, self.local.bias])
+        w, b = (self._cast() if self.training
+                else self._local.get([self.local.weight, self.local.bias]))
         local = F.conv2d(x.float(), w, None, 2, 1, 1, self.local.groups).to(self.dtype) + b
         return self.proj(x[:, :, ::2, ::2] + local)
 
@@ -258,8 +275,11 @@ class Attention2dDownsample(nn.Module):
         self.register_buffer("attention_bias_idxs",
                              torch.from_numpy(bias_index(resolution // 2, resolution, stride=2)),
                              persistent=False)
-        self._bias = Derived(lambda: self.attention_biases[:, self.attention_bias_idxs].float())
+        self._bias = Derived(self._gather)
         self.register_load_state_dict_pre_hook(_proj_alias)
+
+    def _gather(self) -> torch.Tensor:
+        return self.attention_biases[:, self.attention_bias_idxs].float()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, _, H, W = x.shape
@@ -271,7 +291,8 @@ class Attention2dDownsample(nn.Module):
         k = _heads(_tokens(self.k(x)), h)
         v = self.v(x)
         v_local = self.v_local(v)
-        p = _probs(q, k, self._bias.get([self.attention_biases]), self.scale).to(self.dtype)
+        bias = self._gather() if self.training else self._bias.get([self.attention_biases])
+        p = _probs(q, k, bias, self.scale).to(self.dtype)
         out = _merge(p.float() @ _heads(_tokens(v), h).float())
         out = (_map(out, H // 2, W // 2) + v_local.float()).to(self.dtype)
         return self.proj(gelu(out))
@@ -382,9 +403,11 @@ class EfficientFormerV2(nn.Module):
         S1: the last two blocks of stages 3 and 4)."""
         return {"k7": sum(a.uses_kernel() for a in self.attentions())}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAINING)
+    def cam_features(self, x: torch.Tensor,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+        """The final norm's [B, C, H, W] map in the compute dtype (the JAX
+        model's ``cam_features``). ``generator`` is unused: the model has no
+        dropout or drop path."""
         dt = self.dtype
         x = x.to(dt).contiguous(memory_format=torch.channels_last)
         x = self.stem.conv2(self.stem.conv1(x))
@@ -394,11 +417,21 @@ class EfficientFormerV2(nn.Module):
             for blk in stage.blocks:
                 x = blk(x)
         n = self.norm
+        if n.training:
+            return batch_norm_train(n, x.permute(0, 2, 3, 1)).to(dt).permute(0, 3, 1, 2)
         y = (x.float() - n.running_mean.view(1, -1, 1, 1)) * torch.rsqrt(
             n.running_var + n.eps).view(1, -1, 1, 1) * n.weight.view(1, -1, 1, 1) \
             + n.bias.view(1, -1, 1, 1)
-        y = y.to(dt).float().mean(dim=(2, 3))  # the f32 mean pool of the bf16 map
+        return y.to(dt)
+
+    def classify(self, feats: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the map: its f32 mean pool through the mean of
+        ``head`` and ``head_dist``."""
+        y = feats.float().mean(dim=(2, 3))
         return (self.head(y) + self.head_dist(y)) / 2.0
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.classify(self.cam_features(x, generator))
 
 
 def create_efficientformer_v2(

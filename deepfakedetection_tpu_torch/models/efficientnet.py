@@ -314,12 +314,23 @@ class EfficientNet(nn.Module):
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """f32 logits. ``generator`` (on x's device) draws the drop-path and
         dropout masks of a training forward."""
+        return self.classify(self.cam_features(x, generator), generator)
+
+    def cam_features(self, x: torch.Tensor,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+        """The head ConvBN's [B, C, H, W] map in the compute dtype (the JAX
+        model's ``cam_features``)."""
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = self.stem(x)
         for block in self._blocks:
             x = block(x, generator)
-        x = self.head(x)
-        x = x.float().mean(dim=(2, 3))
+        return self.head(x)
+
+    def classify(self, feats: torch.Tensor,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """f32 logits of the map: its f32 mean pool (dropout in training)
+        through ``_fc``."""
+        x = feats.float().mean(dim=(2, 3))
         if self.training and self.dropout_rate > 0.0:
             x = dropout(x, self.dropout_rate, generator)
         return self._fc(x)

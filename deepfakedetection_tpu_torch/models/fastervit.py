@@ -566,6 +566,18 @@ class FasterViT(nn.Module):
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """Logits of a normalized batch; in training ``generator`` draws the
         drop-path masks (needed when the rate is above 0)."""
+        return self.classify(self.cam_features(x, generator))
+
+    def classify(self, feats: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the [B, C, H, W] map: its f32 mean pool through
+        ``head``."""
+        B, C, H, W = feats.shape
+        return self.head(feats.permute(0, 2, 3, 1).reshape(B, H * W, C).float().mean(dim=1))
+
+    def cam_features(self, x: torch.Tensor,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+        """The final norm's [B, C, H, W] map in the compute dtype (the JAX
+        model's ``cam_features``), a view of the stage-4 tokens."""
         dt = self.dtype
         x = x.to(dt).contiguous(memory_format=torch.channels_last)
         for stem in self.stem:
@@ -601,8 +613,7 @@ class FasterViT(nn.Module):
         else:
             y = tokens.float()
             y = (y - n.running_mean) * torch.rsqrt(n.running_var + n.eps) * n.weight + n.bias
-        y = y.to(dt).float().mean(dim=1)  # the f32 mean pool of the bf16 map
-        return self.head(y)
+        return y.to(dt).reshape(B, H, W, C).permute(0, 3, 1, 2)
 
 
 def create_faster_vit(

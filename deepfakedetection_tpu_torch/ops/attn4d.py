@@ -102,9 +102,11 @@ def _mix(t: torch.Tensor, table: torch.Tensor, bias: torch.Tensor) -> torch.Tens
 
 
 def attn4d_plain(q, k, v, bias, th1, th1_b, th2, th2_b, *, num_heads: int,
-                 scale: float) -> torch.Tensor:
+                 scale: float, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """q, k [B, N, h*d]; v [B, N, h*dv]; bias [h, N, N]; th1, th2 [h, h]
-    (flax [h_in, g_out]); th1_b, th2_b [h] -> [B, N, h*dv] in q's dtype."""
+    (flax [h_in, g_out]); th1_b, th2_b [h] -> [B, N, h*dv] in ``out_dtype``
+    (q's dtype by default; float32 keeps the f32 accumulation unrounded, as
+    the JAX model's XLA branch does)."""
     dtype, acc = q.dtype, _acc(q.dtype)
     qh, kh, vh = (_heads(t, num_heads).to(acc) for t in (q, k, v))
     s = (qh @ kh.transpose(-1, -2)) * scale + bias.to(acc)
@@ -112,7 +114,7 @@ def attn4d_plain(q, k, v, bias, th1, th1_b, th2, th2_b, *, num_heads: int,
     e = (s - s.amax(dim=-1, keepdim=True)).exp()
     p = e / e.sum(dim=-1, keepdim=True)
     p2 = _mix(p, th2.to(acc), th2_b.to(acc)).to(dtype)
-    return _merge((p2.to(acc) @ vh).to(dtype))
+    return _merge((p2.to(acc) @ vh).to(out_dtype or dtype))
 
 
 def _check(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int) -> tuple[int, ...]:

@@ -104,6 +104,17 @@ def _resolve_run_paths(model_cfg: dict[str, Any], output_dir: Path, mode: str):
     return ensure_run_dirs(output_dir)
 
 
+def ensemble_settings(config: dict[str, Any]) -> dict[str, Any] | None:
+    """The top-level ``ensemble:`` key as a dict (``true`` gives {}), or None
+    when it is absent or disabled."""
+    raw = config.get("ensemble")
+    if raw is True:
+        return {}
+    if isinstance(raw, dict) and raw.get("enabled", True):
+        return raw
+    return None
+
+
 def _opt(cfg: dict[str, Any], key: str, cast):
     return cast(cfg[key]) if cfg.get(key) is not None else None
 
@@ -248,10 +259,7 @@ def orchestrate(
             refused = unported_options(job)
             if refused:
                 raise NotImplementedError("; ".join(refused))
-    ensemble = config.get("ensemble")
-    if mode == "inference" and (
-        ensemble is True or (isinstance(ensemble, dict) and ensemble.get("enabled", True))
-    ):
+    if mode == "inference" and ensemble_settings(config) is not None:
         raise NotImplementedError("ensembles on PyTorch are ROADMAP Queue 1 item 10")
     apply_seed(config.get("seed"))
 

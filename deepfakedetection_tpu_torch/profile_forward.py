@@ -5,7 +5,7 @@ op, on one CUDA card.
     python -m deepfakedetection_tpu_torch.profile_forward --train    # B3 train step
     python -m deepfakedetection_tpu_torch.profile_forward --model faster_vit_2_224 \
         [--head-config official|tpu] [--train]       # FasterViT-2 forward or train step
-    python -m deepfakedetection_tpu_torch.profile_forward --model efficientformerv2_s1
+    python -m deepfakedetection_tpu_torch.profile_forward --model efficientformerv2_s1 [--train]
     DFD_FUSED_ATTN=1 python -m deepfakedetection_tpu_torch.profile_forward \
         --model faster_vit_2_224 [--train]           # FasterViT-2 through K6
     DFD_FUSED_MBCONV=1 python -m deepfakedetection_tpu_torch.profile_forward
@@ -14,13 +14,13 @@ op, on one CUDA card.
 Runs the model at 224 px in bf16 with generator-seeded weights (the times do
 not depend on their values): B3 at batch 128, FasterViT-2's and
 EfficientFormerV2-S1's forwards at their eval configs' batch 256, FasterViT-2's
-train step at the fine-tune batch 128 (32 x 4 folded), and traces 5 calls
-after 3 warm-up ones with ``torch.profiler``. EfficientFormerV2 has no train
-step on the port yet.
+train step at the fine-tune batch 128 (32 x 4 folded) and EfficientFormerV2-S1's
+at its configured batch 128, and traces 5 calls after 3 warm-up ones with
+``torch.profiler``.
 The train step is the training path's fine-tune step: forward with batch
 statistics, dropout and drop-path, backward (FasterViT: K5's forward and
-backward kernels), and AdamW over every tensor. Prints the
-device time per call against the wall time per call (host clock, device
+backward kernels; EfficientFormerV2: plain attention, no K7), and AdamW over
+every tensor. Prints the device time per call against the wall time per call (host clock, device
 synchronised), so their gap is the device's idle time, then each device
 kernel's self time and launches per call, the largest first, the port's
 hand-written kernels tagged with the TPU kernel each replaces (K1-K7). K3's
@@ -66,7 +66,7 @@ def tag(kernel: str) -> str:
         return next((t for k, t in GEMM_TAGS.items() if f"::{k}>" in kernel), "")
     return next((t for k, t in TAGS.items() if f"{k}<" in kernel or f"{k}(" in kernel), "")
 BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 256, "efficientformerv2_s1": 256}
-TRAIN_BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 128}
+TRAIN_BATCH = {"efficientnet_b3": 128, "faster_vit_2_224": 128, "efficientformerv2_s1": 128}
 
 
 def _call(model, x, train: bool):
@@ -95,8 +95,6 @@ def main() -> None:
                         help="FasterViT's head configuration")
     args = parser.parse_args()
     train = args.train
-    if train and args.model not in TRAIN_BATCH:
-        parser.error(f"--train: {args.model} has no train step on the port yet")
     batch = (TRAIN_BATCH if train else BATCH)[args.model]
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: needs a CUDA card")

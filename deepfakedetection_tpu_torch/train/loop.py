@@ -10,7 +10,8 @@ Port of ``deepfakedetection_tpu/train/loop.py`` (``TrainJob``,
   per-epoch cosine schedule, at micro-batch x accum folded into one batch
   (B3 and FasterViT: 32 x 4 = 128; ``docs/PARITY.md`` delta 2); validation on
   the trainer's val geometry after every epoch (the eval forward: K1 and K2
-  for B3, K5 for FasterViT on the card), ``latest.ckpt`` every epoch,
+  for B3, K5 for FasterViT, K7 for EfficientFormerV2 on the card),
+  ``latest.ckpt`` every epoch,
   ``best.ckpt`` and
   ``<weights_key>.pth`` on an improvement over +1e-4, early stopping,
   optional precise-BN recalibration and weight EMA.
@@ -20,13 +21,14 @@ Port of ``deepfakedetection_tpu/train/loop.py`` (``TrainJob``,
   draw comes from a generator derived from (phase, epoch, batch), so the
   resumed run repeats the uninterrupted one.
 
-The families are EfficientNet and FasterViT (whose train step runs K5's
-forward and backward on the card, or K6's with ``DFD_FUSED_ATTN`` set); a
-FasterViT's head configuration comes from its ``init_weights`` tensors unless
-the config pins one, as the eval job picks it. Not ported: EfficientFormerV2
-(ROADMAP Queue 1 item 6), ``remat``, ``async_checkpoint``, ``profile_dir``
-and more than one process raise ``NotImplementedError`` (ROADMAP Queue 1
-items 11 and 9).
+The families are EfficientNet, FasterViT (whose train step runs K5's forward
+and backward on the card, or K6's with ``DFD_FUSED_ATTN`` set) and
+EfficientFormerV2 (built at the job's ``img_size``; its train step attends in
+plain ops, its validation through K7); a FasterViT's head configuration comes
+from its ``init_weights`` tensors unless the config pins one, as the eval job
+picks it. Not ported: ``remat``, ``async_checkpoint``, ``profile_dir`` and
+more than one process raise ``NotImplementedError`` (ROADMAP Queue 1 items 11
+and 9).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from deepfakedetection_tpu_torch.data.pipeline import (
     prefetch,
 )
 from deepfakedetection_tpu_torch.data.transforms import build_eval_plan, build_train_plan
-from deepfakedetection_tpu_torch.evaluate.job import collect_probs, make_eval_step, pick_head_config
+from deepfakedetection_tpu_torch.evaluate.job import builder_kwargs, collect_probs, make_eval_step
 from deepfakedetection_tpu_torch.registry import ModelSpec
 from deepfakedetection_tpu_torch.runtime import checkpoint as ckpt
 from deepfakedetection_tpu_torch.runtime import preempt
@@ -137,9 +139,6 @@ class TrainResult:
 def unported_options(job: TrainJob) -> list[str]:
     """The job's options the port does not have, as refusal messages."""
     out = []
-    if job.spec.family not in ("efficientnet", "fastervit"):
-        out.append(f"training {job.spec.family} on PyTorch is ROADMAP Queue 1 item 6 "
-                   "(EfficientFormerV2 training)")
     for name, on in (("training.remat", job.remat),
                      ("training.async_checkpoint", job.async_checkpoint),
                      ("profile_dir", bool(job.profile_dir))):
@@ -244,7 +243,7 @@ def _run_training(job: TrainJob) -> TrainResult:
     model = job.spec.builder(
         job.num_classes, dtype=job.compute_dtype,
         generator=torch.Generator().manual_seed(0 if job.seed is None else int(job.seed)),
-        **pick_head_config(job.spec.family, dict(job.model_kwargs), init_state),
+        **builder_kwargs(job.spec.family, job.model_kwargs, init_state, job.img_size),
     )
     if init_wpath is not None:
         if job.resume_auto and ckpt.has_latest(job.run_paths.checkpoints):

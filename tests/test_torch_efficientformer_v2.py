@@ -268,9 +268,14 @@ def test_bias_index_is_timms():
 
 
 def test_training_forward_raises():
+    """A training forward runs at the size the model was built for (its
+    gradient checks are ``tests/test_torch_efficientformer_v2_train.py``'s)
+    and raises, naming the size it was built for, at any other."""
     model = EfficientFormerV2(2, **NARROW, img_size=128).train()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        model(torch.zeros(1, 3, 128, 128))
+    with pytest.raises(ValueError, match="built for 16x16"):
+        model(torch.zeros(2, 3, 160, 160))
+    logits = model(torch.randn(2, 3, 128, 128, generator=torch.Generator().manual_seed(0)))
+    assert logits.shape == (2, 2) and logits.requires_grad and torch.isfinite(logits).all()
 
 
 def _chip_smoke():

@@ -23,6 +23,7 @@ between the bf16 and f32 port runs.
 
 import dataclasses
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -53,10 +54,13 @@ from deepfakedetection_tpu_torch.evaluate.job import pick_head_config
 from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
 from deepfakedetection_tpu_torch.runtime.convert import fastervit_head_config, state_dict_from_jax
 from deepfakedetection_tpu_torch.runtime.flags import resolve_device
+from deepfakedetection_tpu_torch.train.loop import TrainResult
 from tests.test_torch_efficientformer_v2 import NARROW as EF_NARROW
 from tests.test_torch_efficientformer_v2 import seeded_tree
 from tests.test_torch_fastervit import _perturbed
 from tests.torch_refs.fastervit_torch import FasterViT2
+
+REPO = Path(__file__).resolve().parents[1]
 
 NARROW = dict(width_coefficient=0.25, depth_coefficient=0.5, native_resolution=32)
 SIZE = 32
@@ -391,26 +395,41 @@ def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, check
     _config(cfg, tiny_image_tree, tmp_path / "out", checkpoint, "float32")
     data = yaml.safe_load(cfg.read_text())
     data["models"]["faster_vit_2_224"] = {"output_dir": str(tmp_path / "fv")}
-    data["models"]["efficientformerv2_s1"] = {"output_dir": str(tmp_path / "ef")}
-    # EfficientFormerV2 evaluates (below) but does not train yet
+    data["models"]["efficientformerv2_s1"] = {"output_dir": str(tmp_path / "ef"),
+                                              "training": {"remat": True}}
     data["selection"] = ["efficientnet_b3", "efficientformerv2_s1"]
     cfg.write_text(yaml.safe_dump(data))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         port_orch.orchestrate(cfg, mode="training")
     assert not (tmp_path / "out").exists()  # failed before any work
-    # FasterViT trains with the fused sub-block (K6) switched on as well: no
-    # refusal, the job reaches the trainer
-    data["selection"] = ["faster_vit_2_224"]
+    # every family reaches the trainer, FasterViT with the fused sub-block (K6)
+    # switched on as well: no refusal
+    del data["models"]["efficientformerv2_s1"]["training"]
+    data["selection"] = ["efficientnet_b3", "efficientformerv2_s1", "faster_vit_2_224"]
     cfg.write_text(yaml.safe_dump(data))
     jobs = []
     with monkeypatch.context() as mp:
         mp.setenv("DFD_FUSED_ATTN", "1")
         mp.setattr(port_orch, "run_training",
-                   lambda job: jobs.append(job) or dataclasses.make_dataclass(
-                       "Stopped", [("interrupted", bool)])(True))
+                   lambda job: jobs.append(job) or TrainResult(0.0, -1, 0, 0.0))
         port_orch.orchestrate(cfg, mode="training")
-    assert [job.spec.name for job in jobs] == ["faster_vit_2_224"]
-    assert port_orch.unported_options(jobs[0]) == []
+    assert [job.spec.name for job in jobs] == data["selection"]
+    assert all(port_orch.unported_options(job) == [] for job in jobs)
+
+    # the shipped training config, pointed at the tree, on the CPU
+    shipped = yaml.safe_load((REPO / "config" / "train.yaml").read_text())
+    shipped.update(device="cpu", data={**shipped["data"], "root": str(tiny_image_tree)})
+    for name, block in shipped["models"].items():
+        block["output_dir"] = str(tmp_path / "shipped" / name)
+    cfg.write_text(yaml.safe_dump(shipped))
+    jobs.clear()
+    with monkeypatch.context() as mp:
+        mp.setattr(port_orch, "run_training",
+                   lambda job: jobs.append(job) or TrainResult(0.0, -1, 0, 0.0))
+        port_orch.orchestrate(cfg, mode="training")
+    assert [(j.spec.name, j.img_size, j.batch_size) for j in jobs] == [
+        ("efficientnet_b3", 224, 64), ("efficientformerv2_s1", 224, 128),
+        ("faster_vit_2_224", 224, 64)]
 
     data["selection"] = ["efficientnet_b3"]
     data["models"]["efficientnet_b3"]["inference"]["precision"] = "int8"

@@ -5,8 +5,9 @@ CPU forward of a narrow EfficientNet through the K1/K2 wrappers, of one built
 with ``DFD_FUSED_MBCONV`` through the K3 wrapper, of a narrow
 FasterViT through the K5 wrapper, of one built with ``DFD_FUSED_ATTN`` through
 the K6 wrapper (forward and backward) and of a narrow EfficientFormerV2
-through the K7 wrapper, and one CPU train step with the
-augmentation's shear rotation, and check that no jax, flax, optax or orbax
+through the K7 wrapper, that EfficientFormerV2's train forward and backward
+and its Grad-CAM, import the predict CLI and the web UI, and one CPU train
+step with the augmentation's shear rotation, and check that no jax, flax, optax or orbax
 module and no ``deepfakedetection_tpu`` module was loaded. Statically, no
 ``.py`` file of the port imports either (``chip_smoke.reference_imports``)."""
 
@@ -121,6 +122,21 @@ with torch.no_grad():
 attn4d.attn4d_plain = plain4d
 assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
 assert tokens == [4, 4] and attn4d.attn4d.launches == 0, tokens
+
+ef.train()
+out = ef(torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(2)))
+out.sum().backward()
+th = ef.stages[3].blocks[1].token_mixer.talking_head2.weight
+assert bool(torch.isfinite(out).all()) and th.grad is not None and bool(th.grad.abs().sum() > 0)
+assert attn4d.attn4d.launches == 0
+ef.eval()
+
+import deepfakedetection_tpu_torch.predict
+import deepfakedetection_tpu_torch.web_ui
+from deepfakedetection_tpu_torch.cam import compute_cam
+
+cam = compute_cam(ef, torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(3)), 1)
+assert cam.shape == (2, 64, 64) and bool(torch.isfinite(cam).all())
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "deepfakedetection_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("LOADED", loaded)
