@@ -98,7 +98,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    probabilities against the CPU's bf16 and f32 runs of the same CLI
    (``check_logits`` with each model's gate), the triptych PNGs at
    ``EXPORT_SCALE``, each model's Grad-CAM on the card against the CPU's
-   (``CAM_GATE``) and its milliseconds an image to predict and for the map.
+   (``CAM_GATE``) and its milliseconds an image to predict and for the map;
+12. ``python -m deepfakedetection_tpu_torch.serve``'s server for the same
+   three models with a top-level ensemble weighing B3 twice (``--max-batch
+   32 --max-wait-ms 5 --warmup all``), in this process on a loopback port:
+   ``/healthz``, 16 of phase 3's test images one at a time (12 raw JPEG
+   bodies, 4 as ``image_b64``) against the CPU's bf16 and f32 runs of the
+   same weights (``check_logits``, each model's gate), the ensemble entry
+   the members' weighted mean; N copies of one image at once for N in 1-32,
+   each row within its model's gate of bucket 1's; the launches of one
+   bucket-32 step per model (K1 2 and K2 20, K5 13, K7 4; no plain version
+   on the card but FasterViT's 16-token carrier-token attentions); 64 client
+   threads x 16 requests, half with ``?model=`` (every one 200, ``/stats``
+   counting exactly what was sent, a mean batch above 1, ``/metrics``
+   agreeing; requests a second, p50/p99 latency and mean batch printed
+   beside the card's name and power limit); a token-gated ``/reload`` under
+   load (200, every request 200 or 503); then the CLI in a subprocess
+   (``/healthz``, one ``/predict``, exit 0 on SIGTERM).
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
@@ -152,6 +168,7 @@ turns, by events and device time; outputs bit-identical there and at every
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -3448,6 +3465,18 @@ PREDICT_LAUNCHES = {"efficientnet_b3": {"k1": 2, "k2": 20}, FV: {"k5": 13}, EF: 
 CAM_GATE = 5e-2
 
 
+MODEL_GATES = {"efficientnet_b3": 5e-2, FV: FV_GATE["official"], EF: EFV2_GATE}
+
+
+def logit_diff_rows(probs):
+    """[N, 2] float64 rows (0, log p1 - log p0) of [N, 2] probabilities:
+    the logits up to a per-row shift, as ``check_logits`` reads them."""
+    import torch
+
+    p = torch.as_tensor(probs, dtype=torch.float64)
+    return torch.stack([torch.zeros(len(p), dtype=p.dtype), p[:, 1].log() - p[:, 0].log()], -1)
+
+
 def predict_config(work: Path, device, precision: str) -> Path:
     """``config/inference.yaml``'s selection with the seeded ``.pth`` files of
     phases 3, 5 and 7, on ``device`` in ``precision``."""
@@ -3534,11 +3563,10 @@ def phase11(device, report):
     if len(card) != PREDICT_IMAGES \
             or [r["image"] for r in card] != [r["image"] for r in cpu["cpu16"]]:
         raise AssertionError(f"predict --json records: {card}")
-    gates = {"efficientnet_b3": 5e-2, FV: FV_GATE["official"], EF: EFV2_GATE}
+    gates = MODEL_GATES
 
     def logit_diffs(records, name):
-        p = torch.tensor([r["predictions"][name]["probs"] for r in records], dtype=torch.float64)
-        return torch.stack([torch.zeros(len(p), dtype=p.dtype), p[:, 1].log() - p[:, 0].log()], -1)
+        return logit_diff_rows([r["predictions"][name]["probs"] for r in records])
 
     agree = {name: check_logits(f"predict --json {name} (card against CPU)",
                                 logit_diffs(card, name), logit_diffs(cpu["cpu16"], name),
@@ -3591,6 +3619,395 @@ def phase11(device, report):
                          "against_cpu": agree, "cam_max_abs_diff": cams, "ms_per_image": times,
                          "pngs": len(pngs), "wall_s": {"predict": predict_s, "cam": cam_s}}
     return launches
+
+
+SERVE_IMAGES = 16  # phase 12's single requests: the first and last 8 of phase 3's test split
+SERVE_B64 = 4  # of them sent as {"image_b64"}, the rest as raw JPEG bodies
+SERVE_WEIGHTS = {"efficientnet_b3": 2.0}  # phase 12's top-level ensemble
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_CLIENTS, SERVE_PER_CLIENT = 64, 16  # the load: client threads x requests each
+SERVE_RELOAD_CLIENTS = 16  # the load during the reload, each until the swap is behind it
+SERVE_TOKEN = "phase-12-reload-token"
+
+
+def serve_config(work: Path, device, precision: str) -> Path:
+    """``predict_config``'s three models with ``SERVE_WEIGHTS``' top-level
+    ensemble."""
+    import yaml
+
+    cfg = yaml.safe_load(predict_config(work, device, precision).read_text())
+    cfg["ensemble"] = {"weights": SERVE_WEIGHTS}
+    path = work / f"serve_{device.type}_{precision}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+@functools.cache
+def no_proxy_opener():
+    """One urllib opener for every request of phase 12 (building one loads
+    the CA store, tens of ms of the interpreter's time)."""
+    import urllib.request
+
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def http(base: str, path: str, data: bytes | None = None, headers: dict | None = None,
+         timeout: float = 120.0) -> tuple[int, dict, bytes]:
+    """(status, headers, body) of one request to the phase's loopback
+    server, errors included; no proxy."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=data, headers=headers or {},
+                                 method="GET" if data is None else "POST")
+    try:
+        with no_proxy_opener().open(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, dict(err.headers), err.read()
+
+
+def prometheus_values(text: str) -> dict[tuple[str, str], float]:
+    """{(metric[_quantile], model): value} of the server's ``/metrics`` text;
+    raises on a line it cannot read."""
+    out = {}
+    for line in text.splitlines():
+        m = re.fullmatch(r'(\w+)\{model="(\w+)"(?:,quantile="([\d.]+)")?\} ([\d.]+)', line)
+        if m:
+            out[(m.group(1) + (f"_{m.group(3)}" if m.group(3) else ""), m.group(2))] = \
+                float(m.group(4))
+        elif line and not line.startswith("# "):
+            raise AssertionError(f"/metrics line not understood: {line!r}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts the kernels' plain versions called on CUDA tensors while the
+    block runs: [(name, tokens or None)]. FasterViT's 16-token carrier-token
+    attentions run in plain ops by design (K5 takes 32 tokens or more)."""
+    from deepfakedetection_tpu_torch.models import efficientformer_v2, fastervit
+    from deepfakedetection_tpu_torch.ops import attn4d as k7
+    from deepfakedetection_tpu_torch.ops import depthwise_se as k1
+    from deepfakedetection_tpu_torch.ops import expand_dw as k2
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+
+    seen: list[tuple[str, int | None]] = []
+    targets = [(k1, "depthwise_silu_pool_plain"), (k2, "expand_dw_silu_pool_plain"),
+               (k5, "window_attention_plain"), (fastervit, "window_attention_plain"),
+               (k7, "attn4d_plain"), (efficientformer_v2, "attn4d_plain")]
+    originals = [getattr(module, name) for module, name in targets]
+
+    def counting(name, fn):
+        def wrapper(x, *args, **kwargs):
+            if x.is_cuda:
+                seen.append((name, x.shape[1] if name == "window_attention_plain" else None))
+            return fn(x, *args, **kwargs)
+        return wrapper
+
+    for (module, name), fn in zip(targets, originals):
+        setattr(module, name, counting(name, fn))
+    try:
+        yield seen
+    finally:
+        for (module, name), fn in zip(targets, originals):
+            setattr(module, name, fn)
+
+
+def serve_load(base: str, names: list[str], bodies: list[bytes], clients: int, per_client: int,
+               until=None, deadline_s: float = 300.0):
+    """``clients`` threads each sending ``per_client`` requests (or, with
+    ``until``, until ``until()`` holds and it has sent 4 more); request k of
+    client i is number j = i + k * clients, its body ``bodies[j % len]``,
+    every second one with ``?model=`` (the models in turn). Returns
+    ([(status, only, seconds)], wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_end = time.perf_counter() + deadline_s
+
+    def client(i):
+        out, k, after = [], 0, 0
+        while k < per_client if until is None else after < 4:
+            if time.perf_counter() > t_end:
+                raise AssertionError("the load outlasted its deadline")
+            done = until is not None and until()
+            j = i + k * clients
+            only = names[(j // 2) % len(names)] if j % 2 else None
+            t0 = time.perf_counter()
+            code, _, _ = http(base, f"/predict?model={only}" if only else "/predict",
+                              bodies[j % len(bodies)])
+            out.append((code, only, time.perf_counter() - t0))
+            k, after = k + 1, after + done
+        return out
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=clients) as ex:
+        rows = [r for rs in ex.map(client, range(clients)) for r in rs]
+    return rows, time.perf_counter() - t0
+
+
+def phase12(device, report):
+    """``serve`` for config/inference.yaml's three models with an ensemble,
+    from the seeded ``.pth`` files of phases 3, 5 and 7: the in-process server
+    (``build_server`` on a thread, ``--max-batch 32 --max-wait-ms 5 --warmup
+    all``) against the CPU's runs of the same weights, every bucket against
+    bucket 1, the launches of a bucket-32 step, concurrent clients, a reload
+    under load; then the CLI in a subprocess until SIGTERM."""
+    import base64
+    import threading
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from deepfakedetection_tpu_torch import serve
+    from deepfakedetection_tpu_torch.data.decode import decode_pil_eval
+    from deepfakedetection_tpu_torch.data.pipeline import scan_image_folder
+    from deepfakedetection_tpu_torch.evaluate.ensemble import weighted_mean
+
+    def decoded(path, plan):
+        with Image.open(path) as img:
+            return decode_pil_eval(img, plan)
+
+    t_phase = time.perf_counter()
+    work = REPO / "build" / "chip_smoke_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ds = scan_image_folder(REPO / "build" / "chip_smoke" / "data" / "test")  # phase 3's
+    picked = [path for path, _ in
+              ds.samples[: SERVE_IMAGES // 2] + ds.samples[-SERVE_IMAGES // 2:]]
+    bodies = [path.read_bytes() for path in picked]
+    card_cfg = serve_config(work, device, "bfloat16")
+    t0 = time.perf_counter()
+    state = serve.build_state(card_cfg, max_batch=32, max_wait_ms=5.0)
+    state.warmup("all")
+    startup_s = time.perf_counter() - t0
+    names = [m.name for m in state.models]
+    server = serve.build_server(card_cfg, port=0, max_batch=32, max_wait_ms=5.0, state=state,
+                                reload_token=SERVE_TOKEN)
+    handler = server.RequestHandlerClass
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://%s:%d" % server.server_address[:2]
+    out: dict = {"startup_s": startup_s}
+    try:
+        code, _, body = http(base, "/healthz")
+        if code != 200 or json.loads(body)["models"] != names or sorted(names) != sorted(
+                PREDICT_LAUNCHES):
+            raise AssertionError(f"/healthz: {code} {body!r}")
+
+        # 16 single requests: 12 raw JPEG bodies, 4 as {"image_b64"}
+        served = []
+        for i, raw in enumerate(bodies):
+            if i % (SERVE_IMAGES // SERVE_B64) == SERVE_IMAGES // SERVE_B64 - 1:
+                code, _, body = http(base, "/predict", json.dumps(
+                    {"image_b64": base64.b64encode(raw).decode()}).encode(),
+                    {"Content-Type": "application/json"})
+            else:
+                code, _, body = http(base, "/predict", raw)
+            if code != 200:
+                raise AssertionError(f"/predict {picked[i]}: {code} {body!r}")
+            served.append({r["model"]: r for r in json.loads(body)["results"]})
+        if any(list(r) != names + ["ensemble"] for r in served):
+            raise AssertionError(f"/predict results name {[list(r) for r in served]}")
+        ens_err = max(float(np.abs(np.asarray(r["ensemble"]["probs"]) - weighted_mean(
+            [(n, np.asarray(r[n]["probs"])) for n in names], SERVE_WEIGHTS)).max())
+            for r in served)
+        if ens_err > 1e-12:
+            raise AssertionError(f"the ensemble entry is off the members' weighted mean by "
+                                 f"{ens_err}")
+        refs = {}
+        for precision in ("bfloat16", "float32"):
+            cpu = serve.build_state(serve_config(work, torch.device("cpu"), precision),
+                                    max_batch=SERVE_IMAGES)
+            try:
+                for m in cpu.models:
+                    batch = np.stack([decoded(p, m.plan) for p in picked])
+                    refs[m.name, precision] = m.batcher.call(
+                        lambda r=m.batcher.runner, b=batch: r(b)).result()
+            finally:
+                cpu.close()
+        agree = {name: check_logits(
+            f"serve {name} (card against CPU)",
+            logit_diff_rows([r[name]["probs"] for r in served]),
+            logit_diff_rows(refs[name, "bfloat16"]), logit_diff_rows(refs[name, "float32"]),
+            gate=MODEL_GATES[name]) for name in names}
+        log(f"  16 requests (12 raw, 4 base64): the ensemble entry within {ens_err:.1e} of the "
+            f"members' weighted mean")
+
+        # every bucket: N copies of one image at once, each row against bucket 1's
+        buckets = {}
+        for m in state.models:
+            arr = decoded(picked[0], m.plan)
+            scale = float(logit_diff_rows(refs[m.name, "float32"]).abs().max())
+            rows_1, buckets[m.name] = None, {}
+            for n in SERVE_BUCKETS:
+                b0 = m.batcher.n_batches
+                futs = [m.batcher.submit(arr) for _ in range(n)]
+                rows = logit_diff_rows(np.stack([f.result(timeout=120) for f in futs]))[:, 1]
+                sizes = list(m.batcher.batch_sizes)[-(m.batcher.n_batches - b0):]
+                rows_1 = rows[0] if rows_1 is None else rows_1
+                worst = float((rows - rows_1).abs().max()) / scale
+                buckets[m.name][n] = {"max_rel_dlogit": worst, "batches": sizes}
+                if worst > MODEL_GATES[m.name]:
+                    raise AssertionError(f"{m.name} bucket {n}: rows {worst:.3e} of the logit "
+                                         f"scale from bucket 1's (gate {MODEL_GATES[m.name]})")
+            log(f"  {m.name}: each bucket's rows against bucket 1's, max|dlogit|/scale "
+                + ", ".join(f"{n}: {v['max_rel_dlogit']:.2e} (coalesced {v['batches']})"
+                            for n, v in buckets[m.name].items()))
+
+        # the launches of one bucket-32 device step per model, and no plain version
+        launches, plains = {}, {}
+        for m in state.models:
+            batch = np.stack([decoded(picked[0], m.plan)] * 32)
+            with plain_calls() as plain:
+                _, launches[m.name] = counted(lambda: m.batcher.call(
+                    lambda r=m.batcher.runner: r(batch)).result())
+            want = {k: PREDICT_LAUNCHES[m.name].get(k, 0) for k in ZERO_LAUNCHES}
+            if launches[m.name] != want or any(n is None or n >= 32 for _, n in plain):
+                raise AssertionError(f"{m.name} bucket-32 step: launches {launches[m.name]} "
+                                     f"(expected {want}), plain versions on the card {plain}")
+            ran = {k: v for k, v in launches[m.name].items() if v}
+            note = (f"{len(plain)} plain attentions, all carrier tokens of {plain[0][1]} (K5 "
+                    "takes 32 or more)" if plain else "no plain version ran")
+            log(f"  {m.name} bucket-32 step: launches {ran}; {note}")
+            plains[m.name] = len(plain)
+
+        # the load: 64 clients x 16 requests, every second one with ?model=
+        before = {m.name: m.batcher.stats() for m in state.models}
+        rows, wall = serve_load(base, names, bodies, SERVE_CLIENTS, SERVE_PER_CLIENT)
+        codes = sorted({c for c, _, _ in rows})
+        if codes != [200] or len(rows) != SERVE_CLIENTS * SERVE_PER_CLIENT:
+            raise AssertionError(f"load: {len(rows)} responses, statuses {codes}")
+        _, _, body = http(base, "/stats")
+        stats = json.loads(body)
+        _, _, text = http(base, "/metrics")
+        metrics = prometheus_values(text.decode())
+        load: dict = {"requests": len(rows), "wall_s": wall, "requests_per_s": len(rows) / wall}
+        lat = sorted(t for _, _, t in rows)
+        load["client_latency_ms"] = {"p50": 1e3 * lat[len(lat) // 2],
+                                     "p99": 1e3 * lat[min(len(lat) - 1, int(len(lat) * 0.99))]}
+        for name in names:
+            sent = sum(1 for _, only, _ in rows if only in (None, name))
+            s, b = stats[name], before[name]
+            if s["requests"] != b["requests"] + sent:
+                raise AssertionError(f"/stats counts {s['requests']} requests for {name}, "
+                                     f"{b['requests']} + {sent} were sent")
+            mean_batch = (s["requests"] - b["requests"]) / (s["batches"] - b["batches"])
+            if mean_batch <= 1:
+                raise AssertionError(f"{name}: no batch coalesced under load ({mean_batch})")
+            for key, metric in (("requests", "dfd_requests_total"),
+                                ("batches", "dfd_batches_total"),
+                                ("mean_batch", "dfd_mean_batch_size"),
+                                ("latency_ms_p50", "dfd_request_latency_ms_0.5"),
+                                ("latency_ms_p99", "dfd_request_latency_ms_0.99")):
+                if abs(metrics[metric, name] - s[key]) > 1e-4:
+                    raise AssertionError(f"/metrics {metric} {metrics[metric, name]} against "
+                                         f"/stats {key} {s[key]} for {name}")
+            load[name] = {"sent": sent, "mean_batch": mean_batch,
+                          "server_p50_ms": s["latency_ms_p50"],
+                          "server_p99_ms": s["latency_ms_p99"]}
+        log(f"  load, {SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} requests (half with ?model=): "
+            f"{load['requests_per_s']:.1f} requests/s over {wall:.2f} s, client latency p50 "
+            f"{load['client_latency_ms']['p50']:.1f} ms p99 {load['client_latency_ms']['p99']:.1f}"
+            " ms; " + "; ".join(
+                f"{n} {load[n]['sent']} images, mean batch {load[n]['mean_batch']:.2f}, server "
+                f"p50 {load[n]['server_p50_ms']:.1f} / p99 {load[n]['server_p99_ms']:.1f} ms"
+                for n in names) + f"; /stats and /metrics agree ({smi()})")
+
+        # a reload under load: 403 without the token, 200 with it, nothing 500
+        if http(base, "/reload", b"")[0] != 403:
+            raise AssertionError("/reload without the token was not refused")
+        swapped = threading.Event()
+        reload_out: dict = {}
+
+        def reload():
+            time.sleep(0.5)  # the load is running
+            t = time.perf_counter()
+            reload_out["code"], _, body = http(base, "/reload", b"",
+                                               {"X-Reload-Token": SERVE_TOKEN})
+            reload_out["s"], reload_out["body"] = time.perf_counter() - t, body
+            swapped.set()
+
+        old = handler.state
+        reloader = threading.Thread(target=reload)
+        reloader.start()
+        rows, wall = serve_load(base, names, bodies, SERVE_RELOAD_CLIENTS, 0, until=swapped.is_set)
+        reloader.join(timeout=300)
+        codes = {c: sum(1 for x, _, _ in rows if x == c) for c in {x for x, _, _ in rows}}
+        if reload_out.get("code") != 200 or handler.state is old or set(codes) - {200, 503}:
+            raise AssertionError(f"reload under load: /reload {reload_out}, statuses {codes}")
+        log(f"  reload under load: /reload 200 in {reload_out['s']:.1f} s; {len(rows)} requests "
+            f"meanwhile, statuses {codes}")
+        out.update({"against_cpu": agree, "ensemble_max_abs_diff": ens_err, "buckets": buckets,
+                    "bucket32_launches": launches, "bucket32_plain_calls": plains, "load": load,
+                    "reload": {"s": reload_out["s"], "statuses": codes, "requests": len(rows)}})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        if handler.state is not None:
+            handler.state.close()
+    out["cli"] = serve_cli(card_cfg, bodies[0], names)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12 took {out['wall_s']:.1f} s")
+    report["phase12"] = out
+
+
+def serve_cli(config: Path, body: bytes, names: list[str]) -> dict:
+    """``python -m deepfakedetection_tpu_torch.serve`` on a free loopback
+    port: /healthz, one /predict, then SIGTERM and exit code 0."""
+    import queue
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepfakedetection_tpu_torch.serve", "--config", str(config),
+         "--host", "127.0.0.1", "--port", "0", "--max-batch", "32", "--max-wait-ms", "5",
+         "--warmup", "first"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    lines: queue.Queue = queue.Queue()
+    output: list[str] = []
+
+    def read():
+        for line in proc.stdout:
+            output.append(line)
+            lines.put(line)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        base = None
+        while base is None:
+            try:
+                line = lines.get(timeout=max(1.0, 240 - (time.perf_counter() - t0)))
+            except queue.Empty:
+                raise AssertionError("the serve CLI did not start listening: "
+                                     + "".join(output[-20:])) from None
+            m = re.search(r"listening on (http://127\.0\.0\.1:\d+)", line)
+            base = m.group(1) if m else None
+        up_s = time.perf_counter() - t0
+        code, _, health = http(base, "/healthz")
+        code2, _, body = http(base, "/predict", body)
+        results = json.loads(body)["results"] if code2 == 200 else []
+        if code != 200 or json.loads(health)["models"] != names \
+                or [r["model"] for r in results] != names + ["ensemble"]:
+            raise AssertionError(f"serve CLI: /healthz {code} {health!r}, /predict {code2} "
+                                 f"{body!r}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=10)
+    if rc != 0 or "drained and stopped" not in "".join(output):
+        raise AssertionError(f"serve CLI exited {rc}: " + "".join(output[-20:]))
+    log(f"  serve CLI: listening after {up_s:.1f} s, /healthz and /predict 200, exit 0 on "
+        f"SIGTERM")
+    return {"listening_after_s": up_s, "exit_code": rc}
 
 
 def main() -> int:
@@ -3649,6 +4066,8 @@ def main() -> int:
     phase10(device, report)
     log("phase 11: predict --json and --cam for config/inference.yaml's selection")
     phase11(device, report)
+    log("phase 12: serve config/inference.yaml's selection over HTTP, with an ensemble")
+    phase12(device, report)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())

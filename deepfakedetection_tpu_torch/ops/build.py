@@ -6,17 +6,18 @@ library with a plain C interface under ``build/torch_kernels/`` at the
 repository root. The library's name carries a hash of the sources and
 flags, so an edited source builds anew and an unchanged one is reused. The
 CPU never reaches this module: the kernel wrappers call ``library()`` only for
-CUDA tensors.
+CUDA tensors. The first ``library()`` call builds and loads under a lock, so
+threads that launch kernels at once (the server's batchers) share one build.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -117,9 +118,24 @@ def build() -> Path:
     return out
 
 
-@functools.cache
+_load_lock = threading.Lock()
+_loaded: ctypes.CDLL | None = None
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call. The first callers
+    wait on one lock, so the library is built and loaded once per process:
+    ``build`` names its objects by process id, and two threads building at
+    once would compile and link into the same files."""
+    global _loaded
+    if _loaded is None:
+        with _load_lock:
+            if _loaded is None:
+                _loaded = _load()
+    return _loaded
+
+
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

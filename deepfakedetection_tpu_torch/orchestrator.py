@@ -10,7 +10,9 @@ from the repository root as::
     python -m deepfakedetection_tpu_torch.orchestrator --mode inference --config CFG
 
 The YAML ``device`` picks the CUDA card for any value but ``cpu``; the
-top-level ``precision`` is bf16 by default, or float32.
+top-level ``precision`` is bf16 by default, or float32. In inference mode a
+top-level ``ensemble:`` combines the evaluated models afterwards
+(``evaluate/ensemble.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from deepfakedetection_tpu_torch.config import load_config
 from deepfakedetection_tpu_torch.data.transforms import resolve_transform_mapping
+from deepfakedetection_tpu_torch.evaluate.ensemble import run_ensemble
 from deepfakedetection_tpu_torch.evaluate.job import EvalJob, EvalResult, run_eval_job
 from deepfakedetection_tpu_torch.registry import get_model_spec
 from deepfakedetection_tpu_torch.runtime.flags import compute_dtype, resolve_device
@@ -259,8 +262,6 @@ def orchestrate(
             refused = unported_options(job)
             if refused:
                 raise NotImplementedError("; ".join(refused))
-    if mode == "inference" and ensemble_settings(config) is not None:
-        raise NotImplementedError("ensembles on PyTorch are ROADMAP Queue 1 item 10")
     apply_seed(config.get("seed"))
 
     results: dict[str, EvalResult | TrainResult | None] = {}
@@ -288,7 +289,26 @@ def orchestrate(
             f"[bold green]✓ {model_name}[/]: best val acc "
             f"{result.best_val_acc:.4f} @ epoch {result.best_epoch + 1}"
         )
+    if mode == "inference":
+        _run_ensemble(config, results)
     return results
+
+
+def _run_ensemble(config: dict[str, Any], results: dict[str, Any]) -> None:
+    """The top-level ``ensemble:`` over the selection's eval results, in its
+    own run dir (``evaluate/ensemble.py``)."""
+    settings = ensemble_settings(config)
+    if settings is None:
+        return
+    evaluated = sum(1 for r in results.values() if r is not None)
+    if evaluated < 2:
+        console.print(f"[yellow]⚠ ensemble skipped: {evaluated} evaluated model(s), need ≥2[/]")
+        return
+    run_paths = ensure_run_dirs(_resolve_path(settings.get("output_dir") or "runs/ensemble"))
+    snapshot_config(config, "ensemble", run_paths)
+    run_ensemble(results, run_paths,
+                 num_classes=int((config.get("data") or {}).get("num_classes", 2)),
+                 weights=settings.get("weights"))
 
 
 def run_cli(default_mode: str = "inference") -> None:

@@ -37,6 +37,7 @@ from deepfakedetection_tpu_torch.data.transforms import (
     build_eval_plan,
     resolve_transform_mapping,
 )
+from deepfakedetection_tpu_torch.evaluate.ensemble import weighted_mean
 from deepfakedetection_tpu_torch.evaluate.job import load_model_for_eval, make_eval_step
 from deepfakedetection_tpu_torch.orchestrator import build_eval_job, ensemble_settings
 from deepfakedetection_tpu_torch.runtime.flags import resolve_device
@@ -77,11 +78,9 @@ ENSEMBLE_CFG: dict[str, Any] | None = None
 def ensemble_probs(member_probs: list[tuple[str, np.ndarray]],
                    settings: dict[str, Any]) -> np.ndarray:
     """The members' softmax outputs averaged with the settings' ``weights``
-    (1 for a member it does not name), in float64."""
-    weights = settings.get("weights") or {}
-    w = np.asarray([float(weights.get(name, 1.0)) for name, _ in member_probs])
-    return np.tensordot(w / w.sum(), np.stack([p for _, p in member_probs]).astype(np.float64),
-                        axes=1)
+    (1 for a member it does not name), in float64: the batch ensemble's
+    ``weighted_mean``."""
+    return weighted_mean(member_probs, settings.get("weights"))
 
 
 def label_of(cls_idx: int) -> str:

@@ -6,7 +6,8 @@ with ``DFD_FUSED_MBCONV`` through the K3 wrapper, of a narrow
 FasterViT through the K5 wrapper, of one built with ``DFD_FUSED_ATTN`` through
 the K6 wrapper (forward and backward) and of a narrow EfficientFormerV2
 through the K7 wrapper, that EfficientFormerV2's train forward and backward
-and its Grad-CAM, import the predict CLI and the web UI, and one CPU train
+and its Grad-CAM, import the predict CLI and the web UI, serve a batch through
+the server's micro-batcher and weigh an ensemble, and one CPU train
 step with the augmentation's shear rotation, and check that no jax, flax, optax or orbax
 module and no ``deepfakedetection_tpu`` module was loaded. Statically, no
 ``.py`` file of the port imports either (``chip_smoke.reference_imports``)."""
@@ -133,6 +134,14 @@ ef.eval()
 
 import deepfakedetection_tpu_torch.predict
 import deepfakedetection_tpu_torch.web_ui
+import numpy as np
+from deepfakedetection_tpu_torch.evaluate.ensemble import weighted_mean
+from deepfakedetection_tpu_torch.serve import MicroBatcher
+
+batcher = MicroBatcher(lambda b: np.ones((len(b), 2)) / 2, max_batch=4, name="no_jax")
+assert batcher.submit(np.zeros((2, 2, 3), np.uint8)).result(timeout=30).tolist() == [0.5, 0.5]
+batcher.stop()
+assert weighted_mean([("a", np.ones(2)), ("b", np.zeros(2))], {"a": 3.0}).tolist() == [0.75] * 2
 from deepfakedetection_tpu_torch.cam import compute_cam
 
 cam = compute_cam(ef, torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(3)), 1)

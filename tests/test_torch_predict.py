@@ -256,19 +256,29 @@ def test_build_interface_without_gradio_names_the_package(monkeypatch, setup):
     (None, None), (False, None), (True, {}), ({"enabled": False}, None),
     ({"weights": {B3: 2.0}}, {"weights": {B3: 2.0}}),
 ])
-def test_ensemble_settings_and_the_batch_jobs_refusal(raw, want, setup, tmp_path):
-    """``ensemble:`` as predict and the web UI read it; the batch job still
-    refuses an enabled ensemble before any work (ROADMAP Queue 1 item 10)."""
+def test_ensemble_settings_and_the_batch_jobs_refusal(raw, want, setup, tmp_path, monkeypatch):
+    """``ensemble:`` as predict and the web UI read it; the batch job no
+    longer refuses an enabled ensemble: it evaluates both models over the
+    images and writes the ensemble's record to ``runs/ensemble/<ts>/``
+    (``tests/test_torch_ensemble.py`` holds that record to the JAX
+    package's)."""
     assert port_orch.ensemble_settings({"ensemble": raw}) == want
     cfg = yaml.safe_load(setup[0].read_text())
     cfg["ensemble"] = raw
     if raw is None:
         del cfg["ensemble"]
-    for block in cfg["models"].values():
-        block["output_dir"] = str(tmp_path / "runs")
+    cfg["data"]["test_split"] = "images"
+    for name, block in cfg["models"].items():
+        block["output_dir"] = str(tmp_path / "runs" / name)
     path = tmp_path / "e.yaml"
     path.write_text(yaml.safe_dump(cfg))
     if want is not None:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            port_orch.orchestrate(path, mode="inference")
-        assert not (tmp_path / "runs").exists()
+        _, port_specs = _specs()
+        monkeypatch.setattr(port_orch, "get_model_spec", lambda name: port_specs[name])
+        monkeypatch.chdir(tmp_path)  # the default ensemble output_dir, runs/ensemble
+        results = port_orch.orchestrate(path, mode="inference")
+        assert list(results) == [B3, EF]
+        (run,) = sorted((tmp_path / "runs" / "ensemble").iterdir())
+        record = json.loads((run / "logs" / "metrics.jsonl").read_text().splitlines()[-1])
+        assert record["model"] == "ensemble" and record["members"] == [B3, EF]
+        assert record.get("weights") == ({B3: 2.0, EF: 1.0} if want else None)
