@@ -114,7 +114,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    agreeing; requests a second, p50/p99 latency and mean batch printed
    beside the card's name and power limit); a token-gated ``/reload`` under
    load (200, every request 200 or 503); then the CLI in a subprocess
-   (``/healthz``, one ``/predict``, exit 0 on SIGTERM).
+   (``/healthz``, one ``/predict``, exit 0 on SIGTERM);
+13. int8 eval: (a) the int8 depthwise kernel (``ops/int8_dw.py``, no Pallas
+   source) at every shape of B3's int8 forward (batch 128) and
+   EfficientFormerV2-S1's (batch 256), taken from the models: its int32
+   accumulator bit-exact against the plain version, its activated bf16
+   output within one bf16 step (``INT8_DW_STEP``), its time beside the plain
+   version's, cuDNN's bf16 depthwise conv of the same shape and the bound;
+   (b) ``orchestrate(mode="inference")`` with ``inference.precision: int8``
+   on phase 3's B3 ``.pth`` and tree (calibration on 2 val batches; 26
+   int8 kernel launches a batch, K1 and K2 none; ``metrics.jsonl`` says
+   int8), the stem's int8 input and int32 accumulator equal to the CPU's,
+   the job's probabilities against the CPU port's int8 logits with the job's
+   scales (``check_logits``), and, ungated, int8 against bf16; (c) int8
+   forwards of EfficientFormerV2-S1 and FasterViT-2 official (scales
+   calibrated on the card; K7 4, K5 13 launches) against the CPU's int8
+   under each model's gate; (d) ``python -m deepfakedetection_tpu_torch.
+   bench`` in a subprocess for B3, FasterViT-2 ``--official`` and S1 eval,
+   B3 ``--int8`` and B3 ``--mode train``, each JSON line printed.
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
@@ -168,6 +185,7 @@ turns, by events and device time; outputs bit-identical there and at every
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -332,7 +350,13 @@ def reference_imports(source: str) -> list[str]:
     return sorted(n for n in names if n.split(".")[0] in banned)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Prints a line; a phase's first line with the seconds since the start."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [{time.perf_counter() - _T0:.0f} s in]"
     print(msg, flush=True)
 
 
@@ -2024,13 +2048,16 @@ def decode_rate(data: Path) -> float:
     return n / (time.perf_counter() - t0)
 
 
-def reference_check(res, data: Path, refs_of, gate: float = 5e-2) -> dict[str, float]:
-    """The job's outputs for 16 test images, the first and last 8 (both
-    classes), against ``refs_of(x)``, the CPU's (bf16, f32) logits over the
-    same decoded pixels, as logit differences log(p1 / p0): what the job's
-    probabilities keep of the logits."""
-    import dataclasses
+def test_picks(data: Path) -> list[int]:
+    """The 16 test images ``reference_check`` reads: the first and last 8."""
+    from deepfakedetection_tpu_torch.data.pipeline import scan_image_folder
 
+    n = len(scan_image_folder(data / "test"))
+    return list(range(8)) + list(range(n - 8, n))
+
+
+def test_images(data: Path):
+    """``test_picks``' images decoded and normalized as the eval job does (NCHW f32)."""
     import torch
 
     from deepfakedetection_tpu_torch.data.augment import normalize_batch
@@ -2039,13 +2066,24 @@ def reference_check(res, data: Path, refs_of, gate: float = 5e-2) -> dict[str, f
         make_eval_loader,
         scan_image_folder,
     )
+
     plan = build_eval_plan(224, EVAL_TF)
     ds = scan_image_folder(data / "test")
-    picked = list(range(8)) + list(range(len(ds) - 8, len(ds)))
+    picked = test_picks(data)
     ds = dataclasses.replace(ds, samples=[ds.samples[i] for i in picked])
     batch = next(iter(make_eval_loader(ds, plan, batch_size=len(picked))))
-    refs = refs_of(normalize_batch(torch.from_numpy(batch.images), plan))
-    p = torch.from_numpy(res.probs[picked]).double()
+    return normalize_batch(torch.from_numpy(batch.images), plan)
+
+
+def reference_check(res, data: Path, refs_of, gate: float = 5e-2) -> dict[str, float]:
+    """The job's outputs for 16 test images, the first and last 8 (both
+    classes), against ``refs_of(x)``, the CPU's (bf16, f32) logits over the
+    same decoded pixels, as logit differences log(p1 / p0): what the job's
+    probabilities keep of the logits."""
+    import torch
+
+    refs = refs_of(test_images(data))
+    p = torch.from_numpy(res.probs[test_picks(data)]).double()
     got = torch.stack([torch.zeros(len(p), dtype=p.dtype), p[:, 1].log() - p[:, 0].log()], -1)
     return check_logits("main path (card), 16 test images", got,
                         *(r.double() - r[:, :1].double() for r in refs), gate=gate)
@@ -4010,6 +4048,587 @@ def serve_cli(config: Path, body: bytes, names: list[str]) -> dict:
     return {"listening_after_s": up_s, "exit_code": rc}
 
 
+# int8 eval (phase 13): the depthwise kernel's shapes come from the models
+# themselves; its bf16 output must sit within one bf16 step of the f32
+# reference (the kernel and the plain version round the same f32 value apart
+# only where their exp/tanh/erf differ in the last bits)
+INT8_DW_STEP = 2.0 ** -7
+# at most this share of a layer's int8 inputs may sit off the card's level on
+# the CPU, each by at most one level plus two bf16 steps of the value (the
+# values between two quantizers differ by bf16 roundings: an SE gate near 1
+# one step apart moves a whole channel by 2^-7; see ``on_card_levels``).
+# Measured on an H100: at most 2.9e-3 (B3's job at batch 128; 1.5e-4 at
+# batch 16), 1.7e-5 (S1), 8.3e-4 (FasterViT-2) of a layer, 2 levels;
+# ``planted_fault``'s faults read 2.0e-2 (one B3 scale x 1023/1024) to 6.1e-1
+# (PERF.md §6).
+INT8_FLIP_FRAC = 5e-3
+INT8_FLIP_LEVELS = 2.0 ** -6
+I8_BENCH = (["--model", "efficientnet_b3"], ["--model", FV, "--official"], ["--model", EF],
+            ["--model", "efficientnet_b3", "--int8"], ["--model", "efficientnet_b3", "--mode",
+                                                        "train"])
+
+
+def int8_dw_calls(model, size: int = 224) -> list[tuple]:
+    """The int8 depthwise calls of one int8 forward of ``model`` (a bf16
+    model on the CPU, batch 1, a uniform scale): (H, W, C, k, stride, pads,
+    act) each, in call order."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import quant
+
+    calls, kernel = [], quant.int8_depthwise
+
+    def record(xq, wq, scale, bias, *, stride, pads, act, out_dtype):
+        calls.append((*xq.shape[1:], wq.shape[0], stride, tuple(map(tuple, pads)), act))
+        return kernel(xq, wq, scale, bias, stride=stride, pads=pads, act=act, out_dtype=out_dtype)
+
+    quant.int8_depthwise = record
+    try:
+        with quant.quantized_eval(quant.QuantCtx(default_scale=0.05)), torch.no_grad():
+            model(torch.zeros(1, 3, size, size))
+    finally:
+        quant.int8_depthwise = kernel
+    return calls
+
+
+def int8_dw_inputs(B, H, W, C, k, seed, device):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    xq = torch.randint(-127, 128, (B, H, W, C), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, k, C), generator=g, dtype=torch.int8)
+    scale = torch.rand(C, generator=g) * 2e-4 + 1e-5
+    bias = torch.randn(C, generator=g) * 0.5
+    return [t.to(device) for t in (xq, wq, scale, bias)]
+
+
+def int8_dw_bound(B, H, W, C, k, stride, pads) -> tuple[float, str]:
+    """int8 x read once, bf16 y written once, the taps, scale and bias read;
+    2 k^2 integer operations an output element on the CUDA cores, counted at
+    the f32 rate."""
+    from deepfakedetection_tpu_torch.ops.int8_dw import out_size
+
+    Ho, Wo = out_size(H, k, stride, pads[0]), out_size(W, k, stride, pads[1])
+    out = B * Ho * Wo * C
+    return bound(B * H * W * C + 2 * out + k * k * C + 8 * C, {"f32": 2 * k * k * out})
+
+
+def cudnn_dw_ms(x, k: int, stride: int, pads) -> float:
+    """cuDNN's bf16 depthwise conv of the same shape (context: a conv the
+    int8 path does not call)."""
+    import torch
+    import torch.nn.functional as F
+
+    C = x.shape[-1]
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels_last
+    w = torch.randn(C, 1, k, k, device=x.device).to(torch.bfloat16)
+    (pt, pb), (pl, pr) = pads
+    if (pt, pl) == (pb, pr):
+        return statistics.median(cuda_times(
+            lambda: F.conv2d(xb, w, None, stride, (pt, pl), 1, C), runs=15))
+    return statistics.median(cuda_times(
+        lambda: F.conv2d(F.pad(xb, (pl, pr, pt, pb)), w, None, stride, 0, 1, C), runs=15))
+
+
+def phase13_kernel(device) -> dict:
+    """The int8 depthwise kernel against its plain version at every shape of
+    B3's int8 forward (batch 128) and EfficientFormerV2-S1's (batch 256):
+    the int32 accumulator bit-exact (no activation, scale 1, bias 0, f32
+    out), the activated bf16 output within one bf16 step of the f32 plain
+    version; kernel, plain and cuDNN's bf16 depthwise times (CUDA events,
+    median of 15 and 3) beside the bound, summed over a forward."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.ops import int8_dw
+
+    models = {"B3": (create_efficientnet("b3").eval(), EVAL_BATCH),
+              "EFv2-S1": (create_efficientformer_v2("s1").eval(), EF_BATCH)}
+    rows, err = {}, 0.0
+    for label, (model, B) in models.items():
+        calls = int8_dw_calls(model)
+        total = {"ms": 0.0, "plain_ms": 0.0, "cudnn_bf16_ms": 0.0, "bound_ms": 0.0}
+        by = {}
+        for shape in sorted(set(calls), key=str):
+            H, W, C, k, s, pads, act = shape
+            n = calls.count(shape)
+            xq, wq, scale, bias = int8_dw_inputs(B, H, W, C, k, len(by), device)
+            ones, zeros = torch.ones_like(scale), torch.zeros_like(scale)
+            acc = int8_dw.int8_depthwise(xq, wq, ones, zeros, stride=s, pads=pads,
+                                         out_dtype=torch.float32)
+            want = int8_dw.int8_depthwise_acc_plain(xq, wq, stride=s, pads=pads)
+            if not torch.equal(acc.to(torch.int32), want):
+                raise AssertionError(f"int8 depthwise {label} {shape}: accumulator differs")
+            y = int8_dw.int8_depthwise(xq, wq, scale, bias, stride=s, pads=pads, act=act)
+            ref = int8_dw.int8_depthwise_plain(xq, wq, scale, bias, stride=s, pads=pads, act=act,
+                                               out_dtype=torch.float32)
+            d = (y.float() - ref).abs()
+            if not bool((d <= INT8_DW_STEP * ref.abs() + 1e-6 * ref.abs().max()).all()):
+                raise AssertionError(f"int8 depthwise {label} {shape}: {float(d.max()):.3e} "
+                                     "past one bf16 step")
+            err = max(err, float(d.max()))
+            ms = statistics.median(cuda_times(lambda: int8_dw.int8_depthwise(
+                xq, wq, scale, bias, stride=s, pads=pads, act=act), runs=15))
+            plain = statistics.median(cuda_times(lambda: int8_dw.int8_depthwise_plain(
+                xq, wq, scale, bias, stride=s, pads=pads, act=act), runs=3, warmup=1))
+            cudnn = cudnn_dw_ms(xq, k, s, pads)
+            b_ms, b_by = int8_dw_bound(B, H, W, C, k, s, pads)
+            by[str(shape)] = {"calls": n, "ms": ms, "plain_ms": plain, "cudnn_bf16_ms": cudnn,
+                              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": float(d.max())}
+            for key, v in (("ms", ms), ("plain_ms", plain), ("cudnn_bf16_ms", cudnn),
+                           ("bound_ms", b_ms)):
+                total[key] += n * v
+            log(f"  {label} [{B}, {H}, {W}, {C}] k{k} s{s} {pads} {act} x{n}: {ms:.4f} ms "
+                f"(plain {plain:.3f}, cuDNN bf16 {cudnn:.4f}, bound {b_ms:.4f} by {b_by}); "
+                f"max|d| {float(d.max()):.2e}")
+        log(f"  {label} int8 forward at batch {B}: {len(calls)} launches, {total['ms']:.3f} ms "
+            f"(plain {total['plain_ms']:.2f}, cuDNN bf16 {total['cudnn_bf16_ms']:.3f}, "
+            f"bound {total['bound_ms']:.3f})")
+        rows[label] = {"batch": B, "launches": len(calls), **total, "shapes": by}
+    b3 = rows["B3"]
+    return {"max_abs_err": err, "ms": b3["ms"], "plain_ms": b3["plain_ms"],
+            "bound_ms": b3["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "by_model": rows}
+
+
+def int8_logits(state, build, x, device, dtype, scales):
+    """Logits of ``build(dtype)`` with ``state`` under int8 ``scales``, f32 on
+    the CPU."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import quant
+
+    model = build(dtype)
+    model.load_state_dict(state)
+    model = model.to(device).eval()
+    with quant.quantized_eval(quant.QuantCtx(scales=scales)), torch.no_grad():
+        return model(x.to(device)).float().cpu()
+
+
+@contextlib.contextmanager
+def quantizer_tape():
+    """``quant._quantize`` replaced, while the block runs, by one that keeps
+    each call's (input, inverse scale, int8 levels) on the host whenever
+    ``tape.rows`` is set, those rows of the batch only: ``tape.calls`` in
+    call order."""
+    import types
+
+    from deepfakedetection_tpu_torch.ops import quant
+
+    quantize, tape = quant._quantize, types.SimpleNamespace(rows=None, calls=[])
+
+    def taped(v, inv):
+        q = quantize(v, inv)
+        if tape.rows is not None:
+            tape.calls.append((v[tape.rows].cpu(), inv if isinstance(inv, float) else inv.cpu(),
+                               q[tape.rows].cpu()))
+        return q
+
+    quant._quantize = taped
+    try:
+        yield tape
+    finally:
+        quant._quantize = quantize
+
+
+def card_int8(state, build, x, scales, device):
+    """The card's bf16 int8 logits of ``state`` on ``x`` and the tape of all
+    its quantizer calls."""
+    import torch
+
+    with quantizer_tape() as tape:
+        tape.rows = slice(None)
+        logits = int8_logits(state, build, x, device, torch.bfloat16, scales)
+    return logits, tape.calls
+
+
+def on_card_levels(label: str, state, build, x, scales, calls):
+    """The CPU's bf16 int8 logits of ``state`` on ``x`` taken on the card's
+    int8 levels ``calls`` (a ``quantizer_tape``'s), and how far the CPU's own
+    levels sit from them. Quantization is discontinuous: a value one ulp from
+    an int8 rounding midpoint on one device lands a level away on the other,
+    and the seeded random nets carry such flips through their depth (on an
+    H100 against the CPU, B3's free-running int8 logits sat 1.3e-1 of the
+    scale apart where its bf16 ones sit 2-3e-2; in f32, 4.6e-2 against 3.5e-4
+    without int8). So each of the card's quantizer calls must give the
+    card's levels on the CPU bit for bit; the CPU's forward then quantizes
+    its own inputs, records how far its levels sit from the card's (the
+    largest difference, the largest share of a layer that differs, the
+    elements past one level plus ``INT8_FLIP_LEVELS`` of it) and takes the
+    card's, so that everything else of the forward (products, epilogues,
+    activations, SE, residuals, head) can be held end to end."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import quant
+
+    quantize = quant._quantize
+    for i, (v, inv, q) in enumerate(calls):
+        if not torch.equal(quantize(v, inv), q):
+            raise AssertionError(f"{label}: quantizer call {i} differs between card and CPU")
+    taped, flips = iter(calls), []
+
+    def on_cpu(v, inv):
+        q_card = next(taped)[2]
+        d = (quantize(v, inv).int() - q_card.int()).abs()
+        past = int((d > 1 + INT8_FLIP_LEVELS * q_card.int().abs()).sum())
+        flips.append((int(d.max()), float((d > 0).double().mean()), past, d.numel()))
+        return q_card
+
+    quant._quantize = on_cpu
+    try:
+        synced = int8_logits(state, build, x, torch.device("cpu"), torch.bfloat16, scales)
+    finally:
+        quant._quantize = quantize
+    if len(flips) != len(calls):
+        raise AssertionError(f"{label}: {len(flips)} quantizer calls on the CPU, {len(calls)} "
+                             "on the card")
+    worst = max(range(len(flips)), key=lambda k: flips[k][1])
+    return synced, {"quantizer_calls": len(calls), "max_level_diff": max(f[0] for f in flips),
+                    "max_flip_frac": flips[worst][1], "past_bound": sum(f[2] for f in flips),
+                    "worst_call": worst, "worst_call_elements": flips[worst][3]}
+
+
+def flips_refused(readings: dict) -> bool:
+    return readings["past_bound"] > 0 or readings["max_flip_frac"] > INT8_FLIP_FRAC
+
+
+def hold_to_card_levels(label: str, logits, synced, readings: dict, gate: float) -> dict:
+    """The card's ``logits`` against the CPU's ``synced`` ones (computed on
+    the card's levels): the CPU's own levels off the card's on at most
+    ``INT8_FLIP_FRAC`` of a layer and none past the bound, then
+    ``check_logits`` under ``gate``."""
+    r = readings
+    log(f"  {label}: {r['quantizer_calls']} quantizer calls equal to the CPU's bit for bit; the "
+        f"CPU's own levels at most {r['max_level_diff']} apart, on at most "
+        f"{r['max_flip_frac']:.2e} of a layer (call {r['worst_call']}, "
+        f"{r['worst_call_elements']} elements), {r['past_bound']} past the bound")
+    if flips_refused(r):
+        raise AssertionError(f"{label}: the CPU's int8 levels differ from the card's by up to "
+                             f"{r['max_level_diff']} on {r['max_flip_frac']:.2e} of a layer "
+                             f"({r['past_bound']} past the bound)")
+    agree = check_logits(f"{label} (card) against the CPU on the card's levels", logits, synced,
+                         synced, gate=gate)
+    return {**agree, **r}
+
+
+def rel_dlogit(logits, ref) -> float:
+    return float((logits.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+def synced_int8(label: str, state, build, x, scales, device, gate: float) -> dict:
+    """The card's bf16 int8 logits of ``state`` on ``x`` against the CPU's on
+    the card's int8 levels (``on_card_levels``, ``hold_to_card_levels``); the
+    free-running CPU's distance is logged, no gate."""
+    import torch
+
+    card, calls = card_int8(state, build, x, scales, device)
+    synced, readings = on_card_levels(label, state, build, x, scales, calls)
+    agree = hold_to_card_levels(label, card, synced, readings, gate)
+    free = int8_logits(state, build, x, torch.device("cpu"), torch.bfloat16, scales)
+    dist = rel_dlogit(card, free)
+    log(f"  {label}: free-running CPU max|dlogit|/scale {dist:.3e} (no gate)")
+    return {**agree, "free_running_max_rel_dlogit": dist}
+
+
+@contextlib.contextmanager
+def silu_for_gelu():
+    """A planted fault: the int8 depthwise kernel's GELU epilogue run as
+    SiLU."""
+    from deepfakedetection_tpu_torch.ops import quant
+
+    kernel = quant.int8_depthwise
+
+    def swapped(*args, act="none", **kwargs):
+        return kernel(*args, act="silu" if act.startswith("gelu") else act, **kwargs)
+
+    quant.int8_depthwise = swapped
+    try:
+        yield
+    finally:
+        quant.int8_depthwise = kernel
+
+
+def planted_fault(label: str, state, build, x, scales, device, gate: float, *,
+                  card_scales=None, patch=contextlib.nullcontext) -> dict:
+    """``synced_int8``'s readings of a card run with a planted fault (other
+    activation scales on the card than on the CPU, or ``patch`` around the
+    card's forward): the checks must refuse it."""
+    with patch():
+        card, calls = card_int8(state, build, x, card_scales or scales, device)
+    synced, r = on_card_levels(label, state, build, x, scales, calls)
+    r["max_rel_dlogit"] = rel_dlogit(card, synced)
+    log(f"  planted fault, {label}: the CPU's own levels at most {r['max_level_diff']} apart, on "
+        f"at most {r['max_flip_frac']:.2e} of a layer, {r['past_bound']} past the bound; "
+        f"max|dlogit|/scale {r['max_rel_dlogit']:.3e} on the card's levels (gate {gate})")
+    if not (flips_refused(r) or r["max_rel_dlogit"] > gate):
+        raise AssertionError(f"planted fault, {label}: passed the int8 checks {r}")
+    return r
+
+
+def stem_check(state, x, scales, device) -> dict:
+    """B3's stem under int8 on the card and on the CPU: its int8 input and
+    its int32 accumulator, from each device's own folded weights, bit for
+    bit (and the card's product of the CPU's int8 weights)."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.ops import quant
+
+    out = {}
+    for dev in (torch.device("cpu"), device):
+        model = create_efficientnet("b3")
+        model.load_state_dict(state)
+        stem = model.to(dev).eval().stem
+        sx = scales[stem.name]
+        xq = quant.quantize_act(x.to(dev).to(torch.bfloat16).permute(0, 2, 3, 1), sx)
+        qw = stem._int8.get(stem._params(), quant.as_scale(sx))
+        out[dev.type] = (xq, qw, quant.accumulate(xq, qw, stem.conv.stride, stem.pads).cpu())
+    (xq_c, qw_c, acc_c), (xq_g, qw_g, acc_g) = out["cpu"], out[device.type]
+    wq_diff = int((qw_c.wq != qw_g.wq.cpu()).sum())
+    qw_moved = dataclasses.replace(qw_c, wq=qw_c.wq.to(device))
+    acc_moved = quant.accumulate(xq_g, qw_moved, stem.conv.stride, stem.pads).cpu()
+    xq_g = xq_g.cpu()
+    res = {"xq_equal": torch.equal(xq_c, xq_g), "acc_equal": torch.equal(acc_c, acc_g),
+           "acc_equal_cpu_weights": torch.equal(acc_c, acc_moved), "wq_differ": wq_diff,
+           "acc_shape": list(acc_c.shape)}
+    log(f"  stem under int8, card against CPU: int8 input equal {res['xq_equal']}, int32 "
+        f"accumulator {list(acc_c.shape)} equal {res['acc_equal']} (with the CPU's int8 "
+        f"weights {res['acc_equal_cpu_weights']}; int8 weights differing {wq_diff})")
+    if not (res["xq_equal"] and res["acc_equal_cpu_weights"]) \
+            or (wq_diff == 0 and not res["acc_equal"]):
+        raise AssertionError(f"B3 stem under int8: the card differs from the CPU {res}")
+    return res
+
+
+def phase13_job(device, report) -> int:
+    """``orchestrate(mode="inference")`` with ``inference.precision: int8``
+    on B3 from phase 3's ``.pth`` over phase 3's tree: the int8 kernel's
+    launches (K1 and K2 none), ``metrics.jsonl``'s precision, and the job's
+    own output on ``test_picks``' 16 images. The job's quantizer calls are
+    taped (``quantizer_tape``) on those rows of the two test batches that
+    hold them; on those images the stem's int8 input and int32 accumulator
+    must equal the CPU's, and the job's probabilities must match the CPU
+    port's int8 logits on the job's levels (``on_card_levels``,
+    ``check_logits``' 5e-2 gate); one layer's scale planted off by 127/128,
+    and by 1023/1024, on the card must be refused. The same images at batch
+    16 on the card against the CPU on their own levels, under the same
+    gate; ungated, their levels and logits against the job's at its batch,
+    the free-running CPU, and int8 against bf16."""
+    import itertools
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from deepfakedetection_tpu_torch.evaluate import job as eval_job
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.ops import int8_dw
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+
+    work = REPO / "build" / "chip_smoke"
+    data, weights = work / "data", work / "efficientnet_b3_seeded.pth"  # phase 3's
+    state = torch.load(weights, weights_only=True)
+    cfg_path = eval_config(work, "inference_int8.yaml", "efficientnet_b3", "runs_int8", weights,
+                           EVAL_BATCH, device)
+    cfg = yaml.safe_load(cfg_path.read_text())
+    cfg["models"]["efficientnet_b3"]["inference"]["precision"] = "int8"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    # the job's eval step runs val's batches, then test's: the calls that see the picks
+    picks, first = test_picks(data), -(-SPLITS["val"] // EVAL_BATCH)
+    rows: dict[int, list[int]] = {}
+    for i in picks:
+        rows.setdefault(first + i // EVAL_BATCH, []).append(i % EVAL_BATCH)
+    if any(r != list(range(r[0], r[-1] + 1)) for r in rows.values()):
+        raise AssertionError(f"the picks' rows are not contiguous in their batches: {rows}")
+    rows_of = {c: slice(r[0], r[-1] + 1) for c, r in rows.items()}
+    make, taped = eval_job.make_eval_step, {}
+
+    def taped_make(model, tta=None):
+        step, calls = make(model, tta), itertools.count()
+
+        def taped_step(x):
+            i = next(calls)
+            tape.rows, start = rows_of.get(i), len(tape.calls)
+            try:
+                p = step(x)
+            finally:
+                tape.rows = None
+            if i in rows_of:
+                taped[i] = (x[rows_of[i]].cpu(), p[rows_of[i]].cpu(), tape.calls[start:])
+            return p
+
+        return taped_step
+
+    int8_dw.int8_depthwise.launches = 0
+    t0 = time.perf_counter()
+    with quantizer_tape() as tape:
+        eval_job.make_eval_step = taped_make
+        try:
+            res, others = counted(
+                lambda: orchestrate(cfg_path, mode="inference")["efficientnet_b3"])
+        finally:
+            eval_job.make_eval_step = make
+    wall = time.perf_counter() - t0
+    launches = int8_dw.int8_depthwise.launches
+    batches = sum(-(-n // EVAL_BATCH) for n in SPLITS.values())
+    log(f"  int8 main path: {batches} forward batches (and 2 calibration batches), int8 "
+        f"depthwise launches {launches}, others {others}; test pass {res.images_per_s:.1f} "
+        f"img/s (decode included, and the tape of {len(rows)} batches' rows; phase 3 in bf16 "
+        f"{report['phase3']['test_img_per_s']:.1f}); wall {wall:.1f} s")
+    if launches != 26 * batches or any(others.values()):
+        raise AssertionError(f"int8 main path launches {launches} and {others}, expected "
+                             f"26 x {batches} and none")
+    if res.probs.shape != (SPLITS["test"], 2) or not np.isfinite(res.probs).all():
+        raise AssertionError(f"bad int8 test probabilities {res.probs.shape}")
+    run = sorted((work / "runs_int8").iterdir())[-1]
+    record = json.loads((run / "logs" / "metrics.jsonl").read_text().splitlines()[-1])
+    scales = res.int8_scales
+    if record.get("precision") != "int8" or len(scales) != 78:
+        raise AssertionError(f"int8 metrics.jsonl {record}, {len(scales)} scales")
+
+    order = sorted(taped)
+    tapes = [taped[c][2] for c in order]
+    if order != sorted(rows_of) or len({len(t) for t in tapes}) != 1:
+        raise AssertionError(f"the job's taped batches {order}: {[len(t) for t in tapes]} calls")
+    x = torch.cat([taped[c][0] for c in order])
+    if not np.array_equal(torch.cat([taped[c][1] for c in order]).numpy(), res.probs[picks]):
+        raise AssertionError("the taped eval steps' probabilities are not the job's")
+    calls = []
+    for k, first_tape in enumerate(tapes[0]):
+        if any(not torch.equal(torch.as_tensor(t[k][1]), torch.as_tensor(first_tape[1]))
+               for t in tapes):
+            raise AssertionError(f"quantizer call {k}: scales differ between the job's batches")
+        calls.append((torch.cat([t[k][0] for t in tapes]), first_tape[1],
+                      torch.cat([t[k][2] for t in tapes])))
+
+    def build(dt):
+        return create_efficientnet("b3", dtype=dt)
+
+    def diff_rows(logits):
+        return logits.double() - logits[:, :1].double()
+
+    stem = stem_check(state, x, scales, device)
+    label = f"B3 int8 job, its own probabilities on 16 test images at batch {EVAL_BATCH}"
+    synced, readings = on_card_levels(label, state, build, x, scales, calls)
+    job = logit_diff_rows(res.probs[picks])
+    agree = hold_to_card_levels(label, job, diff_rows(synced), readings, gate=5e-2)
+    free = rel_dlogit(job, diff_rows(
+        int8_logits(state, build, x, torch.device("cpu"), torch.bfloat16, scales)))
+    card16, calls16 = card_int8(state, build, x, scales, device)
+    label16 = "B3 int8, the same 16 images at batch 16 on the card"
+    synced16, readings16 = on_card_levels(label16, state, build, x, scales, calls16)
+    agree16 = hold_to_card_levels(label16, card16, synced16, readings16, gate=5e-2)
+    moved = [(a[2].int() - b[2].int()).abs() for a, b in zip(calls16, calls)]
+    batch16 = {"calls_moved": sum(bool(d.any()) for d in moved),
+               "first_moved": next((k for k, d in enumerate(moved) if d.any()), None),
+               "max_level_diff": max(int(d.max()) for d in moved),
+               "max_moved_frac": max(float((d > 0).double().mean()) for d in moved),
+               "max_rel_dlogit": rel_dlogit(job, diff_rows(card16))}
+    log(f"  batch 16 against the job's batch {EVAL_BATCH}, both on the card: levels apart"
+        f" in {batch16['calls_moved']} of {len(moved)} quantizer calls (first "
+        f"{batch16['first_moved']}), by up to {batch16['max_level_diff']}, on at most "
+        f"{batch16['max_moved_frac']:.2e} of a layer; max|dlogit|/scale "
+        f"{batch16['max_rel_dlogit']:.3e}; the free-running CPU against the job's {free:.3e} "
+        "(no gate)")
+    name = list(scales)[len(scales) // 2]
+    faults = {f"x {k - 1}/{k}": planted_fault(
+        f"B3, {name}'s scale x {k - 1}/{k} on the card", state, build, x, scales, device, 5e-2,
+        card_scales={**scales, name: scales[name] * (k - 1) / k}) for k in (128, 1024)}
+    model = build(torch.bfloat16)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        card_bf16 = diff_rows(model.to(device).eval()(x.to(device)).float().cpu())
+    dist = rel_dlogit(job, card_bf16)
+    same = float((job.argmax(-1) == card_bf16.argmax(-1)).double().mean())
+    log(f"  the job's int8 against bf16 on the card, 16 test images: max|dlogit|/scale "
+        f"{dist:.3e}, argmax agreement {same:.3f} (no gate)")
+    report["phase13_job"] = {"launches": launches, "others": others, "batches": batches,
+                             "metrics": record, "test_img_per_s": res.images_per_s,
+                             "wall_s": wall, "reference": agree, "stem": stem,
+                             "free_running_max_rel_dlogit": free,
+                             "batch16": {**batch16, "reference": agree16},
+                             "planted_faults": {"layer": name, **faults},
+                             "int8_vs_bf16": {"max_rel_dlogit": dist, "argmax_agree": same}}
+    return launches
+
+
+def phase13_models(device, report) -> dict:
+    """An int8 forward of EfficientFormerV2-S1 (phase 7's ``.pth``) and of
+    FasterViT-2 official (phase 5's) on 8 seeded images, scales calibrated
+    on the card, against the CPU's int8 logits on the card's int8 levels
+    (``synced_int8``) under each model's gate; S1's int8 depthwise GELU
+    planted as SiLU on the card must be refused."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+    from deepfakedetection_tpu_torch.ops import int8_dw, quant
+
+    work = REPO / "build" / "chip_smoke"
+    # (weights, gate, builder, launches a forward: K7 and K5 stay on under int8, a planted fault)
+    cases = {"EfficientFormerV2-S1": (f"{EF}_seeded.pth", EFV2_GATE,
+                                      lambda dt: create_efficientformer_v2("s1", dtype=dt),
+                                      {"k7": 4, "int8_dw": 29}, silu_for_gelu),
+             "FasterViT-2 official": (f"{FV}_seeded.pth", FV_GATE["official"],
+                                      lambda dt: create_faster_vit("2", head_config="official",
+                                                                   dtype=dt),
+                                      {"k5": 13}, None)}
+    out = {}
+    for i, (label, (name, gate, build, want, fault)) in enumerate(cases.items()):
+        state = torch.load(work / name, weights_only=True)
+        x = seeded_images(8, torch.Generator().manual_seed(130 + i))
+        model = build(torch.bfloat16)
+        model.load_state_dict(state)
+        scales = quant.calibrate_act_scales(model.to(device).eval(),
+                                            [x.to(device).to(torch.bfloat16)])
+        int8_dw.int8_depthwise.launches = 0
+        _, launches = counted(lambda: int8_logits(state, build, x, device, torch.bfloat16,
+                                                  scales))
+        launches["int8_dw"] = int8_dw.int8_depthwise.launches
+        log(f"  {label}: {len(scales)} calibrated convs; launches {launches}")
+        if {k: v for k, v in launches.items() if v} != want:
+            raise AssertionError(f"{label} int8 forward: launches {launches}, expected {want}")
+        out[label] = {"scales": len(scales), "launches": launches,
+                      **synced_int8(f"{label} int8 forward", state, build, x, scales, device,
+                                    gate)}
+        if fault is not None:
+            out[label]["planted_fault"] = planted_fault(
+                f"{label}, the int8 depthwise GELU run as SiLU on the card", state, build, x,
+                scales, device, gate, patch=fault)
+    report["phase13_models"] = out
+    return out
+
+
+def phase13_bench(report) -> list[dict]:
+    """``python -m deepfakedetection_tpu_torch.bench`` in a subprocess for
+    each of ``I8_BENCH``: its one JSON line."""
+    lines = []
+    for argv in I8_BENCH:
+        proc = subprocess.run([sys.executable, "-m", "deepfakedetection_tpu_torch.bench", *argv],
+                              cwd=REPO, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench {argv} failed: {proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        if set(line) != {"metric", "value", "unit", "vs_baseline"} or not line["value"] > 0 \
+                or line["vs_baseline"] is not None:
+            raise AssertionError(f"bench {argv}: {line}")
+        log(f"  bench {' '.join(argv)}: {json.dumps(line)}")
+        lines.append(line)
+    report["phase13_bench"] = lines
+    return lines
+
+
+def phase13(device, report) -> tuple[dict, int]:
+    """int8 eval: the kernel (a), the job (b), two more models (c), the bench (d)."""
+    row = phase13_kernel(device)
+    report["phase13_kernel"] = row
+    launches = phase13_job(device, report)
+    phase13_models(device, report)
+    phase13_bench(report)
+    return row, launches
+
+
 def main() -> int:
     import argparse
 
@@ -4068,6 +4687,10 @@ def main() -> int:
     phase11(device, report)
     log("phase 12: serve config/inference.yaml's selection over HTTP, with an ensemble")
     phase12(device, report)
+    log("phase 13: int8 eval: the int8 depthwise kernel, orchestrate(mode='inference') with "
+        "precision int8, S1 and FasterViT-2 int8 forwards, python -m "
+        "deepfakedetection_tpu_torch.bench")
+    kernels["int8_depthwise"], launches["int8_dw"] = phase13(device, report)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())
@@ -4092,7 +4715,8 @@ def main() -> int:
                "attn_subblock": ("k6", "attn_block.cu",
                                  "deepfakedetection_tpu/ops/pallas/attn_block.py:167"),
                "attn_subblock_bwd": ("k6_bwd", "attn_block_bwd.cu",
-                                     "deepfakedetection_tpu/ops/pallas/attn_block.py:202")}
+                                     "deepfakedetection_tpu/ops/pallas/attn_block.py:202"),
+               "int8_depthwise": ("int8_dw", "int8_dw.cu", "deepfakedetection_tpu/ops/quant.py:110")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"deepfakedetection_tpu_torch/ops/csrc/{src}", "replaces": where,

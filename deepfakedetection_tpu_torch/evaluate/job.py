@@ -5,7 +5,10 @@ a validity mask, f32 softmax probabilities (with optional hflip TTA), the
 501-point threshold sweep on val, optional temperature calibration, the
 binary decision ``p1 >= t``, accuracy / ROC-AUC / confusion matrix, plots,
 ``metrics.jsonl`` with the same fields, the ``inference.log`` tee and the
-one-line JSON summary.
+one-line JSON summary. With ``precision: int8`` the job first calibrates
+per-ConvBN activation scales on up to 2 val batches (the test split when val
+is missing or empty), then runs the sweep and the test pass under them
+(``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from deepfakedetection_tpu_torch.evaluate.metrics import (
     sweep_threshold,
 )
 from deepfakedetection_tpu_torch.evaluate.plots import save_confusion_matrix, save_roc_curve
+from deepfakedetection_tpu_torch.ops import quant
 from deepfakedetection_tpu_torch.registry import ModelSpec
 from deepfakedetection_tpu_torch.runtime.convert import fastervit_head_config, load_weights
 from deepfakedetection_tpu_torch.runtime.logging import (
@@ -60,8 +64,13 @@ class EvalJob:
     weights: Path | None = None
     eval_toggles: dict[str, Any] = field(default_factory=dict)
     compute_dtype: torch.dtype = torch.bfloat16
-    # inference.precision: "bf16"; "int8" is ROADMAP Queue 1 item 8
+    # inference.precision: "bf16" or "int8" (the ConvBN convs quantized with
+    # scales calibrated before the sweep, ops/quant.py)
     precision: str = "bf16"
+    # int8 activation-range statistic: "absmax" | "percentile" (at
+    # int8_percentile of |x|) | "per-channel"
+    int8_calibration: str = "absmax"
+    int8_percentile: float = 0.999
     lookahead: int = 2
     # test-time augmentation: None or "hflip" (probs averaged over the flip)
     tta: str | None = None
@@ -81,6 +90,8 @@ class EvalResult:
     val_targets: np.ndarray | None = None
     # test pass images per second, host clock, device synchronised at the end
     images_per_s: float = 0.0
+    # the int8 run's activation scales by ConvBN name (None for bf16)
+    int8_scales: dict[str, Any] | None = None
 
 
 _F32_NOTE = {
@@ -197,8 +208,6 @@ def run_eval_job(job: EvalJob) -> EvalResult | None:
 
 
 def _run_eval_job(job: EvalJob) -> EvalResult | None:
-    if str(job.precision).lower() in ("int8", "i8"):
-        raise NotImplementedError("inference.precision int8 is ROADMAP Queue 1 item 8")
     if world_size() > 1:
         raise NotImplementedError(
             "multi-process eval (gathering the ranks' rows) is ROADMAP Queue 1 item 9"
@@ -210,27 +219,69 @@ def _run_eval_job(job: EvalJob) -> EvalResult | None:
     model = load_model_for_eval(job)
     eval_step = make_eval_step(model, tta=job.tta)
     plan = build_eval_plan(job.img_size, job.eval_toggles)
-    return _eval_passes(job, eval_step, plan, DeviceStager(job.device))
+    stager = DeviceStager(job.device)
+    scales = _calibrate_int8(job, model, plan, stager)
+    if scales is None:
+        return _eval_passes(job, eval_step, plan, stager)
+    with quant.quantized_eval(quant.QuantCtx(scales=scales)):
+        result = _eval_passes(job, eval_step, plan, stager, int8=True)
+    if result is not None:
+        result.int8_scales = scales
+    return result
 
 
-def _scan_val(job: EvalJob):
-    val_path = job.data_root / job.val_split
-    if not val_path.exists():
-        return None
+def _scan_split(job: EvalJob, split: str):
     try:
-        val_ds = scan_image_folder(val_path)
+        ds = scan_image_folder(job.data_root / split)
     except FileNotFoundError:
         return None
-    return val_ds if len(val_ds) > 0 else None
+    return ds if len(ds) > 0 else None
 
 
-def _eval_passes(job: EvalJob, eval_step, plan, stager: DeviceStager) -> EvalResult | None:
+def _calibrate_int8(job: EvalJob, model, plan, stager: DeviceStager) -> dict[str, Any] | None:
+    """The int8 activation scales by ConvBN name when the job asks for int8,
+    calibrated over up to 2 val batches (the test split's when val is
+    missing or empty); None for bf16, and None with a warning when nothing
+    could be calibrated (no images, or no quantizable conv), so that the run
+    stays bf16 and is not labelled int8."""
+    if str(job.precision).lower() not in ("int8", "i8"):
+        return None
+    calib_split, calib_ds = job.val_split, _scan_split(job, job.val_split)
+    if calib_ds is None:
+        calib_split, calib_ds = job.split, _scan_split(job, job.split)
+    batches = []
+    if calib_ds is not None:
+        loader = make_eval_loader(calib_ds, plan, batch_size=job.batch_size, num_workers=0)
+        for i, batch in enumerate(loader):
+            if i >= 2:
+                break
+            batches.append(normalize_batch(stager(batch.images), plan,
+                                           out_dtype=job.compute_dtype))
+    mode = job.int8_calibration
+    scales = (quant.calibrate_act_scales(model, batches, mode=mode,
+                                         percentile=job.int8_percentile) if batches else {})
+    if not scales:
+        console.print(
+            "[yellow]⚠ int8 requested but nothing calibrated "
+            f"({'no quantizable conv layers' if batches else 'no calibration images'}) "
+            "— staying bf16[/]"
+        )
+        return None
+    note = "" if mode == "absmax" else (
+        f" ({mode}" + (f" at {job.int8_percentile}" if mode == "percentile" else "") + ")")
+    console.print(f"  int8 eval: calibrated {len(scales)} conv layers on {len(batches)} "
+                  f"'{calib_split}' batches{note}")
+    return scales
+
+
+def _eval_passes(job: EvalJob, eval_step, plan, stager: DeviceStager,
+                 int8: bool = False) -> EvalResult | None:
     # ---- binary decision-threshold sweep on val
     best_threshold = 0.5
     vprobs = vtargets = None
     want_calibration = str(job.calibration or "").lower() == "temperature"
     if job.num_classes == 2 or want_calibration:
-        val_ds = _scan_val(job)
+        val_ds = _scan_split(job, job.val_split)
         if val_ds is not None:
             val_loader = make_eval_loader(
                 val_ds, plan, batch_size=job.batch_size,
@@ -300,6 +351,8 @@ def _eval_passes(job: EvalJob, eval_step, plan, stager: DeviceStager) -> EvalRes
             metrics["roc_auc"] = auc
     if job.num_classes == 2:
         metrics["threshold"] = float(best_threshold)
+    if int8:
+        metrics["precision"] = "int8"
     if temperature is not None:
         metrics["temperature"] = float(temperature)
         if ece_raw is not None:

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepfakedetection_tpu_torch.ops import quant
 from deepfakedetection_tpu_torch.ops.depthwise_se import depthwise_silu_pool
 from deepfakedetection_tpu_torch.runtime.flags import exact_gelu
 
@@ -54,19 +55,20 @@ def effective_bn_decay(default: float) -> float:
 
 
 class Derived:
-    """A value computed from parameters, recomputed only when one of them
-    changes (new storage, or an in-place write such as ``load_state_dict``)."""
+    """A value computed from parameters (and hashable ``args`` passed on to
+    the function), recomputed only when one of them changes (new storage, an
+    in-place write such as ``load_state_dict``, other args)."""
 
-    def __init__(self, fn: Callable[[], object]) -> None:
+    def __init__(self, fn: Callable[..., object]) -> None:
         self._fn = fn
         self._key: tuple | None = None
         self._value: object = None
 
-    def get(self, tensors: Sequence[torch.Tensor]):
-        key = tuple((t.data_ptr(), t._version) for t in tensors)
+    def get(self, tensors: Sequence[torch.Tensor], *args):
+        key = (tuple((t.data_ptr(), t._version) for t in tensors), args)
         if key != self._key:
             with torch.no_grad():
-                self._value = self._fn()
+                self._value = self._fn(*args)
             self._key = key
         return self._value
 
@@ -104,7 +106,18 @@ class ConvBN:
     odd-k, symmetric-pad SiLU conv in bf16), else None. ``fold_only=True``
     returns the folded ``(w, b)`` in the JAX package's layout (HWIO f32 and
     f32) without running the conv, for callers that fuse several convs into
-    one kernel."""
+    one kernel.
+
+    Under a ``QuantCtx`` (``ops/quant.py``) at eval, a dense ConvBN, and a
+    depthwise one unless the context leaves depthwise out, runs the int8
+    path of the JAX package's ConvBN: with ``calibrate`` it records its input's
+    range statistic under its ``name`` and runs the normal conv; otherwise,
+    given a scale, it quantizes its input, runs the int8 conv (its int8
+    weights derived once per set of weights and scale), then the activation
+    and one cast. K1 stays off under any context. ``name`` is its conv's
+    module name, set by ``name_conv_bns``."""
+
+    name: str | None = None
 
     def __init__(
         self,
@@ -131,6 +144,8 @@ class ConvBN:
             .contiguous(memory_format=torch.channels_last)
         )
         self._hwio = Derived(lambda: self._folded_now()[0].permute(2, 3, 1, 0).contiguous())
+        self._int8 = Derived(lambda sx: quant.prepare(
+            self._hwio.get(self._params()), self._folded_now()[1], sx, self.conv.groups))
 
     def _params(self) -> list[torch.Tensor]:
         bn = self.bn
@@ -176,8 +191,19 @@ class ConvBN:
         params = self._params()
         if fold_only:
             return self._hwio.get(params), self._folded.get(params)[1]
+        qctx = quant.current_ctx()
+        if qctx is not None and self.int8_eligible(qctx):
+            x = x.to(self.dtype)
+            if qctx.calibrate:
+                qctx.record(self.name, quant.range_stat(x.permute(0, 2, 3, 1), qctx.calib_mode,
+                                                        qctx.percentile))
+            else:
+                sx = qctx.scale_for(self.name)
+                if sx is not None:
+                    y = self._int8_forward(x, sx)
+                    return (y, None) if return_spatial_mean else y
         _, b = self._folded.get(params)
-        if return_spatial_mean and self.k1_eligible():
+        if return_spatial_mean and qctx is None and self.k1_eligible():
             k = self.conv.kernel_size[0]
             w = self._hwio.get(params)  # [k, k, 1, C]
             y, pool = depthwise_silu_pool(
@@ -195,6 +221,23 @@ class ConvBN:
             y = self.act(y, inplace=True)
         y = y.to(self.dtype)
         return (y, None) if return_spatial_mean else y
+
+    def int8_eligible(self, qctx: quant.QuantCtx) -> bool:
+        c = self.conv
+        depthwise = c.groups == c.in_channels == c.out_channels
+        return c.groups == 1 or (depthwise and qctx.include_depthwise)
+
+    def _int8_forward(self, x: torch.Tensor, sx: quant.Scale) -> torch.Tensor:
+        """The int8 conv of NCHW-logical x (in the compute dtype), then the
+        activation (fused into the epilogue where the kernel has it) and one
+        cast."""
+        qw = self._int8.get(self._params(), sx)
+        act = _epilogue_act(self.act)
+        y = quant.apply(x.permute(0, 2, 3, 1), qw, self.conv.stride, self.pads,
+                        act=act or "none", out_dtype=self.dtype if act else torch.float32)
+        if act is None:
+            y = self.act(y).to(self.dtype)
+        return y.permute(0, 3, 1, 2)
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         conv, bn, dt = self.conv, self.bn, self.dtype
@@ -223,6 +266,30 @@ class ConvBN:
         if self.act is not None:
             y = self.act(y)
         return y.to(dt)
+
+
+def _epilogue_act(act) -> str | None:
+    """The int8 epilogue's name for a ConvBN activation (``ops/int8_dw.ACTS``),
+    None for one it does not have."""
+    if act is None:
+        return "none"
+    if act is F.silu:
+        return "silu"
+    if act is gelu:
+        return "gelu_erf" if exact_gelu() else "gelu_tanh"
+    return None
+
+
+def name_conv_bns(root: nn.Module) -> None:
+    """Names every ConvBN held by a module under ``root`` (as an attribute,
+    or in a list or tuple attribute) after its conv's module name, the key
+    of its int8 activation scale."""
+    names = {id(m): n for n, m in root.named_modules()}
+    for module in root.modules():
+        for value in vars(module).values():
+            for item in value if isinstance(value, (list, tuple)) else (value,):
+                if isinstance(item, ConvBN):
+                    item.name = names[id(item.conv)]
 
 
 def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:

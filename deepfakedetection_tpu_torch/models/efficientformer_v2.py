@@ -53,7 +53,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepfakedetection_tpu_torch.models.common import ConvBN, Derived, batch_norm_train, gelu
+from deepfakedetection_tpu_torch.models.common import (
+    ConvBN,
+    Derived,
+    batch_norm_train,
+    gelu,
+    name_conv_bns,
+)
 from deepfakedetection_tpu_torch.ops.attn4d import attn4d, attn4d_plain
 from deepfakedetection_tpu_torch.ops.window_attn import _heads, _merge, _probs
 
@@ -370,6 +376,7 @@ class EfficientFormerV2(nn.Module):
         self.norm = nn.BatchNorm2d(dims[-1])
         self.head = nn.Linear(dims[-1], num_classes)
         self.head_dist = nn.Linear(dims[-1], num_classes)
+        name_conv_bns(self)
         if generator is not None:
             self.reset_parameters(generator)
 

@@ -31,6 +31,11 @@ kernels' layouts once per set of parameters. The JAX package has no
 model route to its K3; under the switch the SE runs in f32 with
 bf16-rounded weights (bf16 on the unfused path), the gate product is rounded
 to bf16, and project, bias and residual are rounded once.
+
+Under an int8 ``QuantCtx`` (``ops/quant.py``: calibration or the int8 eval)
+K1, K2 and K3 are bypassed, as the JAX package bypasses its K2, so that every
+ConvBN sees its own input; the depthwise convs then run through the int8
+depthwise kernel (``ops/int8_dw.py``).
 """
 
 from __future__ import annotations
@@ -50,8 +55,10 @@ from deepfakedetection_tpu_torch.models.common import (
     SqueezeExcite,
     dropout,
     make_divisible,
+    name_conv_bns,
     symmetric_pad,
 )
+from deepfakedetection_tpu_torch.ops import quant
 from deepfakedetection_tpu_torch.ops.expand_dw import expand_dw_silu_pool
 from deepfakedetection_tpu_torch.ops.fused_mbconv import fused_mbconv_se, pack
 from deepfakedetection_tpu_torch.runtime.flags import fused_mbconv
@@ -143,10 +150,13 @@ class MBConv(nn.Module):
         self._k3_packed = Derived(self._pack_k3_operands)
 
     def fused(self) -> str | None:
-        """Which kernel serves this block at eval: "k3", "k2", "k1" or None."""
+        """Which kernel serves this block at eval: "k3", "k2", "k1" or None
+        (None under an int8 ``QuantCtx``, which runs every ConvBN on its own
+        input)."""
         a = self.args
         if (
             self.training
+            or quant.current_ctx() is not None
             or self.dtype != torch.bfloat16
             or a.stride != 1
             or a.kernel not in (3, 5)
@@ -277,6 +287,7 @@ class EfficientNet(nn.Module):
         self._bn1 = _bn(head)
         self.head = ConvBN(self._conv_head, self._bn1, act=F.silu, dtype=dtype)
         self._fc = nn.Linear(head, num_classes)
+        name_conv_bns(self)
         if generator is not None:
             self.reset_parameters(generator)
 

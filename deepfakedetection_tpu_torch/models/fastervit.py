@@ -71,6 +71,7 @@ from deepfakedetection_tpu_torch.models.common import (
     Mlp,
     batch_norm_train,
     gelu,
+    name_conv_bns,
 )
 from deepfakedetection_tpu_torch.ops.attn_block import attn_subblock
 from deepfakedetection_tpu_torch.ops.window_attn import window_attention, window_attention_plain
@@ -494,6 +495,7 @@ class FasterViT(nn.Module):
             self.levels.append(level)
         self.norm = nn.BatchNorm2d(dim * 8)
         self.head = nn.Linear(dim * 8, num_classes)
+        name_conv_bns(self)
         if generator is not None:
             self.reset_parameters(generator)
 

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "dfd_fused_mbconv_pack": [_P] * 6 + [_I] * 3 + [_P],
     "dfd_fused_mbconv_plan": [_I] * 2 + [_P],
     "dfd_fused_mbconv_se": [_P] * 16 + [_I] * 11 + [_P],
+    "dfd_int8_depthwise": [_P] * 5 + [_I] * 12 + [_P],
     "dfd_shear_plan": [_I] * 5 + [_P],
     "dfd_silu_check": [_P, _P],
     "dfd_shear_rotate": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_P],

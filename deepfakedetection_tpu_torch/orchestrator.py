@@ -232,6 +232,10 @@ def build_eval_job(
         eval_toggles=resolve_transform_mapping(model_cfg, "eval"),
         compute_dtype=compute_dtype(config),
         precision=str(infer_cfg.get("precision") or "bf16"),
+        # lower-cased here: the validator checks the value lower-cased but
+        # keeps it as written ("Percentile" must calibrate by percentile)
+        int8_calibration=str(infer_cfg.get("int8_calibration") or "absmax").lower(),
+        int8_percentile=float(infer_cfg.get("int8_percentile") or 0.999),
         lookahead=int(infer_cfg.get("lookahead", 2)),
         tta=(str(infer_cfg["tta"]).lower() if infer_cfg.get("tta") else None),
         calibration=(

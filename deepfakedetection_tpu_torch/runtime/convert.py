@@ -236,6 +236,19 @@ def state_dict_from_jax(tree: dict[str, Any], family: str) -> dict[str, torch.Te
     return sd
 
 
+def conv_names_from_jax(tree: dict[str, Any], family: str) -> dict[str, str]:
+    """The flax module path of every conv kernel of ``tree`` ("/"-joined, as
+    the JAX package keys its int8 activation scales) -> the port's name for
+    that conv (its module name, which keys a ConvBN's scale in
+    ``ops/quant.py``), through the family's name map."""
+    flat = _flatten(tree)
+    names = {}
+    for key, (path, _) in _MAPS[family]({p[1] for p in flat}).items():
+        if key.endswith(".weight") and path[-1] == "kernel":
+            names["/".join(path[:-1])] = key[: -len(".weight")]
+    return names
+
+
 def load_state_dict_strict(model: nn.Module, state: dict[str, torch.Tensor]) -> None:
     """``load_state_dict(strict=True)``, except that BatchNorm's
     ``num_batches_tracked`` counters may be absent."""

@@ -435,8 +435,9 @@ def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, check
     data["models"]["efficientnet_b3"]["inference"]["precision"] = "int8"
     cfg.write_text(yaml.safe_dump(data))
     monkeypatch.setattr(port_orch, "get_model_spec", lambda name: _port_spec())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port_orch.orchestrate(cfg, mode="inference")
+    # int8 eval is ported: it runs and says so in its metrics
+    res = port_orch.orchestrate(cfg, mode="inference")["efficientnet_b3"]
+    assert res.metrics["precision"] == "int8" and np.isfinite(res.probs).all()
 
     _, ef_spec = _ef_specs([])
     monkeypatch.setattr(port_orch, "get_model_spec", lambda name: ef_spec)

@@ -29,7 +29,9 @@ autograd Function launches each once; sizes past the limits raise. K3 (the
 whole MBConv+SE block) at B3's six K3 shapes and odd sizes: within two bf16
 steps of the output's scale, bit-identical over two runs; a narrow B3 built
 with ``DFD_FUSED_MBCONV`` launches it three times a forward. K2 also repeats
-bit for bit over two runs, and its launch plan is the built library's.
+bit for bit over two runs, and its launch plan is the built library's. The
+int8 depthwise conv of the int8 eval: its int32 accumulator bit-exact, its
+activated bf16 output within one bf16 step of the plain version.
 
 Needs a CUDA card and imports no JAX, so it runs on the card with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``;
@@ -538,3 +540,39 @@ def test_b3_with_the_switch_launches_k3_on_the_card(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert k3.fused_mbconv_se.launches == before + 3
     assert float((out - want).abs().max()) <= 1.5e-2 * float(want.abs().max())
+
+
+# the int8 depthwise conv (ops/int8_dw.py): B3's and S1's kinds of shape,
+# asymmetric pads, channel counts off 4 (the byte-wise path) and one channel
+INT8_DW_CASES = [
+    (112, 112, 144, 3, 2, ((0, 1), (0, 1)), "silu"), (7, 7, 1392, 5, 1, ((2, 2), (2, 2)), "silu"),
+    (56, 56, 128, 3, 1, ((1, 1), (1, 1)), "gelu_tanh"), (14, 14, 512, 3, 2, ((1, 1), (1, 1)), "none"),
+    (9, 11, 13, 5, 2, ((1, 2), (2, 1)), "gelu_erf"), (5, 4, 1, 3, 1, ((1, 1), (1, 1)), "silu"),
+    (17, 19, 6, 3, 2, ((0, 0), (1, 1)), "none"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,k,s,pads,act", INT8_DW_CASES)
+def test_int8_depthwise_kernel_matches_plain(cuda, H, W, C, k, s, pads, act):
+    """The int32 accumulator bit-exact (no activation, scale 1, bias 0, f32
+    out), the activated bf16 output within one bf16 step of the f32 plain
+    version, one launch counted a call."""
+    from deepfakedetection_tpu_torch.ops import int8_dw
+
+    g = torch.Generator().manual_seed(H + C)
+    xq = torch.randint(-127, 128, (4, H, W, C), generator=g, dtype=torch.int8).to(cuda)
+    wq = torch.randint(-127, 128, (k, k, C), generator=g, dtype=torch.int8).to(cuda)
+    scale = (torch.rand(C, generator=g) * 2e-4 + 1e-5).to(cuda)
+    bias = (torch.randn(C, generator=g) * 0.5).to(cuda)
+    before = int8_dw.int8_depthwise.launches
+    acc = int8_dw.int8_depthwise(xq, wq, torch.ones_like(scale), torch.zeros_like(bias),
+                                 stride=s, pads=pads, out_dtype=torch.float32)
+    y = int8_dw.int8_depthwise(xq, wq, scale, bias, stride=s, pads=pads, act=act)
+    torch.cuda.synchronize()
+    assert int8_dw.int8_depthwise.launches == before + 2
+    assert torch.equal(acc.to(torch.int32), int8_dw.int8_depthwise_acc_plain(
+        xq, wq, stride=s, pads=pads))
+    ref = int8_dw.int8_depthwise_plain(xq, wq, scale, bias, stride=s, pads=pads, act=act,
+                                       out_dtype=torch.float32)
+    assert bool(((y.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-6).all())

@@ -7,8 +7,10 @@ FasterViT through the K5 wrapper, of one built with ``DFD_FUSED_ATTN`` through
 the K6 wrapper (forward and backward) and of a narrow EfficientFormerV2
 through the K7 wrapper, that EfficientFormerV2's train forward and backward
 and its Grad-CAM, import the predict CLI and the web UI, serve a batch through
-the server's micro-batcher and weigh an ensemble, and one CPU train
-step with the augmentation's shear rotation, and check that no jax, flax, optax or orbax
+the server's micro-batcher and weigh an ensemble, one CPU train
+step with the augmentation's shear rotation, and a calibrated int8 forward
+of the narrow EfficientNet through the int8 depthwise wrapper, import the
+bench, and check that no jax, flax, optax or orbax
 module and no ``deepfakedetection_tpu`` module was loaded. Statically, no
 ``.py`` file of the port imports either (``chip_smoke.reference_imports``)."""
 
@@ -146,6 +148,17 @@ from deepfakedetection_tpu_torch.cam import compute_cam
 
 cam = compute_cam(ef, torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(3)), 1)
 assert cam.shape == (2, 64, 64) and bool(torch.isfinite(cam).all())
+import deepfakedetection_tpu_torch.bench
+from deepfakedetection_tpu_torch.ops import int8_dw, quant
+
+model.eval()
+images = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(4))
+scales = quant.calibrate_act_scales(model, [images], mode="percentile")
+with quant.quantized_eval(quant.QuantCtx(scales=scales)), torch.no_grad():
+    assert model.kernel_launches_per_forward() == {"k1": 0, "k2": 0, "k3": 0}
+    out = model(images)
+assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
+assert int8_dw.int8_depthwise.launches == 0
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "deepfakedetection_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("LOADED", loaded)
