@@ -131,7 +131,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    calibrated on the card; K7 4, K5 13 launches) against the CPU's int8
    under each model's gate; (d) ``python -m deepfakedetection_tpu_torch.
    bench`` in a subprocess for B3, FasterViT-2 ``--official`` and S1 eval,
-   B3 ``--int8`` and B3 ``--mode train``, each JSON line printed.
+   B3 ``--int8`` and B3 ``--mode train``, each JSON line printed;
+14. export: ``deepfakedetection_tpu_torch.export.export_model`` for
+   ``config/inference.yaml``'s three models from the seeded ``.pth`` files
+   of phases 3, 5 and 7 at batch 64 on the card (each export timed); each
+   ``torch.export`` program loaded by ``load_exported`` in a fresh process
+   that imports no model module, run on one seeded NHWC bf16 batch: its
+   probabilities bit-identical to the eager eval step's in this process, K1
+   2 and K2 20, K5 13, K7 4 launches a forward and as many ``torch.ops.dfd``
+   nodes, no plain version called; the loaded and the eager forward's
+   CUDA-event ms at batch 64; the µs a call of the operator route against
+   the direct ctypes launch and a toy operation's through both registration
+   routes (``profile_dispatch``).
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
@@ -179,7 +190,11 @@ in turns; outputs bit-identical at every ``K4_CASES`` case), its K5 forward
 and backward, in turns at the four eval and the four fine-tune shapes
 (``k5_parent``), its K7 at EfficientFormerV2-S1's shape (``k7_parent``: in
 turns, by events and device time; outputs bit-identical there and at every
-``K7_ODD`` size), and its K3 at B3's six K3 shapes (``k3_parent``).
+``K7_ODD`` size), and its K3 at B3's six K3 shapes (``k3_parent``); and phase
+14 runs that checkout's eager eval steps of the three models on the same
+batch in a process of its own (its kernel library this tree's when the
+sources are the same), between two timings of this tree's: the
+probabilities must be bit-identical.
 """
 
 from __future__ import annotations
@@ -4629,13 +4644,227 @@ def phase13(device, report) -> tuple[dict, int]:
     return row, launches
 
 
+EXPORT_BATCH = 64  # phase 14's static batch (the JAX export's default)
+EXPORT_RUNS = 20  # CUDA-event timings of each forward
+
+
+def export_counts(module) -> dict[str, int]:
+    """The ``torch.ops.dfd`` nodes of a loaded program's graphs, by operator."""
+    import torch
+
+    counts: dict[str, int] = {}
+    for gm in module.modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for node in gm.graph.nodes:
+                if node.op == "call_function" and str(node.target).startswith("dfd."):
+                    name = str(node.target).split(".")[1]
+                    counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def eager_eval_step(name: str, weights: Path, device):
+    """The eval job's eager step for ``name`` from ``weights``
+    (``load_model_for_eval`` at 224 px, ``make_eval_step``), on NCHW input."""
+    from deepfakedetection_tpu_torch.evaluate.job import (
+        EvalJob,
+        load_model_for_eval,
+        make_eval_step,
+    )
+    from deepfakedetection_tpu_torch.registry import get_model_spec
+    from deepfakedetection_tpu_torch.runtime.paths import RunPaths
+
+    job = EvalJob(model_name=name, spec=get_model_spec(name),
+                  run_paths=RunPaths(*(weights.parent,) * 4), data_root=weights.parent,
+                  device=device, img_size=224, batch_size=EXPORT_BATCH, weights=weights)
+    return make_eval_step(load_model_for_eval(job))
+
+
+def phase14_load(spec_path: str) -> int:
+    """Phase 14's fresh process: loads each exported program with
+    ``load_exported`` (which imports no model module), runs it on the seeded
+    batch and writes, per program, its probabilities, the launches of one
+    forward, its ``torch.ops.dfd`` nodes, plain-version calls and its
+    CUDA-event ms; and the port's model modules this process imported."""
+    import torch
+
+    from deepfakedetection_tpu_torch.export import load_exported
+    from deepfakedetection_tpu_torch.ops import attn4d as k7
+    from deepfakedetection_tpu_torch.ops import attn_block as k6
+    from deepfakedetection_tpu_torch.ops import depthwise_se as k1
+    from deepfakedetection_tpu_torch.ops import expand_dw as k2
+    from deepfakedetection_tpu_torch.ops import fused_mbconv as k3
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+
+    spec = json.loads(Path(spec_path).read_text())
+    x = torch.load(spec["batch"], weights_only=True).to(spec["device"])
+    plain: list[str] = []
+    for module, name in ((k1, "depthwise_silu_pool_plain"), (k2, "expand_dw_silu_pool_plain"),
+                         (k3, "fused_mbconv_se_plain"), (k5, "window_attention_plain"),
+                         (k5, "window_attention_heads_plain"), (k6, "attn_subblock_plain"),
+                         (k7, "attn4d_plain")):
+        fn = getattr(module, name)
+        setattr(module, name, lambda *a, _n=name, _f=fn, **kw: (plain.append(_n), _f(*a, **kw))[1])
+    out = {}
+    for name, path in spec["programs"].items():
+        t0 = time.perf_counter()
+        program = load_exported(path)
+        load_s = time.perf_counter() - t0
+        probs, launches = counted(lambda: program(x))
+        torch.save(probs.cpu(), Path(spec["out"]) / f"{name}_probs.pt")
+        out[name] = {"load_s": load_s, "launches": {k: v for k, v in launches.items() if v},
+                     "nodes": export_counts(program), "plain_calls": list(plain),
+                     "ms": spread(cuda_times(lambda: program(x), EXPORT_RUNS))}
+        plain.clear()
+    out["model_modules"] = sorted(m for m in sys.modules
+                                  if m.startswith("deepfakedetection_tpu_torch.models"))
+    (Path(spec["out"]) / "loaded.json").write_text(json.dumps(out))
+    return 0
+
+
+def phase14_parent_forward(spec_path: str) -> int:
+    """``--parent``'s process for phase 14, run with that checkout first on
+    ``sys.path``: its eager eval steps of the three models on the seeded
+    batch (probabilities and CUDA-event ms). Its kernel library is this
+    tree's when both are built from the same sources (same file name)."""
+    import torch
+
+    spec = json.loads(Path(spec_path).read_text())
+    from deepfakedetection_tpu_torch.ops import build
+
+    if not Path(build.__file__).resolve().is_relative_to(Path(spec["parent"]).resolve()):
+        raise AssertionError(f"the parent's process imported {build.__file__}")
+    ours = Path(spec["library"])
+    if not build.library_path().exists() and build.library_path().name == ours.name:
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        shutil.copy2(ours, build.library_path())
+    device = torch.device(spec["device"])
+    x = torch.load(spec["batch"], weights_only=True).to(device).permute(0, 3, 1, 2)
+    out = {}
+    for name, weights in spec["weights"].items():
+        step = eager_eval_step(name, Path(weights), device)
+        with torch.no_grad():
+            torch.save(step(x).cpu(), Path(spec["out"]) / f"{name}_parent_probs.pt")
+        out[name] = spread(cuda_times(lambda: step(x), EXPORT_RUNS))
+    (Path(spec["out"]) / "parent.json").write_text(json.dumps(out))
+    return 0
+
+
+def phase14_child(func: str, spec: Path, parent: str | None = None) -> None:
+    """Runs ``chip_smoke.<func>(spec)`` in a fresh interpreter (with
+    ``parent`` ahead of this tree on its path when given); raises on failure."""
+    head = f"sys.path[:0] = [{parent!r}]; " if parent else ""
+    # this file by its path: a parent checkout has a chip_smoke.py of its own
+    code = (f"import importlib.util, sys; {head}sys.path.append({str(REPO)!r}); "
+            f"s = importlib.util.spec_from_file_location('phase14', {str(Path(__file__))!r}); "
+            "m = importlib.util.module_from_spec(s); s.loader.exec_module(m); "
+            f"sys.exit(m.{func}({str(spec)!r}))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=parent or REPO, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 14 {func} failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+
+
+def phase14(device, report, parent: str | None = None) -> dict:
+    """Export: config/inference.yaml's three models from the seeded ``.pth``
+    files of phases 3, 5 and 7 through ``export_model`` at batch 64 on the
+    card (timed), each program loaded in a fresh process that imports no
+    model module, its probabilities on one seeded NHWC bf16 batch
+    bit-identical to the eager eval step's in this process, its launches a
+    forward those of ``PREDICT_LAUNCHES`` with no plain version, its and the
+    eager forward's CUDA-event ms; the operator route's cost a call
+    (``profile_dispatch``); with ``parent``, that checkout's eager steps on
+    the same batch, bit-identical to this tree's."""
+    import torch
+
+    from deepfakedetection_tpu_torch import profile_dispatch
+    from deepfakedetection_tpu_torch.export import export_model
+    from deepfakedetection_tpu_torch.ops import build
+
+    seeded = REPO / "build" / "chip_smoke"
+    work = REPO / "build" / "chip_smoke_export"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    x = seeded_images(EXPORT_BATCH, torch.Generator().manual_seed(14))
+    x = x.permute(0, 2, 3, 1).contiguous().to(torch.bfloat16)  # the artifact's NHWC input
+    torch.save(x, work / "batch.pt")
+    xd = x.to(device).permute(0, 3, 1, 2)  # the eager step's channels_last NCHW view
+    weights = {name: str(seeded / f"{name}_seeded.pth") for name in PREDICT_LAUNCHES}
+    rows, steps, probs = {}, {}, {}
+    for name in PREDICT_LAUNCHES:
+        t0 = time.perf_counter()
+        export_model(name, Path(weights[name]), work / f"{name}.pt2", batch=EXPORT_BATCH,
+                     device=str(device))
+        export_s = time.perf_counter() - t0
+        steps[name] = eager_eval_step(name, Path(weights[name]), device)
+        with torch.no_grad():
+            probs[name] = steps[name](xd).cpu()
+        rows[name] = {"export_s": export_s,
+                      "bytes": (work / f"{name}.pt2").stat().st_size,
+                      "eager_ms": spread(cuda_times(lambda: steps[name](xd), EXPORT_RUNS))}
+        log(f"  {name}: exported in {export_s:.1f} s ({rows[name]['bytes'] / 2**20:.1f} MiB); "
+            f"eager step {rows[name]['eager_ms']['median']:.3f} ms at batch {EXPORT_BATCH}")
+    spec = work / "load.json"
+    spec.write_text(json.dumps({"batch": str(work / "batch.pt"), "out": str(work),
+                                "device": str(device),
+                                "programs": {n: str(work / f"{n}.pt2") for n in weights}}))
+    phase14_child("phase14_load", spec)
+    loaded = json.loads((work / "loaded.json").read_text())
+    if loaded.pop("model_modules"):
+        raise AssertionError("load_exported imported the port's model modules")
+    for name, want in PREDICT_LAUNCHES.items():
+        row = {**rows[name], **loaded[name]}
+        got = torch.load(work / f"{name}_probs.pt", weights_only=True)
+        if got.shape != (EXPORT_BATCH, 2) or got.dtype != torch.float32:
+            raise AssertionError(f"{name}: the program gave {tuple(got.shape)} {got.dtype}")
+        if not torch.equal(got, probs[name]):
+            raise AssertionError(f"{name}: the loaded program's probabilities are not the eager "
+                                 f"step's (max|d| {float((got - probs[name]).abs().max()):.3e})")
+        names = {"k1": "depthwise_silu_pool", "k2": "expand_dw_silu_pool", "k5":
+                 "window_attention", "k7": "attn4d"}
+        if row["launches"] != want or row["nodes"] != {names[k]: v for k, v in want.items()} \
+                or row["plain_calls"]:
+            raise AssertionError(f"{name}: loaded program launched {row['launches']} with "
+                                 f"nodes {row['nodes']} and plain calls {row['plain_calls']}, "
+                                 f"expected {want}")
+        log(f"  {name}: loaded in a fresh process in {row['load_s']:.1f} s, bit-identical, "
+            f"launches {row['launches']}; loaded {row['ms']['median']:.3f} ms against eager "
+            f"{row['eager_ms']['median']:.3f} ms at batch {EXPORT_BATCH}")
+        rows[name] = row
+    if parent:
+        spec = work / "parent.json.in"
+        spec.write_text(json.dumps({"batch": str(work / "batch.pt"), "out": str(work),
+                                    "device": str(device), "weights": weights,
+                                    "parent": str(Path(parent).resolve()),
+                                    "library": str(build.library_path())}))
+        phase14_child("phase14_parent_forward", spec, str(Path(parent).resolve()))
+        theirs = json.loads((work / "parent.json").read_text())
+        for name in PREDICT_LAUNCHES:
+            got = torch.load(work / f"{name}_parent_probs.pt", weights_only=True)
+            if not torch.equal(got, probs[name]):
+                raise AssertionError(f"{name}: the parent's eager step differs "
+                                     f"(max|d| {float((got - probs[name]).abs().max()):.3e})")
+            rows[name]["parent_ms"] = theirs[name]
+            rows[name]["eager_ms_after"] = spread(cuda_times(lambda: steps[name](xd),
+                                                             EXPORT_RUNS))
+            log(f"  {name}: the parent's eager step bit-identical; in turns this "
+                f"{rows[name]['eager_ms']['median']:.3f}, parent "
+                f"{theirs[name]['median']:.3f}, this {rows[name]['eager_ms_after']['median']:.3f}"
+                " ms")
+    dispatch = profile_dispatch.measure(device)
+    log("  µs a call: " + ", ".join(f"{k} {v:.2f}" for k, v in dispatch.items()) + f" ({smi()})")
+    report["phase14"] = {"models": rows, "dispatch_us": dispatch, "card": smi()}
+    return rows
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="Drives the PyTorch port on one CUDA card.")
     parser.add_argument("--parent", help="another checkout (say the parent commit, unpacked with "
                         "git archive) whose K1, K4, K5 forward and backward, K7 and K3 phase 1 "
-                        "times against this one's")
+                        "times against this one's, and whose eager eval steps phase 14 holds "
+                        "bit-identical to this one's")
     args = parser.parse_args()
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -4691,6 +4920,9 @@ def main() -> int:
         "precision int8, S1 and FasterViT-2 int8 forwards, python -m "
         "deepfakedetection_tpu_torch.bench")
     kernels["int8_depthwise"], launches["int8_dw"] = phase13(device, report)
+    log("phase 14: export config/inference.yaml's selection (torch.export), each program "
+        "loaded in a fresh process")
+    phase14(device, report, args.parent)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())

@@ -127,13 +127,15 @@ def builder_kwargs(family: str, model_kwargs: dict[str, Any],
 
 def load_model_for_eval(job: EvalJob) -> torch.nn.Module:
     """Build the model (init from a generator seeded 0), load the weights
-    when the file exists (a warning and the init weights when it does not),
+    when the file exists (a torch ``.pth`` or a native flax msgpack export;
+    a warning and the init weights when it does not),
     move it to the job's device and switch it to eval. A FasterViT is built
     in the head configuration its weights were made in (``pick_head_config``)
     unless the config pins one; an EfficientFormerV2 at the job's
     ``img_size`` (its attention bias tables' sizes depend on it)."""
     wpath = Path(job.weights) if job.weights is not None else None
-    state = load_weights(wpath) if wpath is not None and wpath.exists() else None
+    state = (load_weights(wpath, job.spec.family) if wpath is not None and wpath.exists()
+             else None)
     model = job.spec.builder(
         job.num_classes,
         dtype=job.compute_dtype,

@@ -54,10 +54,31 @@ def effective_bn_decay(default: float) -> float:
     return default if override is None else override
 
 
+# set while a tracer runs the model (``frozen_derived``)
+_DERIVED_FROZEN: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "derived_frozen", default=False
+)
+
+
+@contextlib.contextmanager
+def frozen_derived() -> Iterator[None]:
+    """Every ``Derived`` hands back the value its last eager call computed,
+    without looking at its tensors: a tracer's fake tensors have no data
+    pointer, and ``torch.export`` keeps the value as a constant of the
+    program. Run one eager forward first; a value that it did not compute
+    raises."""
+    token = _DERIVED_FROZEN.set(True)
+    try:
+        yield
+    finally:
+        _DERIVED_FROZEN.reset(token)
+
+
 class Derived:
     """A value computed from parameters (and hashable ``args`` passed on to
     the function), recomputed only when one of them changes (new storage, an
-    in-place write such as ``load_state_dict``, other args)."""
+    in-place write such as ``load_state_dict``, other args). Under
+    ``frozen_derived`` it returns the value it holds."""
 
     def __init__(self, fn: Callable[..., object]) -> None:
         self._fn = fn
@@ -65,12 +86,27 @@ class Derived:
         self._value: object = None
 
     def get(self, tensors: Sequence[torch.Tensor], *args):
+        if _DERIVED_FROZEN.get():
+            if self._key is None or self._key[1] != args:
+                raise RuntimeError(
+                    "Derived.get under frozen_derived: no eager forward computed this value"
+                )
+            return self._value
         key = (tuple((t.data_ptr(), t._version) for t in tensors), args)
         if key != self._key:
             with torch.no_grad():
                 self._value = self._fn(*args)
             self._key = key
         return self._value
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """The contiguous NHWC view of a channels_last NCHW map, which the
+    kernels take: no copy in an eager forward. A tracer's fake conv output
+    may claim another layout (``torch.export`` on the card saw NCHW-contiguous
+    stem convs), so the view is made contiguous here: the program then holds
+    an ``aten.contiguous`` node, a no-op on the real map."""
+    return x.permute(0, 2, 3, 1).contiguous()
 
 
 def symmetric_pad(pads: Pads, k: int) -> bool:
@@ -207,7 +243,7 @@ class ConvBN:
             k = self.conv.kernel_size[0]
             w = self._hwio.get(params)  # [k, k, 1, C]
             y, pool = depthwise_silu_pool(
-                x.to(self.dtype).permute(0, 2, 3, 1), w.view(k, k, -1), b, k=k
+                nhwc(x.to(self.dtype)), w.view(k, k, -1), b, k=k
             )
             return y.permute(0, 3, 1, 2), pool
         x = x.to(self.dtype).float()

@@ -59,6 +59,7 @@ from deepfakedetection_tpu_torch.models.common import (
     batch_norm_train,
     gelu,
     name_conv_bns,
+    nhwc,
 )
 from deepfakedetection_tpu_torch.ops.attn4d import attn4d, attn4d_plain
 from deepfakedetection_tpu_torch.ops.window_attn import _heads, _merge, _probs
@@ -93,9 +94,10 @@ def bias_index(q_res: int, k_res: int, stride: int = 1) -> np.ndarray:
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
-    """[B, C, H, W] -> [B, H*W, C] (a view of a channels_last map)."""
+    """[B, C, H, W] -> [B, H*W, C] (a view of a channels_last map, through
+    ``nhwc``, so that a tracer's fake map gives K7 a unit feature stride too)."""
     B, C, H, W = x.shape
-    return x.permute(0, 2, 3, 1).reshape(B, H * W, C)
+    return nhwc(x).reshape(B, H * W, C)
 
 
 def _map(t: torch.Tensor, H: int, W: int) -> torch.Tensor:

@@ -56,6 +56,7 @@ from deepfakedetection_tpu_torch.models.common import (
     dropout,
     make_divisible,
     name_conv_bns,
+    nhwc,
     symmetric_pad,
 )
 from deepfakedetection_tpu_torch.ops import quant
@@ -198,7 +199,7 @@ class MBConv(nn.Module):
         if served == "k3":  # drop path is the identity at eval
             tensors = self._k3_tensors()
             y = fused_mbconv_se(
-                x.to(self.dtype).permute(0, 2, 3, 1),
+                nhwc(x.to(self.dtype)),
                 *self._k3_operands.get(tensors),
                 kernel=self.args.kernel,
                 packed=self._k3_packed.get(tensors),
@@ -210,7 +211,7 @@ class MBConv(nn.Module):
             wexp, bexp = self.expand(None, fold_only=True)  # [1, 1, Cin, Ce]
             wdw, bdw = self.depthwise(None, fold_only=True)  # [k, k, 1, Ce]
             y, se_mean = expand_dw_silu_pool(
-                x.to(self.dtype).permute(0, 2, 3, 1),
+                nhwc(x.to(self.dtype)),
                 wexp.view(wexp.shape[2], wexp.shape[3]),
                 bexp,
                 wdw.view(k, k, -1),

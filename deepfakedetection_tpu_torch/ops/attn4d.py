@@ -17,7 +17,9 @@ compute dtype before its product with v, f32 accumulation, one cast of the
 output); float32 inputs stay float32 throughout and float64 inputs float64.
 The wrapper runs it for CPU tensors; the tests and ``chip_smoke.py`` hold the
 kernel against it. For a CUDA tensor ``attn4d`` launches the kernel or
-raises. Like the TPU kernel it has no backward.
+raises. Like the TPU kernel it has no backward. The wrapper calls the
+operator ``torch.ops.dfd.attn4d`` (``build.define_op``), which takes q, k
+and v as the strided views they are.
 """
 
 from __future__ import annotations
@@ -147,26 +149,24 @@ def _check(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int) -> tuple[int, 
     return B, N, d, dv
 
 
-def attn4d(q, k, v, bias, th1, th1_b, th2, th2_b, *, num_heads: int,
-           scale: float) -> torch.Tensor:
-    """K7 (see ``attn4d_plain``) on bf16 q, k, v with a unit stride along
-    features and f32 tables. Launches the CUDA kernel on the current stream
-    for CUDA tensors, runs the plain version for CPU tensors, raises on any
-    other device, and on the card when autograd would need a gradient (the
-    kernel has none)."""
-    B, N, d, dv = _check(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads)
-    args = (q, k, v, bias, th1, th1_b, th2, th2_b)
-    if q.device.type == "cpu":
-        return attn4d_plain(*args, num_heads=num_heads, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"attn4d: unsupported device {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise ValueError("attn4d: the kernel is inference-only (no backward); run it under "
-                         "torch.no_grad()")
+def _launch_plan(q: torch.Tensor, B: int, N: int, num_heads: int, d: int, dv: int) -> int:
+    """The card's SM count, after checking that a plan fits there."""
     sms = sm_count(q.device)
     if plan(B, N, num_heads, d, dv, sms) is None:
         raise ValueError(f"attn4d: no plan fits a block's {MAX_SMEM_BYTES} bytes of shared memory "
                          f"at N={N}, heads={num_heads}, d={d}, dv={dv}")
+    return sms
+
+
+def _cuda(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int, scale: float):
+    """The operator's CUDA implementation: one launch of the kernel on the
+    current stream, counted; raises when autograd would need a gradient."""
+    args = (q, k, v, bias, th1, th1_b, th2, th2_b)
+    B, N, d, dv = _check(*args, num_heads)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise ValueError("attn4d: the kernel is inference-only (no backward); run it under "
+                         "torch.no_grad()")
+    sms = _launch_plan(q, B, N, num_heads, d, dv)
     out = torch.empty(B, N, num_heads * dv, dtype=torch.bfloat16, device=q.device)
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
     vec = int(all(s % 8 == 0 for s in strides) and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
@@ -178,6 +178,39 @@ def attn4d(q, k, v, bias, th1, th1_b, th2, th2_b, *, num_heads: int,
     build.check(rc, "attn4d")
     attn4d.launches += 1
     return out
+
+
+def _cpu(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int, scale: float):
+    _check(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads)
+    return attn4d_plain(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads=num_heads, scale=scale)
+
+
+def _fake(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int, scale: float):
+    """The output's shape for tracers, after the checks the launch makes."""
+    B, N, d, dv = _check(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads)
+    if q.device.type == "cuda":
+        _launch_plan(q, B, N, num_heads, d, dv)
+    return q.new_empty((B, N, num_heads * dv))
+
+
+_op = build.define_op(
+    "attn4d(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor th1, Tensor th1_b, Tensor th2, "
+    "Tensor th2_b, int num_heads, float scale) -> Tensor",
+    cuda=_cuda, cpu=_cpu, fake=_fake,
+)
+
+
+def attn4d(q, k, v, bias, th1, th1_b, th2, th2_b, *, num_heads: int,
+           scale: float) -> torch.Tensor:
+    """K7 (see ``attn4d_plain``) on bf16 q, k, v with a unit stride along
+    features and f32 tables, through the operator ``torch.ops.dfd.attn4d``:
+    it launches the CUDA kernel on the current stream for CUDA tensors and
+    runs the plain version for CPU tensors; any other device raises here,
+    and the card raises when autograd would need a gradient (the kernel has
+    none)."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attn4d: unsupported device {q.device}")
+    return _op(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads, scale)
 
 
 attn4d.launches = 0

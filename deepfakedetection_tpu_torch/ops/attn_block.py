@@ -30,7 +30,9 @@ functions in PyTorch ops with the same rounding points (the attention's are
 float64 every step stays float64, so the backward can be held against
 autograd. The wrappers run them for CPU tensors; the tests and
 ``chip_smoke.py`` hold the kernels against them. For a CUDA tensor a wrapper
-launches the kernel or raises.
+launches the kernel or raises. The forward goes through the operator
+``torch.ops.dfd.attn_subblock`` (``build.define_op``); the backward is not an
+operator yet.
 """
 
 from __future__ import annotations
@@ -367,11 +369,12 @@ def _tma_rows(t: torch.Tensor, C: int) -> tuple[torch.Tensor, int]:
     return torch.nn.functional.pad(t, (0, Cp - C)), Cp
 
 
-def _forward(x, wqkv, bqkv, bias, wproj, bproj, num_heads: int, scale: float) -> torch.Tensor:
-    """The K6 forward without autograd: the kernel for a CUDA tensor, the
-    plain version for a CPU one."""
+def _forward_check(x, wqkv, bqkv, bias, wproj, bproj, num_heads: int) -> tuple[int, ...]:
+    """(B, N, C, d) of the forward's inputs; raises on anything the kernel
+    does not take."""
     name = "attn_subblock"
-    B, N, C = x.shape if x.dim() == 3 else (0, 0, 0)
+    # plain ints for the cached plan search (a tracer's sizes are symbols)
+    B, N, C = map(int, x.shape) if x.dim() == 3 else (0, 0, 0)
     h = max(num_heads, 1)
     plan = fwd_plan(max(B, 1), N, C, h) if 1 <= N <= MAX_TOKENS else None
     # a shape no plan fits reports the least any plan needs
@@ -379,9 +382,14 @@ def _forward(x, wqkv, bqkv, bias, wproj, bproj, num_heads: int, scale: float) ->
     B, N, C, d = _check(name, x, wqkv, bqkv, bias, wproj, num_heads, smem)
     if bproj.shape != (C,) or bproj.device != x.device:
         raise ValueError(f"{name}: bproj must be [{C}] on {x.device}, got {tuple(bproj.shape)}")
-    if x.device.type == "cpu":
-        return attn_subblock_plain(x, wqkv, bqkv, bias, wproj, bproj, num_heads=num_heads,
-                                   scale=scale)
+    return B, N, C, d
+
+
+def _fwd_cuda(x, wqkv, bqkv, bias, wproj, bproj, num_heads: int, scale: float) -> torch.Tensor:
+    """``dfd::attn_subblock``'s CUDA implementation: the operands in the
+    kernel's layouts, then one launch (two kernels) on the current stream,
+    counted."""
+    B, N, C, d = _forward_check(x, wqkv, bqkv, bias, wproj, bproj, num_heads)
     x, bias = x.contiguous(), bias.contiguous()
     wq, bq = _qkv_operands(wqkv, bqkv, num_heads, d, C)
     wp, bp = _proj_operand(wproj, C), bproj.float().contiguous()
@@ -397,9 +405,30 @@ def _forward(x, wqkv, bqkv, bias, wproj, bproj, num_heads: int, scale: float) ->
             bp.data_ptr(), out.data_ptr(), ctx.data_ptr(), B, N, C, num_heads, float(scale),
             int(C % 8 == 0 and _aligned(x)), stream,
         )
-    build.check(rc, name)
+    build.check(rc, "attn_subblock")
     attn_subblock.launches += 1
     return out
+
+
+def _fwd_cpu(x, wqkv, bqkv, bias, wproj, bproj, num_heads: int, scale: float) -> torch.Tensor:
+    _forward_check(x, wqkv, bqkv, bias, wproj, bproj, num_heads)
+    return attn_subblock_plain(x, wqkv, bqkv, bias, wproj, bproj, num_heads=num_heads,
+                               scale=scale)
+
+
+def _fwd_fake(x, wqkv, bqkv, bias, wproj, bproj, num_heads: int, scale: float) -> torch.Tensor:
+    """The output's shape for tracers, after the checks the launch makes."""
+    B, N, C, _ = _forward_check(x, wqkv, bqkv, bias, wproj, bproj, num_heads)
+    return x.new_empty((B, N, C))
+
+
+_forward = build.define_op(
+    "attn_subblock(Tensor x, Tensor wqkv, Tensor bqkv, Tensor bias, Tensor wproj, "
+    "Tensor bproj, int num_heads, float scale) -> Tensor",
+    cuda=_fwd_cuda, cpu=_fwd_cpu, fake=_fwd_fake,
+)
+"""The K6 forward without autograd, ``torch.ops.dfd.attn_subblock``: the
+kernel for a CUDA tensor, the plain version for a CPU one."""
 
 
 def attn_subblock_bwd(

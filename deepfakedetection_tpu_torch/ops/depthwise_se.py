@@ -6,7 +6,9 @@ persistent grid walking whole images in bands of rows through a circular
 buffer, the pool summed in registers (``plan`` mirrors its launch plan).
 ``depthwise_silu_pool_plain`` is the same contract in plain PyTorch, with
 the same rounding points, which the wrapper runs for CPU tensors and the
-tests and ``chip_smoke.py`` hold the kernel against.
+tests and ``chip_smoke.py`` hold the kernel against. The wrapper calls the
+operator ``torch.ops.dfd.depthwise_silu_pool`` (``build.define_op``), so
+``torch.export`` records the launch as one node.
 
 Layout is the JAX package's: NHWC. A channels_last NCHW activation gives
 that view with ``x.permute(0, 2, 3, 1)`` at no copy.
@@ -129,21 +131,20 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int) -> None:
             raise ValueError(f"depthwise_silu_pool: {name} on {t.device}, x on {x.device}")
 
 
-def depthwise_silu_pool(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, k: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1 (see ``depthwise_silu_pool_plain`` for the contract). Launches the
-    CUDA kernel on the current stream for a CUDA tensor, runs the plain
-    version for a CPU tensor, raises on any other device."""
-    _check(x, w, b, k)
-    if x.device.type == "cpu":
-        return depthwise_silu_pool_plain(x, w, b, k=k)
-    if x.device.type != "cuda":
-        raise ValueError(f"depthwise_silu_pool: unsupported device {x.device}")
+def _launch_plan(x: torch.Tensor, k: int) -> Plan:
     B, H, W, C = x.shape
     p = plan(B, H, W, C, k)
     if p.smem > MAX_SMEM_BYTES:
         raise ValueError(f"depthwise_silu_pool: {p} needs more than {MAX_SMEM_BYTES} B")
+    return p
+
+
+def _cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int):
+    """The operator's CUDA implementation: one launch of the kernel on the
+    current stream, counted."""
+    _check(x, w, b, k)
+    _launch_plan(x, k)
+    B, H, W, C = x.shape
     y = torch.empty_like(x)
     pool = torch.empty((B, C), dtype=torch.float32, device=x.device)
     lib = build.library()
@@ -156,6 +157,37 @@ def depthwise_silu_pool(
     build.check(rc, "depthwise_silu_pool")
     depthwise_silu_pool.launches += 1
     return y, pool
+
+
+def _cpu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int):
+    _check(x, w, b, k)
+    return depthwise_silu_pool_plain(x, w, b, k=k)
+
+
+def _fake(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int):
+    """Output shapes for tracers, after the checks the launch makes."""
+    _check(x, w, b, k)
+    if x.device.type == "cuda":
+        _launch_plan(x, k)
+    return torch.empty_like(x), x.new_empty((x.shape[0], x.shape[-1]), dtype=torch.float32)
+
+
+_op = build.define_op(
+    "depthwise_silu_pool(Tensor x, Tensor w, Tensor b, int k) -> (Tensor, Tensor)",
+    cuda=_cuda, cpu=_cpu, fake=_fake,
+)
+
+
+def depthwise_silu_pool(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 (see ``depthwise_silu_pool_plain`` for the contract) through the
+    operator ``torch.ops.dfd.depthwise_silu_pool``: it launches the CUDA
+    kernel on the current stream for a CUDA tensor and runs the plain
+    version for a CPU tensor; any other device raises here."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"depthwise_silu_pool: unsupported device {x.device}")
+    return _op(x, w, b, k)
 
 
 depthwise_silu_pool.launches = 0

@@ -7,7 +7,8 @@ same rounding points, which the wrapper runs for CPU tensors and the tests
 and ``chip_smoke.py`` hold the kernel against. Layout is NHWC, as in the JAX
 package. ``plan`` mirrors the kernel's launch plan (``choose_plan`` in
 ``csrc/expand_dw.cu``: channels an item, row bands, the persistent grid);
-``chip_smoke.py`` holds the two equal on the card.
+``chip_smoke.py`` holds the two equal on the card. The wrapper calls the
+operator ``torch.ops.dfd.expand_dw_silu_pool`` (``build.define_op``).
 """
 
 from __future__ import annotations
@@ -218,29 +219,22 @@ def _check(x, wexp, bexp, wdw, bdw, k: int) -> None:
             raise ValueError(f"expand_dw_silu_pool: {name} on {t.device}, x on {x.device}")
 
 
-def expand_dw_silu_pool(
-    x: torch.Tensor,
-    wexp: torch.Tensor,
-    bexp: torch.Tensor,
-    wdw: torch.Tensor,
-    bdw: torch.Tensor,
-    *,
-    kernel: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2 (see ``expand_dw_silu_pool_plain`` for the contract). Launches the
-    CUDA kernel on the current stream for a CUDA tensor, runs the plain
-    version for a CPU tensor, raises on any other device."""
-    _check(x, wexp, bexp, wdw, bdw, kernel)
-    if x.device.type == "cpu":
-        return expand_dw_silu_pool_plain(x, wexp, bexp, wdw, bdw, kernel=kernel)
-    if x.device.type != "cuda":
-        raise ValueError(f"expand_dw_silu_pool: unsupported device {x.device}")
+def _launch_plan(x: torch.Tensor, Ce: int, kernel: int) -> Plan:
     B, H, W, Cin = x.shape
-    Ce = wexp.shape[1]
     p = plan(H, W, Cin, Ce, kernel, B, sm_count(x.device))
     if p is None:
         raise ValueError(f"expand_dw_silu_pool: no launch plan fits {MAX_SMEM_BYTES} B at "
                          f"{tuple(x.shape)} -> {Ce}, k {kernel}")
+    return p
+
+
+def _cuda(x, wexp, bexp, wdw, bdw, kernel: int):
+    """The operator's CUDA implementation: the packing and main kernels on
+    the current stream, counted as one launch."""
+    _check(x, wexp, bexp, wdw, bdw, kernel)
+    B, H, W, Cin = x.shape
+    Ce = wexp.shape[1]
+    p = _launch_plan(x, Ce, kernel)
     y = torch.empty((B, H, W, Ce), dtype=torch.bfloat16, device=x.device)
     pool = torch.empty((B, Ce), dtype=torch.float32, device=x.device)
     wpack = torch.empty(wpack_words(Cin, Ce), dtype=torch.int32, device=x.device)
@@ -255,6 +249,46 @@ def expand_dw_silu_pool(
     build.check(rc, "expand_dw_silu_pool")
     expand_dw_silu_pool.launches += 1
     return y, pool
+
+
+def _cpu(x, wexp, bexp, wdw, bdw, kernel: int):
+    _check(x, wexp, bexp, wdw, bdw, kernel)
+    return expand_dw_silu_pool_plain(x, wexp, bexp, wdw, bdw, kernel=kernel)
+
+
+def _fake(x, wexp, bexp, wdw, bdw, kernel: int):
+    """Output shapes for tracers, after the checks the launch makes."""
+    _check(x, wexp, bexp, wdw, bdw, kernel)
+    B, H, W, _ = x.shape
+    Ce = wexp.shape[1]
+    if x.device.type == "cuda":
+        _launch_plan(x, Ce, kernel)
+    return (x.new_empty((B, H, W, Ce)), x.new_empty((B, Ce), dtype=torch.float32))
+
+
+_op = build.define_op(
+    "expand_dw_silu_pool(Tensor x, Tensor wexp, Tensor bexp, Tensor wdw, Tensor bdw, "
+    "int kernel) -> (Tensor, Tensor)",
+    cuda=_cuda, cpu=_cpu, fake=_fake,
+)
+
+
+def expand_dw_silu_pool(
+    x: torch.Tensor,
+    wexp: torch.Tensor,
+    bexp: torch.Tensor,
+    wdw: torch.Tensor,
+    bdw: torch.Tensor,
+    *,
+    kernel: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 (see ``expand_dw_silu_pool_plain`` for the contract) through the
+    operator ``torch.ops.dfd.expand_dw_silu_pool``: it launches the CUDA
+    kernel on the current stream for a CUDA tensor and runs the plain
+    version for a CPU tensor; any other device raises here."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"expand_dw_silu_pool: unsupported device {x.device}")
+    return _op(x, wexp, bexp, wdw, bdw, kernel)
 
 
 expand_dw_silu_pool.launches = 0

@@ -12,7 +12,8 @@ packs the weights into the layouts the kernels take, once per model in
 with the Pallas kernel's rounding points, which the wrapper runs for CPU
 tensors and the tests and ``chip_smoke.py`` hold the kernels against. Layout
 is NHWC, as in the JAX package, and the weights come in the JAX wrapper's
-layout.
+layout. The wrapper calls the operator ``torch.ops.dfd.fused_mbconv_se``
+(``build.define_op``).
 """
 
 from __future__ import annotations
@@ -201,39 +202,21 @@ def _check(x, weights, k: int) -> None:
             raise ValueError(f"fused_mbconv_se: {name} on {t.device}, x on {x.device}")
 
 
-def fused_mbconv_se(
-    x: torch.Tensor,
-    w_exp: torch.Tensor,
-    b_exp: torch.Tensor,
-    w_dw: torch.Tensor,
-    b_dw: torch.Tensor,
-    w_se_r: torch.Tensor,
-    b_se_r: torch.Tensor,
-    w_se_e: torch.Tensor,
-    b_se_e: torch.Tensor,
-    w_proj: torch.Tensor,
-    b_proj: torch.Tensor,
-    *,
-    kernel: int,
-    packed: Packed | None = None,
-) -> torch.Tensor:
-    """K3 (see ``fused_mbconv_se_plain`` for the contract). For a CUDA tensor
-    it packs the weights (unless ``packed``, from ``pack``, already holds
-    them), enqueues its four kernels on the current stream and counts one
-    launch; for a CPU tensor it runs the plain version; on any other device
-    it raises."""
+def _cuda(x, w_exp, b_exp, w_dw, b_dw, w_se_r, b_se_r, w_se_e, b_se_e, w_proj, b_proj,
+          kernel: int, wexp_packed=None, see_packed=None, wpt_packed=None):
+    """The operator's CUDA implementation: packs the weights unless the three
+    packed tensors (``Packed``'s, from ``pack``) are given, enqueues the four
+    kernels on the current stream and counts one launch."""
     weights = (w_exp, b_exp, w_dw, b_dw, w_se_r, b_se_r, w_se_e, b_se_e, w_proj, b_proj)
     _check(x, weights, kernel)
-    if x.device.type == "cpu":
-        return fused_mbconv_se_plain(x, *weights, kernel=kernel)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mbconv_se: unsupported device {x.device}")
     B, H, W, C = x.shape
     Cmid, Cse = w_exp.shape[1], w_se_r.shape[1]
     dev = x.device
     p = plan(B, H, W, C, Cmid, kernel, k2.sm_count(dev))
-    if packed is None:
+    if wexp_packed is None:
         packed = pack(w_exp, w_se_e, w_proj)
+    else:
+        packed = Packed(wexp_packed, see_packed, wpt_packed)
     out = torch.empty_like(x)
     scratch = (torch.empty((B, H, W, Cmid), dtype=torch.bfloat16, device=dev),
                torch.empty((B, Cmid), dtype=torch.float32, device=dev),
@@ -251,6 +234,57 @@ def fused_mbconv_se(
     build.check(rc, "fused_mbconv_se")
     fused_mbconv_se.launches += 1
     return out
+
+
+def _cpu(x, w_exp, b_exp, w_dw, b_dw, w_se_r, b_se_r, w_se_e, b_se_e, w_proj, b_proj,
+         kernel: int, wexp_packed=None, see_packed=None, wpt_packed=None):
+    weights = (w_exp, b_exp, w_dw, b_dw, w_se_r, b_se_r, w_se_e, b_se_e, w_proj, b_proj)
+    _check(x, weights, kernel)
+    return fused_mbconv_se_plain(x, *weights, kernel=kernel)
+
+
+def _fake(x, w_exp, b_exp, w_dw, b_dw, w_se_r, b_se_r, w_se_e, b_se_e, w_proj, b_proj,
+          kernel: int, wexp_packed=None, see_packed=None, wpt_packed=None):
+    """The output's shape for tracers, after the checks the launch makes."""
+    _check(x, (w_exp, b_exp, w_dw, b_dw, w_se_r, b_se_r, w_se_e, b_se_e, w_proj, b_proj), kernel)
+    return torch.empty_like(x)
+
+
+_op = build.define_op(
+    "fused_mbconv_se(Tensor x, Tensor w_exp, Tensor b_exp, Tensor w_dw, Tensor b_dw, "
+    "Tensor w_se_r, Tensor b_se_r, Tensor w_se_e, Tensor b_se_e, Tensor w_proj, Tensor b_proj, "
+    "int kernel, Tensor? wexp_packed=None, Tensor? see_packed=None, "
+    "Tensor? wpt_packed=None) -> Tensor",
+    cuda=_cuda, cpu=_cpu, fake=_fake,
+)
+
+
+def fused_mbconv_se(
+    x: torch.Tensor,
+    w_exp: torch.Tensor,
+    b_exp: torch.Tensor,
+    w_dw: torch.Tensor,
+    b_dw: torch.Tensor,
+    w_se_r: torch.Tensor,
+    b_se_r: torch.Tensor,
+    w_se_e: torch.Tensor,
+    b_se_e: torch.Tensor,
+    w_proj: torch.Tensor,
+    b_proj: torch.Tensor,
+    *,
+    kernel: int,
+    packed: Packed | None = None,
+) -> torch.Tensor:
+    """K3 (see ``fused_mbconv_se_plain`` for the contract) through the
+    operator ``torch.ops.dfd.fused_mbconv_se``, which takes ``packed``'s three
+    tensors as arguments. For a CUDA tensor it packs the weights (unless
+    ``packed``, from ``pack``, already holds them), enqueues its four kernels
+    on the current stream and counts one launch; for a CPU tensor it runs the
+    plain version; any other device raises here."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_mbconv_se: unsupported device {x.device}")
+    return _op(x, w_exp, b_exp, w_dw, b_dw, w_se_r, b_se_r, w_se_e, b_se_e, w_proj, b_proj,
+               kernel, *(packed or (None, None, None)))
 
 
 fused_mbconv_se.launches = 0

@@ -29,7 +29,10 @@ before their products, f32 accumulation, one cast per output); in float64
 every step stays float64, so the backward can be held against autograd. The
 wrappers run them for CPU tensors; the tests and ``chip_smoke.py`` hold the
 kernels against them. For a CUDA tensor a wrapper launches the kernel or
-raises.
+raises. The forward goes through the operators ``torch.ops.dfd.window_attention``
+and ``torch.ops.dfd.window_attention_heads`` (``build.define_op``), which
+take q, k and v as the strided views they are; the backward is not an
+operator yet.
 """
 
 from __future__ import annotations
@@ -203,16 +206,22 @@ def kernel_fwd_plan(B: int, N: int, heads: int, d: int, sms: int) -> FwdPlan | N
     return FwdPlan(*plan)
 
 
-def _launch(name, q, k, v, bias, out, strides, B: int, N: int, heads: int, d: int,
-            scale: float) -> None:
-    """One kernel launch. ``strides`` holds the (batch, row, head) strides of
-    q, k, v and out, in elements. Raises when no plan fits (``fwd_plan``)."""
-    sms = sm_count(q.device)
+def _fwd_sms(name: str, device: torch.device, B: int, N: int, heads: int, d: int) -> int:
+    """The card's SM count, after checking that a forward plan fits there."""
+    sms = sm_count(device)
     if fwd_plan(B, N, heads, d, sms) is None:
         raise ValueError(
             f"{name}: N={N}, head_dim={d} needs {fwd_smem_bytes(N, d)} bytes of shared memory "
             f"a block, more than the {MAX_SMEM_BYTES} an H100 block has"
         )
+    return sms
+
+
+def _launch(name, q, k, v, bias, out, strides, B: int, N: int, heads: int, d: int,
+            scale: float) -> None:
+    """One kernel launch. ``strides`` holds the (batch, row, head) strides of
+    q, k, v and out, in elements. Raises when no plan fits (``fwd_plan``)."""
+    sms = _fwd_sms(name, q.device, B, N, heads, d)
     flat = [s for st in strides for s in st]
     vec = int(d % 8 == 0 and all(s % 8 == 0 for s in flat)
               and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
@@ -247,18 +256,40 @@ def _check_qkv(name: str, qkv: torch.Tensor, bias: torch.Tensor,
     return B, N, C, d
 
 
-def _forward(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
-    """The K5 forward without autograd: the kernel for a CUDA tensor, the
-    plain version for a CPU one."""
+def _qkv_cuda(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
+              scale: float) -> torch.Tensor:
+    """``dfd::window_attention``'s CUDA implementation: one launch of the
+    kernel on q, k and v as three views of qkv, counted."""
     B, N, C, d = _check_qkv("window_attention", qkv, bias, num_heads)
-    if qkv.device.type == "cpu":
-        return window_attention_plain(qkv, bias, num_heads=num_heads, scale=scale)
     out = torch.empty(B, N, C, dtype=torch.bfloat16, device=qkv.device)
     src = (qkv.stride(0), qkv.stride(1), d)
     _launch("window_attention", qkv, qkv[..., C:], qkv[..., 2 * C:], bias, out,
             (src, src, src, (N * C, C, d)), B, N, num_heads, d, scale)
     window_attention.launches += 1
     return out
+
+
+def _qkv_cpu(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
+             scale: float) -> torch.Tensor:
+    _check_qkv("window_attention", qkv, bias, num_heads)
+    return window_attention_plain(qkv, bias, num_heads=num_heads, scale=scale)
+
+
+def _qkv_fake(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
+              scale: float) -> torch.Tensor:
+    """The output's shape for tracers, after the checks the launch makes."""
+    B, N, C, d = _check_qkv("window_attention", qkv, bias, num_heads)
+    if qkv.device.type == "cuda":
+        _fwd_sms("window_attention", qkv.device, B, N, num_heads, d)
+    return qkv.new_empty((B, N, C))
+
+
+_forward = build.define_op(
+    "window_attention(Tensor qkv, Tensor bias, int num_heads, float scale) -> Tensor",
+    cuda=_qkv_cuda, cpu=_qkv_cpu, fake=_qkv_fake,
+)
+"""The K5 forward without autograd, ``torch.ops.dfd.window_attention``: the
+kernel for a CUDA tensor, the plain version for a CPU one."""
 
 
 class WindowAttention(torch.autograd.Function):
@@ -396,13 +427,9 @@ def window_attention_bwd(
     return dqkv, dbias
 
 
-def window_attention_heads(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor, *, scale: float
-) -> torch.Tensor:
-    """K5 on the v1 layout (see ``window_attention_heads_plain``): q, k, v
-    [B, h, N, d] bf16 with a unit stride along d. Launches the CUDA kernel for
-    CUDA tensors, runs the plain version for CPU tensors, raises otherwise."""
-    name = "window_attention_heads"
+def _check_heads(name: str, q, k, v, bias) -> tuple[int, int, int, int]:
+    """(B, h, N, d) of bf16 [B, h, N, d] q, k, v with a unit stride along d
+    and their [h, N, N] f32 bias; raises on anything else."""
     for t in (q, k, v):
         if t.dim() != 4 or t.dtype != torch.bfloat16 or t.stride(3) != 1 or t.shape != q.shape:
             raise ValueError(
@@ -414,15 +441,52 @@ def window_attention_heads(
     B, h, N, d = q.shape
     _check_bias(name, bias, h, N, q.device)
     _check_sizes(name, N, d)
-    if q.device.type == "cpu":
-        return window_attention_heads_plain(q, k, v, bias, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
+    return B, h, N, d
+
+
+def _heads_cuda(q, k, v, bias, scale: float) -> torch.Tensor:
+    """``dfd::window_attention_heads``'s CUDA implementation: one launch,
+    counted."""
+    name = "window_attention_heads"
+    B, h, N, d = _check_heads(name, q, k, v, bias)
     out = torch.empty(B, h, N, d, dtype=torch.bfloat16, device=q.device)
     strides = tuple((t.stride(0), t.stride(2), t.stride(1)) for t in (q, k, v, out))
     _launch(name, q, k, v, bias, out, strides, B, N, h, d, scale)
     window_attention_heads.launches += 1
     return out
+
+
+def _heads_cpu(q, k, v, bias, scale: float) -> torch.Tensor:
+    _check_heads("window_attention_heads", q, k, v, bias)
+    return window_attention_heads_plain(q, k, v, bias, scale=scale)
+
+
+def _heads_fake(q, k, v, bias, scale: float) -> torch.Tensor:
+    """The output's shape for tracers, after the checks the launch makes."""
+    name = "window_attention_heads"
+    B, h, N, d = _check_heads(name, q, k, v, bias)
+    if q.device.type == "cuda":
+        _fwd_sms(name, q.device, B, N, h, d)
+    return q.new_empty((B, h, N, d))
+
+
+_heads_op = build.define_op(
+    "window_attention_heads(Tensor q, Tensor k, Tensor v, Tensor bias, float scale) -> Tensor",
+    cuda=_heads_cuda, cpu=_heads_cpu, fake=_heads_fake,
+)
+
+
+def window_attention_heads(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor, *, scale: float
+) -> torch.Tensor:
+    """K5 on the v1 layout (see ``window_attention_heads_plain``): q, k, v
+    [B, h, N, d] bf16 with a unit stride along d, through the operator
+    ``torch.ops.dfd.window_attention_heads``: it launches the CUDA kernel for
+    CUDA tensors and runs the plain version for CPU tensors; any other device
+    raises here."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"window_attention_heads: unsupported device {q.device}")
+    return _heads_op(q, k, v, bias, scale=scale)
 
 
 window_attention.launches = 0

@@ -9,10 +9,11 @@ fastervit wheel), layouts OIHW for convs, [out, in] for dense kernels and [g,
 h, 1, 1] for EfficientFormerV2's talking heads. For FasterViT it covers both
 head configurations: the tensors only the "tpu" one has (layer-scale gammas,
 learned bias tables, learned position tables) get the port's own names.
-``load_weights`` reads a genuine torch ``.pth``. A native flax msgpack
-export (the JAX package's ``checkpoints/<Model>.pth``) is converted once
-with ``python tools/convert.py --model NAME --weights ckpt.pth --out
-for_torch.pth``.
+``load_weights`` reads a genuine torch ``.pth``, or a native flax msgpack
+export (the JAX package's ``checkpoints/<Model>.pth`` and its export's
+``.weights.msgpack``, told apart by their first bytes as the JAX loader does)
+through the port's own reader (``runtime/flax_msgpack.py``, no JAX) and
+``state_dict_from_jax``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+
+from deepfakedetection_tpu_torch.runtime import flax_msgpack
 
 _WRAPPERS = ("state_dict", "model")
 
@@ -216,7 +219,8 @@ _MAPS = {"efficientnet": _efficientnet_map, "efficientformerv2": _efficientforme
 
 
 def state_dict_from_jax(tree: dict[str, Any], family: str) -> dict[str, torch.Tensor]:
-    """JAX package variables ``{"params", "batch_stats"}`` (numpy leaves) ->
+    """JAX package variables ``{"params", "batch_stats"}`` (numpy leaves, or
+    ``flax_msgpack``'s tensors) ->
     the port's state dict of ``family`` ("efficientnet", "efficientformerv2"
     or "fastervit"):
     every tensor of the tree whose path the family's map names, in the
@@ -227,7 +231,10 @@ def state_dict_from_jax(tree: dict[str, Any], family: str) -> dict[str, torch.Te
     for key, (path, kind) in name_map.items():
         full = (("batch_stats",) if path[-1] in ("mean", "var") else ("params",)) + path
         if full in flat:
-            arr = _inverse_layout(np.asarray(flat[full], np.float32), kind)
+            leaf = flat[full]
+            if isinstance(leaf, torch.Tensor):
+                leaf = leaf.float().numpy()
+            arr = _inverse_layout(np.asarray(leaf, np.float32), kind)
             sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
             used.add(full)
     left = sorted(set(flat) - used)
@@ -282,17 +289,19 @@ def is_torch_checkpoint(path: Path) -> bool:
     return magic[:2] == b"PK" or magic[:1] == b"\x80"
 
 
-def load_weights(path: str | Path) -> dict[str, torch.Tensor]:
+def load_weights(path: str | Path, family: str | None = None) -> dict[str, torch.Tensor]:
     """A torch ``.pth`` state dict, unwrapped from ``{"state_dict": ...}`` or
-    ``{"model": ...}``. Raises for a native msgpack export, which
-    ``tools/convert.py --out x.pth`` turns into a torch file."""
+    ``{"model": ...}``; or a native flax msgpack export (whatever its name)
+    read without JAX and carried into ``family``'s names by
+    ``state_dict_from_jax``, which the model family must then be given for."""
     path = Path(path)
     if not is_torch_checkpoint(path):
-        raise ValueError(
-            f"{path} is not a torch checkpoint (a native msgpack export?); convert it "
-            "once with: python tools/convert.py --model NAME --weights "
-            f"{path} --out for_torch.pth"
-        )
+        if family is None:
+            raise ValueError(
+                f"{path} is not a torch checkpoint (a native flax msgpack export?); reading "
+                "one needs the model family (load_weights(path, family))"
+            )
+        return state_dict_from_jax(flax_msgpack.read(path), family)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict):
         for wrapper in _WRAPPERS:

@@ -239,7 +239,7 @@ def _run_training(job: TrainJob) -> TrainResult:
         if not init_wpath.exists():
             raise SystemExit(f"training.init_weights not found: {init_wpath}")
         # read even when resuming: latest.ckpt holds the configuration it picks
-        init_state = load_weights(init_wpath)
+        init_state = load_weights(init_wpath, job.spec.family)
     model = job.spec.builder(
         job.num_classes, dtype=job.compute_dtype,
         generator=torch.Generator().manual_seed(0 if job.seed is None else int(job.seed)),

@@ -10,8 +10,10 @@ and its Grad-CAM, import the predict CLI and the web UI, serve a batch through
 the server's micro-batcher and weigh an ensemble, one CPU train
 step with the augmentation's shear rotation, and a calibrated int8 forward
 of the narrow EfficientNet through the int8 depthwise wrapper, import the
-bench, and check that no jax, flax, optax or orbax
-module and no ``deepfakedetection_tpu`` module was loaded. Statically, no
+bench, export the narrow EfficientNet's eval step (``torch.export``, its K1
+and K2 as ``torch.ops.dfd`` nodes) and read a msgpack map with the port's
+flax reader, and check that no jax, flax, optax, orbax, msgpack or
+ml_dtypes module and no ``deepfakedetection_tpu`` module was loaded. Statically, no
 ``.py`` file of the port imports either (``chip_smoke.reference_imports``)."""
 
 import importlib.util
@@ -159,7 +161,18 @@ with quant.quantized_eval(quant.QuantCtx(scales=scales)), torch.no_grad():
     out = model(images)
 assert out.shape == (2, 2) and bool(torch.isfinite(out).all())
 assert int8_dw.int8_depthwise.launches == 0
-banned = ("jax", "jaxlib", "flax", "optax", "orbax", "deepfakedetection_tpu")
+
+from deepfakedetection_tpu_torch.export import export_program
+from deepfakedetection_tpu_torch.runtime import flax_msgpack
+
+program = export_program(model, torch.randn(2, 32, 32, 3).to(torch.bfloat16))
+nodes = [str(n.target) for gm in program.graph_module.modules()
+         if isinstance(gm, torch.fx.GraphModule) for n in gm.graph.nodes]
+assert nodes.count("dfd.depthwise_silu_pool.default") == 1, nodes
+assert nodes.count("dfd.expand_dw_silu_pool.default") == 5, nodes
+assert flax_msgpack.msgpack_restore(bytes([0x81, 0xA1, 0x61, 0xC0])) == {"a": None}
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "ml_dtypes",
+          "deepfakedetection_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("LOADED", loaded)
 """
