@@ -129,9 +129,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    scales (``check_logits``), and, ungated, int8 against bf16; (c) int8
    forwards of EfficientFormerV2-S1 and FasterViT-2 official (scales
    calibrated on the card; K7 4, K5 13 launches) against the CPU's int8
-   under each model's gate; (d) ``python -m deepfakedetection_tpu_torch.
-   bench`` in a subprocess for B3, FasterViT-2 ``--official`` and S1 eval,
-   B3 ``--int8`` and B3 ``--mode train``, each JSON line printed;
+   under each model's gate; (d) the bench's ``main`` (``python -m
+   deepfakedetection_tpu_torch.bench``) in this process for B3 eval, B3
+   ``--int8`` and FasterViT-2's train step with ``--official --conv-remat
+   save-conv --pad-conv-stages``, each JSON line printed and its metric's
+   name checked;
 14. export: ``deepfakedetection_tpu_torch.export.export_model`` for
    ``config/inference.yaml``'s three models from the seeded ``.pth`` files
    of phases 3, 5 and 7 at batch 64 on the card (each export timed); each
@@ -142,7 +144,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    nodes, no plain version called; the loaded and the eager forward's
    CUDA-event ms at batch 64; the µs a call of the operator route against
    the direct ctypes launch and a toy operation's through both registration
-   routes (``profile_dispatch``).
+   routes (``profile_dispatch``);
+15. tar shards and the last training options: (a) phase 3's and phase 8's
+   JPEG trees packed into tar shards by ``python -m
+   deepfakedetection_tpu_torch.data.shards`` in a subprocess (each split
+   scanning to the folder's samples); ``orchestrate(mode="inference")`` for
+   B3 over phase 3's shards from its ``.pth``: K1 2 and K2 20 launches a
+   batch, the test probabilities bit-identical to phase 3's over the folder
+   tree, the job's img/s beside phase 3's and the loader alone over both
+   layouts in turns; (b) ``orchestrate(mode="training")`` for FasterViT-2
+   over phase 8's shards from phase 5's ``.pth`` (official) with
+   ``training.remat`` and ``training.async_checkpoint``: K5 forward/backward
+   26/0 a warmup step (the recompute reruns the forward for the head's saved
+   input) and 26/13 a fine-tune step, finite losses, ``latest.ckpt``,
+   ``best.ckpt`` and the ``.pth``, ``latest.ckpt``'s model equal to the live
+   model at the run's end; its resume for epoch 2 with ``profile_dir`` as
+   well (the profile of a short run: the trace grows with every step), whose
+   TensorBoard trace parses as JSON and names K5's forward and backward
+   kernels; ``orchestrate(mode="inference", weights: auto)`` over the
+   shards; (c) one fine-tune step at batch 128 from the same weights, batch
+   and generator seed for FasterViT-2 official plain, with ``remat`` and
+   with ``conv_remat`` "full" and "save-conv", and for B3 plain and with
+   ``remat`` after its recipe's augmentation (K4 once a step): the loss, the
+   running statistics and every gradient bit-identical to the plain step's
+   (a recompute that draws other masks or feeds the backward another
+   forward's tensors moves the gradients);
+   (d) each FasterViT-2 variant's step time (CUDA events) and peak memory,
+   printed beside the card's name and power limit.
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
@@ -1963,16 +1991,16 @@ def write_jpeg_tree(root: Path, counts: dict[str, int], seed: int) -> None:
 
 
 def eval_config(work: Path, name: str, model: str, out: str, weights: Path, batch: int,
-                device) -> Path:
+                device, data: Path | None = None) -> Path:
     """Writes ``work / name``: a YAML config that evaluates ``model`` from
-    ``weights`` over the JPEG tree ``work / "data"`` at ``batch``, 224 px, with
-    runs under ``work / out``."""
+    ``weights`` over the JPEG tree ``work / "data"`` (or ``data``) at ``batch``,
+    224 px, with runs under ``work / out``."""
     import yaml
 
     cfg = {
         "seed": 1,
         "device": str(device),
-        "data": {"root": str(work / "data"), "test_split": "test", "val_split": "val",
+        "data": {"root": str(data or work / "data"), "test_split": "test", "val_split": "val",
                  "num_classes": 2, "img_size": 224},
         "models": {model: {
             "output_dir": str(work / out),
@@ -2029,6 +2057,7 @@ def phase3(device, report, state):
             "confusion_matrix"}
     if set(record) != want:
         raise AssertionError(f"metrics.jsonl fields {sorted(record)} != {sorted(want)}")
+    np.save(work / "test_probs.npy", res.probs)  # phase 15's job over shards must equal them
     agree = reference_check(res, data, lambda x: cpu_logits(state, x))
     summary = {"model": "efficientnet_b3", "split": "test", "accuracy": res.metrics["accuracy"]}
     decode = decode_rate(data)
@@ -2604,10 +2633,12 @@ FV_STEP_BATCH = 4  # images of the card-against-CPU step (full width, 224 px)
 
 
 def fv_train_config(work: Path, data: Path, device, runs: str = "runs_fv",
-                    init_weights: Path | None = None) -> Path:
+                    init_weights: Path | None = None, epochs: int = 1,
+                    training: dict | None = None, profile_dir: Path | None = None) -> Path:
     """The shipped FasterViT-2 block of ``config/train.yaml`` (its transforms,
-    batch 64, the recipe's warmup and fine-tune) for one epoch over ``data``,
-    into ``work / runs``, from ``init_weights`` when given."""
+    batch 64, the recipe's warmup and fine-tune) for ``epochs`` over ``data``,
+    into ``work / runs``, from ``init_weights`` when given, with more
+    ``training`` keys and a ``profile_dir`` when given."""
     import yaml
 
     cfg = {
@@ -2618,14 +2649,17 @@ def fv_train_config(work: Path, data: Path, device, runs: str = "runs_fv",
         "models": {FV: {
             "output_dir": str(work / runs),
             "transforms": {"train": FV_TRAIN_TF, "eval": EVAL_TF},
-            "training": {"epochs": 1, "batch_size": 64, "num_workers": 8, "resume": "auto",
-                         **({"init_weights": str(init_weights)} if init_weights else {})},
+            "training": {"epochs": epochs, "batch_size": 64, "num_workers": 8,
+                         "resume": "auto",
+                         **({"init_weights": str(init_weights)} if init_weights else {}),
+                         **(training or {})},
             "inference": {"weights": "auto", "split": "test", "batch_size": 64,
                           "num_workers": 8, "img_size": 224},
         }},
         "selection": [FV],
+        **({"profile_dir": str(profile_dir)} if profile_dir else {}),
     }
-    path = work / f"train_{runs}.yaml"
+    path = work / f"train_{runs}_{epochs}.yaml"
     path.write_text(yaml.safe_dump(cfg))
     return path
 
@@ -4078,9 +4112,17 @@ INT8_DW_STEP = 2.0 ** -7
 # (PERF.md §6).
 INT8_FLIP_FRAC = 5e-3
 INT8_FLIP_LEVELS = 2.0 ** -6
-I8_BENCH = (["--model", "efficientnet_b3"], ["--model", FV, "--official"], ["--model", EF],
-            ["--model", "efficientnet_b3", "--int8"], ["--model", "efficientnet_b3", "--mode",
-                                                        "train"])
+# phase 13 (d)'s bench runs and the metric each must name, in this process:
+# FasterViT-2's and S1's eval runs were cut when phase 15 came (phases 5 and 7
+# time those forwards at batch 128), and the train run is FasterViT-2's with
+# both of its benchmark variants
+I8_BENCH = {
+    "eval_throughput_224px_efficientnet_b3": ["--model", "efficientnet_b3"],
+    "eval_throughput_224px_efficientnet_b3_int8": ["--model", "efficientnet_b3", "--int8"],
+    "train_throughput_224px_faster_vit_2_224_official_convrematsc_padconv": [
+        "--model", "faster_vit_2_224", "--mode", "train", "--official", "--conv-remat",
+        "save-conv", "--pad-conv-stages"],
+}
 
 
 def int8_dw_calls(model, size: int = 224) -> list[tuple]:
@@ -4616,19 +4658,23 @@ def phase13_models(device, report) -> dict:
 
 
 def phase13_bench(report) -> list[dict]:
-    """``python -m deepfakedetection_tpu_torch.bench`` in a subprocess for
-    each of ``I8_BENCH``: its one JSON line."""
+    """The bench's ``main`` (what ``python -m deepfakedetection_tpu_torch.bench``
+    runs) for each of ``I8_BENCH`` in this process: each run's one JSON line,
+    naming its metric."""
+    import io
+
+    from deepfakedetection_tpu_torch import bench
+
     lines = []
-    for argv in I8_BENCH:
-        proc = subprocess.run([sys.executable, "-m", "deepfakedetection_tpu_torch.bench", *argv],
-                              cwd=REPO, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"bench {argv} failed: {proc.stderr[-2000:]}")
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        if set(line) != {"metric", "value", "unit", "vs_baseline"} or not line["value"] > 0 \
-                or line["vs_baseline"] is not None:
+    for metric, argv in I8_BENCH.items():
+        out, t0 = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            bench.main(argv)
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        log(f"  bench {' '.join(argv)}: {json.dumps(line)} ({time.perf_counter() - t0:.1f} s)")
+        if set(line) != {"metric", "value", "unit", "vs_baseline"} or line["metric"] != metric \
+                or not line["value"] > 0 or line["vs_baseline"] is not None:
             raise AssertionError(f"bench {argv}: {line}")
-        log(f"  bench {' '.join(argv)}: {json.dumps(line)}")
         lines.append(line)
     report["phase13_bench"] = lines
     return lines
@@ -4857,6 +4903,349 @@ def phase14(device, report, parent: str | None = None) -> dict:
     return rows
 
 
+SHARD_IMAGES = 256  # images a tar shard in phase 15
+REMAT_SEED = 31  # the generator of phase 15's remat steps (dropout and drop-path masks)
+REMAT_BATCH = 128  # phase 15's remat steps: the recipes' fine-tune batch
+REMAT_VARIANTS = {"plain": {}, "remat": {"remat": True}, "conv full": {"conv_remat": "full"},
+                  "conv save-conv": {"conv_remat": "save-conv"}}
+
+
+def pack_shards(data: Path, out: Path) -> dict:
+    """``python -m deepfakedetection_tpu_torch.data.shards`` over the JPEG
+    tree ``data`` into ``out`` in a subprocess; each split's shards must scan
+    to the folder's samples and bytes."""
+    from deepfakedetection_tpu_torch.data.pipeline import scan_image_folder
+
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deepfakedetection_tpu_torch.data.shards",
+                           "--root", str(data), "--out", str(out), "--images-per-shard",
+                           str(SHARD_IMAGES)], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"packing {data} failed: {proc.stderr[-2000:]}")
+    counts = {}
+    for split in sorted(d.name for d in data.iterdir()):
+        folder, shards = scan_image_folder(data / split), scan_image_folder(out / split)
+        if (not hasattr(shards, "read_bytes") or shards.classes != folder.classes
+                or [label for _, label in shards.samples] != [label for _, label in folder.samples]
+                or shards.read_bytes(len(shards) - 1) != folder.samples[-1][0].read_bytes()):
+            raise AssertionError(f"the {split} shards of {data} do not scan to the folder's")
+        counts[split] = (len(shards), len(shards.shards))
+    log(f"  packed {data} into {out} in {seconds:.1f} s (a subprocess): {counts} "
+        f"(images, shards); {proc.stdout.strip().splitlines()[-1]}")
+    return {"seconds": seconds, "splits": counts}
+
+
+def phase15_eval(device, report) -> dict:
+    """(a) B3's eval job over phase 3's tree packed into tar shards: the
+    launches, the test probabilities bit-identical to phase 3's run over the
+    folder tree, the job's and the loader's img/s beside the folder's."""
+    import numpy as np
+
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+
+    work = REPO / "build" / "chip_smoke"
+    shards = work / "shards"
+    packed = pack_shards(work / "data", shards)
+    per_forward = create_efficientnet("b3").eval().kernel_launches_per_forward()
+    cfg = eval_config(work, "inference_shards.yaml", "efficientnet_b3", "runs_shards",
+                      work / "efficientnet_b3_seeded.pth", EVAL_BATCH, device, data=shards)
+    res, launches = counted(lambda: orchestrate(cfg, mode="inference")["efficientnet_b3"])
+    batches = sum(-(-n // EVAL_BATCH) for n in SPLITS.values())
+    want = {**ZERO_LAUNCHES, "k1": per_forward["k1"] * batches,
+            "k2": per_forward["k2"] * batches}
+    folder_probs = np.load(work / "test_probs.npy")
+    same = res.probs.shape == folder_probs.shape and np.array_equal(res.probs, folder_probs)
+    rates = {name: decode_rate(root) for name, root in
+             (("folder", work / "data"), ("shards", shards), ("shards again", shards),
+              ("folder again", work / "data"))}
+    log(f"  B3 eval job over shards: launches {launches} over {batches} batches; test "
+        f"probabilities bit-identical to phase 3's over the folder tree: {same}; test pass "
+        f"{res.images_per_s:.1f} img/s (phase 3 over the folder "
+        f"{report['phase3']['test_img_per_s']:.1f}, decode included); the loader alone, in turns, "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()) + " img/s")
+    if launches != want or not same:
+        raise AssertionError(f"the eval job over shards: launches {launches} (expected {want}), "
+                             f"probabilities bit-identical {same}")
+    return {"packed": packed, "launches": launches, "batches": batches,
+            "test_img_per_s": res.images_per_s,
+            "folder_test_img_per_s": report["phase3"]["test_img_per_s"],
+            "loader_img_per_s": rates}
+
+
+def phase15_train(device, report) -> dict:
+    """(b) The full-width FasterViT-2 training run over phase 8's tree packed
+    into tar shards, from phase 5's seeded official ``.pth``, with
+    ``training.remat`` and ``training.async_checkpoint``: the K5 launches a
+    step, finite losses, the checkpoints (``latest.ckpt`` equal to the live
+    model), a resume with ``profile_dir`` too and its trace, the inference
+    handoff over the shards."""
+    import numpy as np
+    import torch
+
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+    from deepfakedetection_tpu_torch.train import loop
+
+    # K5 a forward (13); under remat a step runs each forward twice
+    k = create_faster_vit("2", head_config="official").kernel_launches_per_forward()["k5"]
+    # phase 8's tree (FV_FUSED_SPLITS), a quarter of phase 4's: a quarter of
+    # the steps, and of the resume's trace
+    work = REPO / "build" / "chip_smoke_fused"
+    shards = work / "shards"
+    packed = pack_shards(work / "data", shards)
+    traces = work / "traces_remat"
+    for d in (work / "runs_remat", traces):
+        shutil.rmtree(d, ignore_errors=True)
+    options = {"remat": True, "async_checkpoint": True, "resume": "continue"}
+    pth = REPO / "build" / "chip_smoke" / "faster_vit_2_224_seeded.pth"
+    n_train, n_val, n_test = (FV_FUSED_SPLITS[k] for k in ("train", "val", "test"))
+    warmup_steps, ft_steps, val_batches = n_train // 64, n_train // 128, -(-n_val // 64)
+
+    per_step, live = [], []
+    real_step = loop.train_step
+
+    def step_spy(model, opt, *args, **kw):
+        before = (k5.window_attention.launches, k5.window_attention_bwd.launches)
+        out = real_step(model, opt, *args, **kw)
+        per_step.append((opt.n_train == opt.n_total, kw.get("remat"),
+                         k5.window_attention.launches - before[0],
+                         k5.window_attention_bwd.launches - before[1]))
+        live[:] = [model]
+        return out
+
+    def train(epochs: int, **kw):
+        cfg = fv_train_config(work, shards, device, runs="runs_remat", init_weights=pth,
+                              epochs=epochs, training=options, **kw)
+        return counted(lambda: orchestrate(cfg, mode="training")[FV])
+
+    loop.train_step = step_spy
+    try:
+        t0 = time.perf_counter()
+        res, launches = train(1)
+        wall = time.perf_counter() - t0
+        (run,) = sorted((work / "runs_remat").iterdir())
+        latest = torch.load(run / "checkpoints" / "latest.ckpt", weights_only=True)
+        live_state = {k: v.cpu() for k, v in live[0].state_dict().items()}
+        first = list(per_step)
+        t0 = time.perf_counter()
+        res2, launches2 = train(2, profile_dir=traces)
+        wall2 = time.perf_counter() - t0
+    finally:
+        loop.train_step = real_step
+    want_steps = ([(False, True, 2 * k, 0)] * warmup_steps
+                  + [(True, True, 2 * k, k)] * ft_steps)
+    want = {**ZERO_LAUNCHES, "k5": 2 * k * (warmup_steps + ft_steps) + k * 2 * val_batches,
+            "k5_bwd": k * ft_steps}
+    log(f"  FasterViT-2 training over shards with remat and async checkpoints (official "
+        f"from phase 5's .pth): {warmup_steps} warmup and {ft_steps} fine-tune steps, "
+        f"{2 * val_batches} val batches; launches {launches}; K5 forward/backward a warmup step "
+        f"{first[0][2:]}, a fine-tune step {first[-1][2:]}; wall {wall:.1f} s")
+    if launches != want or first != want_steps:
+        raise AssertionError(f"remat training launches {launches} (expected {want}), per step "
+                             f"{first}")
+    ckpts = run / "checkpoints"
+    for name in ("latest.ckpt", "best.ckpt", f"{FV}.pth"):
+        if not (ckpts / name).is_file():
+            raise AssertionError(f"the remat run wrote no {name}")
+    diff = [k for k, v in live_state.items() if not torch.equal(latest["model"][k], v)]
+    if diff or latest["model"].keys() != live_state.keys():
+        raise AssertionError(f"latest.ckpt differs from the live model at the run's end: "
+                             f"{diff[:5]}")
+    log_text = (run / "logs" / "train.log").read_text()
+    losses = [float(x) for x in re.findall(r": loss=(\S+) \|", log_text)]
+    if (len(losses) != 3 or not all(np.isfinite(losses)) or res.interrupted
+            or "async checkpointing" not in log_text):
+        raise AssertionError(f"bad remat training run: losses {losses}, {res}")
+    state2 = torch.load(ckpts / "latest.ckpt", weights_only=True)
+    if (res2.epochs_run != 1 or state2["counters"]["epoch"] != 1
+            or per_step[len(first):] != [(True, True, 2 * k, k)] * ft_steps
+            or launches2["k5_bwd"] != k * ft_steps):
+        raise AssertionError(f"resume: {res2}, counters {state2['counters']}, launches {launches2}")
+    log(f"  losses {[round(x, 4) for x in losses]}; latest.ckpt equal to the live model; the "
+        f"resume ran epoch 2 only ({ft_steps} steps, K5 {launches2['k5']}/{launches2['k5_bwd']}) "
+        f"in {wall2:.1f} s with profile_dir")
+
+    ires, ilaunch = counted(lambda: orchestrate(
+        fv_train_config(work, shards, device, runs="runs_remat", epochs=2, training=options),
+        mode="inference")[FV])
+    if (ires.probs.shape != (n_test, 2) or not np.isfinite(ires.probs).all()
+            or ilaunch["k5"] != k * (-(-n_test // 64) + val_batches)
+            or ilaunch["k5_bwd"]):
+        raise AssertionError(f"inference over shards on the trained FasterViT: "
+                             f"{ires.probs.shape} {ilaunch}")
+
+    (trace,) = traces.glob("*.pt.trace.json")
+    t0 = time.perf_counter()
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {kernel: sum(kernel in n for n in names) > 0
+             for kernel in (*k5.FWD_KERNELS, *k5.BWD_KERNELS)}
+    log(f"  inference with weights: auto over shards: accuracy {ires.metrics['accuracy']:.4f}, "
+        f"K5 {ilaunch['k5']}; trace {trace.name}: {trace.stat().st_size / 2**20:.1f} MiB, "
+        f"{len(events)} events, parsed in {time.perf_counter() - t0:.1f} s; K5 kernels named "
+        f"{found}")
+    if not all(found.values()):
+        raise AssertionError(f"the trace names no {[k for k, v in found.items() if not v]}")
+    return {"packed": packed, "launches": launches, "per_step": first, "losses": losses,
+            "wall_s": wall, "resume_launches": launches2, "resume_wall_s": wall2,
+            "inference_launches": ilaunch, "trace_mib": trace.stat().st_size / 2**20}
+
+
+def recording_optimizer(named):
+    """A ``PhaseOptimizer`` over every tensor that keeps its last step's
+    gradients on the CPU (``.grads``)."""
+    import torch
+
+    from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
+
+    class Recording(PhaseOptimizer):
+        def step(self, grads):
+            self.grads = [g.to("cpu", torch.float32, copy=True) for g in grads]
+            super().step(grads)
+
+    return Recording(named, lr=1e-4, weight_decay=5e-2, trainable=unfreeze_predicate("all"))
+
+
+def remat_step(build, x_of, labels, device, remat: bool) -> dict:
+    """One train step of the model ``build()`` on the batch ``x_of()`` (drawn
+    under ``counted``) with the generator seeded ``REMAT_SEED``: the loss,
+    the gradients, the running statistics after it and the launches."""
+    import torch
+
+    from deepfakedetection_tpu_torch.train.steps import train_step
+
+    model = build().to(device)
+    opt = recording_optimizer(list(model.named_parameters()))
+    mask = torch.ones(len(labels), dtype=torch.bool, device=device)
+
+    def step():
+        g = torch.Generator(device=device).manual_seed(REMAT_SEED)
+        return train_step(model, opt, x_of(), labels, mask, g, remat=remat)
+
+    out, launches = counted(step)
+    names = [n for n, _ in model.named_parameters()]
+    stats = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
+             if "running" in k or k.endswith("num_batches_tracked")}
+    return {"loss": out["loss"].cpu(), "grads": dict(zip(names, opt.grads)), "stats": stats,
+            "launches": launches, "model": model, "opt": opt}
+
+
+def remat_against_plain(label: str, rows: dict) -> dict:
+    """Each variant's loss, running statistics and gradients bit-identical to
+    the plain step's."""
+    import torch
+
+    base = rows["plain"]
+    out = {}
+    for name, row in rows.items():
+        if name == "plain":
+            continue
+        same = {"loss": bool(torch.equal(row["loss"], base["loss"])),
+                "stats": all(torch.equal(row["stats"][k], v) for k, v in base["stats"].items()),
+                "grads": all(torch.equal(row["grads"][k], v) for k, v in base["grads"].items())}
+        out[name] = same
+        log(f"  {label} {name}: loss {float(row['loss']):.6f}; bit-identical to the plain "
+            f"step's: " + ", ".join(f"{k} {v}" for k, v in same.items()))
+        if not all(same.values()):
+            raise AssertionError(f"{label} {name} against the plain step: bit-identical {same}")
+    return out
+
+
+def phase15_steps(device, report) -> dict:
+    """(c) One full-width fine-tune step at batch 128 from the same weights,
+    batch and generator seed with and without remat: FasterViT-2 official
+    from phase 5's ``.pth`` (``training.remat``, ``conv_remat`` "full" and
+    "save-conv"; K5 26/13 launches under remat, 13/13 otherwise) and B3 with
+    its recipe's augmentation (K4 once a step); (d) each FasterViT-2
+    variant's step time (CUDA events) and peak memory."""
+    import torch
+
+    from deepfakedetection_tpu_torch.data.augment import augment_batch
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+    from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
+    from deepfakedetection_tpu_torch.train.steps import train_step
+
+    state = torch.load(REPO / "build" / "chip_smoke" / "faster_vit_2_224_seeded.pth",
+                       weights_only=True)
+    g = torch.Generator().manual_seed(32)
+    x = seeded_images(REMAT_BATCH, g).to(device).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    labels = (torch.arange(REMAT_BATCH) % 2).to(device)
+    rows, timings = {}, {}
+    k = create_faster_vit("2", head_config="official").kernel_launches_per_forward()["k5"]
+    for name in REMAT_VARIANTS:
+        variant = REMAT_VARIANTS.get(name, {})
+
+        def build(variant=variant):
+            model = create_faster_vit("2", head_config="official",
+                                      conv_remat=variant.get("conv_remat", False))
+            model.load_state_dict(state)
+            return model
+
+        row = rows[name] = remat_step(build, lambda: x, labels, device,
+                                      variant.get("remat", False))
+        want = (2 * k if variant.get("remat") else k, k)
+        if (row["launches"]["k5"], row["launches"]["k5_bwd"]) != want:
+            raise AssertionError(f"FasterViT-2 {name} step: launches {row['launches']}, K5 {want}")
+        model = row.pop("model")
+        row.pop("opt")
+        opt = PhaseOptimizer(list(model.named_parameters()), lr=1e-4, weight_decay=5e-2,
+                             trainable=unfreeze_predicate("all"))
+        mask = torch.ones(REMAT_BATCH, dtype=torch.bool, device=device)
+        gen = torch.Generator(device=device).manual_seed(REMAT_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t = spread(cuda_times(lambda: train_step(
+            model, opt, x, labels, mask, gen, remat=variant.get("remat", False)),
+            runs=6, warmup=2))
+        timings[name] = {"step_ms": t,
+                         "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+        del model
+        torch.cuda.empty_cache()
+    fv = remat_against_plain(f"FasterViT-2 official step, batch {REMAT_BATCH},", rows)
+    card = report["card"]
+    for name, t in timings.items():
+        log(f"  FasterViT-2 official fine-tune step, batch {REMAT_BATCH}, {name}: "
+            f"{t['step_ms']['median']:.3f} ms (q1 {t['step_ms']['q1']:.3f}, q3 "
+            f"{t['step_ms']['q3']:.3f}), peak {t['peak_gib']:.2f} GiB ({card})")
+
+    b3_state, canvases, _, plan = seeded_train_inputs(REMAT_BATCH)
+    canvases = canvases.to(device)
+
+    def b3_x():
+        return augment_batch(canvases, torch.Generator(device=device).manual_seed(33), plan,
+                             out_dtype=torch.bfloat16)
+
+    b3 = {}
+    for name, remat in (("plain", False), ("remat", True)):
+        def build():
+            model = create_efficientnet("b3", num_classes=2)
+            model.load_state_dict(b3_state)
+            return model
+
+        row = b3[name] = remat_step(build, b3_x, labels, device, remat)
+        del row["model"], row["opt"]
+        if row["launches"]["k4"] != 1:
+            raise AssertionError(f"B3 {name} step: launches {row['launches']}, K4 once")
+    b3_rows = remat_against_plain(f"B3 recipe step, batch {REMAT_BATCH},", b3)
+    return {"fastervit": fv, "timings": timings, "b3": b3_rows,
+            "launches": {k: v["launches"] for k, v in rows.items()}}
+
+
+def phase15(device, report) -> dict:
+    """Tar shards, the remat training path and the remat steps."""
+    out = {"eval": phase15_eval(device, report), "train": phase15_train(device, report),
+           "steps": phase15_steps(device, report)}
+    report["phase15"] = out
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -4917,12 +5306,16 @@ def main() -> int:
     log("phase 12: serve config/inference.yaml's selection over HTTP, with an ensemble")
     phase12(device, report)
     log("phase 13: int8 eval: the int8 depthwise kernel, orchestrate(mode='inference') with "
-        "precision int8, S1 and FasterViT-2 int8 forwards, python -m "
-        "deepfakedetection_tpu_torch.bench")
+        "precision int8, S1 and FasterViT-2 int8 forwards, the bench (B3 eval and int8, "
+        "FasterViT-2 train)")
     kernels["int8_depthwise"], launches["int8_dw"] = phase13(device, report)
     log("phase 14: export config/inference.yaml's selection (torch.export), each program "
         "loaded in a fresh process")
     phase14(device, report, args.parent)
+    log("phase 15: tar shards (python -m deepfakedetection_tpu_torch.data.shards), B3's eval "
+        "job over them, FasterViT-2 training over them with remat, async checkpoints and "
+        "profile_dir, and remat steps against plain ones")
+    phase15(device, report)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())

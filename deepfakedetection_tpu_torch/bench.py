@@ -5,6 +5,7 @@ from the repository root::
 
     python -m deepfakedetection_tpu_torch.bench [--model NAME] [--mode eval|train]
         [--batch N] [--steps N] [--official] [--int8] [--tta] [--ema DECAY] [--mixup]
+        [--conv-remat [full|save-conv]] [--pad-conv-stages]
 
 It prints ONE JSON line:
 ``{"metric": ..., "value": N, "unit": "img/s/chip", "vs_baseline": null}``.
@@ -25,6 +26,9 @@ step is dispatched from the host, so the host's dispatch is part of the time
   5)`` steps a trial, the best of 2 trials after a warm one; ``--ema`` folds
   the EMA update into each step, ``--mixup`` draws Mixup/CutMix per step
   (``MixupSpec(0.2, 1.0)``, ``train/mixup``).
+- FasterViT variants (``models/fastervit.py``): ``--conv-remat`` recomputes
+  conv stages 1-2 in the backward (train only), ``--pad-conv-stages`` widens
+  them to 128 / 256 channels (random weights).
 
 ``bench_eval`` and ``bench_train`` take ``img_size`` and ``device`` for
 small runs on the CPU.
@@ -160,9 +164,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         help="measure in-step Mixup+CutMix (training extension; train only)")
     parser.add_argument("--conv-remat", nargs="?", const="full", default=None,
                         choices=["full", "save-conv"],
-                        help="FasterViT conv-stage remat in the JAX bench; refused here")
+                        help="recompute FasterViT's conv stages 1-2 in the backward (train "
+                             "only; the same numbers): 'full' the whole block, 'save-conv' only "
+                             "the BatchNorm and GELU chains, keeping the conv outputs")
     parser.add_argument("--pad-conv-stages", action="store_true",
-                        help="FasterViT with padded conv stages in the JAX bench; refused here")
+                        help="FasterViT with conv stages 1-2 at 128 / 256 channels in place of "
+                             "96 / 192 (a benchmark variant: random weights, no checkpoint)")
     args = parser.parse_args(argv)
     if args.int8 and args.mode == "train":
         parser.error("--int8 is an eval-only path (training stays bf16)")
@@ -176,11 +183,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         parser.error("--compiler-option sets XLA's CompileOptions, which have no PyTorch "
                      "counterpart")
     if args.conv_remat:
-        parser.error("--conv-remat rematerializes FasterViT's conv stages, which the port's "
-                     "FasterViT does not do yet (ROADMAP Queue 1 item 11)")
-    if args.pad_conv_stages:
-        parser.error("--pad-conv-stages needs FasterViT's conv_stage_dims, which the port's "
-                     "FasterViT does not have yet (ROADMAP Queue 1 item 11)")
+        if "faster_vit" not in args.model:
+            parser.error("--conv-remat is a FasterViT option")
+        if args.mode != "train":
+            parser.error("--conv-remat only affects the backward (train mode)")
+    if args.pad_conv_stages and "faster_vit" not in args.model:
+        parser.error("--pad-conv-stages is a FasterViT benchmark variant")
     return args
 
 
@@ -188,6 +196,12 @@ def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     kwargs = {"head_config": "official"} if args.official else {}
     suffix = "_official" if args.official else ""
+    if args.conv_remat:
+        kwargs["conv_remat"] = args.conv_remat
+        suffix += "_convremat" if args.conv_remat == "full" else "_convrematsc"
+    if args.pad_conv_stages:
+        kwargs["conv_stage_dims"] = (128, 256)
+        suffix += "_padconv"
     if args.int8:
         suffix += "_int8"
     if args.mode == "train":

@@ -4,7 +4,9 @@ The port's copy of ``deepfakedetection_tpu/data/decode.py``. Eval:
 ensure_rgb -> shorter-side resize (PIL BILINEAR, the antialiased triangle
 filter torchvision runs on PIL images) -> center crop. Training: the same
 to a square canvas of ``plan.host_canvas_size``; the random geometry runs
-on the device (``data/augment.py``).
+on the device (``data/augment.py``). The ``decode_pil_*`` functions take
+an open image (a file's or, for tar shards, bytes'), so both share one
+geometry.
 """
 
 from __future__ import annotations
@@ -82,9 +84,14 @@ def decode_eval(path: str | Path, plan: EvalTransformPlan) -> np.ndarray:
         return decode_pil_eval(img, plan)
 
 
+def decode_pil_train(img: Image.Image, plan: TrainTransformPlan) -> np.ndarray:
+    """An open PIL image -> the uint8 square canvas [host_canvas_size]^2 x 3."""
+    if img.mode != "RGB":
+        img = img.convert("RGB")
+    return _decode_to_square(img, plan.host_canvas_size, resize=plan.resize, crop=True)
+
+
 def decode_train(path: str | Path, plan: TrainTransformPlan) -> np.ndarray:
     """An image file -> the uint8 square canvas [host_canvas_size]^2 x 3."""
     with Image.open(path) as img:
-        if img.mode != "RGB":
-            img = img.convert("RGB")
-        return _decode_to_square(img, plan.host_canvas_size, resize=plan.resize, crop=True)
+        return decode_pil_train(img, plan)

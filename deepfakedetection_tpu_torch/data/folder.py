@@ -2,8 +2,9 @@
 
 The port's copy of ``deepfakedetection_tpu/data/folder.py``: classes are the
 sorted child directory names (so fake = 0, real = 1) and samples the sorted
-image paths of each class, as torchvision's ``ImageFolder``. A split kept as
-tar shards is not read by the port yet (ROADMAP Queue 1 item 13).
+image paths of each class, as torchvision's ``ImageFolder``. A split
+directory that holds ``*.tar`` files and no class directories scans as tar
+shards (``data/shards.py``), whose dataset has the same surface.
 """
 
 from __future__ import annotations
@@ -25,16 +26,18 @@ class ImageFolderDataset:
         return len(self.samples)
 
 
-def scan_image_folder(root: str | Path) -> ImageFolderDataset:
+def scan_image_folder(root: str | Path):
+    """``root/<class>/*`` as an ``ImageFolderDataset``, or ``root/*.tar`` as
+    a ``data.shards.TarShardDataset`` when ``root`` has no class
+    directories."""
     root = Path(root)
     if not root.is_dir():
         raise FileNotFoundError(f"dataset split directory not found: {root}")
     classes = sorted(d.name for d in root.iterdir() if d.is_dir())
     if not classes and any(root.glob("*.tar")):
-        raise NotImplementedError(
-            f"{root} holds tar shards; the PyTorch port reads ImageFolder trees only "
-            "(ROADMAP Queue 1 item 13)"
-        )
+        from deepfakedetection_tpu_torch.data.shards import scan_tar_shards
+
+        return scan_tar_shards(root)
     class_to_idx = {c: i for i, c in enumerate(classes)}
     samples = [
         (p, class_to_idx[cls])

@@ -3,8 +3,9 @@
 ``Loader`` is the port's copy of the loader of
 ``deepfakedetection_tpu/data/pipeline.py``: decode (PIL in a thread pool, or
 the native library, which training takes when it is built and eval with
-``DFD_NATIVE_EVAL=1``), static batches, the last eval batch zero-padded with
-a validity mask, seeded per-epoch shuffling with ``set_epoch``, and up to
+``DFD_NATIVE_EVAL=1``; a tar-shard split, ``data/shards.py``, is decoded
+from its members' bytes the same two ways), static batches, the last eval
+batch zero-padded with a validity mask, seeded per-epoch shuffling with ``set_epoch``, and up to
 ``lookahead`` batches decoding ahead of the consumer. With more than one
 ``torch.distributed`` process each decodes a disjoint contiguous shard of
 the epoch order, the same number of batches on every process (training
@@ -17,6 +18,7 @@ runs, as the JAX package's ``device_prefetch`` does through async dispatch.
 
 from __future__ import annotations
 
+import io
 import os
 from collections import deque
 from collections.abc import Callable, Iterable, Iterator
@@ -25,9 +27,15 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from PIL import Image
 
 from deepfakedetection_tpu_torch.data import native
-from deepfakedetection_tpu_torch.data.decode import decode_eval, decode_train
+from deepfakedetection_tpu_torch.data.decode import (
+    decode_eval,
+    decode_pil_eval,
+    decode_pil_train,
+    decode_train,
+)
 from deepfakedetection_tpu_torch.data.folder import ImageFolderDataset, scan_image_folder
 from deepfakedetection_tpu_torch.data.transforms import (
     EvalTransformPlan,
@@ -150,21 +158,49 @@ class Loader:
 
     def _decode_raw(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """The samples ``idx`` -> (uint8 [n, T, T, 3], ok [n])."""
+        if hasattr(self.dataset, "read_bytes"):
+            return self._decode_bytes([int(i) for i in idx])
         paths = [self.dataset.samples[i][0] for i in idx]
         if self.use_native:
-            resize = self._target if self._train else (self.plan.resize_size or self.plan.img_size)
             decoded, status = native.decode_batch(
-                paths, self._target, n_threads=max(self.num_workers, 1), resize_target=resize
+                paths, self._target, n_threads=max(self.num_workers, 1),
+                resize_target=self._resize_target(),
             )
             return decoded, status == 0
         decode = decode_train if self._train else decode_eval
+        return self._map(lambda p: decode(p, self.plan), paths), np.ones(len(idx), bool)
+
+    def _decode_bytes(self, ids: list[int]) -> tuple[np.ndarray, np.ndarray]:
+        """A bytes-backed dataset's samples (tar shards): with the native
+        library, the members read in turn and decoded in one buffer-batch
+        call at the file branch's geometry; else PIL decodes each from
+        memory in the loader's pool."""
+        if self.use_native and native.has_buffer_batch():
+            decoded, status = native.decode_buffer_batch(
+                [self.dataset.read_bytes(i) for i in ids], self._target,
+                n_threads=max(self.num_workers, 1), resize_target=self._resize_target(),
+            )
+            return decoded, status == 0
+        decode = decode_pil_train if self._train else decode_pil_eval
+
+        def decode_one(i: int) -> np.ndarray:
+            with Image.open(io.BytesIO(self.dataset.read_bytes(i))) as img:
+                return decode(img, self.plan)
+
+        return self._map(decode_one, ids), np.ones(len(ids), bool)
+
+    def _resize_target(self) -> int:
+        """The shorter side's size before the native decoder's direct crop."""
+        return self._target if self._train else (self.plan.resize_size or self.plan.img_size)
+
+    def _map(self, fn, items: list) -> np.ndarray:
+        """``fn`` over ``items`` in the decode pool (inline without
+        workers), stacked."""
         if self.num_workers > 0:
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
-            arrays = list(self._pool.map(lambda p: decode(p, self.plan), paths))
-        else:
-            arrays = [decode(p, self.plan) for p in paths]
-        return np.stack(arrays), np.ones(len(idx), bool)
+            return np.stack(list(self._pool.map(fn, items)))
+        return np.stack([fn(x) for x in items])
 
     def __iter__(self) -> Iterator[Batch]:
         order = self._order()

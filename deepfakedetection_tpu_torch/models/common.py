@@ -22,6 +22,7 @@ from collections.abc import Callable, Iterator, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from deepfakedetection_tpu_torch.ops import quant
@@ -52,6 +53,98 @@ def bn_momentum_override(value: float | None) -> Iterator[None]:
 def effective_bn_decay(default: float) -> float:
     override = _BN_DECAY_OVERRIDE.get()
     return default if override is None else override
+
+
+# set while a checkpoint recomputes its forward in the backward (``remat``)
+_RECOMPUTING: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "recomputing", default=False
+)
+
+
+@contextlib.contextmanager
+def recomputation() -> Iterator[None]:
+    """Marks a checkpoint's recompute: BatchNorm training forwards in it
+    leave the running statistics and ``num_batches_tracked`` as the first
+    forward left them (JAX takes the mutated ``batch_stats`` once, as an
+    output of the checkpointed forward)."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """One training forward's update of ``bn``'s running statistics at the
+    override-aware decay (``effective_bn_decay``), none in a recompute."""
+    if _RECOMPUTING.get():
+        return
+    decay = effective_bn_decay(1.0 - bn.momentum)
+    with torch.no_grad():
+        bn.running_mean.copy_(decay * bn.running_mean + (1.0 - decay) * mean)
+        bn.running_var.copy_(decay * bn.running_var + (1.0 - decay) * var)
+        bn.num_batches_tracked.add_(1)
+
+
+def generator_replay(generator: torch.Generator | None):
+    """A checkpoint's (forward, recompute) contexts for an explicit
+    generator, which ``checkpoint``'s ``preserve_rng_state`` does not cover:
+    the forward notes the generator's state, the recompute draws from that
+    state again (the same dropout and drop-path masks) and then puts back the
+    state it found, so the draws after the step are those of a run without
+    the checkpoint."""
+    if generator is None:
+        return contextlib.nullcontext(), contextlib.nullcontext()
+    before: list[torch.Tensor] = []
+
+    @contextlib.contextmanager
+    def forward() -> Iterator[None]:
+        before.append(generator.get_state())
+        yield
+
+    @contextlib.contextmanager
+    def recompute() -> Iterator[None]:
+        after = generator.get_state()
+        generator.set_state(before[-1])
+        try:
+            yield
+        finally:
+            generator.set_state(after)
+
+    return forward(), recompute()
+
+
+@contextlib.contextmanager
+def _entered(*contexts) -> Iterator[None]:
+    with contextlib.ExitStack() as stack:
+        for context in contexts:
+            stack.enter_context(context)
+        yield
+
+
+def remat(fn: Callable[..., torch.Tensor], *args, generator: torch.Generator | None = None,
+          save: Sequence[torch._ops.OpOverload] = ()) -> torch.Tensor:
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint``
+    (``jax.checkpoint``'s counterpart): its activations are recomputed in
+    the backward, with ``generator``'s draws replayed (``generator_replay``)
+    and BatchNorm's running statistics left alone (``recomputation``).
+    ``save`` names operators whose outputs are kept instead of recomputed
+    (a selective checkpoint: ``save_only_these_names``). Without autograd
+    recording it is ``fn(*args)``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+
+    def contexts():
+        forward, recompute = generator_replay(generator)
+        forward, recompute = [forward], [recompute, recomputation()]
+        if save:
+            caching, cached = torch.utils.checkpoint.create_selective_checkpoint_contexts(
+                list(save))
+            forward.append(caching)
+            recompute.append(cached)
+        return _entered(*forward), _entered(*recompute)
+
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
 
 
 # set while a tracer runs the model (``frozen_derived``)
@@ -290,11 +383,7 @@ class ConvBN:
         mean = y.sum(dim=dims, dtype=torch.float32) / n
         mean2 = torch.linalg.vector_norm(y, 2, dim=dims, dtype=torch.float32).square() / n
         var = torch.clamp(mean2 - mean.square(), min=0.0)
-        decay = effective_bn_decay(1.0 - bn.momentum)
-        with torch.no_grad():
-            bn.running_mean.copy_(decay * bn.running_mean + (1.0 - decay) * mean)
-            bn.running_var.copy_(decay * bn.running_var + (1.0 - decay) * var)
-            bn.num_batches_tracked.add_(1)
+        update_running_stats(bn, mean, var)
         denom = bn.weight * torch.rsqrt(var + bn.eps)
         a = denom.to(dt).view(1, -1, 1, 1)
         b = (bn.bias - mean * denom).to(dt).view(1, -1, 1, 1)
@@ -341,11 +430,7 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     dims = tuple(range(y.dim() - 1))
     mean = y.mean(dim=dims)
     var = (y - mean).square().mean(dim=dims)
-    decay = effective_bn_decay(1.0 - bn.momentum)
-    with torch.no_grad():
-        bn.running_mean.copy_(decay * bn.running_mean + (1.0 - decay) * mean)
-        bn.running_var.copy_(decay * bn.running_var + (1.0 - decay) * var)
-        bn.num_batches_tracked.add_(1)
+    update_running_stats(bn, mean, var)
     return (y - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
 
 

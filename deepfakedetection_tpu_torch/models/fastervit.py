@@ -72,6 +72,7 @@ from deepfakedetection_tpu_torch.models.common import (
     batch_norm_train,
     gelu,
     name_conv_bns,
+    remat,
 )
 from deepfakedetection_tpu_torch.ops.attn_block import attn_subblock
 from deepfakedetection_tpu_torch.ops.window_attn import window_attention, window_attention_plain
@@ -317,15 +318,16 @@ class ConvBlock(nn.Module):
 
 class Downsample(nn.Module):
     """Channel LayerNorm (eps 1e-6, f32, then the compute dtype) and a 3x3
-    stride-2 conv with symmetric padding 1, no bias. At eval the conv takes
+    stride-2 conv from ``dim`` to ``dim_out`` channels (2 * dim by default)
+    with symmetric padding 1, no bias. At eval the conv takes
     the cached rounded weight; in training the weight is cast on every call
     and the conv runs in the compute dtype, so the gradient reaches it."""
 
-    def __init__(self, dim: int, *, dtype: torch.dtype) -> None:
+    def __init__(self, dim: int, *, dtype: torch.dtype, dim_out: int | None = None) -> None:
         super().__init__()
         self.dtype = dtype
         self.norm = LayerNorm(dim, 1e-6, dtype=dtype)
-        self.reduction = nn.Sequential(nn.Conv2d(dim, 2 * dim, 3, 2, bias=False))
+        self.reduction = nn.Sequential(nn.Conv2d(dim, dim_out or 2 * dim, 3, 2, bias=False))
         # the weight rounded to the compute dtype; the conv (cuDNN on the card)
         # takes f32 copies of both operands, exact, and accumulates in f32
         self._weight = Derived(lambda: self.reduction[0].weight.to(dtype).float()
@@ -421,7 +423,20 @@ class FasterViT(nn.Module):
     """FasterViT classifier over normalized NCHW-logical images at
     ``img_size`` (224: stage 3 at 14x14, 2x2 windows of 7x7); returns f32
     logits. ``drop_path_rate`` is the JAX default 0.2, spread over the blocks
-    as ``rate * i / (sum(depths) - 1)`` for the i-th block of all stages."""
+    as ``rate * i / (sum(depths) - 1)`` for the i-th block of all stages.
+
+    Benchmark variants of the JAX model, off by default:
+
+    - ``conv_stage_dims`` (a, b): the stem's second conv and conv stages 1-2
+      at a and b channels in place of dim and 2 dim (the JAX bench's
+      ``--pad-conv-stages`` takes (128, 256)); random weights only, no
+      checkpoint loads into it.
+    - ``conv_remat``: in a training forward with autograd recording, each
+      stage-1/2 ``ConvBlock`` runs under ``common.remat``: ``"full"`` (or
+      True) recomputes the whole block in the backward; ``"save-conv"``
+      keeps the raw conv outputs (``aten.convolution``'s, JAX's
+      ``convbn_raw``) and recomputes the BatchNorm and GELU chains. The
+      numbers are those of a forward without it."""
 
     def __init__(
         self,
@@ -439,8 +454,16 @@ class FasterViT(nn.Module):
         drop_path_rate: float = 0.2,
         dtype: torch.dtype = torch.bfloat16,
         generator: torch.Generator | None = None,
+        conv_stage_dims: tuple[int, int] | None = None,
+        conv_remat: bool | str = False,
     ) -> None:
         super().__init__()
+        if conv_remat not in (False, None, True, "full", "save-conv"):
+            raise ValueError(f"conv_remat must be False, 'full' or 'save-conv', got {conv_remat!r}")
+        # None: no conv-stage remat; else the operators whose outputs it keeps
+        self.conv_save = (None if not conv_remat else
+                          (torch.ops.aten.convolution.default,) if conv_remat == "save-conv"
+                          else ())
         self.dtype, self.official = dtype, official
         self.window_size, self.ct_size = window_size, ct_size
         self.res3 = img_size // 16  # stage-3 resolution
@@ -455,10 +478,12 @@ class FasterViT(nn.Module):
         self.ct_kernel = self.res3 - (ct_side - 1) * self.ct_stride
         self.res4 = (self.res3 + 1) // 2
 
+        widths = [*(conv_stage_dims or (dim, 2 * dim)), 4 * dim, 8 * dim]
         self.patch_embed = nn.Module()
         self.patch_embed.conv_down = nn.Sequential(
             nn.Conv2d(3, in_dim, 3, 2, bias=False), nn.BatchNorm2d(in_dim, eps=1e-4), nn.ReLU(),
-            nn.Conv2d(in_dim, dim, 3, 2, bias=False), nn.BatchNorm2d(dim, eps=1e-4), nn.ReLU(),
+            nn.Conv2d(in_dim, widths[0], 3, 2, bias=False), nn.BatchNorm2d(widths[0], eps=1e-4),
+            nn.ReLU(),
         )
         cd = self.patch_embed.conv_down
         self.stem = [ConvBN(cd[i], cd[i + 1], pads=_PAD1, act=F.relu, dtype=dtype) for i in (0, 3)]
@@ -468,7 +493,7 @@ class FasterViT(nn.Module):
         self.levels = nn.ModuleList()
         for i in range(4):
             level = nn.Module()
-            width = dim * 2**i
+            width = widths[i]
             if i < 2:
                 blocks = [ConvBlock(width, official=official, dtype=dtype, drop_path=next(rates))
                           for _ in range(depths[i])]
@@ -491,7 +516,7 @@ class FasterViT(nn.Module):
                     level.pos_embed_table = nn.Parameter(torch.zeros(self.res4**2, width))
             level.blocks = nn.ModuleList(blocks)
             if i < 3:
-                level.downsample = Downsample(width, dtype=dtype)
+                level.downsample = Downsample(width, dtype=dtype, dim_out=widths[i + 1])
             self.levels.append(level)
         self.norm = nn.BatchNorm2d(dim * 8)
         self.head = nn.Linear(dim * 8, num_classes)
@@ -586,7 +611,10 @@ class FasterViT(nn.Module):
             x = stem(x)
         for level in self.levels[:2]:
             for blk in level.blocks:
-                x = blk(x, generator)
+                if self.conv_save is not None and self.training:
+                    x = remat(blk, x, generator, generator=generator, save=self.conv_save)
+                else:
+                    x = blk(x, generator)
             x = level.downsample(x)
 
         level = self.levels[2]
@@ -626,9 +654,13 @@ def create_faster_vit(
     head_config: str = "tpu",
     drop_path_rate: float = 0.2,
     generator: torch.Generator | None = None,
+    conv_stage_dims: tuple[int, int] | None = None,
+    conv_remat: bool | str = False,
 ) -> FasterViT:
-    """The variant at its published widths. ``head_config``: "official" (the
-    wheel's model, which its ``.pth`` files load into) or "tpu"."""
+    """The variant at its published widths (or its conv stages at
+    ``conv_stage_dims``). ``head_config``: "official" (the wheel's model,
+    which its ``.pth`` files load into) or "tpu". ``conv_remat``: see
+    ``FasterViT``."""
     key = variant.split("_")[0]
     if key not in _VARIANTS:
         raise KeyError(f"unknown FasterViT variant '{variant}'")
@@ -639,4 +671,5 @@ def create_faster_vit(
     heads = cfg["num_heads"] if official else tpu_heads(cfg["dim"], cfg["num_heads"])
     return FasterViT(num_classes, cfg["dim"], cfg["in_dim"], cfg["depths"], heads,
                      official=official, drop_path_rate=drop_path_rate, dtype=dtype,
-                     generator=generator)
+                     generator=generator, conv_stage_dims=conv_stage_dims,
+                     conv_remat=conv_remat)

@@ -7,11 +7,16 @@ auto-resume from ``latest.ckpt``. Each file is written to a temporary name
 and renamed over the old one, so a crash mid-write never loses the previous
 checkpoint. The ``.pth`` is a plain torch state dict under the
 efficientnet_pytorch names, which the eval job loads with ``weights: auto``.
+``AsyncSaver`` (``training.async_checkpoint``) writes them on a worker
+thread while the next epoch trains; ``InlineSaver`` at once, with the same
+interface.
 """
 
 from __future__ import annotations
 
 import os
+from collections.abc import Callable
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any
 
@@ -32,14 +37,20 @@ def has_latest(checkpoints_dir: Path) -> bool:
     return latest_path(checkpoints_dir).exists()
 
 
-def _cpu(obj: Any) -> Any:
+def _map_tensors(obj: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
+    """``obj`` with ``fn`` applied to every tensor and every dict, list and
+    tuple rebuilt."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
+        return fn(obj)
     if isinstance(obj, dict):
-        return {k: _cpu(v) for k, v in obj.items()}
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_cpu(v) for v in obj)
+        return type(obj)(_map_tensors(v, fn) for v in obj)
     return obj
+
+
+def _cpu(obj: Any) -> Any:
+    return _map_tensors(obj, lambda t: t.detach().cpu())
 
 
 def save(path: Path, obj: Any) -> None:
@@ -62,3 +73,95 @@ def export_weights(path: Path, model: torch.nn.Module) -> Path:
     """The model's state dict (parameters and BN statistics) as a ``.pth``."""
     save(path, model.state_dict())
     return Path(path)
+
+
+def _snapshot(obj: Any, devices: set[torch.device]) -> Any:
+    """``obj`` with every tensor copied on its device and every container
+    rebuilt, so that in-place updates of the originals leave it as it is;
+    the CUDA devices of the copies go into ``devices``."""
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        if t.is_cuda:
+            devices.add(t.device)
+        return t.detach().clone()
+
+    return _map_tensors(obj, copy)
+
+
+class InlineSaver:
+    """The epoch-end writes done at once on the calling thread, with
+    ``AsyncSaver``'s interface: the trainer's writer without
+    ``training.async_checkpoint``."""
+
+    def submit_tree(self, path: Path, obj: Any) -> None:
+        save(path, obj)
+
+    def submit_export(self, path: Path, model: torch.nn.Module) -> None:
+        export_weights(path, model)
+
+    def submit_call(self, fn: Callable[..., Any], *args: Any) -> None:
+        fn(*args)
+
+    def wait(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class AsyncSaver:
+    """The epoch-end writes on one worker thread, overlapping the next
+    epoch's steps; the counterpart of the JAX package's ``AsyncSaver``, in a
+    single process.
+
+    A submit snapshots its tensors on the calling thread with a copy on
+    their device: ``model.state_dict()`` and the optimizer's state alias the
+    live tensors that the next ``opt.step`` updates in place. The worker
+    waits for the copies (an event on each device's current stream), moves
+    them to the host and writes them as ``save`` does (a temporary name,
+    then a rename). Work runs in submission order, so ``latest.ckpt`` ends
+    up holding the newest state and a queued call (``submit_call``) runs
+    only after every write before it has landed. ``wait()`` drains the queue
+    and re-raises the first failure: a lost checkpoint would break resume."""
+
+    def __init__(self) -> None:
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-save")
+        self._futures: list[Future] = []
+
+    def submit_tree(self, path: Path, obj: Any) -> None:
+        """``save(path, obj)`` of a snapshot of ``obj`` taken now."""
+        devices: set[torch.device] = set()
+        snap = _snapshot(obj, devices)
+        copied = []
+        for device in devices:
+            copied.append(torch.cuda.Event())
+            copied[-1].record(torch.cuda.current_stream(device))
+
+        def write() -> None:
+            for event in copied:
+                event.synchronize()
+            save(path, snap)
+
+        self._futures.append(self._pool.submit(write))
+
+    def submit_export(self, path: Path, model: torch.nn.Module) -> None:
+        """``export_weights(path, model)`` of the model as it is now."""
+        self.submit_tree(path, model.state_dict())
+
+    def submit_call(self, fn: Callable[..., Any], *args: Any) -> None:
+        """``fn(*args)`` on the worker, after every write submitted before it."""
+        self._futures.append(self._pool.submit(fn, *args))
+
+    def wait(self) -> None:
+        """Blocks until everything submitted has run; re-raises the first
+        failure."""
+        futures, self._futures = self._futures, []
+        for error in [f.exception() for f in futures]:
+            if error is not None:
+                raise error
+
+    def close(self) -> None:
+        """``wait()``, then the worker thread ends (idempotent)."""
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown(wait=True)

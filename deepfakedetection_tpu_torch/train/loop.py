@@ -26,13 +26,21 @@ and backward on the card, or K6's with ``DFD_FUSED_ATTN`` set) and
 EfficientFormerV2 (built at the job's ``img_size``; its train step attends in
 plain ops, its validation through K7); a FasterViT's head configuration comes
 from its ``init_weights`` tensors unless the config pins one, as the eval job
-picks it. Not ported: ``remat``, ``async_checkpoint``, ``profile_dir`` and
-more than one process raise ``NotImplementedError`` (ROADMAP Queue 1 items 11
-and 9).
+picks it.
+
+Options, as in the JAX package: ``training.remat`` recomputes the forward's
+activations in the backward (``train/steps.train_step``);
+``training.async_checkpoint`` writes the epoch-end checkpoints on a worker
+thread (``runtime/checkpoint.AsyncSaver``), drained before a preemption save
+and before the run returns or raises; ``profile_dir`` traces the whole run
+with ``torch.profiler`` (CPU and CUDA activities) into a TensorBoard trace
+there, for short runs. More than one process raises ``NotImplementedError``
+(ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from dataclasses import dataclass, field
 from datetime import datetime
@@ -111,8 +119,8 @@ class TrainJob:
     train_toggles: dict[str, Any] = field(default_factory=dict)
     eval_toggles: dict[str, Any] = field(default_factory=dict)
     compute_dtype: torch.dtype = torch.bfloat16
-    profile_dir: str | None = None  # not ported: ROADMAP Queue 1 item 11
-    remat: bool = False  # not ported: ROADMAP Queue 1 item 11
+    profile_dir: str | None = None
+    remat: bool = False
     bn_recalc_batches: int = 0
     cache_decoded: bool = False
     grad_clip_norm: float | None = None
@@ -120,7 +128,7 @@ class TrainJob:
     cutmix_alpha: float = 0.0
     class_weights: str | tuple[float, ...] | None = None
     ema_decay: float | None = None
-    async_checkpoint: bool = False  # not ported: ROADMAP Queue 1 item 11
+    async_checkpoint: bool = False
     init_weights: Path | str | None = None
     unfreeze: str | tuple[str, ...] | None = None
     model_kwargs: dict[str, Any] = field(default_factory=dict)
@@ -137,16 +145,10 @@ class TrainResult:
 
 
 def unported_options(job: TrainJob) -> list[str]:
-    """The job's options the port does not have, as refusal messages."""
-    out = []
-    for name, on in (("training.remat", job.remat),
-                     ("training.async_checkpoint", job.async_checkpoint),
-                     ("profile_dir", bool(job.profile_dir))):
-        if on:
-            out.append(f"{name} on PyTorch is ROADMAP Queue 1 item 11")
+    """What the port cannot run of the job, as refusal messages."""
     if world_size() > 1:
-        out.append("multi-process training on PyTorch is ROADMAP Queue 1 item 9")
-    return out
+        return ["multi-process training on PyTorch is ROADMAP Queue 1 item 9"]
+    return []
 
 
 def resolve_class_weights(job: TrainJob, train_ds) -> np.ndarray | None:
@@ -202,8 +204,37 @@ def run_training(job: TrainJob) -> TrainResult:
     refused = unported_options(job)
     if refused:
         raise NotImplementedError("; ".join(refused))
-    with tee_output(job.run_paths.logs / "train.log"), preempt.trap():
-        return _run_training(job)
+    with (tee_output(job.run_paths.logs / "train.log"), preempt.trap(), profiled(job),
+          checkpoint_saver(job) as saver):
+        return _run_training(job, saver)
+
+
+@contextlib.contextmanager
+def checkpoint_saver(job: TrainJob):
+    """The run's checkpoint writer: with ``async_checkpoint`` an
+    ``AsyncSaver``, closed when the run ends (every submitted write lands,
+    or its failure raises, before the run returns or raises); else an
+    ``InlineSaver``."""
+    saver = ckpt.AsyncSaver() if job.async_checkpoint else ckpt.InlineSaver()
+    try:
+        yield saver
+    finally:
+        saver.close()
+
+
+def profiled(job: TrainJob):
+    """With ``profile_dir``, a ``torch.profiler`` trace of the whole run
+    (CPU, and CUDA on the card) written into it by
+    ``tensorboard_trace_handler`` when the run ends; else nothing."""
+    if not job.profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if job.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(str(job.profile_dir)))
 
 
 def _counters(epoch: int, best_val_acc: float, best_epoch: int, warmup_done: bool) -> dict:
@@ -211,7 +242,7 @@ def _counters(epoch: int, best_val_acc: float, best_epoch: int, warmup_done: boo
             "warmup_done": warmup_done}
 
 
-def _run_training(job: TrainJob) -> TrainResult:
+def _run_training(job: TrainJob, saver: ckpt.AsyncSaver | ckpt.InlineSaver) -> TrainResult:
     recipe = job.spec.recipe
     device = job.device
     apply_seed(job.seed)
@@ -300,6 +331,7 @@ def _run_training(job: TrainJob) -> TrainResult:
                     model, opt, x, labels, mask,
                     fold_in(root, *path, STEP_TAG, opt.count, device=device),
                     label_smoothing=recipe.label_smoothing, class_weights=class_w, mix=mix,
+                    remat=job.remat,
                 )
                 if on_step is not None:
                     on_step()
@@ -436,6 +468,8 @@ def _run_training(job: TrainJob) -> TrainResult:
 
     epochs_without_improvement = max(0, start_epoch - 1 - best_epoch)
     epoch = start_epoch - 1
+    if job.async_checkpoint:
+        console.print("  async checkpointing: epoch-end writes overlap compute")
     for epoch in range(start_epoch, epochs):
         ft_loader.set_epoch(epoch)
         skip = resume_skip if epoch == start_epoch else 0
@@ -447,7 +481,9 @@ def _run_training(job: TrainJob) -> TrainResult:
         )
         if interrupted:
             # the counters still say the previous epoch completed; the
-            # sidecar says how far this one got
+            # sidecar says how far this one got. Written here, after any
+            # write in flight, so that latest.ckpt ends newest
+            saver.wait()
             ckpt.save(latest, latest_state(epoch - 1))
             preempt.write_progress(job.run_paths.checkpoints, epoch=epoch,
                                    batches_done=batches_done, batch_size=ft_batch)
@@ -479,13 +515,14 @@ def _run_training(job: TrainJob) -> TrainResult:
             "accuracy": acc, "best": improved, "timestamp": datetime.now().isoformat(),
         })
         state = latest_state(epoch)
-        ckpt.save(latest, state)
-        preempt.clear_progress(job.run_paths.checkpoints)
+        pth = job.run_paths.checkpoints / f"{job.spec.weights_key}.pth"
+        saver.submit_tree(latest, state)
+        # queued behind the write: the sidecar must not outlive the
+        # checkpoint it refers to
+        saver.submit_call(preempt.clear_progress, job.run_paths.checkpoints)
         if improved:
-            ckpt.save(ckpt.best_path(job.run_paths.checkpoints), state)
-            ckpt.export_weights(
-                job.run_paths.checkpoints / f"{job.spec.weights_key}.pth", target
-            )
+            saver.submit_tree(ckpt.best_path(job.run_paths.checkpoints), state)
+            saver.submit_export(pth, target)
         if patience is not None and epochs_without_improvement >= patience:
             console.print(f"  early stop: no improvement for {patience} epochs")
             break

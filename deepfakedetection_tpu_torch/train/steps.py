@@ -4,7 +4,10 @@ Port of ``deepfakedetection_tpu/train/steps.py``. PyTorch runs eagerly, so
 the step is a function over the live model and its ``PhaseOptimizer``
 instead of a jitted ``TrainState -> TrainState`` program; the numerics are
 the JAX step's: bf16 compute cast explicitly (no autocast, no GradScaler),
-label-smoothed CE over the valid rows, the optimizer's AdamW. Validation
+label-smoothed CE over the valid rows, the optimizer's AdamW; with ``remat``
+the forward runs under ``models/common.remat`` (``jax.checkpoint`` in the
+JAX step): the same numbers, the activations recomputed in the backward.
+Validation
 uses the eval job's step (``evaluate/job.make_eval_step``), whose forward
 runs K1 and K2 in bf16.
 """
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from deepfakedetection_tpu_torch.models.common import bn_momentum_override
+from deepfakedetection_tpu_torch.models import common
 from deepfakedetection_tpu_torch.train.mixup import MixDraw, apply_mix
 from deepfakedetection_tpu_torch.train.objectives import accuracy_count, smoothed_cross_entropy
 from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer
@@ -36,14 +39,19 @@ def train_step(
     label_smoothing: float = 0.1,
     class_weights: torch.Tensor | None = None,
     mix: MixDraw | None = None,
+    remat: bool = False,
 ) -> dict[str, torch.Tensor]:
     """One optimizer step on a normalised NCHW batch; ``generator`` draws
     the dropout and drop-path masks, ``mix`` is the batch's mixup draw (off
-    when None). Returns the loss and correct/valid counts, on the device."""
+    when None), ``remat`` recomputes the forward's activations in the
+    backward. Returns the loss and correct/valid counts, on the device."""
     model.train()
     if mix is not None:
         images, lam = apply_mix(images, mix)
-    logits = model(images, generator)
+    if remat:
+        logits = common.remat(model, images, generator, generator=generator)
+    else:
+        logits = model(images, generator)
     loss = smoothed_cross_entropy(
         logits, labels, mask, label_smoothing=label_smoothing, class_weights=class_weights
     )
@@ -75,7 +83,7 @@ def recalibrate_bn(
     count = 0
     sums: list[list[torch.Tensor]] = []
     try:
-        with bn_momentum_override(0.0):
+        with common.bn_momentum_override(0.0):
             for i, images in enumerate(batches):
                 model(images, generator_of(i))
                 fresh = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in bns]

@@ -4,8 +4,10 @@
 2, one step; int8, TTA, EMA and mixup too); every metric name, and the
 batch and step counts handed to the bench functions, equal ``bench.py``'s for
 the same flags (both mains with their bench functions stubbed); ``bench.py``'s
-refusals are the port's, and the port also refuses ``--compiler-option``,
-``--conv-remat`` and ``--pad-conv-stages``, naming why; a run prints one JSON
+refusals are the port's, FasterViT's ``--conv-remat`` and
+``--pad-conv-stages`` among them (their variants' metric suffixes are
+``bench.py``'s too, and the model gets their keyword arguments), and the
+port also refuses ``--compiler-option``, naming why; a run prints one JSON
 line with ``vs_baseline: null``.
 """
 
@@ -49,6 +51,10 @@ FLAGS = [
     ["--mode", "train"], ["--mode", "train", "--ema", "0.999"], ["--mode", "train", "--mixup"],
     ["--mode", "train", "--ema", "0.99", "--mixup", "--steps", "30", "--batch", "32"],
     ["--mode", "train", "--steps", "3", "--official", "--model", "faster_vit_2_224"],
+    ["--mode", "train", "--model", "faster_vit_2_224", "--conv-remat"],
+    ["--mode", "train", "--model", "faster_vit_2_224", "--conv-remat", "save-conv", "--official",
+     "--pad-conv-stages", "--ema", "0.99"],
+    ["--model", "faster_vit_2_224", "--pad-conv-stages", "--int8"],
 ]
 
 
@@ -57,8 +63,8 @@ def _run(module, argv, monkeypatch, capsys):
     handed, with ``bench_eval`` / ``bench_train`` stubbed."""
     calls = []
 
-    def stub(model, batch, steps, *_a, **_k):
-        calls.append((model, batch, steps))
+    def stub(model, batch, steps, *_a, **kw):
+        calls.append((model, batch, steps, kw.get("model_kwargs")))
         return 123.45
 
     monkeypatch.setattr(module, "bench_eval", stub)
@@ -85,16 +91,35 @@ def test_metric_names_and_arguments_are_bench_pys(argv, monkeypatch, capsys):
     assert got["vs_baseline"] is None
 
 
+VARIANTS = [
+    (["--conv-remat"], "train_throughput_224px_faster_vit_2_224_convremat",
+     {"conv_remat": "full"}),
+    (["--conv-remat", "save-conv", "--ema", "0.99"],
+     "train_throughput_224px_faster_vit_2_224_convrematsc_ema", {"conv_remat": "save-conv"}),
+    (["--official", "--pad-conv-stages", "--mixup"],
+     "train_throughput_224px_faster_vit_2_224_official_padconv_mixup",
+     {"head_config": "official", "conv_stage_dims": (128, 256)}),
+]
+
+
+@pytest.mark.parametrize("argv,metric,kwargs", VARIANTS, ids=[" ".join(a) for a, _, _ in VARIANTS])
+def test_fastervit_variant_suffixes(argv, metric, kwargs, monkeypatch, capsys):
+    got, calls = _run(bench, ["--mode", "train", "--model", "faster_vit_2_224", *argv],
+                      monkeypatch, capsys)
+    assert got["metric"] == metric and calls == [("faster_vit_2_224", 128, 10, kwargs)]
+
+
 SHARED_REFUSALS = [
     (["--int8", "--mode", "train"], "eval-only"),
     (["--ema", "0.99"], "training mode"),
     (["--tta", "--mode", "train"], "eval-only"),
     (["--mixup"], "train-only"),
+    (["--conv-remat", "--mode", "train"], "FasterViT option"),
+    (["--conv-remat", "save-conv", "--model", "faster_vit_2_224"], "train mode"),
+    (["--pad-conv-stages"], "benchmark variant"),
 ]
 PORT_REFUSALS = [
     (["--compiler-option", "xla_tpu_scoped_vmem_limit_kib=65536"], "CompileOptions"),
-    (["--conv-remat", "--mode", "train", "--model", "faster_vit_2_224"], "item 11"),
-    (["--pad-conv-stages", "--model", "faster_vit_2_224"], "conv_stage_dims"),
 ]
 
 

@@ -1,18 +1,23 @@
 """The port's ImageFolder scan (deepfakedetection_tpu_torch/data/folder.py):
-a split kept as tar shards, which the port does not read yet, raises before
-any work and names its ROADMAP item."""
+class directories in sorted order, and a split kept as tar shards scanned as
+shards (``data/shards.py``)."""
 
-import pytest
+from deepfakedetection_tpu_torch.data.folder import ImageFolderDataset, scan_image_folder
+from deepfakedetection_tpu_torch.data.shards import TarShardDataset, write_shards
 
-from deepfakedetection_tpu_torch.data.folder import scan_image_folder
 
-
-def test_tar_shards_refuse_naming_their_item(tmp_path):
+def test_tar_shards_scan_as_shards(tmp_path):
+    tree = tmp_path / "tree"
+    for cls in ("real", "fake"):
+        (tree / cls).mkdir(parents=True)
+        (tree / cls / "a.jpg").write_bytes(cls.encode())
     split = tmp_path / "train"
-    split.mkdir()
-    (split / "shard-000000.tar").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 13\)"):
-        scan_image_folder(split)
+    write_shards(scan_image_folder(tree), split)
+    ds = scan_image_folder(split)
+    assert isinstance(ds, TarShardDataset) and ds.classes == ["fake", "real"]
+    assert ds.samples == [("fake/a.jpg", 0), ("real/a.jpg", 1)] and ds.read_bytes(1) == b"real"
+    (split / "real").mkdir()  # a class directory: the folder layout wins, as in JAX
+    assert isinstance(scan_image_folder(split), ImageFolderDataset)
 
 
 def test_class_folders_scan_in_sorted_order(tmp_path):

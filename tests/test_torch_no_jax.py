@@ -8,7 +8,9 @@ the K6 wrapper (forward and backward) and of a narrow EfficientFormerV2
 through the K7 wrapper, that EfficientFormerV2's train forward and backward
 and its Grad-CAM, import the predict CLI and the web UI, serve a batch through
 the server's micro-batcher and weigh an ensemble, one CPU train
-step with the augmentation's shear rotation, and a calibrated int8 forward
+step with the augmentation's shear rotation and one with ``remat``, a tree
+packed into tar shards and read back through the eval loader, an
+asynchronous checkpoint write, and a calibrated int8 forward
 of the narrow EfficientNet through the int8 depthwise wrapper, import the
 bench, export the narrow EfficientNet's eval step (``torch.export``, its K1
 and K2 as ``torch.ops.dfd`` nodes) and read a msgpack map with the port's
@@ -76,6 +78,33 @@ out = train_step(model, opt, x, torch.tensor([0, 1, 0, 1]), torch.ones(4, dtype=
                  fold_in(root, 3))
 assert bool(torch.isfinite(out["loss"])) and opt.count == 1
 assert shear_rotate.rotate_batch.launches == 0
+out = train_step(model, opt, x, torch.tensor([0, 1, 0, 1]), torch.ones(4, dtype=torch.bool),
+                 fold_in(root, 4), remat=True)
+assert bool(torch.isfinite(out["loss"])) and opt.count == 2
+
+import tempfile
+from pathlib import Path
+from PIL import Image
+from deepfakedetection_tpu_torch.data.folder import scan_image_folder
+from deepfakedetection_tpu_torch.data.pipeline import build_eval_plan, make_eval_loader
+from deepfakedetection_tpu_torch.data.shards import write_shards
+from deepfakedetection_tpu_torch.runtime.checkpoint import AsyncSaver, load
+
+with tempfile.TemporaryDirectory() as tmp:
+    tree = Path(tmp) / "tree"
+    for cls in ("fake", "real"):
+        (tree / cls).mkdir(parents=True)
+        color = "white" if cls == "real" else "black"
+        Image.new("RGB", (40, 36), color).save(tree / cls / "a.png")
+    write_shards(scan_image_folder(tree), Path(tmp) / "shards")
+    batch = next(iter(make_eval_loader(scan_image_folder(Path(tmp) / "shards"),
+                                       build_eval_plan(32, {}), batch_size=2)))
+    assert batch.images.shape == (2, 32, 32, 3) and batch.mask.all()
+    assert batch.images[0].max() == 0 and batch.images[1].min() == 255
+    saver = AsyncSaver()
+    saver.submit_tree(Path(tmp) / "a.ckpt", {"w": torch.ones(2)})
+    saver.close()
+    assert torch.equal(load(Path(tmp) / "a.ckpt")["w"], torch.ones(2))
 
 from deepfakedetection_tpu_torch.models.fastervit import FasterViT
 from deepfakedetection_tpu_torch.ops import window_attn

@@ -44,6 +44,7 @@ from flax import serialization
 
 import deepfakedetection_tpu.orchestrator as jax_orch
 import deepfakedetection_tpu_torch.orchestrator as port_orch
+import deepfakedetection_tpu_torch.train.loop as port_loop
 from deepfakedetection_tpu.models.efficientnet import EfficientNet as JaxEfficientNet
 from deepfakedetection_tpu.registry import get_model_spec as jax_model_spec
 from deepfakedetection_tpu.runtime.torch_convert import export_torch_state_dict
@@ -241,16 +242,36 @@ def test_rotation_runs_k4_plain_inside_the_loop(tiny_image_tree, tmp_path, monke
     assert shear_rotate.rotate_batch.launches == before  # plain version: no kernel launch
 
 
-@pytest.mark.parametrize("option,item", [
-    ({"remat": True}, "item 11"),
-    ({"async_checkpoint": True}, "item 11"),
-])
-def test_unported_options_refuse_before_any_work(tiny_image_tree, tmp_path, monkeypatch,
-                                                 option, item):
-    cfg = _config(tmp_path / "u.yaml", tiny_image_tree, tmp_path / "u", **option)
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_options_refuse_before_any_work(tiny_image_tree, tmp_path, monkeypatch):
+    """More than one process (ROADMAP Queue 1 item 9) is what the trainer
+    still refuses."""
+    monkeypatch.setattr(port_loop, "world_size", lambda: 2)
+    cfg = _config(tmp_path / "u.yaml", tiny_image_tree, tmp_path / "u")
+    with pytest.raises(NotImplementedError, match="item 9"):
         _train(monkeypatch, cfg)
     assert not (tmp_path / "u").exists()
+
+
+@pytest.mark.parametrize("option", [{"remat": True}, {"async_checkpoint": True},
+                                    {"profile_dir": "traces"}], ids=lambda o: next(iter(o)))
+def test_training_options_reach_the_trainer(tiny_image_tree, tmp_path, monkeypatch, option):
+    """``training.remat``, ``training.async_checkpoint`` and the top-level
+    ``profile_dir`` pass the orchestrator's checks into the job."""
+    cfg = _config(tmp_path / "o.yaml", tiny_image_tree, tmp_path / "o",
+                  **{k: v for k, v in option.items() if k != "profile_dir"})
+    if "profile_dir" in option:
+        data = yaml.safe_load(cfg.read_text())
+        data["profile_dir"] = str(tmp_path / option["profile_dir"])
+        cfg.write_text(yaml.safe_dump(data))
+    jobs = []
+    monkeypatch.setattr(port_orch, "run_training",
+                        lambda job: jobs.append(job) or port_loop.TrainResult(0.0, -1, 0, 0.0))
+    _train(monkeypatch, cfg)
+    (job,) = jobs
+    assert port_loop.unported_options(job) == []
+    assert (job.remat, job.async_checkpoint, job.profile_dir) == (
+        option.get("remat", False), option.get("async_checkpoint", False),
+        option.get("profile_dir") and str(tmp_path / option["profile_dir"]))
 
 
 @pytest.fixture(scope="module")
