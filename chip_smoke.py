@@ -170,7 +170,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    (a recompute that draws other masks or feeds the backward another
    forward's tensors moves the gradients);
    (d) each FasterViT-2 variant's step time (CUDA events) and peak memory,
-   printed beside the card's name and power limit.
+   printed beside the card's name and power limit;
+16. data parallel on a world of one over NCCL (``init_process_group`` on a
+   free local port; NCCL refuses two ranks on one card): one full-width B3
+   step with mixup and class weights through the ranked path against the
+   same step without a process group on the same batch and weights (f32 with
+   TF32 off and bf16, ``STEP_BOUNDS``; the ranked steps must make their
+   all-reduces and all-gathers), then ``orchestrate(mode="training")`` with
+   ``training.async_checkpoint`` and mixup over a small seeded tree (K4 once
+   a step, K1 and K2 in validation), its resume for epoch 2 (a complete
+   ``latest.ckpt``, no ``.tmp`` left) and ``orchestrate(mode="inference")``,
+   whose rows through ``allgather_examples`` equal those of a run after the
+   group is gone; the bf16 step's CUDA-event time at batch 128 plain,
+   ranked and plain again, the NCCL all-reduce of B3's gradient buffer and
+   one step's random draws for one card's rows and for an 8-card rank's,
+   beside the card's name and power limit. ``destroy_process_group`` runs in
+   a ``finally``.
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
@@ -2133,7 +2148,7 @@ def reference_check(res, data: Path, refs_of, gate: float = 5e-2) -> dict[str, f
                         *(r.double() - r[:, :1].double() for r in refs), gate=gate)
 
 
-def train_config(work: Path, data: Path, device, epochs: int) -> Path:
+def train_config(work: Path, data: Path, device, epochs: int, **training) -> Path:
     import yaml
 
     cfg = {
@@ -2145,7 +2160,7 @@ def train_config(work: Path, data: Path, device, epochs: int) -> Path:
             "output_dir": str(work / "runs"),
             "transforms": {"train": TRAIN_TF, "eval": EVAL_TF},
             "training": {"epochs": epochs, "batch_size": 64, "num_workers": 8,
-                         "resume": "continue"},
+                         "resume": "continue", **training},
             "inference": {"weights": "auto", "split": "test", "batch_size": 64,
                           "num_workers": 8, "img_size": 224},
         }},
@@ -2287,10 +2302,10 @@ def seeded_train_inputs(n: int):
     return state, images, params, plan
 
 
-def one_step(state, images, params, plan, device, dtype):
+def one_step(state, images, params, plan, device, dtype, mix=None, class_weights=None):
     """One fine-tune step from ``state`` on ``device`` (dropout and
-    drop-path off): the augmented batch, the loss and the updated state,
-    returned on the CPU."""
+    drop-path off; ``mix`` a mixup draw, ``class_weights`` the CE's): the
+    augmented batch, the loss and the updated state, returned on the CPU."""
     import dataclasses
 
     import torch
@@ -2310,7 +2325,10 @@ def one_step(state, images, params, plan, device, dtype):
     opt = PhaseOptimizer(list(model.named_parameters()), lr=1e-4, weight_decay=5e-2,
                          trainable=unfreeze_predicate("all"))
     labels = torch.arange(len(images), device=device) % 2
-    out = train_step(model, opt, x, labels, torch.ones_like(labels, dtype=torch.bool), None)
+    if class_weights is not None:
+        class_weights = torch.tensor(class_weights, device=device)
+    out = train_step(model, opt, x, labels, torch.ones_like(labels, dtype=torch.bool), None,
+                     mix=mix, class_weights=class_weights)
     return (x.float().cpu(), float(out["loss"]),
             {k: v.float().cpu() for k, v in model.state_dict().items()})
 
@@ -5246,6 +5264,267 @@ def phase15(device, report) -> dict:
     return out
 
 
+DP_SPLITS = {"train": 128, "val": 64, "test": 64}  # phase 16's training tree
+DP_STEP_BATCH = 16  # images of the ranked step against the plain one (full width, 224 px)
+DP_MIX = (False, 0.7)  # its mixup draw (mixup, lambda)
+DP_CLASS_WEIGHTS = (0.8, 1.3)
+DP_TIMED_BATCH = 128  # the ranked and plain steps' timing
+DP_WIDE = 8  # the mask draw of a rank of an 8-card run, against one card's
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def collectives_counted(fn):
+    """(fn's result, the torch.distributed all_reduce and all_gather calls
+    it made): a world of one must run the collectives, not skip them."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_gather": 0}
+    real = {name: getattr(dist, name) for name in counts}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return real[name](*args, **kwargs)
+
+        return call
+
+    try:
+        for name in counts:
+            setattr(dist, name, counting(name))
+        out = fn()
+    finally:
+        for name, f in real.items():
+            setattr(dist, name, f)
+    return out, counts
+
+
+def dp_steps(device, inputs) -> dict:
+    """One full-width B3 step from ``inputs`` (``seeded_train_inputs``) with
+    mixup and class weights, in f32 with TF32 off and in bf16."""
+    import torch
+
+    from deepfakedetection_tpu_torch.train.mixup import MixDraw
+
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        if dtype == torch.float32:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            out[name] = one_step(*inputs, device, dtype, mix=MixDraw(*DP_MIX),
+                                 class_weights=DP_CLASS_WEIGHTS)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def dp_readings(ranked, plain, state) -> dict:
+    """The ranked step against the plain one: the loss, the updated weights
+    in units of lr, the batch statistics (``batch_stats``), and whether every
+    tensor came out bit-identical."""
+    import torch
+
+    (_, loss_r, sd_r), (_, loss_p, sd_p) = ranked, plain
+    units = torch.cat([((sd_r[k] - sd_p[k]).abs() / 1e-4).flatten()
+                       for k in sd_p if "running" not in k and "num_batches" not in k])
+    dmean, dvar = stats_gaps(batch_stats(sd_r, state), batch_stats(sd_p, state))
+    return {"loss_ranked": loss_r, "loss_plain": loss_p,
+            "loss_rel": abs(loss_r - loss_p) / abs(loss_p),
+            "max_dw_over_lr": float(units.max()),
+            "share_dw_over_0.1lr": float((units > 0.1).float().mean()),
+            "share_dw_over_0.5lr": float((units > 0.5).float().mean()),
+            "batch_mean_gap": dmean, "batch_var_gap": dvar,
+            "bit_identical": loss_r == loss_p and all(torch.equal(sd_r[k], sd_p[k])
+                                                      for k in sd_p)}
+
+
+def dp_step_ms(device) -> dict:
+    """The bf16 B3 train step with mixup at ``DP_TIMED_BATCH``: CUDA events,
+    median and quartiles of 10 after 3 warm-up steps."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.runtime.seeding import fold_in, root_generator
+    from deepfakedetection_tpu_torch.train.mixup import MixDraw
+    from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer, unfreeze_predicate
+    from deepfakedetection_tpu_torch.train.steps import train_step
+
+    g = torch.Generator().manual_seed(4)
+    model = create_efficientnet("b3", num_classes=2, generator=g).to(device)
+    opt = PhaseOptimizer(list(model.named_parameters()), lr=1e-4, weight_decay=5e-2,
+                         trainable=unfreeze_predicate("all"))
+    root = root_generator(4)
+    x = torch.randn(DP_TIMED_BATCH, 3, 224, 224, generator=g).to(device).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    labels = (torch.arange(DP_TIMED_BATCH) % 2).to(device)
+    mask = torch.ones(DP_TIMED_BATCH, dtype=torch.bool, device=device)
+    return spread(cuda_times(lambda: train_step(
+        model, opt, x, labels, mask, fold_in(root, opt.count, device=device),
+        mix=MixDraw(*DP_MIX)), runs=10))
+
+
+def mask_draws_ms(device, plan) -> dict:
+    """The random draws of one B3 train step at ``DP_TIMED_BATCH`` (the
+    augmentation's parameters and every dropout and drop-path mask), drawn
+    for one card's rows and for the ``DP_WIDE`` times wider draw of a rank of
+    an 8-card run: CUDA events, median of 25."""
+    import torch
+
+    from deepfakedetection_tpu_torch.data.augment import sample_params
+    from deepfakedetection_tpu_torch.models import common
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+
+    shapes = []
+    real = common.keep_mask
+
+    def noting(x, keep, shape, generator):
+        shapes.append(tuple(shape))
+        return real(x, keep, shape, generator)
+
+    model = create_efficientnet("b3", num_classes=2).to(device).train()
+    common.keep_mask = noting
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 3, 224, 224, dtype=torch.bfloat16, device=device),
+                  torch.Generator(device=device).manual_seed(0))
+    finally:
+        common.keep_mask = real
+    S = plan.host_canvas_size
+
+    def draws(wide: int) -> None:
+        g = torch.Generator(device=device).manual_seed(1)
+        rows = DP_TIMED_BATCH * wide
+        sample_params(g, plan, rows, S, S)
+        for shape in shapes:
+            torch.rand((rows,) + shape[1:], generator=g, device=device)
+
+    return {"masks": len(shapes), "one_card": spread(cuda_times(lambda: draws(1), runs=25)),
+            f"wide_{DP_WIDE}": spread(cuda_times(lambda: draws(DP_WIDE), runs=25))}
+
+
+def phase16(device, report) -> dict:
+    """Data parallel on a world of one over NCCL: the ranked step against
+    the plain one, then training, a resume and inference through the ranked
+    path; the step times, the gradient all-reduce and the mask draws."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+    from deepfakedetection_tpu_torch.parallel.multihost import allgather_examples
+    from deepfakedetection_tpu_torch.runtime import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(name: str) -> None:
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
+    inputs = seeded_train_inputs(DP_STEP_BATCH)
+    plain = dp_steps(device, inputs)
+    plain_ms = [dp_step_ms(device)]
+    masks = mask_draws_ms(device, inputs[3])
+    lap("plain steps, timing, draws")
+    work = REPO / "build" / "chip_smoke_dp"
+    shutil.rmtree(work, ignore_errors=True)
+    data = work / "data"
+    write_jpeg_tree(data, DP_SPLITS, seed=16)
+    per_forward = create_efficientnet("b3").eval().kernel_launches_per_forward()
+    warmup_steps, ft_steps = DP_SPLITS["train"] // 64, DP_SPLITS["train"] // 128
+    val_batches, test_batches = -(-DP_SPLITS["val"] // 64), -(-DP_SPLITS["test"] // 64)
+    extra = {"async_checkpoint": True, "mixup_alpha": 0.2}
+    out: dict = {"card": smi()}
+
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        ranked, calls = collectives_counted(lambda: dp_steps(device, inputs))
+        if calls["all_reduce"] < 100 or calls["all_gather"] < 2:
+            raise AssertionError(f"the ranked steps made too few collectives: {calls}")
+        out["collectives_in_two_steps"] = calls
+        for name in ("f32", "bf16"):
+            row = out[f"step_{name}"] = dp_readings(ranked[name], plain[name], inputs[0])
+            log(f"  ranked step against the plain one ({name}, batch {DP_STEP_BATCH}, mixup, "
+                f"class weights): loss {row['loss_ranked']:.6f} / {row['loss_plain']:.6f}; "
+                f"weights max|d|/lr {row['max_dw_over_lr']:.3f}; batch means "
+                f"{row['batch_mean_gap']:.2e}, variances {row['batch_var_gap']:.2e}; "
+                f"bit-identical {row['bit_identical']}")
+            bad = {k: (row[k], b) for k, b in STEP_BOUNDS[name].items() if not row[k] <= b}
+            if bad or not math.isfinite(row["loss_ranked"]):
+                raise AssertionError(f"the ranked {name} step disagrees with the plain one: "
+                                     f"{bad} (reading, bound); {row}")
+        ranked_ms = dp_step_ms(device)
+        n_params = sum(p.numel() for p in create_efficientnet("b3").parameters())
+        flat = torch.zeros(n_params, device=device)
+        allreduce = spread(cuda_times(lambda: dist.all_reduce(flat), runs=25))
+        lap("ranked steps, timing, all-reduce")
+
+        res, launches = counted(lambda: orchestrate(
+            train_config(work, data, device, 1, **extra), mode="training")["efficientnet_b3"])
+        want = {"k1": per_forward["k1"] * 2 * val_batches,
+                "k2": per_forward["k2"] * 2 * val_batches,
+                "k3": 0, "k4": warmup_steps + ft_steps, "k5": 0, "k5_bwd": 0, "k6": 0,
+                "k6_bwd": 0, "k7": 0}
+        if launches != want or res.interrupted or not math.isfinite(res.final_train_loss):
+            raise AssertionError(f"ranked training: launches {launches} (expected {want}), {res}")
+        res2, launches2 = counted(lambda: orchestrate(
+            train_config(work, data, device, 2, **extra), mode="training")["efficientnet_b3"])
+        if (res2.epochs_run != 1 or launches2["k4"] != ft_steps
+                or launches2["k2"] != per_forward["k2"] * val_batches):
+            raise AssertionError(f"ranked resume: {res2}, launches {launches2}")
+        (run,) = sorted((work / "runs").iterdir())
+        state = ckpt.load(run / "checkpoints" / "latest.ckpt")
+        names = sorted(q.name for q in (run / "checkpoints").iterdir())
+        if state["counters"]["epoch"] != 1 or any(".tmp" in n for n in names):
+            raise AssertionError(f"ranked checkpoints: counters {state['counters']}, {names}")
+        ires, ilaunch = counted(lambda: orchestrate(
+            train_config(work, data, device, 2), mode="inference")["efficientnet_b3"])
+        if (ires.probs.shape != (DP_SPLITS["test"], 2) or not np.isfinite(ires.probs).all()
+                or ilaunch["k2"] != per_forward["k2"] * (test_batches + val_batches)):
+            raise AssertionError(f"ranked inference: {ires.probs.shape} {ilaunch}")
+        gathered = allgather_examples(ires.probs)
+        if not np.array_equal(gathered, ires.probs):
+            raise AssertionError("allgather_examples changed a world of one's rows")
+        lap("tree, training, resume, inference")
+    finally:
+        dist.destroy_process_group()
+    plain_ms.append(dp_step_ms(device))
+    pres = orchestrate(train_config(work, data, device, 2), mode="inference")["efficientnet_b3"]
+    lap("plain timing, inference")
+    if not (np.array_equal(pres.probs, ires.probs) and np.array_equal(pres.targets, ires.targets)):
+        raise AssertionError("the gathered eval rows differ from the ungathered ones: max|d| "
+                             f"{np.abs(pres.probs - ires.probs).max()}")
+    out.update({
+        "launches": launches, "resume_launches": launches2, "inference_launches": ilaunch,
+        "checkpoints": names, "losses": [res.final_train_loss, res2.final_train_loss],
+        "step_ms": {"plain": plain_ms[0], "ranked": ranked_ms, "plain_again": plain_ms[1]},
+        "allreduce_ms": allreduce, "allreduce_mib": n_params * 4 / 2**20, "mask_draws": masks,
+        "seconds": seconds})
+    log(f"  ranked training: K4 {launches['k4']}, K1 {launches['k1']}, K2 {launches['k2']}; "
+        f"resume K4 {launches2['k4']}; checkpoints {names}; inference K2 {ilaunch['k2']}, its "
+        f"gathered rows equal to a run without a group")
+    log(f"  bf16 B3 step at batch {DP_TIMED_BATCH} with mixup (CUDA events, median [q1, q3] ms): "
+        f"plain {plain_ms[0]['median']:.3f} [{plain_ms[0]['q1']:.3f}, {plain_ms[0]['q3']:.3f}], "
+        f"ranked {ranked_ms['median']:.3f} [{ranked_ms['q1']:.3f}, {ranked_ms['q3']:.3f}], "
+        f"plain again {plain_ms[1]['median']:.3f}; NCCL all-reduce of the gradient buffer "
+        f"({n_params} f32, {n_params * 4 / 2**20:.1f} MiB) {allreduce['median']:.3f} ms; "
+        f"the step's {masks['masks']} masks and the augmentation's draws "
+        f"{masks['one_card']['median']:.3f} ms for one card's rows, "
+        f"{masks[f'wide_{DP_WIDE}']['median']:.3f} ms for a rank of {DP_WIDE} cards; "
+        f"{out['card']}; seconds {({k: round(v, 1) for k, v in seconds.items()})}")
+    report["phase16"] = out
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -5316,6 +5595,10 @@ def main() -> int:
         "job over them, FasterViT-2 training over them with remat, async checkpoints and "
         "profile_dir, and remat steps against plain ones")
     phase15(device, report)
+    log("phase 16: data parallel on a world of one over NCCL: the ranked step against the "
+        "plain one, orchestrate(mode='training') with async checkpoints and mixup, a resume "
+        "and orchestrate(mode='inference') through the ranked path")
+    phase16(device, report)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())

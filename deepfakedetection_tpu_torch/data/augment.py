@@ -25,12 +25,13 @@ contrast, saturation, hue), normalise, erasing.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
 from deepfakedetection_tpu_torch.data.transforms import EvalTransformPlan, TrainTransformPlan
 from deepfakedetection_tpu_torch.ops.shear_rotate import rotate_batch
+from deepfakedetection_tpu_torch.parallel import mesh
 
 # the shear kernel's validity bound for the rotation range, in degrees
 SHEAR_MAX_DEG = 13.7
@@ -335,7 +336,17 @@ def augment_batch(
 ) -> torch.Tensor:
     """The training augmentation of one batch: draws from ``generator`` (on
     the images' device), then ``apply_augment``. Deterministic per
-    generator state."""
+    generator state. Under a process group the draws are made for the
+    global batch and this rank applies its rows of them
+    (``mesh.global_rows``), so the ranks' batches together are the one
+    process's batch."""
     B, H, W, _ = images.shape
-    params = sample_params(generator, plan, B, H, W)
+    rows = mesh.global_rows(B)
+    if rows is None:
+        params = sample_params(generator, plan, B, H, W)
+    else:
+        total, start = rows
+        drawn = sample_params(generator, plan, total, H, W)
+        params = AugParams(**{f.name: getattr(drawn, f.name)[start : start + B]
+                              for f in fields(AugParams)})
     return apply_augment(images, params, plan, out_dtype=out_dtype)

@@ -9,7 +9,8 @@ batch zero-padded with a validity mask, seeded per-epoch shuffling with ``set_ep
 ``lookahead`` batches decoding ahead of the consumer. With more than one
 ``torch.distributed`` process each decodes a disjoint contiguous shard of
 the epoch order, the same number of batches on every process (training
-drops the global remainder, eval pads with masked rows).
+drops the global remainder, eval pads with masked rows), and ``batch_size``
+is the global batch, which the process count must divide.
 ``DeviceStager`` moves each uint8 batch to the device through pinned host
 buffers with a ``non_blocking`` copy. ``prefetch`` stages the next batch
 (copy and augmentation) on a second CUDA stream while the caller's step
@@ -77,7 +78,13 @@ class Loader:
         num_workers: int = 0,
         cache_decoded: bool = False,
         lookahead: int = 1,
+        shard: bool = True,
     ) -> None:
+        self.world = world_size() if shard else 1
+        if batch_size % self.world:
+            raise ValueError(
+                f"batch size {batch_size} does not divide over {self.world} processes"
+            )
         self.dataset = dataset
         self.plan = plan
         self.batch_size = int(batch_size)
@@ -103,10 +110,10 @@ class Loader:
         self._epoch = int(epoch)
 
     def _local_batch_rows(self) -> int:
-        return max(self.batch_size // world_size(), 1)
+        return max(self.batch_size // self.world, 1)
 
     def _shard_len(self) -> int:
-        n, pc = len(self.dataset), world_size()
+        n, pc = len(self.dataset), self.world
         if pc == 1:
             return n
         return n // pc if self.shuffle else -(-n // pc)
@@ -119,7 +126,7 @@ class Loader:
             order = np.random.default_rng([self.seed, self._epoch]).permutation(n)
         else:
             order = np.arange(n)
-        pc = world_size()
+        pc = self.world
         if pc == 1:
             return order
         per = self._shard_len()
@@ -230,11 +237,15 @@ def make_eval_loader(
     num_workers: int = 0,
     lookahead: int = 2,
     cache_decoded: bool = False,
+    shard: bool = True,
 ) -> Loader:
-    """Deterministic-order loader; the final batch zero-padded with a mask."""
+    """Deterministic-order loader; the final batch zero-padded with a mask.
+    ``shard=False`` gives every process the whole split in batches of
+    ``batch_size``."""
     return Loader(
         dataset, plan, batch_size=batch_size, shuffle=False, drop_last=False,
         num_workers=num_workers, lookahead=lookahead, cache_decoded=cache_decoded,
+        shard=shard,
     )
 
 

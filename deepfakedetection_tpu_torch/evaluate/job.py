@@ -8,7 +8,9 @@ binary decision ``p1 >= t``, accuracy / ROC-AUC / confusion matrix, plots,
 one-line JSON summary. With ``precision: int8`` the job first calibrates
 per-ConvBN activation scales on up to 2 val batches (the test split when val
 is missing or empty), then runs the sweep and the test pass under them
-(``ops/quant.py``).
+(``ops/quant.py``). Under a process group each rank evaluates its shard of
+a split and the rows are gathered in the split's order, so the sweep and
+the metrics see the whole split on every rank; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -37,15 +39,18 @@ from deepfakedetection_tpu_torch.evaluate.metrics import (
 )
 from deepfakedetection_tpu_torch.evaluate.plots import save_confusion_matrix, save_roc_curve
 from deepfakedetection_tpu_torch.ops import quant
+from deepfakedetection_tpu_torch.parallel.mesh import make_mesh
+from deepfakedetection_tpu_torch.parallel.multihost import allgather_examples, local_rows
 from deepfakedetection_tpu_torch.registry import ModelSpec
 from deepfakedetection_tpu_torch.runtime.convert import fastervit_head_config, load_weights
 from deepfakedetection_tpu_torch.runtime.logging import (
     append_metrics,
     console,
+    process_log_path,
     progress,
     tee_output,
 )
-from deepfakedetection_tpu_torch.runtime.paths import RunPaths, world_size
+from deepfakedetection_tpu_torch.runtime.paths import RunPaths
 
 
 @dataclass
@@ -77,6 +82,9 @@ class EvalJob:
     # None or "temperature" (fit T on the val pass)
     calibration: str | None = None
     model_kwargs: dict[str, Any] = field(default_factory=dict)
+    # the YAML mesh: block (parallel/mesh.py): data -1 or the process count
+    mesh_data: int = -1
+    mesh_model: int = 1
 
 
 @dataclass
@@ -182,7 +190,10 @@ def collect_probs(
     eval_step, loader, plan, stager: DeviceStager, compute_dtype, desc: str = "inference"
 ):
     """Run every batch; returns (probs, targets, images/s) for the valid rows.
-    Probabilities stay on the device until the pass ends."""
+    Probabilities stay on the device until the pass ends. Under a process
+    group every rank returns the whole split's rows, its own gathered with
+    the others' in rank order (``allgather_examples``), which is the
+    split's order; images/s counts this rank's rows."""
     device_probs: list[torch.Tensor] = []
     masks: list[np.ndarray] = []
     targets: list[np.ndarray] = []
@@ -194,26 +205,27 @@ def collect_probs(
             masks.append(batch.mask)
             targets.append(batch.labels[batch.mask])
             advance(int(batch.mask.sum()))
-    if not device_probs:
-        return np.zeros((0, 2)), np.zeros((0,), np.int64), 0.0
-    probs = torch.cat(device_probs).cpu().numpy()[np.concatenate(masks)]
-    elapsed = time.perf_counter() - start
-    return probs, np.concatenate(targets), len(probs) / max(elapsed, 1e-9)
+    if device_probs:
+        probs = local_rows(torch.cat(device_probs))[np.concatenate(masks)]
+        targets = np.concatenate(targets)
+    else:
+        probs, targets = np.zeros((0, 2), np.float32), np.zeros((0,), np.int64)
+    speed = len(probs) / max(time.perf_counter() - start, 1e-9)
+    return allgather_examples(probs), allgather_examples(targets), speed
 
 
 def run_eval_job(job: EvalJob) -> EvalResult | None:
     console.print(f"[bold]→ inference {job.model_name}[/]")
     log_path = job.run_paths.logs / "inference.log"
-    log_path.unlink(missing_ok=True)
+    process_log_path(log_path).unlink(missing_ok=True)
     with tee_output(log_path):
         return _run_eval_job(job)
 
 
 def _run_eval_job(job: EvalJob) -> EvalResult | None:
-    if world_size() > 1:
-        raise NotImplementedError(
-            "multi-process eval (gathering the ranks' rows) is ROADMAP Queue 1 item 9"
-        )
+    mesh = make_mesh(job.mesh_data, job.mesh_model, job.device)
+    # the batch must divide over the data axis; round up (padding absorbs it)
+    job.batch_size = -(-job.batch_size // mesh.data) * mesh.data
     console.print(
         f"[bold]Model[/]: {job.model_name} | split={job.split} | batch={job.batch_size}"
         f" | device={job.device}"
@@ -253,7 +265,10 @@ def _calibrate_int8(job: EvalJob, model, plan, stager: DeviceStager) -> dict[str
         calib_split, calib_ds = job.split, _scan_split(job, job.split)
     batches = []
     if calib_ds is not None:
-        loader = make_eval_loader(calib_ds, plan, batch_size=job.batch_size, num_workers=0)
+        # every rank calibrates on the split's first batches, as one process
+        # does: the same scales everywhere, with no collective
+        loader = make_eval_loader(calib_ds, plan, batch_size=job.batch_size, num_workers=0,
+                                  shard=False)
         for i, batch in enumerate(loader):
             if i >= 2:
                 break

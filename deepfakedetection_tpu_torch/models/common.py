@@ -27,6 +27,7 @@ from torch import nn
 
 from deepfakedetection_tpu_torch.ops import quant
 from deepfakedetection_tpu_torch.ops.depthwise_se import depthwise_silu_pool
+from deepfakedetection_tpu_torch.parallel import mesh
 from deepfakedetection_tpu_torch.runtime.flags import exact_gelu
 
 Pads = tuple[tuple[int, int], tuple[int, int]]
@@ -377,11 +378,21 @@ class ConvBN:
         if conv.bias is not None:
             y = y + conv.bias.to(dt).view(1, -1, 1, 1)
         # One pass over y for each statistic, accumulated in f32; on the card
-        # both reductions read the bf16 y without an f32 copy of it.
+        # both reductions read the bf16 y without an f32 copy of it. Under a
+        # process group the sums and the count are summed over the ranks in
+        # one collective (with a backward), so the statistics are the global
+        # batch's.
         dims = (0, 2, 3)
         n = y.numel() // y.shape[1]
-        mean = y.sum(dim=dims, dtype=torch.float32) / n
-        mean2 = torch.linalg.vector_norm(y, 2, dim=dims, dtype=torch.float32).square() / n
+        total = y.sum(dim=dims, dtype=torch.float32)
+        squares = torch.linalg.vector_norm(y, 2, dim=dims, dtype=torch.float32).square()
+        if mesh.data_axis() is not None:
+            c = total.shape[0]
+            count = torch.full((1,), float(n), device=total.device)
+            sums = mesh.sum_over_data(torch.cat([total, squares, count]))
+            total, squares, n = sums[:c], sums[c : 2 * c], sums[2 * c]
+        mean = total / n
+        mean2 = squares / n
         var = torch.clamp(mean2 - mean.square(), min=0.0)
         update_running_stats(bn, mean, var)
         denom = bn.weight * torch.rsqrt(var + bn.eps)
@@ -425,11 +436,21 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     at the override-aware decay (``effective_bn_decay``; 0.9 from
     ``nn.BatchNorm2d``'s momentum 0.1, as the JAX module's 0.9), then
     ``(y - mean) * rsqrt(var + eps) * weight + bias`` in f32. Returns f32;
-    the caller casts once."""
+    the caller casts once. Under a process group each pass's sums are summed
+    over the ranks (the first with the count), two collectives with a
+    backward: the global batch's statistics."""
     y = x.float()
     dims = tuple(range(y.dim() - 1))
-    mean = y.mean(dim=dims)
-    var = (y - mean).square().mean(dim=dims)
+    if mesh.data_axis() is None:
+        mean = y.mean(dim=dims)
+        var = (y - mean).square().mean(dim=dims)
+    else:
+        c = y.shape[-1]
+        count = torch.full((1,), float(y.numel() // c), device=y.device)
+        sums = mesh.sum_over_data(torch.cat([y.sum(dim=dims), count]))
+        n = sums[c]
+        mean = sums[:c] / n
+        var = mesh.sum_over_data((y - mean).square().sum(dim=dims)) / n
     update_running_stats(bn, mean, var)
     return (y - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
 
@@ -470,10 +491,18 @@ class SqueezeExcite:
 
 def keep_mask(x: torch.Tensor, keep: float, shape: tuple[int, ...],
               generator: torch.Generator | None) -> torch.Tensor:
-    """Bernoulli(keep) mask of ``shape`` on x's device from ``generator``."""
+    """Bernoulli(keep) mask of ``shape`` on x's device from ``generator``.
+    The leading dim runs over the batch (images, or an image's windows,
+    batch-major); under a process group the mask is drawn for the global
+    batch and this rank keeps its rows (``mesh.global_rows``)."""
     if generator is None:
         raise ValueError("a training forward with dropout needs an explicit torch.Generator")
-    return torch.rand(shape, generator=generator, device=x.device) < keep
+    rows = mesh.global_rows(shape[0])
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=x.device) < keep
+    total, start = rows
+    draw = torch.rand((total,) + tuple(shape[1:]), generator=generator, device=x.device)
+    return draw[start : start + shape[0]] < keep
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:

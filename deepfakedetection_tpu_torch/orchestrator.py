@@ -13,6 +13,17 @@ The YAML ``device`` picks the CUDA card for any value but ``cpu``; the
 top-level ``precision`` is bf16 by default, or float32. In inference mode a
 top-level ``ensemble:`` combines the evaluated models afterwards
 (``evaluate/ensemble.py``).
+
+More than one process: launch the same command under ``torchrun`` (one
+process a card over NCCL, or over gloo with ``device: cpu``)::
+
+    torchrun --nproc-per-node N -m deepfakedetection_tpu_torch.orchestrator \
+        --mode training --config CFG
+
+``orchestrate`` joins the process group first (``parallel/multihost.py``),
+then checks the ``mesh:`` block before any work: the JAX orchestrator's
+``_mesh_dims`` rules, ``data`` -1 or the number of processes, and ``model``
+1 (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ from deepfakedetection_tpu_torch.config import load_config
 from deepfakedetection_tpu_torch.data.transforms import resolve_transform_mapping
 from deepfakedetection_tpu_torch.evaluate.ensemble import run_ensemble
 from deepfakedetection_tpu_torch.evaluate.job import EvalJob, EvalResult, run_eval_job
+from deepfakedetection_tpu_torch.parallel.mesh import make_mesh, mesh_dims
+from deepfakedetection_tpu_torch.parallel.multihost import maybe_initialize
 from deepfakedetection_tpu_torch.registry import get_model_spec
 from deepfakedetection_tpu_torch.runtime.flags import compute_dtype, resolve_device
 from deepfakedetection_tpu_torch.runtime.logging import console
@@ -175,7 +188,13 @@ def build_train_job(
         eval_toggles=resolve_transform_mapping(model_cfg, "eval"),
         compute_dtype=compute_dtype(config),
         model_kwargs=_model_kwargs(model_cfg),
+        **_mesh_fields(config),
     )
+
+
+def _mesh_fields(config: dict[str, Any]) -> dict[str, int]:
+    data, model = mesh_dims(config)
+    return {"mesh_data": data, "mesh_model": model}
 
 
 def build_eval_job(
@@ -242,6 +261,7 @@ def build_eval_job(
             str(infer_cfg["calibration"]).lower() if infer_cfg.get("calibration") else None
         ),
         model_kwargs=_model_kwargs(model_cfg),
+        **_mesh_fields(config),
     )
 
 
@@ -254,7 +274,10 @@ def orchestrate(
     if mode not in ("training", "inference"):
         raise ValueError(f"unknown mode '{mode}'")
     config = load_config(Path(config_path))
+    mesh_data, mesh_model = mesh_dims(config)
+    maybe_initialize(cpu=str(config.get("device") or "").strip().lower().startswith("cpu"))
     device = resolve_device(config)
+    make_mesh(mesh_data, mesh_model, device)  # refuses model > 1 and idle or missing ranks
     models = config.get("models") or {}
     selection = config.get("selection") or list(models.keys())
     for model_name in selection:

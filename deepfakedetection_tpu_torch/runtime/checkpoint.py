@@ -9,7 +9,8 @@ checkpoint. The ``.pth`` is a plain torch state dict under the
 efficientnet_pytorch names, which the eval job loads with ``weights: auto``.
 ``AsyncSaver`` (``training.async_checkpoint``) writes them on a worker
 thread while the next epoch trains; ``InlineSaver`` at once, with the same
-interface.
+interface. Under a process group rank 0 writes, and every rank passes a
+barrier after each write before any of them reads it or goes on.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Any
 
 import torch
 
+from deepfakedetection_tpu_torch.parallel import multihost
+from deepfakedetection_tpu_torch.parallel.mesh import data_axis
 from deepfakedetection_tpu_torch.runtime.paths import rank
 
 
@@ -90,13 +93,15 @@ def _snapshot(obj: Any, devices: set[torch.device]) -> Any:
 class InlineSaver:
     """The epoch-end writes done at once on the calling thread, with
     ``AsyncSaver``'s interface: the trainer's writer without
-    ``training.async_checkpoint``."""
+    ``training.async_checkpoint``. Each write is followed by a barrier."""
 
     def submit_tree(self, path: Path, obj: Any) -> None:
         save(path, obj)
+        multihost.barrier()
 
     def submit_export(self, path: Path, model: torch.nn.Module) -> None:
         export_weights(path, model)
+        multihost.barrier()
 
     def submit_call(self, fn: Callable[..., Any], *args: Any) -> None:
         fn(*args)
@@ -110,8 +115,7 @@ class InlineSaver:
 
 class AsyncSaver:
     """The epoch-end writes on one worker thread, overlapping the next
-    epoch's steps; the counterpart of the JAX package's ``AsyncSaver``, in a
-    single process.
+    epoch's steps; the counterpart of the JAX package's ``AsyncSaver``.
 
     A submit snapshots its tensors on the calling thread with a copy on
     their device: ``model.state_dict()`` and the optimizer's state alias the
@@ -121,14 +125,30 @@ class AsyncSaver:
     then a rename). Work runs in submission order, so ``latest.ckpt`` ends
     up holding the newest state and a queued call (``submit_call``) runs
     only after every write before it has landed. ``wait()`` drains the queue
-    and re-raises the first failure: a lost checkpoint would break resume."""
+    and re-raises the first failure: a lost checkpoint would break resume.
+
+    Under a process group the JAX saver's protocol holds: the worker issues
+    no collective (one from a second thread would interleave with the train
+    step's, a deadlock the JAX package measured). Rank 0's worker writes
+    ``<name>.tmp``; the rename to ``<name>`` and the barrier after it run on
+    the main thread at the next drain point (the next write to that path,
+    ``wait()`` or ``close()``), so ``latest.ckpt`` is always complete and
+    lags the write in flight by at most one epoch. The drain's barrier tells
+    every rank whether rank 0's write failed, and each raises. The ``.pth``
+    export is written at once, then a barrier; a queued call runs on every
+    rank once the writes submitted before it have been renamed."""
 
     def __init__(self) -> None:
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-save")
         self._futures: list[Future] = []
+        self._multi = data_axis() is not None
+        # under a process group: final path -> (its .tmp, rank 0's write)
+        self._pending: dict[Path, tuple[Path, Future | None]] = {}
+        # calls waiting for the paths still pending when they were queued
+        self._calls: list[tuple[set[Path], Callable[..., Any], tuple]] = []
 
-    def submit_tree(self, path: Path, obj: Any) -> None:
-        """``save(path, obj)`` of a snapshot of ``obj`` taken now."""
+    def _write_later(self, path: Path, obj: Any) -> Future:
+        """``save(path, obj)`` of a snapshot of ``obj`` taken now, queued."""
         devices: set[torch.device] = set()
         snap = _snapshot(obj, devices)
         copied = []
@@ -141,15 +161,60 @@ class AsyncSaver:
                 event.synchronize()
             save(path, snap)
 
-        self._futures.append(self._pool.submit(write))
+        return self._pool.submit(write)
+
+    def submit_tree(self, path: Path, obj: Any) -> None:
+        """``save(path, obj)`` of a snapshot of ``obj`` taken now."""
+        if not self._multi:
+            self._futures.append(self._write_later(path, obj))
+            return
+        path = Path(path)
+        self._drain(path)  # the last write to this path lands before its .tmp is reused
+        tmp = path.with_name(f"{path.name}.tmp")
+        self._pending[path] = (tmp, self._write_later(tmp, obj) if rank() == 0 else None)
+
+    def _drain(self, path: Path) -> None:
+        """Under a process group: waits for rank 0's write to ``path``, renames
+        it into place, passes the barrier (which carries the write's failure
+        to every rank), then runs the calls that were waiting for it."""
+        if path not in self._pending:
+            return
+        tmp, future = self._pending.pop(path)
+        error = future.exception() if future is not None else None
+        if future is not None and error is None:
+            os.replace(tmp, path)
+        failed = multihost.broadcast_object(repr(error) if error is not None else None)
+        if error is not None:
+            raise error
+        if failed is not None:
+            raise RuntimeError(f"rank 0's write of {path.name} failed: {failed}")
+        ready = []
+        for waiting in self._calls:
+            waiting[0].discard(path)
+            if not waiting[0]:
+                ready.append(waiting)
+        for waiting in ready:
+            self._calls.remove(waiting)
+            waiting[1](*waiting[2])
 
     def submit_export(self, path: Path, model: torch.nn.Module) -> None:
         """``export_weights(path, model)`` of the model as it is now."""
+        if self._multi:
+            export_weights(path, model)
+            multihost.barrier()
+            return
         self.submit_tree(path, model.state_dict())
 
     def submit_call(self, fn: Callable[..., Any], *args: Any) -> None:
-        """``fn(*args)`` on the worker, after every write submitted before it."""
-        self._futures.append(self._pool.submit(fn, *args))
+        """``fn(*args)`` after every write submitted before it: on the worker,
+        or under a process group on each rank's main thread once those
+        writes are renamed."""
+        if not self._multi:
+            self._futures.append(self._pool.submit(fn, *args))
+        elif self._pending:
+            self._calls.append((set(self._pending), fn, args))
+        else:
+            fn(*args)
 
     def wait(self) -> None:
         """Blocks until everything submitted has run; re-raises the first
@@ -158,6 +223,8 @@ class AsyncSaver:
         for error in [f.exception() for f in futures]:
             if error is not None:
                 raise error
+        for path in list(self._pending):
+            self._drain(path)
 
     def close(self) -> None:
         """``wait()``, then the worker thread ends (idempotent)."""

@@ -41,7 +41,10 @@ def exact_gelu() -> bool:
 def resolve_device(config: dict[str, Any]) -> torch.device:
     """The YAML ``device``: ``cpu`` runs the kernels' plain versions on the
     CPU; any other value (the shipped configs say ``tpu``), or none, means the
-    CUDA card, and raises when there is none. Nothing falls back to the CPU."""
+    CUDA card, and raises when there is none. Nothing falls back to the CPU.
+    Under a process group the card is the rank's, ``cuda:LOCAL_RANK``
+    (``parallel/multihost.py``); else ``cuda:N`` names one, and the current
+    device serves."""
     name = str(config.get("device") or "").strip().lower()
     if name.startswith("cpu"):
         return torch.device("cpu")
@@ -50,6 +53,10 @@ def resolve_device(config: dict[str, Any]) -> torch.device:
             f"device {name or '(unset)'!r} needs a CUDA card and none is available; "
             "set device: cpu to run on the CPU"
         )
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        from deepfakedetection_tpu_torch.parallel.multihost import local_rank
+
+        return torch.device("cuda", local_rank())
     index = name.split(":", 1)[1] if name.startswith("cuda:") else None
     return torch.device("cuda", int(index) if index else torch.cuda.current_device())
 

@@ -91,12 +91,19 @@ def progress(description: str, total: int | None) -> Iterator[Any]:
         yield update
 
 
+def process_log_path(log_path: Path) -> Path:
+    """This process's log: ``log_path`` on process 0, ``<name>.p<rank>``
+    on the others."""
+    if world_size() > 1 and rank() != 0:
+        return log_path.with_name(f"{log_path.name}.p{rank()}")
+    return log_path
+
+
 @contextlib.contextmanager
 def tee_output(log_path: Path) -> Iterator[None]:
-    """Mirror stdout+stderr into ``log_path`` for the scope of the block;
-    processes other than 0 tee into ``<name>.p<rank>``."""
-    if world_size() > 1 and rank() != 0:
-        log_path = log_path.with_name(f"{log_path.name}.p{rank()}")
+    """Mirror stdout+stderr into this process's ``log_path``
+    (``process_log_path``) for the scope of the block."""
+    log_path = process_log_path(log_path)
     log_path.parent.mkdir(parents=True, exist_ok=True)
     with log_path.open("a", encoding="utf-8") as fh:
         old_out, old_err = sys.stdout, sys.stderr

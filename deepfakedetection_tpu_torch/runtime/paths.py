@@ -48,13 +48,11 @@ def world_size() -> int:
 
 
 def sync_run_id(run_id: str) -> str:
-    """Every process adopts process 0's run id (no-op single-process)."""
-    dist = _dist()
-    if dist is None or dist.get_world_size() == 1:
-        return run_id
-    box = [run_id]
-    dist.broadcast_object_list(box, src=0)
-    return box[0]
+    """Every process adopts process 0's run id (no-op single-process), over
+    the host group (``parallel/multihost.py``)."""
+    from deepfakedetection_tpu_torch.parallel.multihost import broadcast_object
+
+    return broadcast_object(run_id)
 
 
 def ensure_run_dirs(base_output_dir: str | Path, *, run_id: str | None = None) -> RunPaths:

@@ -34,8 +34,17 @@ activations in the backward (``train/steps.train_step``);
 thread (``runtime/checkpoint.AsyncSaver``), drained before a preemption save
 and before the run returns or raises; ``profile_dir`` traces the whole run
 with ``torch.profiler`` (CPU and CUDA activities) into a TensorBoard trace
-there, for short runs. More than one process raises ``NotImplementedError``
-(ROADMAP Queue 1 item 9).
+there, for short runs.
+
+Under a process group (``torchrun``, ``parallel/multihost.py``) each rank
+trains on its shard of every epoch and every step is the global batch's
+(``train/steps.train_step``): the batches are global, the warmup and eval
+batches rounded up and the fine-tune batch down to a multiple of the
+ranks, as the JAX loop does; the logged loss and validation accuracy are
+the global ones, so every rank takes the same "best" and early-stop
+decisions. Rank 0 writes the checkpoints, and a barrier follows each write
+before any rank reads it (``runtime/checkpoint.py``). A ``mesh:`` with
+``model > 1`` is refused (``parallel/mesh.MODEL_AXIS_ITEM``).
 """
 
 from __future__ import annotations
@@ -60,6 +69,8 @@ from deepfakedetection_tpu_torch.data.pipeline import (
 )
 from deepfakedetection_tpu_torch.data.transforms import build_eval_plan, build_train_plan
 from deepfakedetection_tpu_torch.evaluate.job import builder_kwargs, collect_probs, make_eval_step
+from deepfakedetection_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM, make_mesh, shard_batch
+from deepfakedetection_tpu_torch.parallel.multihost import barrier
 from deepfakedetection_tpu_torch.registry import ModelSpec
 from deepfakedetection_tpu_torch.runtime import checkpoint as ckpt
 from deepfakedetection_tpu_torch.runtime import preempt
@@ -70,7 +81,7 @@ from deepfakedetection_tpu_torch.runtime.logging import (
     progress,
     tee_output,
 )
-from deepfakedetection_tpu_torch.runtime.paths import RunPaths, world_size
+from deepfakedetection_tpu_torch.runtime.paths import RunPaths
 from deepfakedetection_tpu_torch.runtime.seeding import (
     apply_seed,
     fold_in,
@@ -132,6 +143,9 @@ class TrainJob:
     init_weights: Path | str | None = None
     unfreeze: str | tuple[str, ...] | None = None
     model_kwargs: dict[str, Any] = field(default_factory=dict)
+    # the YAML mesh: block (parallel/mesh.py): data -1 or the process count
+    mesh_data: int = -1
+    mesh_model: int = 1
 
 
 @dataclass
@@ -146,8 +160,9 @@ class TrainResult:
 
 def unported_options(job: TrainJob) -> list[str]:
     """What the port cannot run of the job, as refusal messages."""
-    if world_size() > 1:
-        return ["multi-process training on PyTorch is ROADMAP Queue 1 item 9"]
+    if job.mesh_model > 1:
+        return [f"mesh model={job.mesh_model}: sharding parameters over a model axis is "
+                f"{MODEL_AXIS_ITEM}"]
     return []
 
 
@@ -245,6 +260,10 @@ def _counters(epoch: int, best_val_acc: float, best_epoch: int, warmup_done: boo
 def _run_training(job: TrainJob, saver: ckpt.AsyncSaver | ckpt.InlineSaver) -> TrainResult:
     recipe = job.spec.recipe
     device = job.device
+    mesh = make_mesh(job.mesh_data, job.mesh_model, device)
+    n_data = mesh.data
+    # the warmup and eval batch divides over the data axis: round up
+    batch_size = -(-job.batch_size // n_data) * n_data
     apply_seed(job.seed)
     root = root_generator(job.seed)
 
@@ -285,7 +304,8 @@ def _run_training(job: TrainJob, saver: ckpt.AsyncSaver | ckpt.InlineSaver) -> T
     named = list(model.named_parameters())
     console.print(
         f"[bold]→ training {job.model_name}[/] | params="
-        f"{sum(p.numel() for _, p in named) / 1e6:.2f}M | device={device}"
+        f"{sum(p.numel() for _, p in named) / 1e6:.2f}M | device={device} | "
+        f"mesh data={n_data} model={mesh.model}"
     )
 
     # ----- phase configuration
@@ -295,10 +315,11 @@ def _run_training(job: TrainJob, saver: ckpt.AsyncSaver | ckpt.InlineSaver) -> T
     accum = recipe.accum_steps
     if recipe.accum_steps_overridable and job.accum_steps is not None:
         accum = max(1, job.accum_steps)
-    micro = recipe.finetune_micro_batch or job.batch_size
+    micro = recipe.finetune_micro_batch or batch_size
     ft_batch = micro * accum
     if ft_batch > len(train_ds):
         ft_batch = max((len(train_ds) // micro) * micro, micro)
+    ft_batch = max((ft_batch // n_data) * n_data, n_data)
     patience = (job.early_stop_patience if job.early_stop_patience is not None
                 else recipe.early_stop_patience)
     epochs = job.epochs
@@ -309,8 +330,7 @@ def _run_training(job: TrainJob, saver: ckpt.AsyncSaver | ckpt.InlineSaver) -> T
     def stage(batch, generator):
         images = stager(batch.images)
         x = augment_batch(images, generator, train_plan, out_dtype=job.compute_dtype)
-        labels = torch.from_numpy(batch.labels).to(device)
-        mask = torch.from_numpy(batch.mask).to(device)
+        labels, mask = shard_batch(mesh, (batch.labels, batch.mask))
         return x, labels, mask
 
     def train_one_epoch(opt, loader, path, desc, *, mixup=None, on_step=None, skip=0):
@@ -349,7 +369,7 @@ def _run_training(job: TrainJob, saver: ckpt.AsyncSaver | ckpt.InlineSaver) -> T
         return mean_loss, speed, batches_done, interrupted
 
     eval_loader = make_eval_loader(
-        val_ds, eval_plan, batch_size=job.batch_size, num_workers=job.num_workers,
+        val_ds, eval_plan, batch_size=batch_size, num_workers=job.num_workers,
         cache_decoded=job.cache_decoded,
     )
 
@@ -370,6 +390,7 @@ def _run_training(job: TrainJob, saver: ckpt.AsyncSaver | ckpt.InlineSaver) -> T
     # ----- auto-resume at an epoch boundary
     latest = ckpt.latest_path(job.run_paths.checkpoints)
     ema_shadow = None
+    barrier()  # rank 0's last write has landed before any rank looks
     if job.resume_auto and latest.exists():
         state = ckpt.load(latest)
         model.load_state_dict(state["model"])
@@ -402,7 +423,7 @@ def _run_training(job: TrainJob, saver: ckpt.AsyncSaver | ckpt.InlineSaver) -> T
         console.print(f"  warmup: {warmup_epochs} epoch(s), head-only "
                       f"({wu_opt.n_train}/{wu_opt.n_total} param tensors) @ lr={recipe.warmup_lr}")
         wu_loader = make_train_loader(
-            train_ds, train_plan, batch_size=job.batch_size, seed=job.seed,
+            train_ds, train_plan, batch_size=batch_size, seed=job.seed,
             num_workers=job.num_workers, cache_decoded=job.cache_decoded,
         )
         for we in range(warmup_epochs):

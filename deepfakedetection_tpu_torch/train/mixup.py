@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from deepfakedetection_tpu_torch.parallel import mesh
+
 
 @dataclass(frozen=True)
 class MixupSpec:
@@ -65,8 +67,10 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
 
 def apply_mix(images: torch.Tensor, draw: MixDraw) -> tuple[torch.Tensor, float]:
     """Mix an NCHW batch with its roll-by-one partner, in the batch's dtype;
-    returns the mixed batch and the label weight (f32) of its own labels."""
-    partner = torch.roll(images, shifts=1, dims=0)
+    returns the mixed batch and the label weight (f32) of its own labels.
+    Under a process group the partner is the global batch rolled by one
+    (``mesh.roll_batch``)."""
+    partner = mesh.roll_batch(images)
     if not draw.cutmix:
         lam = _in_dtype(draw.lam, images.dtype)
         return images * lam + partner * _in_dtype(1.0 - lam, images.dtype), draw.lam

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from deepfakedetection_tpu_torch.parallel import mesh
+
 
 def smoothed_cross_entropy(
     logits: torch.Tensor,
@@ -22,7 +24,9 @@ def smoothed_cross_entropy(
     """Mean label-smoothed softmax CE over the valid rows; logits [B, C].
     With ``class_weights`` each class component of the smoothed target is
     weighted by ``w_c`` and the mean normalises by ``sum w[y_i]`` over the
-    valid rows."""
+    valid rows. Under a process group that normaliser is summed over the
+    ranks first, so each rank's loss is its share of the global batch's
+    and the ranks' gradients sum to the global one."""
     logits = logits.float()
     num_classes = logits.shape[-1]
     smooth = F.one_hot(labels, num_classes).float() * (1.0 - label_smoothing)
@@ -39,7 +43,7 @@ def smoothed_cross_entropy(
         m = mask.float()
         losses = losses * m
         norm_w = norm_w * m
-    return losses.sum() / torch.clamp(norm_w.sum(), min=1e-6)
+    return losses.sum() / torch.clamp(mesh.all_reduce_(norm_w.sum()), min=1e-6)
 
 
 def accuracy_count(

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from deepfakedetection_tpu_torch.models import common
+from deepfakedetection_tpu_torch.parallel import mesh
 from deepfakedetection_tpu_torch.train.mixup import MixDraw, apply_mix
 from deepfakedetection_tpu_torch.train.objectives import accuracy_count, smoothed_cross_entropy
 from deepfakedetection_tpu_torch.train.optim import PhaseOptimizer
@@ -44,7 +45,15 @@ def train_step(
     """One optimizer step on a normalised NCHW batch; ``generator`` draws
     the dropout and drop-path masks, ``mix`` is the batch's mixup draw (off
     when None), ``remat`` recomputes the forward's activations in the
-    backward. Returns the loss and correct/valid counts, on the device."""
+    backward. Returns the loss and correct/valid counts, on the device.
+
+    Under a process group the batch is this rank's rows of the global batch
+    and the step is the global batch's (``parallel/mesh.py``): BatchNorm's
+    statistics, the masks, the loss normaliser and mixup's partner are the
+    global batch's, the phase's gradients are summed over the ranks before
+    the optimizer (no ``DistributedDataParallel``: its reducer acts on
+    ``.grad``, and the step takes ``autograd.grad``), and the returned loss
+    and counts are the global ones."""
     model.train()
     if mix is not None:
         images, lam = apply_mix(images, mix)
@@ -57,14 +66,20 @@ def train_step(
     )
     if mix is not None:
         loss_b = smoothed_cross_entropy(
-            logits, torch.roll(labels, 1, 0), mask, label_smoothing=label_smoothing,
+            logits, mesh.roll_batch(labels), mask, label_smoothing=label_smoothing,
             class_weights=class_weights,
         )
         loss = loss * lam + loss_b * float(np.float32(1.0) - np.float32(lam))
     grads = torch.autograd.grad(loss, opt.grad_params())
-    opt.step(grads)
+    opt.step(mesh.all_reduce_gradients(grads))
     correct, total = accuracy_count(logits.detach(), labels, mask)
-    return {"loss": loss.detach(), "correct": correct, "total": total}
+    if mesh.data_axis() is None:
+        return {"loss": loss.detach(), "correct": correct, "total": total}
+    # each rank's loss is its share of the global batch's: the sums are the
+    # global loss and counts, the same on every rank
+    summed = mesh.all_reduce_(torch.stack([loss.detach(), correct.float(), total.float()]))
+    return {"loss": summed[0], "correct": summed[1].to(torch.int32),
+            "total": summed[2].to(torch.int32)}
 
 
 @torch.no_grad()
@@ -76,7 +91,9 @@ def recalibrate_bn(
     """Precise BN: every BatchNorm's running statistics become the pooled
     statistics of training forwards over ``batches`` (batch i's masks from
     ``generator_of(i)``): mean = E[mean_k], var = E[var_k] + Var[mean_k].
-    Returns the number of batches; with none the statistics stay."""
+    Returns the number of batches; with none the statistics stay. Under a
+    process group each forward's statistics are the global batch's, so the
+    pooled statistics are the same on every rank."""
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
     was_training = model.training
     model.train()

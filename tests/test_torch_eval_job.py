@@ -34,7 +34,6 @@ import yaml
 
 import deepfakedetection_tpu.orchestrator as jax_orch
 import deepfakedetection_tpu_torch.orchestrator as port_orch
-import deepfakedetection_tpu_torch.train.loop as port_loop
 from deepfakedetection_tpu.models.efficientformer_v2 import EfficientFormerV2 as JaxEFv2
 from deepfakedetection_tpu.models.efficientnet import EfficientNet as JaxEfficientNet
 from deepfakedetection_tpu.models.fastervit import FasterViT as JaxFasterViT
@@ -399,11 +398,10 @@ def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, check
     data["models"]["efficientformerv2_s1"] = {"output_dir": str(tmp_path / "ef"),
                                               "training": {"remat": True}}
     data["selection"] = ["efficientnet_b3", "efficientformerv2_s1"]
-    cfg.write_text(yaml.safe_dump(data))
-    with monkeypatch.context() as mp:
-        mp.setattr(port_loop, "world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            port_orch.orchestrate(cfg, mode="training")
+    # a model axis (tensor parallelism) is what the port still refuses
+    cfg.write_text(yaml.safe_dump({**data, "mesh": {"data": -1, "model": 2}}))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        port_orch.orchestrate(cfg, mode="training")
     assert not (tmp_path / "out").exists()  # failed before any work
     # every family reaches the trainer, FasterViT with the fused sub-block (K6)
     # switched on as well, and S1 with remat: no refusal

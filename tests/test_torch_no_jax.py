@@ -7,7 +7,8 @@ FasterViT through the K5 wrapper, of one built with ``DFD_FUSED_ATTN`` through
 the K6 wrapper (forward and backward) and of a narrow EfficientFormerV2
 through the K7 wrapper, that EfficientFormerV2's train forward and backward
 and its Grad-CAM, import the predict CLI and the web UI, serve a batch through
-the server's micro-batcher and weigh an ensemble, one CPU train
+the server's micro-batcher and weigh an ensemble, import the data-parallel
+modules (``parallel/mesh.py``, ``parallel/multihost.py``), one CPU train
 step with the augmentation's shear rotation and one with ``remat``, a tree
 packed into tar shards and read back through the eval loader, an
 asynchronous checkpoint write, and a calibrated int8 forward
@@ -59,6 +60,11 @@ assert fused_mbconv.fused_mbconv_se.launches == 0
 import deepfakedetection_tpu_torch.runtime.checkpoint
 import deepfakedetection_tpu_torch.runtime.preempt
 import deepfakedetection_tpu_torch.train.loop
+import deepfakedetection_tpu_torch.parallel.mesh
+import deepfakedetection_tpu_torch.parallel.multihost
+from deepfakedetection_tpu_torch.parallel.mesh import make_mesh
+
+assert make_mesh(-1, 1).world == 1
 from deepfakedetection_tpu_torch.data.augment import augment_batch
 from deepfakedetection_tpu_torch.data.pipeline import build_train_plan
 from deepfakedetection_tpu_torch.ops import shear_rotate

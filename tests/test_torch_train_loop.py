@@ -243,11 +243,12 @@ def test_rotation_runs_k4_plain_inside_the_loop(tiny_image_tree, tmp_path, monke
 
 
 def test_unported_options_refuse_before_any_work(tiny_image_tree, tmp_path, monkeypatch):
-    """More than one process (ROADMAP Queue 1 item 9) is what the trainer
-    still refuses."""
-    monkeypatch.setattr(port_loop, "world_size", lambda: 2)
+    """A model axis in the mesh (ROADMAP Queue 1 item 14, tensor
+    parallelism) is what the trainer still refuses."""
     cfg = _config(tmp_path / "u.yaml", tiny_image_tree, tmp_path / "u")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    cfg.write_text(yaml.safe_dump({**yaml.safe_load(cfg.read_text()),
+                                   "mesh": {"data": -1, "model": 2}}))
+    with pytest.raises(NotImplementedError, match="item 14"):
         _train(monkeypatch, cfg)
     assert not (tmp_path / "u").exists()
 
