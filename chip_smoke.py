@@ -109,7 +109,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    each row within its model's gate of bucket 1's; the launches of one
    bucket-32 step per model (K1 2 and K2 20, K5 13, K7 4; no plain version
    on the card but FasterViT's 16-token carrier-token attentions); 64 client
-   threads x 16 requests, half with ``?model=`` (every one 200, ``/stats``
+   threads x 8 requests, half with ``?model=`` (every one 200, ``/stats``
    counting exactly what was sent, a mean batch above 1, ``/metrics``
    agreeing; requests a second, p50/p99 latency and mean batch printed
    beside the card's name and power limit); a token-gated ``/reload`` under
@@ -185,7 +185,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ranked and plain again, the NCCL all-reduce of B3's gradient buffer and
    one step's random draws for one card's rows and for an 8-card rank's,
    beside the card's name and power limit. ``destroy_process_group`` runs in
-   a ``finally``.
+   a ``finally``. Its mesh is ``make_mesh(-1, 1)``: data 1 x model 1, rank 0
+   at (0, 0), no subgroups;
+17. the image sizes past and below 224 px: ``orchestrate(mode="inference")``
+   over a small seeded tree for FasterViT-2 official at 448 px (stage 4 over
+   196 tokens: K5's long kernel, 5 launches a batch; its 64-token carrier
+   tokens and 53-token windows K5, 16), at 112 px (stage 3 one window:
+   plain blocks over 49 tokens, K5 8 a batch) and EfficientFormerV2-S1 at
+   384 px (144 tokens: K7's long kernel, 4), each from a seeded ``.pth``
+   built for its size, every launch count exactly the model's, the job's
+   outputs for 16 test images against the CPU's bf16 and f32 runs
+   (``FV_GATE``, ``EFV2_GATE``; past 224 px against f32 the gate plus the
+   CPU bf16 run's own distance from it); ``orchestrate(mode="training")``
+   for FasterViT-2 at 448 px from its ``.pth`` (K5's long backward 5 times
+   each fine-tune step); one bf16 fine-tune step at 448 px on the card
+   against the CPU (``FV_STEP_BOUNDS``). The last timings line says what
+   earlier depth was cut to pay for it.
 
 Phase 1 also holds K5 (window attention) against its plain version at the
 four shapes of the FasterViT-2 path at batch 256, and K5's backward at the
@@ -199,7 +214,12 @@ time (SDPA is a yardstick the port never calls), and K7 (talking-head
 attention) at EfficientFormerV2-S1's shape at batch 256 and at ragged sizes
 (every kind of launch plan, each the built kernel's), bit-identical run to
 run, with its event and device time (no PyTorch call computes it: its
-library time is none), and K6 (the fused attention
+library time is none), and past 128 tokens K5's long forward and backward
+at FasterViT-2's 448 px stage 4 (both head configurations) and K7's long
+kernel at S1's 384 px shape, each at odd N (129, 197, 256) too, within the
+same tolerances, bit-identical run to run, each plan the built library's,
+counted on the long kernels' counters, with event, device, plain and SDPA
+times, and K6 (the fused attention
 sub-block) at the six FasterViT-2 attentions of both head configurations,
 forward at batch 256 and backward at 128 (plus odd sizes and each
 direction's tails: partial window and head groups, empty cluster blocks; the
@@ -275,7 +295,8 @@ K2_SHAPES = [
 K1_ODD = [(9, 11, 128, 5), (37, 45, 72, 3), (13, 10, 20, 5)]
 K2_ODD = [(9, 11, 32, 192, 5), (30, 33, 24, 144, 5), (1, 1, 8, 48, 5), (13, 10, 20, 42, 3)]
 K1_TOL = {"y": (3e-2, 3e-2), "pool": (2e-3, 2e-3)}  # (atol, rtol)
-SPLITS = {"val": 256, "test": 1280}  # phase 3 images per split
+# phase 3 images per split (the test split 1,280 until phase 17 took its time)
+SPLITS = {"val": 256, "test": 640}
 EVAL_BATCH = 128
 EVAL_TF = {"ensure_rgb": True, "val_resize": True, "val_center_crop": True}
 K2_TOL = {"y": (5e-2, 5e-2), "pool": (2e-2, 5e-2)}
@@ -286,7 +307,8 @@ K4_CASES = [(128, 257, 257, 0.17453, 0.17453), (16, 257, 257, 0.23911, 0.23911),
             (16, 96, 96, 0.45, 0.45), (8, 37, 45, 0.2, 0.2), (8, 45, 37, 0.45, 0.45),
             (8, 33, 31, 0.2, 0.0)]
 K4_TOL = 3 * 2.0**-8
-TRAIN_SPLITS = {"train": 1024, "val": 128, "test": 128}  # phase 4 images per split
+# phase 4 images per split (the train split 1,024 until phase 17 took its time)
+TRAIN_SPLITS = {"train": 512, "val": 128, "test": 128}
 TRAIN_TF = {"ensure_rgb": True, "train_random_resized_crop": True,
             "train_random_horizontal_flip": True, "train_random_rotation": True,
             "train_color_jitter": True, "train_random_erasing": True}
@@ -384,6 +406,25 @@ K3_SHAPES = [(56, 56, 32, 3, 2), (28, 28, 48, 5, 2), (14, 14, 96, 3, 4), (14, 14
 K3_ODD = [(10, 12, 24, 5), (1, 1, 16, 5), (6, 6, 4, 3), (9, 11, 22, 3), (5, 7, 13, 5),
           (13, 16, 64, 3), (9, 10, 192, 3), (7, 9, 200, 5), (30, 30, 20, 5)]
 K3_LAUNCHES = {"k1": 2, "k2": 2, "k3": 18}  # per B3 forward with DFD_FUSED_MBCONV
+# Past 128 tokens (phase 1's long kernels and phase 17): FasterViT-2 at 448
+# px (stage 4 one window of 14 x 14 = 196 tokens of C 768; 5 launches a
+# forward) at its eval batch and fine-tune batch, in both head
+# configurations, (config, windows, N, C, heads, launches); odd sizes
+# (windows, N, heads, d): one past the short kernels, 197, 256 (512 px), a
+# head_dim off the 16-byte loads (d 40) and the backward's largest at d 128
+FV448, FV448_BATCH, FV448_STEP_BATCH = 448, 64, 32
+K5_LONG_SHAPES = [("official", FV448_BATCH, 196, 768, 16, 5), ("tpu", FV448_BATCH, 196, 768, 6, 5)]
+K5_LONG_BWD_SHAPES = [(c, FV448_STEP_BATCH, N, C, h, n) for c, _, N, C, h, n in K5_LONG_SHAPES]
+K5_LONG_ODD = [(8, 129, 2, 64), (8, 197, 3, 40), (8, 256, 16, 48), (8, 208, 1, 128)]
+# K7 at EfficientFormerV2-S1's 384 px shape (12 x 12 = 144 tokens in the
+# last two blocks of stages 3 and 4), (B, N, heads, d, dv, launches); odd N
+EF384, EF384_BATCH = 384, 128
+K7_LONG_SHAPES = [(EF384_BATCH, 144, 8, 32, 128, 4)]
+K7_LONG_ODD = [(8, 129, 8, 32, 128), (8, 197, 8, 32, 128), (8, 256, 8, 32, 128),
+               (8, 150, 3, 16, 40)]
+FV112 = 112  # FasterViT's stage 3 one 7 x 7 window: plain blocks, no carrier tokens
+SIZES_SPLITS = {"val": 32, "test": 64}  # phase 17's eval tree
+FV448_TRAIN_SPLITS = {"train": 128, "val": 32}  # phase 17's training tree at 448 px
 # the H100 SXM's published rates (NVIDIA's data sheet): HBM bytes/s, dense
 # tensor-core bf16 and non-tensor f32 operations/s
 HBM_RATE, BF16_RATE, F32_RATE = 3.35e12, 989e12, 67e12
@@ -584,6 +625,9 @@ def phase1(device, report, parent: str | None = None):
     kernels["window_attention_bwd"]["parent"] = k5_parent(parent, fwd=False)
     kernels["attn4d"] = phase1_k7(device)
     kernels["attn4d"]["parent"] = k7_parent(parent)
+    kernels["window_attention_long"], kernels["window_attention_long_bwd"] = \
+        phase1_k5_long(device)
+    kernels["attn4d_long"] = phase1_k7_long(device)
     kernels["attn_subblock"], kernels["attn_subblock_bwd"] = phase1_k6(device)
     kernels["fused_mbconv_se"] = phase1_k3(device)
     kernels["fused_mbconv_se"]["parent"] = k3_parent(parent)
@@ -1124,6 +1168,207 @@ def phase1_k7(device) -> dict:
     log(f"  attn4d per EfficientFormerV2-S1 forward at batch {EF_BATCH} (4 launches): kernel "
         f"{agg['ms']:.4f} ms (device {agg['device_ms']:.4f}), plain {agg['plain_ms']:.4f} ms, "
         f"bound {bound_ms:.4f} ms, {agg['device_ms'] / bound_ms:.1f}x off")
+    return {"rows": rows, "max_abs_err": worst, **agg, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def phase1_k5_long(device) -> tuple[dict, dict]:
+    """K5's long kernels (past 128 tokens, ``csrc/window_attn_long.cu``)
+    against the plain versions at FasterViT-2's 448 px stage 4 (eval batch
+    ``FV448_BATCH``, fine-tune batch ``FV448_STEP_BATCH``, both head
+    configurations) and ``K5_LONG_ODD``: the forward within two bf16 steps of
+    the output's scale, the backward's dq, dk and dv within two of each one's
+    and dbias within ``K5_BWD_DBIAS_TOL`` of its scale; both bit-identical
+    over two runs (dbias included); each plan the built library's; a launch
+    counted on the long counters and none on the short ones. Kernel, plain
+    and SDPA times (CUDA events, and device time), the bound, per forward or
+    fine-tune step of each head configuration."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+
+    sms = k5.sm_count(device)
+
+    def inputs(B, N, C, h, seed):
+        g = torch.Generator().manual_seed(seed)
+        qkv = torch.randn(B, N, 3 * C, generator=g).to(torch.bfloat16).to(device)
+        bias = torch.randn(h, N, N, generator=g).to(device)
+        dout = torch.randn(B, N, C, generator=g).to(torch.bfloat16).to(device)
+        return qkv, bias, dout, (C // h) ** -0.5
+
+    def check(label, qkv, bias, dout, h, scale, bwd=True):
+        B, N, C3 = qkv.shape
+        d = C3 // 3 // h
+        if (k5.long_fwd_plan(B, N, h, d) != k5.kernel_long_fwd_plan(B, N, h, d)
+                or k5.long_bwd_plan(B, N, h, d, sms) != k5.kernel_long_bwd_plan(B, N, h, d, sms)):
+            raise AssertionError(f"window_attention_long {label}: plans differ from the "
+                                 "kernel's")
+        short = (k5.window_attention.launches, k5.window_attention_bwd.launches)
+        long = (k5.window_attention_long.launches, k5.window_attention_long_bwd.launches)
+        out = k5.window_attention(qkv, bias, num_heads=h, scale=scale)
+        again = k5.window_attention(qkv, bias, num_heads=h, scale=scale)
+        got = k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=scale)
+        twice = k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=scale)
+        torch.cuda.synchronize()
+        if ((k5.window_attention.launches, k5.window_attention_bwd.launches) != short
+                or (k5.window_attention_long.launches, k5.window_attention_long_bwd.launches)
+                != (long[0] + 2, long[1] + 2)):
+            raise AssertionError(f"window_attention_long {label}: launches not counted on the "
+                                 "long kernels")
+        if not (torch.equal(out, again) and torch.equal(got[0], twice[0])
+                and torch.equal(got[1], twice[1])):
+            raise AssertionError(f"window_attention_long {label}: two runs differ")
+        ref = k5.window_attention_plain(qkv, bias, num_heads=h, scale=scale)
+        errs = {"out": check_close(f"window_attention_long {label}", out, ref, two_steps(ref),
+                                   0.0)}
+        ref_qkv, ref_bias = k5.window_attention_bwd_plain(qkv, bias, dout, num_heads=h,
+                                                          scale=scale)
+        C = C3 // 3
+        for i, part in enumerate(("dq", "dk", "dv")):
+            r = ref_qkv[..., i * C:(i + 1) * C]
+            errs[part] = check_close(f"window_attention_long_bwd {label} {part}",
+                                     got[0][..., i * C:(i + 1) * C], r, two_steps(r), 0.0)
+        errs["dbias"] = check_close(f"window_attention_long_bwd {label} dbias", got[1],
+                                    ref_bias, K5_BWD_DBIAS_TOL * float(ref_bias.abs().max()), 0.0)
+        return errs
+
+    fwd_rows, bwd_rows, worst_f, worst_b = [], [], 0.0, 0.0
+    per_f, per_b = {}, {}
+    for i, (shapes, per, rows, is_fwd) in enumerate(((K5_LONG_SHAPES, per_f, fwd_rows, True),
+                                                     (K5_LONG_BWD_SHAPES, per_b, bwd_rows,
+                                                      False))):
+        for j, (config, B, N, C, h, count) in enumerate(shapes):
+            qkv, bias, dout, scale = inputs(B, N, C, h, 800 + 10 * i + j)
+            errs = check(f"{config} {(B, N, C, h)}", qkv, bias, dout, h, scale)
+            if is_fwd:
+                worst_f = max(worst_f, errs["out"])
+
+                def call():
+                    return k5.window_attention(qkv, bias, num_heads=h, scale=scale)
+
+                def plain():
+                    return k5.window_attention_plain(qkv, bias, num_heads=h, scale=scale)
+
+                kernels, (b_ms, b_by) = k5.LONG_FWD_KERNELS, k5_bound(B, N, C, h)
+                lib, lib_dev = sdpa_ms(qkv, bias, h, scale)
+            else:
+                worst_b = max(worst_b, errs["dq"], errs["dk"], errs["dv"])
+
+                def call():
+                    return k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=scale)
+
+                def plain():
+                    return k5.window_attention_bwd_plain(qkv, bias, dout, num_heads=h,
+                                                         scale=scale)
+
+                kernels, (b_ms, b_by) = k5.LONG_BWD_KERNELS, k5_bwd_bound(B, N, C, h)
+                lib_t, backend = sdpa_bwd_ms(qkv, bias, dout, h, scale)
+                lib = None if lib_t is None else lib_t["median"]
+                lib_dev = None if lib_t is None else lib_t["device_ms"]
+            t_k = spread(cuda_times(call, runs=25))
+            dev = sum(kernel_split(call, calls=25, expect=kernels)[0].values())
+            t_p = spread(cuda_times(plain, runs=10))
+            rows.append({"config": config, "shape": (B, N, C, h), "launches": count,
+                         "max_abs_err": errs, "ms": t_k, "device_ms": dev, "plain_ms": t_p,
+                         "library_ms": lib, "library_device_ms": lib_dev, "bound_ms": b_ms,
+                         "bound_by": b_by, "x_off": dev / b_ms})
+            agg = per.setdefault(config, {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                                          "library_ms": 0.0, "library_device_ms": 0.0,
+                                          "bounds": []})
+            agg["ms"] += count * t_k["median"]
+            agg["device_ms"] += count * dev
+            agg["plain_ms"] += count * t_p["median"]
+            for key, v in (("library_ms", lib), ("library_device_ms", lib_dev)):
+                agg[key] = None if v is None or agg[key] is None else agg[key] + count * v
+            agg["bounds"].append((count, (b_ms, b_by)))
+            name = "window_attention_long" + ("" if is_fwd else "_bwd")
+            log(f"  {name} {config} windows {B} N {N} C {C} heads {h}: max|d| "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f", bit-identical over two runs; kernel {t_k['median']:.4f} ms (device "
+                f"{dev:.4f}), plain {t_p['median']:.4f} ms, sdpa "
+                f"{lib if lib is None else round(lib, 4)} ms (device "
+                f"{lib_dev if lib_dev is None else round(lib_dev, 4)}), "
+                f"bound {b_ms:.4f} ms ({b_by}), {dev / b_ms:.1f}x off")
+    for B, N, h, d in K5_LONG_ODD:
+        qkv, bias, dout, scale = inputs(B, N, h * d, h, 900 + N * d + h)
+        errs = check(f"{(B, N, h, d)}", qkv, bias, dout, h, d**-0.5)
+        fwd_rows.append({"shape": (B, N, h * d, h), "max_abs_err": errs})
+        log(f"  window_attention_long odd {(B, N, h, d)}: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    out = []
+    for per, rows, worst, unit in ((per_f, fwd_rows, worst_f, f"forward at batch {FV448_BATCH}"),
+                                   (per_b, bwd_rows, worst_b,
+                                    f"fine-tune step at batch {FV448_STEP_BATCH}")):
+        for config, agg in per.items():
+            agg["bound_ms"], agg["bound_by"] = add_bounds(agg.pop("bounds"))
+            log(f"  K5 long per FasterViT-2 {config} {unit}, {FV448} px (5 launches): kernel "
+                f"{agg['ms']:.4f} ms (device {agg['device_ms']:.4f}), plain "
+                f"{agg['plain_ms']:.4f} ms, sdpa {agg['library_ms']} ms (device "
+                f"{agg['library_device_ms']}), bound {agg['bound_ms']:.4f} ms")
+        out.append({"rows": rows, "max_abs_err": worst, "per_pass": per, **per["official"]})
+    return out[0], out[1]
+
+
+def phase1_k7_long(device) -> dict:
+    """K7's long kernel (past 128 tokens, ``csrc/attn4d_long.cu``) against
+    its plain version at EfficientFormerV2-S1's 384 px shape and
+    ``K7_LONG_ODD``: within two bf16 steps of the output's scale,
+    bit-identical over two runs, the plan the built library's, counted on
+    ``attn4d_long`` and not ``attn4d``; kernel, plain and device times per
+    S1 forward at 384 px. No single PyTorch call computes it (library:
+    none)."""
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import attn4d as k7
+
+    def check(label, args, h, d):
+        B, N = args[0].shape[:2]
+        dv = args[2].shape[2] // h
+        if k7.long_plan(B, N, h, d, dv) != k7.kernel_long_plan(B, N, h, d, dv):
+            raise AssertionError(f"attn4d_long {label}: plan {k7.long_plan(B, N, h, d, dv)} is "
+                                 "not the kernel's")
+        before = (k7.attn4d.launches, k7.attn4d_long.launches)
+        out = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
+        again = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
+        torch.cuda.synchronize()
+        if (k7.attn4d.launches, k7.attn4d_long.launches) != (before[0], before[1] + 2):
+            raise AssertionError(f"attn4d_long {label}: launches not counted on the long kernel")
+        if not torch.equal(out, again):
+            raise AssertionError(f"attn4d_long {label}: two runs differ")
+        ref = k7.attn4d_plain(*args, num_heads=h, scale=d**-0.5)
+        return check_close(f"attn4d_long {label}", out, ref, two_steps(ref), 0.0)
+
+    rows, worst = [], 0.0
+    agg = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bounds": []}
+    for i, (B, N, h, d, dv, count) in enumerate(K7_LONG_SHAPES):
+        args = k7_inputs(B, N, h, d, dv, seed=1000 + i, device=device)
+        err = check(f"{(B, N, h, d, dv)}", args, h, d)
+        worst = max(worst, err)
+        t_k = spread(cuda_times(lambda: k7.attn4d(*args, num_heads=h, scale=d**-0.5), runs=25))
+        dev = sum(kernel_split(lambda: k7.attn4d(*args, num_heads=h, scale=d**-0.5), calls=25,
+                               expect=("attn4d_long_kernel",))[0].values())
+        t_p = spread(cuda_times(lambda: k7.attn4d_plain(*args, num_heads=h, scale=d**-0.5),
+                                runs=10))
+        b_ms, b_by = k7_bound(B, N, h, d, dv)
+        rows.append({"shape": (B, N, h, d, dv), "launches_per_forward": count,
+                     "max_abs_err": err, "ms": t_k, "device_ms": dev, "plain_ms": t_p,
+                     "bound_ms": b_ms, "bound_by": b_by, "x_off": dev / b_ms,
+                     "plan": k7.long_plan(B, N, h, d, dv)._asdict()})
+        agg["ms"] += count * t_k["median"]
+        agg["device_ms"] += count * dev
+        agg["plain_ms"] += count * t_p["median"]
+        agg["bounds"].append((count, (b_ms, b_by)))
+        log(f"  attn4d_long {(B, N, h, d, dv)}: max|d|={err:.3e}, bit-identical over two runs; "
+            f"kernel {t_k['median']:.4f} ms, device {dev:.4f} ms, plain {t_p['median']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {dev / b_ms:.1f}x off")
+    for i, (B, N, h, d, dv) in enumerate(K7_LONG_ODD):
+        err = check(f"{(B, N, h, d, dv)}", k7_inputs(B, N, h, d, dv, 1010 + i, device), h, d)
+        rows.append({"shape": (B, N, h, d, dv), "max_abs_err": err})
+        log(f"  attn4d_long odd {(B, N, h, d, dv)}: max|d|={err:.3e}")
+    bound_ms, bound_by = add_bounds(agg.pop("bounds"))
+    log(f"  attn4d_long per EfficientFormerV2-S1 forward at batch {EF384_BATCH}, {EF384} px (4 "
+        f"launches): kernel {agg['ms']:.4f} ms (device {agg['device_ms']:.4f}), plain "
+        f"{agg['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms")
     return {"rows": rows, "max_abs_err": worst, **agg, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
@@ -1824,13 +2069,13 @@ def calibrate_bn(model, x) -> None:
         conv_bn(model.head, h)
 
 
-def seeded_images(n: int, g):
-    """Normalized [n, 3, 224, 224] images whose brightness varies per image,
-    as the phase-3 classes' do."""
+def seeded_images(n: int, g, size: int = 224):
+    """Normalized [n, 3, size, size] images whose brightness varies per
+    image, as the phase-3 classes' do."""
     import torch
 
     offset = torch.rand(n, 1, 1, 1, generator=g) * 3.0 - 1.5
-    return offset + 0.5 * torch.randn(n, 3, 224, 224, generator=g)
+    return offset + 0.5 * torch.randn(n, 3, size, size, generator=g)
 
 
 def fit_head(model, x, head=None) -> None:
@@ -1886,7 +2131,8 @@ def seeded_b3_state(seed: int = 0):
     return model.state_dict()
 
 
-def check_logits(name: str, logits, bf16_ref, f32_ref, gate: float = 5e-2) -> dict[str, float]:
+def check_logits(name: str, logits, bf16_ref, f32_ref, gate: float = 5e-2,
+                 f32_drift: bool = False) -> dict[str, float]:
     """The card's bf16 logits against two CPU runs of the same weights on the
     same inputs: the bf16 model through the plain versions, which rounds
     where the kernels and the JAX package round, and the f32 model (the
@@ -1900,7 +2146,11 @@ def check_logits(name: str, logits, bf16_ref, f32_ref, gate: float = 5e-2) -> di
     expanded from zero-padded x, 0.75 with one residual dropped. The kernels'
     rounding points are phase 1's to hold. The probabilities must spread,
     with the f32 argmax on every row whose f32 probability margin is over
-    5e-2 (at least half of them)."""
+    5e-2 (at least half of them). With ``f32_drift`` the bound against the
+    f32 run is ``gate`` plus the CPU bf16 run's own distance from it: at
+    sizes past 224 px the bf16 model's rounding alone (phase 17, S1 at 384
+    px: the CPU's bf16 run 4.8e-3 from its f32 run) can exceed a gate set at
+    224 px, and the kernels are then held by the bf16 comparison."""
     import torch
 
     logits, bf16_ref, f32_ref = logits.double(), bf16_ref.double(), f32_ref.double()
@@ -1909,19 +2159,21 @@ def check_logits(name: str, logits, bf16_ref, f32_ref, gate: float = 5e-2) -> di
     scale = f32_ref.abs().max()
     rel16 = float((logits - bf16_ref).abs().max() / scale)
     rel32 = float((logits - f32_ref).abs().max() / scale)
+    drift = float((bf16_ref - f32_ref).abs().max() / scale) if f32_drift else 0.0
     p_ref = torch.softmax(f32_ref, dim=-1)
     decided = (p_ref[:, 1] - p_ref[:, 0]).abs() > 5e-2
     same = bool((logits.argmax(-1) == f32_ref.argmax(-1))[decided].all())
     spread = float(p_ref[:, 1].max() - p_ref[:, 1].min())
     log(f"  {name}: max|dlogit|/scale {rel16:.3e} against bf16 CPU, {rel32:.3e} against "
-        f"f32 CPU; p1 spread {spread:.3f}; {int(decided.sum())}/{len(f32_ref)} rows decided, "
+        f"f32 CPU" + (f" (CPU bf16 against f32 {drift:.3e})" if f32_drift else "")
+        + f"; p1 spread {spread:.3f}; {int(decided.sum())}/{len(f32_ref)} rows decided, "
         f"argmax equal there: {same}")
-    if max(rel16, rel32) > gate or spread < 0.3 or 2 * int(decided.sum()) < len(f32_ref) \
-            or not same:
+    if rel16 > gate or rel32 > gate + drift or spread < 0.3 \
+            or 2 * int(decided.sum()) < len(f32_ref) or not same:
         raise AssertionError(f"{name} disagrees with the CPU references: {logits} vs "
                              f"{bf16_ref} (bf16) and {f32_ref} (f32)")
     return {"max_rel_dlogit_bf16": rel16, "max_rel_dlogit_f32": rel32, "p1_spread": spread,
-            "decided": int(decided.sum())}
+            "decided": int(decided.sum()), "cpu_bf16_drift": drift}
 
 
 def cpu_logits(state, x):
@@ -2006,22 +2258,22 @@ def write_jpeg_tree(root: Path, counts: dict[str, int], seed: int) -> None:
 
 
 def eval_config(work: Path, name: str, model: str, out: str, weights: Path, batch: int,
-                device, data: Path | None = None) -> Path:
+                device, data: Path | None = None, img_size: int = 224) -> Path:
     """Writes ``work / name``: a YAML config that evaluates ``model`` from
     ``weights`` over the JPEG tree ``work / "data"`` (or ``data``) at ``batch``,
-    224 px, with runs under ``work / out``."""
+    ``img_size`` px, with runs under ``work / out``."""
     import yaml
 
     cfg = {
         "seed": 1,
         "device": str(device),
         "data": {"root": str(data or work / "data"), "test_split": "test", "val_split": "val",
-                 "num_classes": 2, "img_size": 224},
+                 "num_classes": 2, "img_size": img_size},
         "models": {model: {
             "output_dir": str(work / out),
             "transforms": {"eval": EVAL_TF},
             "inference": {"weights": str(weights), "split": "test", "batch_size": batch,
-                          "num_workers": 8, "img_size": 224},
+                          "num_workers": 8, "img_size": img_size},
         }},
         "selection": [model],
     }
@@ -2115,8 +2367,9 @@ def test_picks(data: Path) -> list[int]:
     return list(range(8)) + list(range(n - 8, n))
 
 
-def test_images(data: Path):
-    """``test_picks``' images decoded and normalized as the eval job does (NCHW f32)."""
+def test_images(data: Path, img_size: int = 224):
+    """``test_picks``' images decoded and normalized as the eval job does at
+    ``img_size`` (NCHW f32)."""
     import torch
 
     from deepfakedetection_tpu_torch.data.augment import normalize_batch
@@ -2126,7 +2379,7 @@ def test_images(data: Path):
         scan_image_folder,
     )
 
-    plan = build_eval_plan(224, EVAL_TF)
+    plan = build_eval_plan(img_size, EVAL_TF)
     ds = scan_image_folder(data / "test")
     picked = test_picks(data)
     ds = dataclasses.replace(ds, samples=[ds.samples[i] for i in picked])
@@ -2134,18 +2387,20 @@ def test_images(data: Path):
     return normalize_batch(torch.from_numpy(batch.images), plan)
 
 
-def reference_check(res, data: Path, refs_of, gate: float = 5e-2) -> dict[str, float]:
+def reference_check(res, data: Path, refs_of, gate: float = 5e-2,
+                    img_size: int = 224, f32_drift: bool = False) -> dict[str, float]:
     """The job's outputs for 16 test images, the first and last 8 (both
     classes), against ``refs_of(x)``, the CPU's (bf16, f32) logits over the
-    same decoded pixels, as logit differences log(p1 / p0): what the job's
-    probabilities keep of the logits."""
+    same decoded pixels at ``img_size``, as logit differences log(p1 / p0):
+    what the job's probabilities keep of the logits."""
     import torch
 
-    refs = refs_of(test_images(data))
+    refs = refs_of(test_images(data, img_size))
     p = torch.from_numpy(res.probs[test_picks(data)]).double()
     got = torch.stack([torch.zeros(len(p), dtype=p.dtype), p[:, 1].log() - p[:, 0].log()], -1)
     return check_logits("main path (card), 16 test images", got,
-                        *(r.double() - r[:, :1].double() for r in refs), gate=gate)
+                        *(r.double() - r[:, :1].double() for r in refs), gate=gate,
+                        f32_drift=f32_drift)
 
 
 def train_config(work: Path, data: Path, device, epochs: int, **training) -> Path:
@@ -2174,7 +2429,7 @@ def train_config(work: Path, data: Path, device, epochs: int, **training) -> Pat
 def counted(fn):
     """Runs ``fn`` with every kernel's launch count at 0 before it and reads
     them after it: (fn's result, {"k1", "k2", "k3", "k4", "k5", "k5_bwd",
-    "k6", "k6_bwd", "k7"})."""
+    "k5_long", "k5_long_bwd", "k6", "k6_bwd", "k7", "k7_long"})."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import attn4d as k7
@@ -2188,14 +2443,20 @@ def counted(fn):
     k1.depthwise_silu_pool.launches = k2.expand_dw_silu_pool.launches = 0
     k3.fused_mbconv_se.launches = k4.rotate_batch.launches = k5.window_attention.launches = 0
     k5.window_attention_bwd.launches = k7.attn4d.launches = 0
+    k5.window_attention_long.launches = k5.window_attention_long_bwd.launches = 0
+    k7.attn4d_long.launches = 0
     k6.attn_subblock.launches = k6.attn_subblock_bwd.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"k1": k1.depthwise_silu_pool.launches, "k2": k2.expand_dw_silu_pool.launches,
                  "k3": k3.fused_mbconv_se.launches,
                  "k4": k4.rotate_batch.launches, "k5": k5.window_attention.launches,
-                 "k5_bwd": k5.window_attention_bwd.launches, "k6": k6.attn_subblock.launches,
-                 "k6_bwd": k6.attn_subblock_bwd.launches, "k7": k7.attn4d.launches}
+                 "k5_bwd": k5.window_attention_bwd.launches,
+                 "k5_long": k5.window_attention_long.launches,
+                 "k5_long_bwd": k5.window_attention_long_bwd.launches,
+                 "k6": k6.attn_subblock.launches,
+                 "k6_bwd": k6.attn_subblock_bwd.launches, "k7": k7.attn4d.launches,
+                 "k7_long": k7.attn4d_long.launches}
 
 
 def logged_speeds(log_text: str) -> dict[str, float]:
@@ -2228,8 +2489,8 @@ def phase4(device, report):
     wall = time.perf_counter() - t0
     steps = warmup_steps + ft_steps
     per_forward = create_efficientnet("b3").eval().kernel_launches_per_forward()
-    want = {"k1": per_forward["k1"] * 2 * val_batches, "k2": per_forward["k2"] * 2 * val_batches,
-            "k3": 0, "k4": steps, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0, "k7": 0}
+    want = {**ZERO_LAUNCHES, "k1": per_forward["k1"] * 2 * val_batches,
+            "k2": per_forward["k2"] * 2 * val_batches, "k4": steps}
     log(f"  training (1 epoch): {steps} train steps, {2 * val_batches} val batches; launches "
         f"K4={launches['k4']} K1={launches['k1']} K2={launches['k2']}; wall {wall:.1f} s")
     if launches != want:
@@ -2479,9 +2740,9 @@ def step_times(device) -> dict:
 FV_GATE = {"official": 1e-2, "tpu": 3e-3}
 
 
-def seeded_fastervit_state(config: str, seed: int):
+def seeded_fastervit_state(config: str, seed: int, img_size: int = 224):
     """Full-width FasterViT-2 state dict of ``config`` (the official one in
-    the wheel's key names): generator-seeded weights, the transformer blocks'
+    the wheel's key names) built for ``img_size``: generator-seeded weights, the transformer blocks'
     dense layers at unit gain (N(0, 1/fan_in): the 0.02 init leaves the
     attention branches too small to move the logits); the conv stages'
     BatchNorm statistics calibrated on a seeded batch (batch statistics of
@@ -2497,8 +2758,9 @@ def seeded_fastervit_state(config: str, seed: int):
     from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
 
     g = torch.Generator().manual_seed(seed)
-    model = create_faster_vit("2", head_config=config, dtype=torch.float32, generator=g).eval()
-    x = seeded_images(8, g)
+    model = create_faster_vit("2", head_config=config, dtype=torch.float32, generator=g,
+                              img_size=img_size).eval()
+    x = seeded_images(8, g, img_size)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, Linear):
@@ -2531,13 +2793,13 @@ def seeded_fastervit_state(config: str, seed: int):
 
 
 def fastervit_logits(state, config: str, x, device, dtype):
-    """FasterViT-2 logits of ``state`` on ``device`` in ``dtype``, f32 on the
-    CPU."""
+    """FasterViT-2 logits of ``state`` on ``device`` in ``dtype`` at ``x``'s
+    size, f32 on the CPU."""
     import torch
 
     from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
 
-    model = create_faster_vit("2", head_config=config, dtype=dtype)
+    model = create_faster_vit("2", head_config=config, dtype=dtype, img_size=x.shape[-1])
     model.load_state_dict(state)
     model = model.to(device).eval()
     with torch.no_grad():
@@ -2555,7 +2817,7 @@ def fastervit_against_cpu(device, config: str, state, x) -> dict:
 
     want = create_faster_vit("2", head_config=config).kernel_launches_per_forward()
     card, n = counted(lambda: fastervit_logits(state, config, x, device, torch.bfloat16))
-    if want not in ({"k5": 13, "k6": 0}, {"k5": 0, "k6": K6_LAUNCHES}) \
+    if want not in ({"k5": 13, "k5_long": 0, "k6": 0}, {"k5": 0, "k5_long": 0, "k6": K6_LAUNCHES}) \
             or {k: n[k] for k in want} != want:
         raise AssertionError(f"{config} forward: launches {n}, expected {want}")
     cpu = [fastervit_logits(state, config, x, torch.device("cpu"), dt)
@@ -2613,8 +2875,7 @@ def phase5(device, report):
     res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[FV])
     wall = time.perf_counter() - t0
     batches = sum(-(-n // FV_BATCH) for n in SPLITS.values())
-    want = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 13 * batches, "k5_bwd": 0, "k6": 0,
-            "k6_bwd": 0, "k7": 0}
+    want = {**ZERO_LAUNCHES, "k5": 13 * batches}
     log(f"  main path: {batches} forward batches, launches {launches}; test pass "
         f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
     if launches != want:
@@ -2652,18 +2913,19 @@ FV_STEP_BATCH = 4  # images of the card-against-CPU step (full width, 224 px)
 
 def fv_train_config(work: Path, data: Path, device, runs: str = "runs_fv",
                     init_weights: Path | None = None, epochs: int = 1,
-                    training: dict | None = None, profile_dir: Path | None = None) -> Path:
+                    training: dict | None = None, profile_dir: Path | None = None,
+                    img_size: int = 224) -> Path:
     """The shipped FasterViT-2 block of ``config/train.yaml`` (its transforms,
-    batch 64, the recipe's warmup and fine-tune) for ``epochs`` over ``data``,
-    into ``work / runs``, from ``init_weights`` when given, with more
-    ``training`` keys and a ``profile_dir`` when given."""
+    batch 64, the recipe's warmup and fine-tune) for ``epochs`` over ``data``
+    at ``img_size``, into ``work / runs``, from ``init_weights`` when given,
+    with more ``training`` keys and a ``profile_dir`` when given."""
     import yaml
 
     cfg = {
         "seed": 1,
         "device": str(device),
         "data": {"root": str(data), "train_split": "train", "val_split": "val",
-                 "test_split": "test", "num_classes": 2, "img_size": 224},
+                 "test_split": "test", "num_classes": 2, "img_size": img_size},
         "models": {FV: {
             "output_dir": str(work / runs),
             "transforms": {"train": FV_TRAIN_TF, "eval": EVAL_TF},
@@ -2672,7 +2934,7 @@ def fv_train_config(work: Path, data: Path, device, runs: str = "runs_fv",
                          **({"init_weights": str(init_weights)} if init_weights else {}),
                          **(training or {})},
             "inference": {"weights": "auto", "split": "test", "batch_size": 64,
-                          "num_workers": 8, "img_size": 224},
+                          "num_workers": 8, "img_size": img_size},
         }},
         "selection": [FV],
         **({"profile_dir": str(profile_dir)} if profile_dir else {}),
@@ -2726,9 +2988,8 @@ def phase6(device, report):
     if (warm, ft) != ((13, 0), (13, 13)):
         raise AssertionError(f"K5 launches per warmup and fine-tune step: {warm}, {ft}")
     want_steps = [(False, *warm)] * warmup_steps + [(True, *ft)] * ft_steps
-    want = {"k1": 0, "k2": 0, "k3": 0, "k4": 0,
-            "k5": 13 * (warmup_steps + ft_steps + 2 * val_batches), "k5_bwd": 13 * ft_steps,
-            "k6": 0, "k6_bwd": 0, "k7": 0}
+    want = {**ZERO_LAUNCHES, "k5": 13 * (warmup_steps + ft_steps + 2 * val_batches),
+            "k5_bwd": 13 * ft_steps}
     log(f"  training (1 epoch, tpu configuration): {warmup_steps} warmup steps at batch 64, "
         f"{ft_steps} fine-tune steps at 32 x 4, {2 * val_batches} val batches; launches "
         f"{launches}; K5 forward/backward per warmup step {per_step[0][1:]}, per fine-tune step "
@@ -2788,7 +3049,8 @@ def fv_gradients(state, config: str, x, labels, device, dtype):
     from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
     from deepfakedetection_tpu_torch.train.objectives import smoothed_cross_entropy
 
-    model = create_faster_vit("2", head_config=config, dtype=dtype, drop_path_rate=0.0)
+    model = create_faster_vit("2", head_config=config, dtype=dtype, drop_path_rate=0.0,
+                              img_size=x.shape[-1])
     model.load_state_dict(state)
     model = model.to(device).train()
     labels = labels.to(device)
@@ -2846,22 +3108,27 @@ FV_STEP_BOUNDS = {
 }
 
 
-def fv_step_against_cpu(device, config: str, dtypes=("f32", "bf16")) -> dict:
+def fv_step_against_cpu(device, config: str, dtypes=("f32", "bf16"), img_size: int = 224,
+                        state=None) -> dict:
     """One full-width FasterViT-2 fine-tune step (forward, loss, gradients;
-    drop-path 0) on the card and on the CPU from the same seeded weights and
-    images, in bf16 (the card through K5 forward and backward, or K6's with
-    ``DFD_FUSED_ATTN``, the CPU through their plain versions) and in f32 (TF32
-    off; attention in plain ops on both), held to ``FV_STEP_BOUNDS``."""
+    drop-path 0) at ``img_size`` on the card and on the CPU from the same
+    seeded weights (``state``, or drawn) and images, in bf16 (the card
+    through K5 forward and backward, its long kernels past 128 tokens, or
+    K6's with ``DFD_FUSED_ATTN``, the CPU through their plain versions) and
+    in f32 (TF32 off; attention in plain ops on both), held to
+    ``FV_STEP_BOUNDS``."""
     import torch
 
     from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
 
-    state = seeded_fastervit_state(config, seed=21 if config == "official" else 23)
+    if state is None:
+        state = seeded_fastervit_state(config, seed=21 if config == "official" else 23)
     g = torch.Generator().manual_seed(24)
-    x = seeded_images(FV_STEP_BATCH, g)
+    x = seeded_images(FV_STEP_BATCH, g, img_size)
     labels = torch.arange(FV_STEP_BATCH) % 2
     out = {}
-    per_step = create_faster_vit("2", head_config=config).kernel_launches_per_step()
+    per_step = create_faster_vit("2", head_config=config,
+                                 img_size=img_size).kernel_launches_per_step()
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         if name not in dtypes:
             continue
@@ -2877,10 +3144,11 @@ def fv_step_against_cpu(device, config: str, dtypes=("f32", "bf16")) -> dict:
         row = out[name] = {**fv_step_readings((l_card, g_card), (l_cpu, g_cpu)),
                            "launches": launches, "cpu_s": time.perf_counter() - t0}
         want = {k: v if name == "bf16" else 0 for k, v in per_step.items()}
-        log(f"  FasterViT-2 {config} step, card against CPU ({name}, batch {FV_STEP_BATCH}): "
-            f"loss {l_card:.6f} / {l_cpu:.6f} (rel {row['loss_rel']:.2e}); max|dg|/scale "
-            + ", ".join(f"{k} {row[k]:.2e}" for k in FV_GROUPS)
-            + f"; K5 forward/backward launches {launches['k5']}/{launches['k5_bwd']}, K6 "
+        log(f"  FasterViT-2 {config} step, card against CPU ({name}, batch {FV_STEP_BATCH}, "
+            f"{img_size} px): loss {l_card:.6f} / {l_cpu:.6f} (rel {row['loss_rel']:.2e}); "
+            "max|dg|/scale " + ", ".join(f"{k} {row[k]:.2e}" for k in FV_GROUPS)
+            + f"; K5 forward/backward launches {launches['k5']}/{launches['k5_bwd']}, long "
+            f"{launches['k5_long']}/{launches['k5_long_bwd']}, K6 "
             f"{launches['k6']}/{launches['k6_bwd']}; CPU {row['cpu_s']:.1f} s")
         over = {k: (row[k], b) for k, b in FV_STEP_BOUNDS[name].items() if not row[k] <= b}
         if over or {k: launches[k] for k in want} != want:
@@ -2951,8 +3219,9 @@ def fv_step_times(device) -> dict:
 EFV2_GATE = 4e-3
 
 
-def seeded_efficientformer_state(seed: int):
-    """Full-width EfficientFormerV2-S1 state dict in timm's key names:
+def seeded_efficientformer_state(seed: int, img_size: int = 224):
+    """Full-width EfficientFormerV2-S1 state dict in timm's key names, built
+    for ``img_size`` (its bias tables' sizes depend on it):
     generator-seeded weights (talking heads N(0, 0.25) from the conv init,
     their biases N(0, 0.01), bias tables N(0, 0.25)), layer scales at 0.2 (their init, 1e-5,
     would leave every block silent), each ConvNorm's BatchNorm statistics
@@ -2969,8 +3238,9 @@ def seeded_efficientformer_state(seed: int):
     )
 
     g = torch.Generator().manual_seed(seed)
-    model = create_efficientformer_v2("s1", dtype=torch.float32, generator=g).eval()
-    x = seeded_images(8, g)
+    model = create_efficientformer_v2("s1", dtype=torch.float32, generator=g,
+                                      img_size=img_size).eval()
+    x = seeded_images(8, g, img_size)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("attention_biases"):
@@ -3001,13 +3271,13 @@ def seeded_efficientformer_state(seed: int):
 
 
 def efficientformer_logits(state, x, device, dtype):
-    """EfficientFormerV2-S1 logits of ``state`` on ``device`` in ``dtype``, f32
-    on the CPU."""
+    """EfficientFormerV2-S1 logits of ``state`` on ``device`` in ``dtype`` at
+    ``x``'s size, f32 on the CPU."""
     import torch
 
     from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
 
-    model = create_efficientformer_v2("s1", dtype=dtype)
+    model = create_efficientformer_v2("s1", dtype=dtype, img_size=x.shape[-1])
     model.load_state_dict(state)
     model = model.to(device).eval()
     with torch.no_grad():
@@ -3036,8 +3306,7 @@ def phase7(device, report):
     res, launches = counted(lambda: orchestrate(cfg_path, mode="inference")[EF])
     wall = time.perf_counter() - t0
     batches = sum(-(-n // EF_BATCH) for n in SPLITS.values())
-    want = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0,
-            "k7": 4 * batches}
+    want = {**ZERO_LAUNCHES, "k7": 4 * batches}
     log(f"  main path: {batches} forward batches, launches {launches}; test pass "
         f"{res.images_per_s:.1f} img/s (decode included); wall {wall:.1f} s")
     if launches != want:
@@ -3179,8 +3448,7 @@ def phase8(device, report):
     weights = work / "faster_vit_2_224_seeded.pth"  # phase 5's
     state = torch.load(weights, weights_only=True)
     cpu = torch.device("cpu")
-    zero = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0,
-            "k7": 0}
+    zero = ZERO_LAUNCHES
     with fused_attn(True):
         cfg_path = eval_config(work, "inference_fastervit_fused.yaml", FV, "runs_fv_fused",
                                weights, FV_BATCH, device)
@@ -3283,8 +3551,7 @@ def phase9(device, report, state):
 
     work = REPO / "build" / "chip_smoke"
     data, weights = work / "data", work / "efficientnet_b3_seeded.pth"  # phase 3's
-    zero = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0, "k6_bwd": 0,
-            "k7": 0}
+    zero = ZERO_LAUNCHES
     g = torch.Generator().manual_seed(91)
     x = seeded_images(8, g)
     with env_switch("DFD_FUSED_MBCONV", True):
@@ -3333,8 +3600,8 @@ def phase9(device, report, state):
 EF_TRAIN_SPLITS = FV_FUSED_SPLITS  # phase 10's training tree
 EF_TRAIN_BATCH = 128  # config/train.yaml's EfficientFormerV2 batch (a CPU test holds them equal)
 EFV2_STEP_BATCH = 4  # images of the card-against-CPU step (full width, 224 px)
-ZERO_LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k6": 0,
-                 "k6_bwd": 0, "k7": 0}
+ZERO_LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k5_bwd": 0, "k5_long": 0,
+                 "k5_long_bwd": 0, "k6": 0, "k6_bwd": 0, "k7": 0, "k7_long": 0}
 
 
 def ef_train_config(work: Path, data: Path, device) -> Path:
@@ -3730,7 +3997,8 @@ SERVE_IMAGES = 16  # phase 12's single requests: the first and last 8 of phase 3
 SERVE_B64 = 4  # of them sent as {"image_b64"}, the rest as raw JPEG bodies
 SERVE_WEIGHTS = {"efficientnet_b3": 2.0}  # phase 12's top-level ensemble
 SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
-SERVE_CLIENTS, SERVE_PER_CLIENT = 64, 16  # the load: client threads x requests each
+# the load: client threads x requests each (16 each until phase 17 took its time)
+SERVE_CLIENTS, SERVE_PER_CLIENT = 64, 8
 SERVE_RELOAD_CLIENTS = 16  # the load during the reload, each until the swap is behind it
 SERVE_TOKEN = "phase-12-reload-token"
 
@@ -3978,7 +4246,7 @@ def phase12(device, report):
             log(f"  {m.name} bucket-32 step: launches {ran}; {note}")
             plains[m.name] = len(plain)
 
-        # the load: 64 clients x 16 requests, every second one with ?model=
+        # the load: SERVE_CLIENTS x SERVE_PER_CLIENT requests, every second one with ?model=
         before = {m.name: m.batcher.stats() for m in state.models}
         rows, wall = serve_load(base, names, bodies, SERVE_CLIENTS, SERVE_PER_CLIENT)
         codes = sorted({c for c, _, _ in rows})
@@ -5419,6 +5687,7 @@ def phase16(device, report) -> dict:
 
     from deepfakedetection_tpu_torch.models.efficientnet import create_efficientnet
     from deepfakedetection_tpu_torch.orchestrator import orchestrate
+    from deepfakedetection_tpu_torch.parallel.mesh import data_axis, make_mesh
     from deepfakedetection_tpu_torch.parallel.multihost import allgather_examples
     from deepfakedetection_tpu_torch.runtime import checkpoint as ckpt
 
@@ -5447,6 +5716,11 @@ def phase16(device, report) -> dict:
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                             world_size=1, rank=0)
     try:
+        mesh = make_mesh(-1, 1, device)
+        if (mesh.data, mesh.model, mesh.data_index, mesh.model_index, mesh.data_group,
+                mesh.model_group) != (1, 1, 0, 0, None, None) or data_axis() != (0, 1):
+            raise AssertionError(f"make_mesh(-1, 1) on a world of one: {mesh}")
+        out["mesh"] = {"data": mesh.data, "model": mesh.model}
         ranked, calls = collectives_counted(lambda: dp_steps(device, inputs))
         if calls["all_reduce"] < 100 or calls["all_gather"] < 2:
             raise AssertionError(f"the ranked steps made too few collectives: {calls}")
@@ -5470,10 +5744,8 @@ def phase16(device, report) -> dict:
 
         res, launches = counted(lambda: orchestrate(
             train_config(work, data, device, 1, **extra), mode="training")["efficientnet_b3"])
-        want = {"k1": per_forward["k1"] * 2 * val_batches,
-                "k2": per_forward["k2"] * 2 * val_batches,
-                "k3": 0, "k4": warmup_steps + ft_steps, "k5": 0, "k5_bwd": 0, "k6": 0,
-                "k6_bwd": 0, "k7": 0}
+        want = {**ZERO_LAUNCHES, "k1": per_forward["k1"] * 2 * val_batches,
+                "k2": per_forward["k2"] * 2 * val_batches, "k4": warmup_steps + ft_steps}
         if launches != want or res.interrupted or not math.isfinite(res.final_train_loss):
             raise AssertionError(f"ranked training: launches {launches} (expected {want}), {res}")
         res2, launches2 = counted(lambda: orchestrate(
@@ -5523,6 +5795,128 @@ def phase16(device, report) -> dict:
         f"{out['card']}; seconds {({k: round(v, 1) for k, v in seconds.items()})}")
     report["phase16"] = out
     return out
+
+
+def sized_eval(work: Path, data: Path, model: str, weights: Path, img_size: int, batch: int,
+               device, refs_of, gate: float) -> tuple[dict, dict]:
+    """``orchestrate(mode="inference")`` of ``model`` at ``img_size`` over
+    ``data`` (phase 17's tree), counted: finite test probabilities that sum
+    to one, and the job's outputs for 16 test images against the CPU's bf16
+    and f32 logits (``reference_check`` with ``gate``). (its readings,
+    launches)."""
+    import numpy as np
+
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+
+    out = f"runs_{model}_{img_size}"
+    cfg = eval_config(work, f"inference_{model}_{img_size}.yaml", model, out, weights, batch,
+                      device, data=data, img_size=img_size)
+    t0 = time.perf_counter()
+    res, launches = counted(lambda: orchestrate(cfg, mode="inference")[model])
+    wall = time.perf_counter() - t0
+    if res.probs.shape != (SIZES_SPLITS["test"], 2) or not np.isfinite(res.probs).all() \
+            or not np.allclose(res.probs.sum(-1), 1.0, atol=1e-5):
+        raise AssertionError(f"{model} at {img_size} px: bad test probabilities")
+    agree = reference_check(res, data, refs_of, gate=gate, img_size=img_size,
+                            f32_drift=img_size > 224)
+    log(f"  {model} at {img_size} px: launches {({k: v for k, v in launches.items() if v})}, "
+        f"test pass {res.images_per_s:.1f} img/s (decode included), wall {wall:.1f} s")
+    return {"launches": launches, "reference": agree, "wall_s": wall,
+            "test_img_per_s": res.images_per_s}, launches
+
+
+def phase17(device, report) -> dict:
+    """The image sizes past and below 224 px. FasterViT-2 (official) at 448
+    px (stage 4 196 tokens: K5's long kernels; its carrier-token attention 64
+    tokens: K5) and at 112 px (stage 3 one window: plain blocks over 49
+    tokens), EfficientFormerV2-S1 at 384 px (144 tokens: K7's long kernel):
+    ``orchestrate(mode="inference")`` from seeded ``.pth`` files built for
+    those sizes, each batch's launches exactly the model's, the outputs
+    against the CPU under ``FV_GATE`` / ``EFV2_GATE``; FasterViT-2 at 448
+    px trained one epoch by ``orchestrate(mode="training")`` (K5's long
+    backward in every fine-tune step); one bf16 fine-tune step at 448 px on
+    the card against the CPU's (``FV_STEP_BOUNDS``)."""
+    import torch
+
+    from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
+    from deepfakedetection_tpu_torch.models.fastervit import create_faster_vit
+    from deepfakedetection_tpu_torch.orchestrator import orchestrate
+
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(name: str) -> None:
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
+    work = REPO / "build" / "chip_smoke_sizes"
+    shutil.rmtree(work, ignore_errors=True)
+    data = work / "data"
+    write_jpeg_tree(data, {**SIZES_SPLITS, **FV448_TRAIN_SPLITS}, seed=17)
+    cpu = torch.device("cpu")
+    out: dict = {"card": smi()}
+    cases = (("fastervit", FV448, FV448_BATCH, FV_GATE["official"]),
+             ("fastervit", FV112, FV_BATCH, FV_GATE["official"]),
+             ("efficientformerv2", EF384, EF384_BATCH, EFV2_GATE))
+    launches = {}
+    for family, size, batch, gate in cases:
+        if family == "fastervit":
+            state = seeded_fastervit_state("official", seed=11, img_size=size)
+            model, want = FV, create_faster_vit("2", head_config="official",
+                                                img_size=size).kernel_launches_per_forward()
+
+            def refs_of(x, state=state):
+                return [fastervit_logits(state, "official", x, cpu, dt)
+                        for dt in (torch.bfloat16, torch.float32)]
+        else:
+            state = seeded_efficientformer_state(seed=31, img_size=size)
+            model, want = EF, create_efficientformer_v2("s1",
+                                                        img_size=size).kernel_launches_per_forward()
+
+            def refs_of(x, state=state):
+                return [efficientformer_logits(state, x, cpu, dt)
+                        for dt in (torch.bfloat16, torch.float32)]
+        weights = work / f"{model}_{size}_seeded.pth"
+        torch.save(state, weights)
+        batches = sum(-(-n // batch) for n in SIZES_SPLITS.values())
+        row, n = sized_eval(work, data, model, weights, size, batch, device, refs_of, gate)
+        expect = {**ZERO_LAUNCHES, **{k: v * batches for k, v in want.items()}}
+        if n != expect:
+            raise AssertionError(f"{model} at {size} px: launches {n}, expected {expect}")
+        out[f"{model}_{size}"] = row
+        launches[size] = n
+        lap(f"{model} {size} px eval")
+
+    # FasterViT-2 at 448 px trained one epoch from its seeded .pth: the warmup
+    # (head only) launches K5's long forward, each fine-tune step its backward too
+    weights = work / f"{FV}_{FV448}_seeded.pth"
+    n_train, n_val = FV448_TRAIN_SPLITS["train"], FV448_TRAIN_SPLITS["val"]
+    warmup_steps, ft_steps, val_batches = n_train // 64, n_train // 128, -(-n_val // 64)
+    per_step = create_faster_vit("2", head_config="official",
+                                 img_size=FV448).kernel_launches_per_step()
+    res, n = counted(lambda: orchestrate(fv_train_config(
+        work, data, device, runs="runs_fv448", init_weights=weights, img_size=FV448),
+        mode="training")[FV])
+    passes = warmup_steps + ft_steps + 2 * val_batches
+    want = {**ZERO_LAUNCHES, "k5": per_step["k5"] * passes, "k5_long": per_step["k5_long"] * passes,
+            "k5_bwd": per_step["k5_bwd"] * ft_steps,
+            "k5_long_bwd": per_step["k5_long_bwd"] * ft_steps}
+    if n != want or res.interrupted or not math.isfinite(res.final_train_loss):
+        raise AssertionError(f"FasterViT-2 training at {FV448} px: launches {n} (expected "
+                             f"{want}), {res}")
+    log(f"  FasterViT-2 training at {FV448} px (1 epoch, official, {warmup_steps} warmup and "
+        f"{ft_steps} fine-tune steps): launches {({k: v for k, v in n.items() if v})}, final "
+        f"loss {res.final_train_loss:.4f}")
+    out["training_448"] = {"launches": n, "final_loss": res.final_train_loss}
+    launches["train"] = n
+    lap("FasterViT-2 448 px training")
+    out["step_448"] = fv_step_against_cpu(device, "official", dtypes=("bf16",), img_size=FV448,
+                                          state=torch.load(weights, weights_only=True))
+    lap("FasterViT-2 448 px step against the CPU")
+    out["seconds"] = seconds
+    log(f"  sizes: {out['card']}; seconds {({k: round(v, 1) for k, v in seconds.items()})}")
+    report["phase17"] = out
+    return {"k5_long": launches[FV448]["k5_long"], "k5_long_bwd": launches["train"]["k5_long_bwd"],
+            "k7_long": launches[EF384]["k7_long"]}
 
 
 def main() -> int:
@@ -5599,6 +5993,15 @@ def main() -> int:
         "plain one, orchestrate(mode='training') with async checkpoints and mixup, a resume "
         "and orchestrate(mode='inference') through the ranked path")
     phase16(device, report)
+    log("phase 17: image sizes past and below 224 px: FasterViT-2 at 448 (K5's long kernels) "
+        "and 112 (stage 3 one window), EfficientFormerV2-S1 at 384 (K7's long kernel), "
+        "orchestrate(mode='inference') and FasterViT-2 orchestrate(mode='training') at 448")
+    launches.update(phase17(device, report))
+    log(f"timings: {time.perf_counter() - _T0:.0f} s in all (each phase's start above); phase "
+        f"17 {sum(report['phase17']['seconds'].values()):.0f} s and phase 1's long rows, paid "
+        "for by cutting depth: phase 3's test split 1,280 -> 640 images (phases 3, 5, 7-9, 13, "
+        "15), phase 4's train split 1,024 -> 512 (phases 4, 6), phase 12's load 64 x 16 -> 64 x "
+        "8 requests")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())
@@ -5620,6 +6023,12 @@ def main() -> int:
                "window_attention_bwd": ("k5_bwd", "window_attn_bwd.cu",
                                         "deepfakedetection_tpu/ops/pallas/window_attn.py:587"),
                "attn4d": ("k7", "attn4d.cu", "deepfakedetection_tpu/ops/pallas/attn4d.py:92"),
+               "window_attention_long": ("k5_long", "window_attn_long.cu",
+                                         "deepfakedetection_tpu/ops/pallas/window_attn.py:799"),
+               "window_attention_long_bwd": ("k5_long_bwd", "window_attn_long.cu",
+                                             "deepfakedetection_tpu/ops/pallas/window_attn.py:587"),
+               "attn4d_long": ("k7_long", "attn4d_long.cu",
+                               "deepfakedetection_tpu/ops/pallas/attn4d.py:92"),
                "attn_subblock": ("k6", "attn_block.cu",
                                  "deepfakedetection_tpu/ops/pallas/attn_block.py:167"),
                "attn_subblock_bwd": ("k6_bwd", "attn_block_bwd.cu",

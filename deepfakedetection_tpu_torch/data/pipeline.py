@@ -44,7 +44,7 @@ from deepfakedetection_tpu_torch.data.transforms import (
     build_eval_plan,
     build_train_plan,
 )
-from deepfakedetection_tpu_torch.runtime.paths import rank, world_size
+from deepfakedetection_tpu_torch.parallel.mesh import data_axis
 
 __all__ = [
     "Batch", "DeviceStager", "Loader", "build_eval_plan", "build_train_plan",
@@ -80,7 +80,8 @@ class Loader:
         lookahead: int = 1,
         shard: bool = True,
     ) -> None:
-        self.world = world_size() if shard else 1
+        # the data axis: the ranks of one model index read the same rows
+        self.index, self.world = (data_axis() or (0, 1)) if shard else (0, 1)
         if batch_size % self.world:
             raise ValueError(
                 f"batch size {batch_size} does not divide over {self.world} processes"
@@ -132,7 +133,7 @@ class Loader:
         per = self._shard_len()
         if not self.shuffle and per * pc > n:
             order = np.concatenate([order, np.full(per * pc - n, -1, order.dtype)])
-        return order[rank() * per : (rank() + 1) * per]
+        return order[self.index * per : (self.index + 1) * per]
 
     def __len__(self) -> int:
         rows, n = self._local_batch_rows(), self._shard_len()

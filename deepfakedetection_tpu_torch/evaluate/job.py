@@ -125,10 +125,10 @@ def pick_head_config(family: str, model_kwargs: dict[str, Any],
 def builder_kwargs(family: str, model_kwargs: dict[str, Any],
                    state: dict[str, torch.Tensor] | None, img_size: int) -> dict[str, Any]:
     """The builder's keyword arguments: ``pick_head_config``'s, and for an
-    EfficientFormerV2 the ``img_size`` its attention bias tables are sized
-    for."""
+    EfficientFormerV2 or a FasterViT the ``img_size`` the model is built for
+    (its attention tables' sizes and FasterViT's stage-3 layout depend on it)."""
     kwargs = pick_head_config(family, dict(model_kwargs), state)
-    if family == "efficientformerv2":
+    if family in ("efficientformerv2", "fastervit"):
         kwargs["img_size"] = img_size
     return kwargs
 
@@ -139,8 +139,8 @@ def load_model_for_eval(job: EvalJob) -> torch.nn.Module:
     a warning and the init weights when it does not),
     move it to the job's device and switch it to eval. A FasterViT is built
     in the head configuration its weights were made in (``pick_head_config``)
-    unless the config pins one; an EfficientFormerV2 at the job's
-    ``img_size`` (its attention bias tables' sizes depend on it)."""
+    unless the config pins one; an EfficientFormerV2 or a FasterViT at the
+    job's ``img_size``."""
     wpath = Path(job.weights) if job.weights is not None else None
     state = (load_weights(wpath, job.spec.family) if wpath is not None and wpath.exists()
              else None)

@@ -61,7 +61,7 @@ from deepfakedetection_tpu_torch.models.common import (
     name_conv_bns,
     nhwc,
 )
-from deepfakedetection_tpu_torch.ops.attn4d import attn4d, attn4d_plain
+from deepfakedetection_tpu_torch.ops.attn4d import MAX_TOKENS, attn4d, attn4d_plain
 from deepfakedetection_tpu_torch.ops.window_attn import _heads, _merge, _probs
 
 _VARIANTS: dict[str, dict[str, Any]] = {
@@ -409,8 +409,11 @@ class EfficientFormerV2(nn.Module):
 
     def kernel_launches_per_forward(self) -> dict[str, int]:
         """K7 launches of one eval forward: every Attention4D in bf16 (4 for
-        S1: the last two blocks of stages 3 and 4)."""
-        return {"k7": sum(a.uses_kernel() for a in self.attentions())}
+        S1: the last two blocks of stages 3 and 4), through K7's long kernel
+        (``k7_long``) past 128 tokens (S1 at 384 px: 144)."""
+        kernels = ["k7_long" if a.resolution**2 > MAX_TOKENS else "k7"
+                   for a in self.attentions() if a.uses_kernel()]
+        return {k: kernels.count(k) for k in ("k7", "k7_long")}
 
     def cam_features(self, x: torch.Tensor,
                      generator: torch.Generator | None = None) -> torch.Tensor:

@@ -5,8 +5,13 @@ stride-2 ConvBN + ReLU), two stages of residual conv blocks, then two stages
 of transformer blocks. Stage 3 runs Hierarchical ATtention over 7x7 windows:
 per-window carrier tokens (CTs) from a pooling tokenizer attend among
 themselves, then join their window's 49 tokens for a 53-token window
-attention. Stage 4 is one 7x7 window of global attention. Activations are
-NCHW-logical and stored channels_last outside the transformer stages.
+attention. Stage 4 is one window of global attention over its whole map
+(7x7 at 224 px, 14x14 = 196 tokens at 448). A model is built for an
+``img_size``: where stage 3's map is one window or less (``img_size // 16 <=
+window_size``, say 112 or 64 px) stage 3 runs ``PlainBlock``s over its
+tokens and builds no carrier-token modules, as the JAX model's degenerate
+branch does. Activations are NCHW-logical and stored channels_last outside
+the transformer stages.
 
 Two head configurations, as in the JAX package:
 
@@ -25,19 +30,22 @@ Two head configurations, as in the JAX package:
 
 ``TokenAttention`` keeps the JAX package's split: K5 (``ops/window_attn.py``)
 for N >= 32 in bf16, which is the 53-token window attention of every stage-3
-block and the 49-token attention of every stage-4 block; plain PyTorch ops
-for the 16-token carrier-token attention and for float32 models. The K5
-wrapper launches the CUDA kernel for CUDA tensors and runs its plain version
-for CPU tensors. The JAX package takes its kernel only for head_dim % 128 != 0
+block and the 49-token attention of every stage-4 block at 224 px (past 128
+tokens, the stage-4 attention at 448 px, the wrapper launches K5's long
+kernels); plain PyTorch ops for the 16-token carrier-token attention and for
+float32 models. The K5 wrapper launches the CUDA kernel for CUDA tensors and
+runs its plain version for CPU tensors. The JAX package takes its kernel only for head_dim % 128 != 0
 at eval (a v5e measurement); the port takes K5 in both configurations.
 
 ``DFD_FUSED_ATTN`` set when a bf16 model is built (the JAX package's opt-in)
 sends every attention, the carrier tokens' included, through K6
 (``ops/attn_block.py``): the qkv Linear, the attention and the proj Linear
-as one kernel, 21 launches per FasterViT-2 forward and no K5. ``qkv`` and
-``proj`` stay ``Linear`` modules, so the parameters' names and shapes do not
-change with the flag; K6 takes their f32 tensors (their cached bf16 weights
-at eval), so their gradients come back in f32. The JAX package takes K6 only
+as one kernel, 21 launches per FasterViT-2 forward and no K5. K6 takes at
+most 128 tokens: with the flag, a bf16 model with a longer attention is
+refused when it is built (``K6_LONG_ITEM``). ``qkv`` and ``proj`` stay
+``Linear`` modules, so the parameters' names and shapes do not change with
+the flag; K6 takes their f32 tensors (their cached bf16 weights at eval), so
+their gradients come back in f32. The JAX package takes K6 only
 where it takes K5 (``use_pallas_for``); the port in both configurations, at
 eval and in training. A float32 model with the flag attends through plain
 ops, unfused.
@@ -74,14 +82,20 @@ from deepfakedetection_tpu_torch.models.common import (
     name_conv_bns,
     remat,
 )
+from deepfakedetection_tpu_torch.ops import attn_block
 from deepfakedetection_tpu_torch.ops.attn_block import attn_subblock
-from deepfakedetection_tpu_torch.ops.window_attn import window_attention, window_attention_plain
+from deepfakedetection_tpu_torch.ops.window_attn import (
+    MAX_TOKENS,
+    window_attention,
+    window_attention_plain,
+)
 from deepfakedetection_tpu_torch.runtime.flags import fused_attn
 
 # torch Conv2d(k=3, s=2, padding=1): symmetric, unlike TF-SAME on even inputs
 _PAD1 = ((1, 1), (1, 1))
 _LAYER_SCALE_INIT = 1e-5
 _KERNEL_MIN_TOKENS = 32  # the JAX package's TokenAttention threshold for its kernel
+K6_LONG_ITEM = "ROADMAP Queue 1 item 15 (K6 past 128 tokens)"
 
 _VARIANTS: dict[str, dict[str, Any]] = {
     "0": {"dim": 64, "in_dim": 64, "depths": (2, 3, 6, 5), "num_heads": (2, 4, 8, 16)},
@@ -105,6 +119,39 @@ def tpu_heads(dim: int, official: tuple[int, ...]) -> tuple[int, ...]:
             h = official[stage]
         heads.append(h)
     return tuple(heads)
+
+
+def stage3_resolution(img_size: int) -> int:
+    """The stage-3 map's side: the stem's two stride-2 convs and two
+    downsamples, each ceil(n / 2)."""
+    res = img_size
+    for _ in range(4):
+        res = (res + 1) // 2
+    return res
+
+
+def longest_attention(img_size: int, window_size: int = 7, ct_size: int = 2) -> int:
+    """The most tokens any attention of a FasterViT built for ``img_size``
+    takes: stage 3's carrier-token and window attentions (or its plain
+    blocks' map where it is one window or less) and stage 4's map."""
+    res3 = stage3_resolution(img_size)
+    if res3 > window_size:
+        stage3 = max(ct_size**2 + window_size**2, (ct_size * (res3 // window_size)) ** 2)
+    else:
+        stage3 = res3**2
+    return max(stage3, ((res3 + 1) // 2) ** 2)
+
+
+def k6_refusal(img_size: int, window_size: int = 7, ct_size: int = 2) -> str | None:
+    """Why ``DFD_FUSED_ATTN`` cannot run a bf16 FasterViT built for
+    ``img_size`` (an attention past K6's tokens), or None."""
+    longest = longest_attention(img_size, window_size, ct_size)
+    if longest <= attn_block.MAX_TOKENS:
+        return None
+    return (f"FasterViT at img_size {img_size}: DFD_FUSED_ATTN sends every attention through "
+            f"K6, which takes at most {attn_block.MAX_TOKENS} tokens, and this model attends "
+            f"over {longest}; K6 past 128 tokens is {K6_LONG_ITEM}. Unset DFD_FUSED_ATTN to "
+            f"run it through K5")
 
 
 def window_partition(x: torch.Tensor, win: int) -> torch.Tensor:
@@ -246,10 +293,12 @@ class TokenAttention(nn.Module):
 
     def kernel(self, tokens: int) -> str | None:
         """The kernel this attention launches over ``tokens`` tokens on the
-        card: "k6", "k5" or None (plain ops)."""
+        card: "k6", "k5", "k5_long" (past ``MAX_TOKENS``) or None (plain ops)."""
         if self.fused:
             return "k6"
-        return "k5" if self.dtype == torch.bfloat16 and tokens >= _KERNEL_MIN_TOKENS else None
+        if self.dtype != torch.bfloat16 or tokens < _KERNEL_MIN_TOKENS:
+            return None
+        return "k5_long" if tokens > MAX_TOKENS else "k5"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = self.pos_emb_funct.value() if hasattr(self, "pos_emb_funct") else self.rel_bias
@@ -259,7 +308,8 @@ class TokenAttention(nn.Module):
             return attn_subblock(x.to(self.dtype), wqkv, self.qkv.bias, bias, wproj,
                                  self.proj.bias, num_heads=self.num_heads, scale=self.scale)
         qkv = self.qkv(x)
-        attend = window_attention if self.kernel(x.shape[1]) == "k5" else window_attention_plain
+        on_k5 = self.kernel(x.shape[1]) in ("k5", "k5_long")  # the wrapper picks the long one
+        attend = window_attention if on_k5 else window_attention_plain
         return self.proj(attend(qkv, bias, num_heads=self.num_heads, scale=self.scale))
 
 
@@ -401,7 +451,8 @@ class HATBlock(nn.Module):
 
 
 class PlainBlock(nn.Module):
-    """Stage-4 block: the 7x7 map is one window of global attention."""
+    """Stage-4 block: the map is one window of global attention; stage 3's
+    too where its map is one window or less."""
 
     def __init__(self, dim: int, num_heads: int, *, grid: int, official: bool,
                  mlp_ratio: float, dtype: torch.dtype, drop_path: float = 0.0) -> None:
@@ -421,9 +472,11 @@ class PlainBlock(nn.Module):
 
 class FasterViT(nn.Module):
     """FasterViT classifier over normalized NCHW-logical images at
-    ``img_size`` (224: stage 3 at 14x14, 2x2 windows of 7x7); returns f32
-    logits. ``drop_path_rate`` is the JAX default 0.2, spread over the blocks
-    as ``rate * i / (sum(depths) - 1)`` for the i-th block of all stages.
+    ``img_size`` (224: stage 3 at 14x14, 2x2 windows of 7x7; 448: 28x28,
+    4x4 windows, stage 4 at 14x14; 112 and below: stage 3 one window or less,
+    ``PlainBlock``s); returns f32 logits. ``drop_path_rate`` is the JAX
+    default 0.2, spread over the blocks as ``rate * i / (sum(depths) - 1)``
+    for the i-th block of all stages.
 
     Benchmark variants of the JAX model, off by default:
 
@@ -466,16 +519,20 @@ class FasterViT(nn.Module):
                           else ())
         self.dtype, self.official = dtype, official
         self.window_size, self.ct_size = window_size, ct_size
-        self.res3 = img_size // 16  # stage-3 resolution
-        if self.res3 % window_size or self.res3 <= window_size:
+        self.res3 = stage3_resolution(img_size)
+        # carrier tokens only where stage 3 is more than one window
+        self.use_ct = self.res3 > window_size
+        if self.use_ct and self.res3 % window_size:
             raise ValueError(
-                f"FasterViT: img_size {img_size} gives a {self.res3}x{self.res3} stage 3; the "
-                f"port takes more than one {window_size}x{window_size} window there (e.g. 224)"
+                f"FasterViT stage-3 resolution {self.res3}x{self.res3} (img_size / 16) must be "
+                f"divisible by window_size {window_size}; use an img_size that is a multiple of "
+                f"{16 * window_size} (e.g. 224) or adjust window_size"
             )
-        self.n_win = self.res3 // window_size
-        ct_side = ct_size * self.n_win
-        self.ct_stride = self.res3 // ct_side
-        self.ct_kernel = self.res3 - (ct_side - 1) * self.ct_stride
+        if self.use_ct:
+            self.n_win = self.res3 // window_size
+            ct_side = ct_size * self.n_win
+            self.ct_stride = self.res3 // ct_side
+            self.ct_kernel = self.res3 - (ct_side - 1) * self.ct_stride
         self.res4 = (self.res3 + 1) // 2
 
         widths = [*(conv_stage_dims or (dim, 2 * dim)), 4 * dim, 8 * dim]
@@ -496,6 +553,10 @@ class FasterViT(nn.Module):
             width = widths[i]
             if i < 2:
                 blocks = [ConvBlock(width, official=official, dtype=dtype, drop_path=next(rates))
+                          for _ in range(depths[i])]
+            elif i == 2 and not self.use_ct:
+                blocks = [PlainBlock(width, num_heads[i], grid=self.res3, official=official,
+                                     mlp_ratio=mlp_ratio, dtype=dtype, drop_path=next(rates))
                           for _ in range(depths[i])]
             elif i == 2:
                 blocks = [HATBlock(width, num_heads[i], window=window_size, ct_size=ct_size,
@@ -521,6 +582,9 @@ class FasterViT(nn.Module):
         self.norm = nn.BatchNorm2d(dim * 8)
         self.head = nn.Linear(dim * 8, num_classes)
         name_conv_bns(self)
+        refusal = k6_refusal(img_size, window_size, ct_size)
+        if refusal and any(a.fused for a in self.attentions()):
+            raise ValueError(refusal)
         if generator is not None:
             self.reset_parameters(generator)
 
@@ -554,15 +618,29 @@ class FasterViT(nn.Module):
     def attentions(self) -> list[TokenAttention]:
         return [m for m in self.modules() if isinstance(m, TokenAttention)]
 
+    def _attention_tokens(self) -> dict[int, int]:
+        """The token count of every attention, by ``id``: the carrier-token
+        attentions' (ct_size * windows a side)², the window attentions'
+        ct_size² + window², a ``PlainBlock``'s its grid's."""
+        tokens = {}
+        for blk in self.levels[2].blocks:
+            if isinstance(blk, HATBlock):
+                tokens[id(blk.hat_attn)] = (self.ct_size * self.n_win) ** 2
+                tokens[id(blk.attn)] = self.ct_size**2 + self.window_size**2
+            else:
+                tokens[id(blk.attn)] = self.res3**2
+        tokens.update({id(blk.attn): self.res4**2 for blk in self.levels[3].blocks})
+        return tokens
+
     def kernel_launches_per_forward(self) -> dict[str, int]:
         """How many K5 and K6 launches one eval forward makes: without
         ``DFD_FUSED_ATTN``, K5 for every bf16 attention over at least 32
-        tokens (13 for FasterViT-2); with it, K6 for every bf16 attention (21)."""
-        tokens = {id(blk.attn): self.ct_size**2 + self.window_size**2
-                  for blk in self.levels[2].blocks}
-        tokens.update({id(blk.attn): self.res4**2 for blk in self.levels[3].blocks})
-        kernels = [a.kernel(tokens.get(id(a), 0)) for a in self.attentions()]
-        return {k: kernels.count(k) for k in ("k5", "k6")}
+        tokens (13 for FasterViT-2 at 224 px; at 448 the 5 stage-4 ones are
+        K5's long kernel, ``k5_long``); with it, K6 for every bf16 attention
+        (21)."""
+        tokens = self._attention_tokens()
+        kernels = [a.kernel(tokens[id(a)]) for a in self.attentions()]
+        return {k: kernels.count(k) for k in ("k5", "k5_long", "k6")}
 
     def kernel_launches_per_step(self, head_only: bool = False) -> dict[str, int]:
         """K5 and K6 forward and backward launches of one train step: the
@@ -570,8 +648,10 @@ class FasterViT(nn.Module):
         warmup: no gradient flows below the head, so autograd runs no
         backward there)."""
         fwd = self.kernel_launches_per_forward()
-        return {"k5": fwd["k5"], "k5_bwd": 0 if head_only else fwd["k5"],
-                "k6": fwd["k6"], "k6_bwd": 0 if head_only else fwd["k6"]}
+        out = {}
+        for k in ("k5", "k5_long", "k6"):
+            out[k], out[f"{k}_bwd"] = fwd[k], 0 if head_only else fwd[k]
+        return out
 
     def _carrier_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """[B, C, H, W] -> [B, nW*ct², C], window-major: the tokenizer's map
@@ -620,14 +700,22 @@ class FasterViT(nn.Module):
         level = self.levels[2]
         B, C, H, W = x.shape
         if (H, W) != (self.res3, self.res3):
-            raise ValueError(f"FasterViT: stage 3 at {H}x{W}, built for {self.res3}")
-        ct = self._carrier_tokens(x)
-        xw = window_partition(x, self.window_size)
-        if not self.official:
-            xw = xw + level.win_pos_embed.to(dt)[None]
-        for blk in level.blocks:
-            xw, ct = blk(xw, ct, generator)
-        x = level.downsample(window_reverse(xw, self.window_size, H, W, B))
+            raise ValueError(f"FasterViT: stage 3 at {H}x{W}, built for {self.res3}: build "
+                             f"the model at the input's img_size")
+        if self.use_ct:
+            ct = self._carrier_tokens(x)
+            xw = window_partition(x, self.window_size)
+            if not self.official:
+                xw = xw + level.win_pos_embed.to(dt)[None]
+            for blk in level.blocks:
+                xw, ct = blk(xw, ct, generator)
+            x = window_reverse(xw, self.window_size, H, W, B)
+        else:  # one window or less: plain blocks over the map's tokens
+            tokens = x.permute(0, 2, 3, 1).reshape(B, H * W, C)
+            for blk in level.blocks:
+                tokens = blk(tokens, generator)
+            x = tokens.reshape(B, H, W, C).permute(0, 3, 1, 2)
+        x = level.downsample(x)
 
         level = self.levels[3]
         B, C, H, W = x.shape
@@ -656,11 +744,12 @@ def create_faster_vit(
     generator: torch.Generator | None = None,
     conv_stage_dims: tuple[int, int] | None = None,
     conv_remat: bool | str = False,
+    img_size: int = 224,
 ) -> FasterViT:
     """The variant at its published widths (or its conv stages at
-    ``conv_stage_dims``). ``head_config``: "official" (the wheel's model,
-    which its ``.pth`` files load into) or "tpu". ``conv_remat``: see
-    ``FasterViT``."""
+    ``conv_stage_dims``), built for ``img_size``. ``head_config``:
+    "official" (the wheel's model, which its ``.pth`` files load into) or
+    "tpu". ``conv_remat``: see ``FasterViT``."""
     key = variant.split("_")[0]
     if key not in _VARIANTS:
         raise KeyError(f"unknown FasterViT variant '{variant}'")
@@ -672,4 +761,4 @@ def create_faster_vit(
     return FasterViT(num_classes, cfg["dim"], cfg["in_dim"], cfg["depths"], heads,
                      official=official, drop_path_rate=drop_path_rate, dtype=dtype,
                      generator=generator, conv_stage_dims=conv_stage_dims,
-                     conv_remat=conv_remat)
+                     conv_remat=conv_remat, img_size=img_size)

@@ -40,7 +40,9 @@ from deepfakedetection_tpu_torch.ops.window_attn import (
     _merge,
 )
 
-MAX_TOKENS = 128  # N the kernel takes
+MAX_TOKENS = 128  # N the short kernel takes
+LONG_MAX_TOKENS = 256  # N the long kernel takes, above MAX_TOKENS
+LONG_THREADS = 256  # threads of a long kernel's block
 MAX_HEADS = 8
 MAX_SLOTS = 8  # the v ring's deepest (csrc/attn4d.cu kMaxSlots)
 HEADER_BYTES = 1024  # barriers and tables ahead of the operands (kHeader)
@@ -89,6 +91,54 @@ def plan(B: int, N: int, heads: int, d: int, dv: int, sms: int = H100_SMS) -> Pl
     return None
 
 
+class LongPlan(NamedTuple):
+    """The long kernel's launch plan (``csrc/attn4d_long.cu``
+    ``dfd_attn4d_long_plan``): one block an image's 16-row query tile."""
+
+    blocks: int
+    threads: int
+    smem: int
+
+    @staticmethod
+    def image_rows(block: int, N: int) -> tuple[int, range]:
+        """The image and the query rows block ``block`` computes."""
+        kt = -(-N // 16)
+        b, mt = divmod(block, kt)
+        return b, range(16 * mt, min(16 * mt + 16, N))
+
+
+def long_layout_bytes(N: int, heads: int, d: int, dv: int) -> int:
+    """A long block's shared memory (``LongLayout``): the tables, q's 16 rows,
+    the f32 scores of every head over them, and one head of v's padded rows."""
+    Np = -(-N // 16) * 16
+    lds = -(-N // 4) * 4
+    lds += 4 if lds % 8 == 0 else 0
+    ldv = dv + (8 if (dv // 8) % 2 == 0 else 16)
+    return HEADER_BYTES + 16 * (heads * d + 8) * 2 + heads * 16 * lds * 4 + Np * ldv * 2
+
+
+@functools.lru_cache(maxsize=256)
+def long_plan(B: int, N: int, heads: int, d: int, dv: int) -> LongPlan | None:
+    """The long kernel's plan (``MAX_TOKENS`` < N <= ``LONG_MAX_TOKENS``), as
+    the kernel's, or None when the shape is out of its range or a block's
+    shared memory does not fit."""
+    if not (MAX_TOKENS < N <= LONG_MAX_TOKENS and 1 <= heads <= MAX_HEADS and d >= 16
+            and d % 16 == 0 and dv >= 8 and dv % 8 == 0 and B >= 1):
+        return None
+    smem = long_layout_bytes(N, heads, d, dv)
+    if smem > MAX_SMEM_BYTES:
+        return None
+    return LongPlan(B * -(-N // 16), LONG_THREADS, smem)
+
+
+def kernel_long_plan(B: int, N: int, heads: int, d: int, dv: int) -> LongPlan | None:
+    """The plan the built long kernel computes (card only)."""
+    out = (ctypes.c_int * 3)()
+    if build.library().dfd_attn4d_long_plan(B, N, heads, d, dv, out) != 0:
+        return None
+    return LongPlan(*out)
+
+
 def kernel_plan(B: int, N: int, heads: int, d: int, dv: int, sms: int) -> Plan | None:
     """The plan the built kernel computes for the shape (card only), to hold
     ``plan`` to it."""
@@ -134,10 +184,11 @@ def _check(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int) -> tuple[int, 
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
                          f"do not split into {h} heads of one [B, N]")
     d, dv = Cq // h, v.shape[2] // h
-    if not (1 <= N <= MAX_TOKENS and 1 <= h <= MAX_HEADS and d % 16 == 0 and dv % 8 == 0):
+    if not (1 <= N <= LONG_MAX_TOKENS and 1 <= h <= MAX_HEADS and d % 16 == 0
+            and dv % 8 == 0):
         raise ValueError(
-            f"{name}: the kernel takes N <= {MAX_TOKENS}, heads <= {MAX_HEADS}, head_dim % 16 "
-            f"== 0 and value dim % 8 == 0, got N={N}, heads={h}, d={d}, dv={dv}"
+            f"{name}: the kernels take N <= {LONG_MAX_TOKENS}, heads <= {MAX_HEADS}, head_dim "
+            f"% 16 == 0 and value dim % 8 == 0, got N={N}, heads={h}, d={d}, dv={dv}"
         )
     for t, what, shape in ((bias, "bias", (h, N, N)), (th1, "th1", (h, h)), (th2, "th2", (h, h)),
                            (th1_b, "th1_b", (h,)), (th2_b, "th2_b", (h,))):
@@ -152,7 +203,8 @@ def _check(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int) -> tuple[int, 
 def _launch_plan(q: torch.Tensor, B: int, N: int, num_heads: int, d: int, dv: int) -> int:
     """The card's SM count, after checking that a plan fits there."""
     sms = sm_count(q.device)
-    if plan(B, N, num_heads, d, dv, sms) is None:
+    if (long_plan(B, N, num_heads, d, dv) if N > MAX_TOKENS
+            else plan(B, N, num_heads, d, dv, sms)) is None:
         raise ValueError(f"attn4d: no plan fits a block's {MAX_SMEM_BYTES} bytes of shared memory "
                          f"at N={N}, heads={num_heads}, d={d}, dv={dv}")
     return sms
@@ -170,6 +222,9 @@ def _cuda(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int, scale: float):
     out = torch.empty(B, N, num_heads * dv, dtype=torch.bfloat16, device=q.device)
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
     vec = int(all(s % 8 == 0 for s in strides) and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    if N > MAX_TOKENS:
+        attn4d_long(args, out, B, N, num_heads, d, dv, strides, scale, vec)
+        return out
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -178,6 +233,21 @@ def _cuda(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int, scale: float):
     build.check(rc, "attn4d")
     attn4d.launches += 1
     return out
+
+
+def attn4d_long(args, out, B: int, N: int, num_heads: int, d: int, dv: int, strides,
+                scale: float, vec: int) -> None:
+    """One launch of the long kernel (``csrc/attn4d_long.cu``) on the current
+    stream, counted: ``args`` the checked (q, k, v, bias, th1, th1_b, th2,
+    th2_b), ``strides`` q's, k's and v's (batch, row) strides."""
+    q = args[0]
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dfd_attn4d_long(*(t.data_ptr() for t in args), out.data_ptr(), B, N, num_heads,
+                                 d, dv, *strides, float(scale), vec, stream)
+    build.check(rc, "attn4d_long")
+    attn4d_long.launches += 1
 
 
 def _cpu(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int, scale: float):
@@ -214,3 +284,4 @@ def attn4d(q, k, v, bias, th1, th1_b, th2, th2_b, *, num_heads: int,
 
 
 attn4d.launches = 0
+attn4d_long.launches = 0

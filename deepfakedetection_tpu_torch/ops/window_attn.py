@@ -11,11 +11,15 @@ three backwards of ``window_attention_v2``'s custom_vjp. Each group computes
 one function; their differences fit it to the TPU's lanes. The CUDA kernels
 are ``csrc/window_attn.cu`` (forward; its launch plan is ``fwd_plan``) and
 ``csrc/window_attn_bwd.cu`` (backward, dqkv and dbias summed over windows,
-deterministically; its launch plan is ``bwd_plan``), one launch per call,
-reading q, k and v through strides: ``window_attention`` takes the
-natural qkv [B, N, 3C] layout (three views of one tensor, no copy),
-``window_attention_heads`` the v1 layout. Neither pads N: the kernels mask
-their own ragged edge.
+deterministically; its launch plan is ``bwd_plan``) for N <= ``MAX_TOKENS``,
+and ``csrc/window_attn_long.cu`` (forward and backward, plans
+``long_fwd_plan`` and ``long_bwd_plan``) for ``MAX_TOKENS`` < N <=
+``LONG_MAX_TOKENS``, one launch per call, reading q, k and v through
+strides: ``window_attention`` takes the natural qkv [B, N, 3C] layout (three
+views of one tensor, no copy), ``window_attention_heads`` the v1 layout.
+Neither pads N: the kernels mask their own ragged edge. A launch of the long
+kernels counts on ``window_attention_long.launches`` and
+``window_attention_long_bwd.launches``, not on the callers' counters.
 
 ``window_attention`` is differentiable: when autograd records and qkv or the
 bias requires grad, it goes through ``WindowAttention``, whose forward is the
@@ -46,8 +50,10 @@ import torch
 from deepfakedetection_tpu_torch.ops import build
 from deepfakedetection_tpu_torch.ops.expand_dw import sm_count
 
-MAX_TOKENS = 128  # N and d the kernels take
+MAX_TOKENS = 128  # N the short kernels take
+LONG_MAX_TOKENS = 256  # N the long kernels take, above MAX_TOKENS
 MAX_HEAD_DIM = 128
+LONG_THREADS = 256  # threads of a long kernel's block
 MAX_SMEM_BYTES = 232448  # shared memory one H100 block may use
 H100_SMS = 132
 FWD_MAX_GROUPS = 4  # the forward's most warp groups a block
@@ -58,6 +64,8 @@ _BWD_BARRIER_BYTES = 128
 # the forward's and the backward's device kernels, by the names the profiler records
 FWD_KERNELS = ("window_attention_kernel",)
 BWD_KERNELS = ("window_attention_bwd_kernel", "dbias_reduce_kernel")
+LONG_FWD_KERNELS = ("window_attention_long_kernel",)
+LONG_BWD_KERNELS = ("window_attention_long_bwd_kernel", "long_dbias_reduce_kernel")
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -142,9 +150,9 @@ def _check_bias(name: str, bias: torch.Tensor, h: int, N: int, device: torch.dev
 
 
 def _check_sizes(name: str, N: int, d: int) -> None:
-    if not (1 <= N <= MAX_TOKENS and 1 <= d <= MAX_HEAD_DIM):
+    if not (1 <= N <= LONG_MAX_TOKENS and 1 <= d <= MAX_HEAD_DIM):
         raise ValueError(
-            f"{name}: the kernel takes 1 <= N <= {MAX_TOKENS} tokens and head_dim <= "
+            f"{name}: the kernels take 1 <= N <= {LONG_MAX_TOKENS} tokens and head_dim <= "
             f"{MAX_HEAD_DIM}, got N={N}, head_dim={d}"
         )
 
@@ -206,10 +214,100 @@ def kernel_fwd_plan(B: int, N: int, heads: int, d: int, sms: int) -> FwdPlan | N
     return FwdPlan(*plan)
 
 
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def long_fwd_smem(N: int, d: int) -> int:
+    """Shared memory of one long forward block (``csrc/window_attn_long.cu``
+    ``long_fwd_smem``): the window's q, k and v (bf16, row stride Dp + 8)."""
+    return 3 * _pad16(N) * (_pad16(d) + 8) * 2
+
+
+def long_bwd_smem(N: int, d: int) -> int:
+    """Shared memory of one long backward block (``long_bwd_smem``): the
+    window's q, k, v and do, and three f32 row statistics a row."""
+    return 4 * _pad16(N) * (_pad16(d) + 8) * 2 + 3 * _pad16(N) * 4
+
+
+class LongFwdPlan(NamedTuple):
+    """The long forward's launch plan (``csrc/window_attn_long.cu``
+    ``dfd_window_attention_long_plan``): one block a (window, head)."""
+
+    blocks: int
+    threads: int
+    smem: int
+
+    @staticmethod
+    def window_head(block: int, heads: int) -> tuple[int, int]:
+        """The (window, head) block ``block`` computes."""
+        return divmod(block, heads)
+
+
+@functools.lru_cache(maxsize=256)
+def long_fwd_plan(B: int, N: int, heads: int, d: int) -> LongFwdPlan | None:
+    """The long forward's plan (``MAX_TOKENS`` < N <= ``LONG_MAX_TOKENS``),
+    as the kernel's, or None when the shape is out of its range or a window
+    does not fit a block's shared memory."""
+    if not (MAX_TOKENS < N <= LONG_MAX_TOKENS and 1 <= d <= MAX_HEAD_DIM and B >= 1
+            and heads >= 1) or long_fwd_smem(N, d) > MAX_SMEM_BYTES:
+        return None
+    return LongFwdPlan(B * heads, LONG_THREADS, long_fwd_smem(N, d))
+
+
+class LongBwdPlan(NamedTuple):
+    """The long backward's launch plan (``dfd_window_attention_long_bwd_plan``)."""
+
+    per_head: int  # blocks a head, each owning a contiguous range of its windows
+    threads: int
+    smem: int
+
+    def blocks(self, heads: int) -> int:
+        return heads * self.per_head
+
+    def windows(self, B: int, part: int) -> range:
+        """The windows, in the order it sums them, of a head's block ``part``."""
+        return range(part * B // self.per_head, (part + 1) * B // self.per_head)
+
+
+@functools.lru_cache(maxsize=256)
+def long_bwd_plan(B: int, N: int, heads: int, d: int, sms: int = H100_SMS) -> LongBwdPlan | None:
+    """The long backward's plan on a card of ``sms`` SMs, as the kernel's, or
+    None when the shape is out of range or a window does not fit a block's
+    shared memory (at head_dim 128, N > 208): as many blocks a head as the
+    SMs hold for all the heads, at most one a window."""
+    if not (MAX_TOKENS < N <= LONG_MAX_TOKENS and 1 <= d <= MAX_HEAD_DIM and B >= 1
+            and heads >= 1) or long_bwd_smem(N, d) > MAX_SMEM_BYTES:
+        return None
+    return LongBwdPlan(max(1, min(B, sms // heads)), LONG_THREADS, long_bwd_smem(N, d))
+
+
+def kernel_long_fwd_plan(B: int, N: int, heads: int, d: int) -> LongFwdPlan | None:
+    """The plan the built long forward computes (card only)."""
+    plan = (ctypes.c_int * 3)()
+    if build.library().dfd_window_attention_long_plan(B, N, heads, d, plan) != 0:
+        return None
+    return LongFwdPlan(*plan)
+
+
+def kernel_long_bwd_plan(B: int, N: int, heads: int, d: int, sms: int) -> LongBwdPlan | None:
+    """The plan the built long backward computes (card only)."""
+    plan = (ctypes.c_int * 3)()
+    if build.library().dfd_window_attention_long_bwd_plan(B, N, heads, d, sms, plan) != 0:
+        return None
+    return LongBwdPlan(*plan)
+
+
 def _fwd_sms(name: str, device: torch.device, B: int, N: int, heads: int, d: int) -> int:
     """The card's SM count, after checking that a forward plan fits there."""
     sms = sm_count(device)
-    if fwd_plan(B, N, heads, d, sms) is None:
+    if N > MAX_TOKENS:
+        if long_fwd_plan(B, N, heads, d) is None:
+            raise ValueError(
+                f"{name}: N={N}, head_dim={d} needs {long_fwd_smem(N, d)} bytes of shared "
+                f"memory a block, more than the {MAX_SMEM_BYTES} an H100 block has"
+            )
+    elif fwd_plan(B, N, heads, d, sms) is None:
         raise ValueError(
             f"{name}: N={N}, head_dim={d} needs {fwd_smem_bytes(N, d)} bytes of shared memory "
             f"a block, more than the {MAX_SMEM_BYTES} an H100 block has"
@@ -218,13 +316,18 @@ def _fwd_sms(name: str, device: torch.device, B: int, N: int, heads: int, d: int
 
 
 def _launch(name, q, k, v, bias, out, strides, B: int, N: int, heads: int, d: int,
-            scale: float) -> None:
-    """One kernel launch. ``strides`` holds the (batch, row, head) strides of
-    q, k, v and out, in elements. Raises when no plan fits (``fwd_plan``)."""
+            scale: float) -> bool:
+    """One kernel launch: the long forward at N > ``MAX_TOKENS`` (counted
+    there), else the short one (the caller counts it; returns True).
+    ``strides`` holds the (batch, row, head) strides of q, k, v and out, in
+    elements. Raises when no plan fits."""
     sms = _fwd_sms(name, q.device, B, N, heads, d)
     flat = [s for st in strides for s in st]
     vec = int(d % 8 == 0 and all(s % 8 == 0 for s in flat)
               and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    if N > MAX_TOKENS:
+        window_attention_long(q, k, v, bias, out, flat, B, N, heads, d, scale, vec)
+        return False
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -233,6 +336,23 @@ def _launch(name, q, k, v, bias, out, strides, B: int, N: int, heads: int, d: in
             B, N, heads, d, *flat, sms, float(scale), vec, stream,
         )
     build.check(rc, name)
+    return True
+
+
+def window_attention_long(q, k, v, bias, out, flat_strides, B: int, N: int, heads: int, d: int,
+                          scale: float, vec: int) -> None:
+    """One launch of the long forward kernel (``csrc/window_attn_long.cu``)
+    on the current stream, counted: q, k, v and out as the short kernel's,
+    ``flat_strides`` their (batch, row, head) strides in elements."""
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dfd_window_attention_long(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            B, N, heads, d, *flat_strides, float(scale), vec, stream,
+        )
+    build.check(rc, "window_attention_long")
+    window_attention_long.launches += 1
 
 
 def _check_qkv(name: str, qkv: torch.Tensor, bias: torch.Tensor,
@@ -263,9 +383,9 @@ def _qkv_cuda(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
     B, N, C, d = _check_qkv("window_attention", qkv, bias, num_heads)
     out = torch.empty(B, N, C, dtype=torch.bfloat16, device=qkv.device)
     src = (qkv.stride(0), qkv.stride(1), d)
-    _launch("window_attention", qkv, qkv[..., C:], qkv[..., 2 * C:], bias, out,
-            (src, src, src, (N * C, C, d)), B, N, num_heads, d, scale)
-    window_attention.launches += 1
+    if _launch("window_attention", qkv, qkv[..., C:], qkv[..., 2 * C:], bias, out,
+               (src, src, src, (N * C, C, d)), B, N, num_heads, d, scale):
+        window_attention.launches += 1
     return out
 
 
@@ -388,8 +508,10 @@ def window_attention_bwd(
     bias [h, N, N] f32, dout [B, N, C] bf16, each with a unit stride along
     features -> (dqkv [B, N, 3C] bf16, dbias [h, N, N] f32). Launches the CUDA
     kernel (and its fixed-order dbias reduction) on the current stream for
-    CUDA tensors, runs the plain version for CPU tensors, raises otherwise or
-    when no plan fits (``bwd_plan``)."""
+    CUDA tensors, the long one at N > ``MAX_TOKENS`` (counted on
+    ``window_attention_long_bwd.launches``), runs the plain version for CPU
+    tensors, raises otherwise or when no plan fits (``bwd_plan``,
+    ``long_bwd_plan``)."""
     name = "window_attention_bwd"
     B, N, C, d = _check_qkv(name, qkv, bias, num_heads)
     if (dout.shape != (B, N, C) or dout.dtype != torch.bfloat16 or dout.stride(2) != 1
@@ -399,21 +521,27 @@ def window_attention_bwd(
             f"{qkv.device}, got {tuple(dout.shape)} {dout.dtype} strides {dout.stride()} on "
             f"{dout.device}"
         )
-    if bwd_plan(B, N, num_heads, d) is None:
+    long = N > MAX_TOKENS
+    if (long_bwd_plan(B, N, num_heads, d) if long else bwd_plan(B, N, num_heads, d)) is None:
+        need = long_bwd_smem(N, d) if long else bwd_smem_bytes(N, d)
         raise ValueError(
-            f"{name}: N={N}, head_dim={d} needs {bwd_smem_bytes(N, d)} bytes of shared memory "
+            f"{name}: N={N}, head_dim={d} needs {need} bytes of shared memory "
             f"a block, more than the {MAX_SMEM_BYTES} an H100 block has"
         )
     if qkv.device.type == "cpu":
         return window_attention_bwd_plain(qkv, bias, dout, num_heads=num_heads, scale=scale)
     sms = sm_count(qkv.device)
-    plan = bwd_plan(B, N, num_heads, d, sms)
+    plan = (long_bwd_plan if long else bwd_plan)(B, N, num_heads, d, sms)
     dqkv = torch.empty(B, N, 3 * C, dtype=torch.bfloat16, device=qkv.device)
     dbias = torch.empty(num_heads, N, N, dtype=torch.float32, device=qkv.device)
     partial = torch.empty(plan.blocks(num_heads), N, N, dtype=torch.float32, device=qkv.device)
     strides = (qkv.stride(0), qkv.stride(1), dout.stride(0), dout.stride(1))
     vec = int(d % 8 == 0 and all(s % 8 == 0 for s in strides)
               and all(t.data_ptr() % 16 == 0 for t in (qkv, dout, dqkv)))
+    if long:
+        window_attention_long_bwd(qkv, dout, bias, dqkv, partial, dbias, strides, sms, scale, vec,
+                                  num_heads)
+        return dqkv, dbias
     lib = build.library()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -425,6 +553,25 @@ def window_attention_bwd(
     build.check(rc, name)
     window_attention_bwd.launches += 1
     return dqkv, dbias
+
+
+def window_attention_long_bwd(qkv, dout, bias, dqkv, partial, dbias, strides, sms: int,
+                              scale: float, vec: int, num_heads: int) -> None:
+    """One launch of the long backward kernel and its dbias sum
+    (``csrc/window_attn_long.cu``) on the current stream, counted; called by
+    ``window_attention_bwd`` at N > ``MAX_TOKENS`` with its checked inputs,
+    its outputs and scratch, and the (qkv, dout) batch and row strides."""
+    B, N, C3 = qkv.shape
+    lib = build.library()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        rc = lib.dfd_window_attention_long_bwd(
+            qkv.data_ptr(), dout.data_ptr(), bias.data_ptr(), dqkv.data_ptr(),
+            partial.data_ptr(), partial.shape[0], dbias.data_ptr(), B, N, num_heads,
+            C3 // 3 // num_heads, *strides, sms, float(scale), vec, stream,
+        )
+    build.check(rc, "window_attention_long_bwd")
+    window_attention_long_bwd.launches += 1
 
 
 def _check_heads(name: str, q, k, v, bias) -> tuple[int, int, int, int]:
@@ -451,8 +598,8 @@ def _heads_cuda(q, k, v, bias, scale: float) -> torch.Tensor:
     B, h, N, d = _check_heads(name, q, k, v, bias)
     out = torch.empty(B, h, N, d, dtype=torch.bfloat16, device=q.device)
     strides = tuple((t.stride(0), t.stride(2), t.stride(1)) for t in (q, k, v, out))
-    _launch(name, q, k, v, bias, out, strides, B, N, h, d, scale)
-    window_attention_heads.launches += 1
+    if _launch(name, q, k, v, bias, out, strides, B, N, h, d, scale):
+        window_attention_heads.launches += 1
     return out
 
 
@@ -492,3 +639,5 @@ def window_attention_heads(
 window_attention.launches = 0
 window_attention_heads.launches = 0
 window_attention_bwd.launches = 0
+window_attention_long.launches = 0
+window_attention_long_bwd.launches = 0

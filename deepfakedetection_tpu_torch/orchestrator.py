@@ -277,7 +277,7 @@ def orchestrate(
     mesh_data, mesh_model = mesh_dims(config)
     maybe_initialize(cpu=str(config.get("device") or "").strip().lower().startswith("cpu"))
     device = resolve_device(config)
-    make_mesh(mesh_data, mesh_model, device)  # refuses model > 1 and idle or missing ranks
+    make_mesh(mesh_data, mesh_model, device)  # refuses idle or missing ranks
     models = config.get("models") or {}
     selection = config.get("selection") or list(models.keys())
     for model_name in selection:

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from deepfakedetection_tpu_torch.parallel import mesh
+
 # the default group that the host group below was made beside, and that group
 _HOST: tuple[object, object] | None = None
 
@@ -105,10 +107,11 @@ def local_rows(t: torch.Tensor) -> np.ndarray:
 
 
 def allgather_examples(arr: np.ndarray) -> np.ndarray:
-    """Every rank's rows of ``arr`` (a ragged leading dim) concatenated in
-    rank order, on every rank: the counts first, then the rows padded to
-    the largest count, gathered, and trimmed. Without a process group it is
-    the identity."""
+    """Every data index's rows of ``arr`` (a ragged leading dim)
+    concatenated in data-index order, on every rank: the counts first, then
+    the rows padded to the largest count, gathered, and trimmed. The ranks
+    of one data index (a model axis's) hold the same rows, so the first
+    rank of each gives them. Without a process group it is the identity."""
     if not dist.is_initialized():
         return arr
     group = host_group()
@@ -121,4 +124,6 @@ def allgather_examples(arr: np.ndarray) -> np.ndarray:
     padded[: arr.shape[0]] = arr
     rows = [torch.from_numpy(np.zeros_like(padded)) for _ in range(world)]
     dist.all_gather(rows, torch.from_numpy(padded), group=group)
-    return np.concatenate([r.numpy()[:n] for r, n in zip(rows, counts)])
+    active = mesh.active()
+    step = active.model if active is not None else 1
+    return np.concatenate([r.numpy()[:n] for r, n in zip(rows, counts)][::step])

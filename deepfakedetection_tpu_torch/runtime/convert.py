@@ -107,11 +107,16 @@ def _efficientnet_map(tops: set[str]) -> NameMap:
     return m.m
 
 
-def _fastervit_map(tops: set[str]) -> NameMap:
+def _fastervit_map(tops: set[str], plain: frozenset[str] = frozenset()) -> NameMap:
     """fastervit wheel keys <- the flax FasterViT. The flax model downsamples
     at a stage's start (``downsample_{s}``), the wheel at the previous
     level's end (``levels.{s-1}.downsample``). The CT tokenizer's depthwise
-    conv is registered under two names in the wheel; both are emitted."""
+    conv is registered under two names in the wheel; both are emitted. A
+    stage-2 block in ``plain`` (the degenerate stage 3 of an input whose
+    stage-3 map is one window or less: its flax block holds ``blk``, not
+    ``hat``/``win``) maps as the stage-4 ``PlainBlock``s do, to
+    ``levels.2.blocks.{b}.*``; the wheel has no such blocks, and the port's
+    model names them so."""
     m = _Map()
 
     def cpb(key: str, path: Path_) -> None:
@@ -148,7 +153,7 @@ def _fastervit_map(tops: set[str]) -> NameMap:
         if hit:
             b = f"levels.{hit.group(1)}.blocks.{hit.group(2)}."
             cpb(f"{b}pos_embed", (t, "pos_embed"))
-            if hit.group(1) == "2":  # HAT: carrier-token and window sub-blocks
+            if hit.group(1) == "2" and t not in plain:  # HAT: carrier-token and window sub-blocks
                 cpb(f"{b}hat_pos_embed", (t, "hat_pos_embed"))
                 subblock(f"{b}hat_", (t, "hat"), ("gamma1", "gamma2"))
                 subblock(b, (t, "win"), ("gamma1", "gamma2"))
@@ -218,6 +223,17 @@ _MAPS = {"efficientnet": _efficientnet_map, "efficientformerv2": _efficientforme
          "fastervit": _fastervit_map}
 
 
+def _name_map(family: str, flat: dict[Path_, Any]) -> NameMap:
+    """The family's name map for a flattened tree: its top-level modules,
+    and for FasterViT the stage-2 blocks that are ``PlainBlock``s."""
+    tops = {p[1] for p in flat}
+    if family != "fastervit":
+        return _MAPS[family](tops)
+    plain = frozenset(p[1] for p in flat if len(p) > 2 and p[1].startswith("stage2_block")
+                      and p[2] == "blk")
+    return _fastervit_map(tops, plain)
+
+
 def state_dict_from_jax(tree: dict[str, Any], family: str) -> dict[str, torch.Tensor]:
     """JAX package variables ``{"params", "batch_stats"}`` (numpy leaves, or
     ``flax_msgpack``'s tensors) ->
@@ -226,7 +242,7 @@ def state_dict_from_jax(tree: dict[str, Any], family: str) -> dict[str, torch.Te
     every tensor of the tree whose path the family's map names, in the
     torch layout. Raises when the tree holds a tensor the map leaves out."""
     flat = _flatten(tree)
-    name_map = _MAPS[family]({p[1] for p in flat})
+    name_map = _name_map(family, flat)
     sd, used = {}, set()
     for key, (path, kind) in name_map.items():
         full = (("batch_stats",) if path[-1] in ("mean", "var") else ("params",)) + path
@@ -250,7 +266,7 @@ def conv_names_from_jax(tree: dict[str, Any], family: str) -> dict[str, str]:
     ``ops/quant.py``), through the family's name map."""
     flat = _flatten(tree)
     names = {}
-    for key, (path, _) in _MAPS[family]({p[1] for p in flat}).items():
+    for key, (path, _) in _name_map(family, flat).items():
         if key.endswith(".weight") and path[-1] == "kernel":
             names["/".join(path[:-1])] = key[: -len(".weight")]
     return names

@@ -44,7 +44,9 @@ ranks, as the JAX loop does; the logged loss and validation accuracy are
 the global ones, so every rank takes the same "best" and early-stop
 decisions. Rank 0 writes the checkpoints, and a barrier follows each write
 before any rank reads it (``runtime/checkpoint.py``). A ``mesh:`` with
-``model > 1`` is refused (``parallel/mesh.MODEL_AXIS_ITEM``).
+``model: M > 1`` runs data x M ranks, the batch split over the data axis
+only: each model group of M ranks computes the same step, as the JAX
+trainer's parameters stay replicated over its model axis.
 """
 
 from __future__ import annotations
@@ -69,12 +71,14 @@ from deepfakedetection_tpu_torch.data.pipeline import (
 )
 from deepfakedetection_tpu_torch.data.transforms import build_eval_plan, build_train_plan
 from deepfakedetection_tpu_torch.evaluate.job import builder_kwargs, collect_probs, make_eval_step
-from deepfakedetection_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM, make_mesh, shard_batch
+from deepfakedetection_tpu_torch.models.fastervit import k6_refusal
+from deepfakedetection_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from deepfakedetection_tpu_torch.parallel.multihost import barrier
 from deepfakedetection_tpu_torch.registry import ModelSpec
 from deepfakedetection_tpu_torch.runtime import checkpoint as ckpt
 from deepfakedetection_tpu_torch.runtime import preempt
 from deepfakedetection_tpu_torch.runtime.convert import load_weights
+from deepfakedetection_tpu_torch.runtime.flags import fused_attn
 from deepfakedetection_tpu_torch.runtime.logging import (
     append_metrics,
     console,
@@ -159,10 +163,12 @@ class TrainResult:
 
 
 def unported_options(job: TrainJob) -> list[str]:
-    """What the port cannot run of the job, as refusal messages."""
-    if job.mesh_model > 1:
-        return [f"mesh model={job.mesh_model}: sharding parameters over a model axis is "
-                f"{MODEL_AXIS_ITEM}"]
+    """What the port cannot run of the job, as refusal messages: a bf16
+    FasterViT under ``DFD_FUSED_ATTN`` whose attention exceeds K6's tokens."""
+    if (job.spec is not None and job.spec.family == "fastervit"
+            and job.compute_dtype == torch.bfloat16 and fused_attn()):
+        refusal = k6_refusal(job.img_size)
+        return [refusal] if refusal else []
     return []
 
 

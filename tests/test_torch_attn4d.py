@@ -179,7 +179,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(what):
     elif what == "th1 shape":
         args[4] = args[4][:2]
     elif what == "too many tokens":
-        args = _torch(_inputs(1, 129, 4, 16, 64, seed=7), torch.bfloat16)
+        args = _torch(_inputs(1, 257, 4, 16, 64, seed=7), torch.bfloat16)
     elif what == "too many heads":
         args = _torch(_inputs(1, 16, 16, 16, 8, seed=7), torch.bfloat16)
         h = 16

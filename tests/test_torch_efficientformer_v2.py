@@ -251,9 +251,13 @@ def test_conv_bias_gives_the_logits_of_its_folded_form():
 
 
 def test_full_width_launches_k7_four_times_per_forward():
-    assert create_efficientformer_v2("s1").kernel_launches_per_forward() == {"k7": 4}
+    assert create_efficientformer_v2("s1").kernel_launches_per_forward() == {"k7": 4,
+                                                                              "k7_long": 0}
     assert create_efficientformer_v2("s1", dtype=torch.float32).kernel_launches_per_forward() \
-        == {"k7": 0}
+        == {"k7": 0, "k7_long": 0}
+    # at 384 px stages 3 and 4 attend over 12 x 12 = 144 tokens: K7's long kernel
+    assert create_efficientformer_v2("s1", img_size=384).kernel_launches_per_forward() == {
+        "k7": 0, "k7_long": 4}
     assert [a.resolution for a in create_efficientformer_v2("s1").attentions()] == [7] * 4
 
 

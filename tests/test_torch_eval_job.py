@@ -397,11 +397,15 @@ def test_orchestrate_refuses_what_is_not_ported(tmp_path, tiny_image_tree, check
     data["models"]["faster_vit_2_224"] = {"output_dir": str(tmp_path / "fv")}
     data["models"]["efficientformerv2_s1"] = {"output_dir": str(tmp_path / "ef"),
                                               "training": {"remat": True}}
-    data["selection"] = ["efficientnet_b3", "efficientformerv2_s1"]
-    # a model axis (tensor parallelism) is what the port still refuses
-    cfg.write_text(yaml.safe_dump({**data, "mesh": {"data": -1, "model": 2}}))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        port_orch.orchestrate(cfg, mode="training")
+    data["selection"] = ["efficientnet_b3", "efficientformerv2_s1", "faster_vit_2_224"]
+    # an attention past K6's 128 tokens under DFD_FUSED_ATTN (FasterViT at 448
+    # px) is what the port still refuses
+    cfg.write_text(yaml.safe_dump({**data, "precision": "bfloat16",
+                                   "data": {**data["data"], "img_size": 448}}))
+    with monkeypatch.context() as mp:
+        mp.setenv("DFD_FUSED_ATTN", "1")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+            port_orch.orchestrate(cfg, mode="training")
     assert not (tmp_path / "out").exists()  # failed before any work
     # every family reaches the trainer, FasterViT with the fused sub-block (K6)
     # switched on as well, and S1 with remat: no refusal

@@ -175,13 +175,18 @@ def test_official_full_width_takes_the_wheel_state_dict():
 @pytest.mark.parametrize("config", CONFIGS)
 def test_full_width_launches_k5_thirteen_times_per_forward(config):
     model = create_faster_vit("2", head_config=config)
-    assert model.kernel_launches_per_forward() == {"k5": 13, "k6": 0}
+    assert model.kernel_launches_per_forward() == {"k5": 13, "k5_long": 0, "k6": 0}
     # a fine-tune step runs the backward of each, the head-only warmup none
-    assert model.kernel_launches_per_step() == {"k5": 13, "k5_bwd": 13, "k6": 0, "k6_bwd": 0}
-    assert model.kernel_launches_per_step(head_only=True) == {"k5": 13, "k5_bwd": 0, "k6": 0,
-                                                              "k6_bwd": 0}
+    assert model.kernel_launches_per_step() == {"k5": 13, "k5_bwd": 13, "k5_long": 0,
+                                                "k5_long_bwd": 0, "k6": 0, "k6_bwd": 0}
+    assert model.kernel_launches_per_step(head_only=True) == {
+        "k5": 13, "k5_bwd": 0, "k5_long": 0, "k5_long_bwd": 0, "k6": 0, "k6_bwd": 0}
     f32 = create_faster_vit("2", head_config=config, dtype=torch.float32)
-    assert f32.kernel_launches_per_forward() == {"k5": 0, "k6": 0}
+    assert f32.kernel_launches_per_forward() == {"k5": 0, "k5_long": 0, "k6": 0}
+    # at 448 px the 5 stage-4 attentions (196 tokens) take K5's long kernel,
+    # the 8 carrier-token ones (64 tokens) K5
+    wide = create_faster_vit("2", head_config=config, img_size=448)
+    assert wide.kernel_launches_per_forward() == {"k5": 16, "k5_long": 5, "k6": 0}
 
 
 def _chip_smoke():

@@ -108,7 +108,7 @@ def test_bf16_logits_match_the_jax_fused_path(fused, narrow, monkeypatch):
         want = np.asarray(_jax_model(config).apply(tree, jnp.asarray(x), train=False),
                           np.float32)
     model = _port_model(config, tree).eval()
-    assert model.kernel_launches_per_forward() == {"k5": 0, "k6": 5}
+    assert model.kernel_launches_per_forward() == {"k5": 0, "k5_long": 0, "k6": 5}
     calls = _counting(monkeypatch, "attn_subblock_plain")
     before = (k6.attn_subblock.launches, window_attn.window_attention.launches)
     with torch.no_grad():
@@ -165,13 +165,14 @@ def test_the_flag_changes_no_parameter(config, monkeypatch):
     monkeypatch.setenv("DFD_FUSED_ATTN", "1")
     model = create_faster_vit("2", head_config=config)
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == plain
-    assert model.kernel_launches_per_forward() == {"k5": 0, "k6": 21}
-    assert model.kernel_launches_per_step() == {"k5": 0, "k5_bwd": 0, "k6": 21, "k6_bwd": 21}
-    assert model.kernel_launches_per_step(head_only=True) == {"k5": 0, "k5_bwd": 0, "k6": 21,
-                                                              "k6_bwd": 0}
+    assert model.kernel_launches_per_forward() == {"k5": 0, "k5_long": 0, "k6": 21}
+    assert model.kernel_launches_per_step() == {"k5": 0, "k5_bwd": 0, "k5_long": 0,
+                                                "k5_long_bwd": 0, "k6": 21, "k6_bwd": 21}
+    assert model.kernel_launches_per_step(head_only=True) == {
+        "k5": 0, "k5_bwd": 0, "k5_long": 0, "k5_long_bwd": 0, "k6": 21, "k6_bwd": 0}
     # a float32 model attends through plain ops with or without the flag
     f32 = create_faster_vit("2", head_config=config, dtype=torch.float32)
-    assert f32.kernel_launches_per_forward() == {"k5": 0, "k6": 0}
+    assert f32.kernel_launches_per_forward() == {"k5": 0, "k5_long": 0, "k6": 0}
 
 
 def test_orchestrate_trains_and_evaluates_with_the_flag(fused, tiny_image_tree, tmp_path,

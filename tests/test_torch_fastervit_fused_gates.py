@@ -75,7 +75,7 @@ def test_logit_gate_catches_wrong_k6_forwards(smoke, states, monkeypatch, config
     cpu = torch.device("cpu")
     f32 = smoke.fastervit_logits(state, config, x, cpu, torch.float32).double()
     model = _model(smoke, state, config, True).eval()
-    assert model.kernel_launches_per_forward() == {"k5": 0, "k6": 21}
+    assert model.kernel_launches_per_forward() == {"k5": 0, "k5_long": 0, "k6": 21}
 
     def rel():
         with torch.no_grad():

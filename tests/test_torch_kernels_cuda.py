@@ -17,11 +17,15 @@ library's. K5's backward at the same shapes: dq, dk
 and dv within two bf16 steps of each one's scale, dbias within 1e-3 of its
 scale (f32 on both sides, summed over the windows in other orders), and
 bit-identical dbias and dqkv over two runs; the autograd Function launches
-the forward once and the backward once. K7 (talking-head attention) at
+the forward once and the backward once. K5's long kernels (past 128
+tokens) at FasterViT-2's stage 4 at 448 and 512 px and odd sizes, to the
+same tolerances, bit-identical over two runs, their plans the built
+library's, counted on their own counters. K7 (talking-head attention) at
 EfficientFormerV2-S1's shape and at ragged and small sizes: within two bf16
 steps of the output's scale, bit-identical over two runs, its plan the
 built library's, at every kind of plan; it refuses a gradient, and a
-full-width S1 forward launches it four times. K6 (the fused
+full-width S1 forward launches it four times. K7's long kernel at S1's
+384 and 512 px shapes and odd sizes likewise. K6 (the fused
 attention sub-block) at a FasterViT-2 stage-3 shape and an odd one: the
 output and dx within two bf16 steps of their scales, the f32 gradients within
 1e-2 of theirs, the backward's six outputs bit-identical over two runs; the
@@ -267,6 +271,44 @@ def test_window_attention_function_runs_both_kernels(cuda):
         qkv.detach(), bias.detach(), dout.to(torch.bfloat16), num_heads=8, scale=48**-0.5))
 
 
+K5_LONG_CASES = [
+    # (windows, N, heads, d): FasterViT-2's stage 4 at 448 px in both head
+    # configurations, at 512 px, and odd sizes (an element-by-element copy at d 40)
+    (64, 196, 16, 48), (32, 196, 6, 128), (16, 256, 16, 48), (8, 129, 2, 64), (8, 197, 3, 40),
+    (8, 208, 1, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,h,d", K5_LONG_CASES)
+def test_window_attention_long_kernels_match_plain_and_repeat(cuda, B, N, h, d):
+    """Past 128 tokens the wrappers launch ``csrc/window_attn_long.cu``'s
+    forward and backward (counted there, not on the short kernels), within
+    the short kernels' tolerances, bit-identical over two runs, their plans
+    the built library's."""
+    qkv, bias = _k5_inputs(B, N, h, d, cuda, seed=N * d + h + 2)
+    sms = k5.sm_count(qkv.device)
+    assert k5.kernel_long_fwd_plan(B, N, h, d) == k5.long_fwd_plan(B, N, h, d)
+    assert k5.kernel_long_bwd_plan(B, N, h, d, sms) == k5.long_bwd_plan(B, N, h, d, sms)
+    counts = (k5.window_attention.launches, k5.window_attention_long.launches,
+              k5.window_attention_bwd.launches, k5.window_attention_long_bwd.launches)
+    out = k5.window_attention(qkv, bias, num_heads=h, scale=d**-0.5)
+    again = k5.window_attention(qkv, bias, num_heads=h, scale=d**-0.5)
+    dout = torch.randn(B, N, h * d, generator=torch.Generator().manual_seed(N)).to(
+        torch.bfloat16).to(cuda)
+    got = k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=d**-0.5)
+    twice = k5.window_attention_bwd(qkv, bias, dout, num_heads=h, scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert (k5.window_attention.launches, k5.window_attention_long.launches,
+            k5.window_attention_bwd.launches, k5.window_attention_long_bwd.launches) == (
+        counts[0], counts[1] + 2, counts[2], counts[3] + 2)
+    assert torch.equal(again, out) and torch.equal(got[0], twice[0])
+    assert torch.equal(got[1], twice[1])
+    _k5_close(out, k5.window_attention_plain(qkv, bias, num_heads=h, scale=d**-0.5))
+    _k5_bwd_close(got, k5.window_attention_bwd_plain(qkv, bias, dout, num_heads=h,
+                                                     scale=d**-0.5))
+
+
 K7_CASES = [
     # (B, N, heads, d, dv)
     (64, 49, 8, 32, 128),  # EfficientFormerV2-S1's 7x7 attention
@@ -300,6 +342,27 @@ def test_attn4d_kernel_matches_plain_and_repeats(cuda, B, N, h, d, dv):
     again = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
     torch.cuda.synchronize()
     assert k7.attn4d.launches == before + 2
+    assert torch.equal(out, again)
+    _k5_close(out, k7.attn4d_plain(*args, num_heads=h, scale=d**-0.5))
+
+
+K7_LONG_CASES = [
+    # (B, N, heads, d, dv): S1 at 384 and 512 px, odd sizes, fewer heads, dv % 16 == 8
+    (64, 144, 8, 32, 128), (8, 256, 8, 32, 128), (8, 129, 8, 32, 128), (8, 197, 8, 32, 128),
+    (8, 150, 3, 16, 40),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,h,d,dv", K7_LONG_CASES)
+def test_attn4d_long_kernel_matches_plain_and_repeats(cuda, B, N, h, d, dv):
+    assert k7.long_plan(B, N, h, d, dv) == k7.kernel_long_plan(B, N, h, d, dv)
+    args = _k7_inputs(B, N, h, d, dv, cuda, seed=N * dv + h + 1)
+    before = (k7.attn4d.launches, k7.attn4d_long.launches)
+    out = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
+    again = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert (k7.attn4d.launches, k7.attn4d_long.launches) == (before[0], before[1] + 2)
     assert torch.equal(out, again)
     _k5_close(out, k7.attn4d_plain(*args, num_heads=h, scale=d**-0.5))
 

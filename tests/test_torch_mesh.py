@@ -4,8 +4,9 @@ process (the two-process runs are ``tests/test_torch_parallel.py``).
 - ``parallel/mesh.mesh_dims`` raises exactly where the JAX orchestrator's
   ``_mesh_dims`` raises, with its words, and returns what it returns;
   ``make_mesh`` then accepts a data axis of -1 or the world with a model
-  axis of 1, refuses ``model > 1`` naming the ROADMAP item of the model
-  axis, and refuses a data axis that exceeds the world.
+  axis of 1, and refuses a data x model mesh that exceeds the world or a
+  model axis that does not divide it (the model axis over several ranks is
+  ``tests/test_torch_model_axis.py``).
 - ``orchestrate`` refuses a bad ``mesh:`` before any work: no run dir.
 - ``maybe_initialize`` joins a group only when asked (``DFD_MULTIHOST=1``
   or torchrun's environment), is idempotent, and raises when the
@@ -29,7 +30,7 @@ import yaml
 from deepfakedetection_tpu.orchestrator import _mesh_dims
 from deepfakedetection_tpu_torch.orchestrator import orchestrate
 from deepfakedetection_tpu_torch.parallel import multihost
-from deepfakedetection_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM, make_mesh, mesh_dims
+from deepfakedetection_tpu_torch.parallel.mesh import make_mesh, mesh_dims
 from deepfakedetection_tpu_torch.runtime.flags import resolve_device
 from deepfakedetection_tpu_torch.train.loop import TrainJob, unported_options
 
@@ -59,11 +60,11 @@ def test_the_port_validates_the_mesh_as_the_jax_package(case):
         return
     assert mesh_dims(config) == want
     data, model = want
-    if model > 1:
-        with pytest.raises(NotImplementedError, match=re.escape(MODEL_AXIS_ITEM)):
+    if data == -1 and model > 1:
+        with pytest.raises(ValueError, match=f"model={model} does not divide 1 processes"):
             make_mesh(data, model)
-    elif data not in (-1, 1):
-        with pytest.raises(ValueError, match=f"mesh {data}x1 exceeds 1 processes"):
+    elif data not in (-1, 1) or model > 1:
+        with pytest.raises(ValueError, match=f"mesh {data}x{model} exceeds 1 processes"):
             make_mesh(data, model)
     else:
         mesh = make_mesh(data, model)
@@ -81,7 +82,7 @@ def _config(tmp_path, mesh):
 
 @pytest.mark.parametrize("mesh, error, words", [
     ({"data": 0, "model": 4}, ValueError, "invalid mesh config data=0 model=4"),
-    ({"data": -1, "model": 2}, NotImplementedError, MODEL_AXIS_ITEM),
+    ({"data": -1, "model": 2}, ValueError, "mesh -1x2: model=2 does not divide 1 processes"),
     ({"data": 2, "model": 1}, ValueError, "mesh 2x1 exceeds 1 processes"),
 ])
 @pytest.mark.parametrize("mode", ["training", "inference"])
@@ -92,11 +93,12 @@ def test_orchestrate_refuses_a_bad_mesh_before_any_work(tmp_path, mesh, error, w
 
 
 def test_the_trainer_refuses_a_model_axis_only():
+    """The model axis is ported: the trainer refuses no mesh (a job's model
+    axis is checked against the world by ``make_mesh``)."""
     job = TrainJob(model_name="efficientnet_b3", spec=None, run_paths=None, data_root=Path("."))
     assert unported_options(job) == []
     job.mesh_model = 2
-    assert unported_options(job) == [
-        f"mesh model=2: sharding parameters over a model axis is {MODEL_AXIS_ITEM}"]
+    assert unported_options(job) == []
 
 
 @pytest.fixture
@@ -187,6 +189,8 @@ def test_every_kernel_launch_is_under_its_device_guard():
         count, bare = _guarded_library_calls(path.read_text())
         assert bare == [], f"{path.name}: library calls outside a device guard at {bare}"
         total += count
-    assert total == 11  # K1, K2, K3 and its packing, K4, K5 and K6 both ways, K7, int8
+    # K1, K2, K3 and its packing, K4, K5 and K6 both ways, K7, int8, and the
+    # long K5 forward and backward and long K7
+    assert total == 14
     planted = "def f(lib, x):\n    return lib.dfd_kernel(x)\n"
     assert _guarded_library_calls(planted) == (1, [2])

@@ -8,7 +8,10 @@ the K6 wrapper (forward and backward) and of a narrow EfficientFormerV2
 through the K7 wrapper, that EfficientFormerV2's train forward and backward
 and its Grad-CAM, import the predict CLI and the web UI, serve a batch through
 the server's micro-batcher and weigh an ensemble, import the data-parallel
-modules (``parallel/mesh.py``, ``parallel/multihost.py``), one CPU train
+modules (``parallel/mesh.py``, ``parallel/multihost.py``) and the model
+axis's (``parallel/tensor.py``: the narrow EfficientNet's ``param_specs``),
+K5's and K7's wrappers past 128 tokens (the long kernels' plain versions on
+the CPU, no launch counted), one CPU train
 step with the augmentation's shear rotation and one with ``remat``, a tree
 packed into tar shards and read back through the eval loader, an
 asynchronous checkpoint write, and a calibrated int8 forward
@@ -117,7 +120,7 @@ from deepfakedetection_tpu_torch.ops import window_attn
 
 vit = FasterViT(2, dim=16, in_dim=8, depths=(1, 1, 1, 1),
                 generator=torch.Generator().manual_seed(0)).eval()
-assert vit.kernel_launches_per_forward() == {"k5": 2, "k6": 0}
+assert vit.kernel_launches_per_forward() == {"k5": 2, "k5_long": 0, "k6": 0}
 calls = []
 plain = window_attn.window_attention_plain
 window_attn.window_attention_plain = lambda *a, **kw: calls.append(a[0].shape[1]) or plain(*a, **kw)
@@ -134,7 +137,7 @@ os.environ["DFD_FUSED_ATTN"] = "1"
 fused = FasterViT(2, dim=16, in_dim=8, depths=(1, 1, 1, 1),
                   generator=torch.Generator().manual_seed(0))
 del os.environ["DFD_FUSED_ATTN"]
-assert fused.kernel_launches_per_forward() == {"k5": 0, "k6": 3}
+assert fused.kernel_launches_per_forward() == {"k5": 0, "k5_long": 0, "k6": 3}
 fused_calls = []
 plain6 = attn_block.attn_subblock_plain
 attn_block.attn_subblock_plain = lambda *a, **kw: fused_calls.append(a[0].shape[1]) or plain6(*a, **kw)
@@ -153,7 +156,7 @@ from deepfakedetection_tpu_torch.ops import attn4d
 ef = EfficientFormerV2(2, dims=(16, 24, 32, 48), depths=(1, 1, 2, 2), vit_num=1,
                        e_ratios={0: [4], 1: [4], 2: [4, 4], 3: [4, 4]}, img_size=64,
                        generator=torch.Generator().manual_seed(0)).eval()
-assert ef.kernel_launches_per_forward() == {"k7": 2}
+assert ef.kernel_launches_per_forward() == {"k7": 2, "k7_long": 0}
 tokens = []
 plain4d = attn4d.attn4d_plain
 attn4d.attn4d_plain = lambda *a, **kw: tokens.append(a[0].shape[1]) or plain4d(*a, **kw)
@@ -206,6 +209,18 @@ nodes = [str(n.target) for gm in program.graph_module.modules()
 assert nodes.count("dfd.depthwise_silu_pool.default") == 1, nodes
 assert nodes.count("dfd.expand_dw_silu_pool.default") == 5, nodes
 assert flax_msgpack.msgpack_restore(bytes([0x81, 0xA1, 0x61, 0xC0])) == {"a": None}
+from deepfakedetection_tpu_torch.ops import window_attn
+from deepfakedetection_tpu_torch.parallel.tensor import param_specs, shard_parameters
+
+specs = param_specs(model, 2)
+assert specs["_fc.weight"] == 0 and specs["_fc.bias"] is None, specs["_fc.weight"]
+qkv = torch.randn(1, 196, 3 * 16).to(torch.bfloat16)
+out = window_attn.window_attention(qkv, torch.zeros(1, 196, 196), num_heads=1, scale=0.25)
+assert out.shape == (1, 196, 16) and window_attn.window_attention_long.launches == 0
+q = torch.randn(1, 144, 8 * 16).to(torch.bfloat16)
+out = attn4d.attn4d(q, q, q, torch.zeros(8, 144, 144), torch.eye(8), torch.zeros(8),
+                    torch.eye(8), torch.zeros(8), num_heads=8, scale=0.25)
+assert out.shape == (1, 144, 128) and attn4d.attn4d_long.launches == 0
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "ml_dtypes",
           "deepfakedetection_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)

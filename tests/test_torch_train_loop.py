@@ -243,13 +243,17 @@ def test_rotation_runs_k4_plain_inside_the_loop(tiny_image_tree, tmp_path, monke
 
 
 def test_unported_options_refuse_before_any_work(tiny_image_tree, tmp_path, monkeypatch):
-    """A model axis in the mesh (ROADMAP Queue 1 item 14, tensor
-    parallelism) is what the trainer still refuses."""
+    """An attention past K6's 128 tokens under ``DFD_FUSED_ATTN`` (a
+    FasterViT at 448 px; ROADMAP Queue 1 item 15) is what the trainer still
+    refuses."""
+    from deepfakedetection_tpu_torch.registry import get_model_spec
+
     cfg = _config(tmp_path / "u.yaml", tiny_image_tree, tmp_path / "u")
-    cfg.write_text(yaml.safe_dump({**yaml.safe_load(cfg.read_text()),
-                                   "mesh": {"data": -1, "model": 2}}))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _train(monkeypatch, cfg)
+    data = yaml.safe_load(cfg.read_text())
+    cfg.write_text(yaml.safe_dump({**data, "data": {**data["data"], "img_size": 448}}))
+    monkeypatch.setenv("DFD_FUSED_ATTN", "1")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        _train(monkeypatch, cfg, spec=get_model_spec("faster_vit_2_224"))
     assert not (tmp_path / "u").exists()
 
 

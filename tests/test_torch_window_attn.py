@@ -119,8 +119,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(what):
     elif what == "bias dtype":
         bias = bias.double()
     elif what == "too many tokens":
-        qkv = torch.zeros(1, 129, 3 * 2 * 8, dtype=torch.bfloat16)
-        bias = torch.zeros(2, 129, 129)
+        qkv = torch.zeros(1, 257, 3 * 2 * 8, dtype=torch.bfloat16)
+        bias = torch.zeros(2, 257, 257)
     elif what == "head split":
         kw["num_heads"] = 5
     else:

@@ -141,9 +141,9 @@ def test_header_table_is_the_plan():
 def test_cpu_wrappers_refuse_sizes_past_the_kernels_limits():
     import torch
 
-    qkv = torch.zeros(1, 129, 3 * 16, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="1 <= N <= 128 tokens"):
-        k5.window_attention(qkv, torch.zeros(1, 129, 129), num_heads=1, scale=0.1)
+    qkv = torch.zeros(1, 257, 3 * 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1 <= N <= 256 tokens"):
+        k5.window_attention(qkv, torch.zeros(1, 257, 257), num_heads=1, scale=0.1)
     q = torch.zeros(1, 1, 8, 129, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim=129"):
         k5.window_attention_heads(q, q, q, torch.zeros(1, 8, 8), scale=0.1)
