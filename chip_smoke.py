@@ -307,8 +307,9 @@ K4_CASES = [(128, 257, 257, 0.17453, 0.17453), (16, 257, 257, 0.23911, 0.23911),
             (16, 96, 96, 0.45, 0.45), (8, 37, 45, 0.2, 0.2), (8, 45, 37, 0.45, 0.45),
             (8, 33, 31, 0.2, 0.0)]
 K4_TOL = 3 * 2.0**-8
-# phase 4 images per split (the train split 1,024 until phase 17 took its time)
-TRAIN_SPLITS = {"train": 512, "val": 128, "test": 128}
+# phase 4 images per split (the train split 1,024 until phase 17 took its time,
+# 512 until its 560 px cases did)
+TRAIN_SPLITS = {"train": 256, "val": 128, "test": 128}
 TRAIN_TF = {"ensure_rgb": True, "train_random_resized_crop": True,
             "train_random_horizontal_flip": True, "train_random_rotation": True,
             "train_color_jitter": True, "train_random_erasing": True}
@@ -410,12 +411,16 @@ K3_LAUNCHES = {"k1": 2, "k2": 2, "k3": 18}  # per B3 forward with DFD_FUSED_MBCO
 # px (stage 4 one window of 14 x 14 = 196 tokens of C 768; 5 launches a
 # forward) at its eval batch and fine-tune batch, in both head
 # configurations, (config, windows, N, C, heads, launches); odd sizes
-# (windows, N, heads, d): one past the short kernels, 197, 256 (512 px), a
-# head_dim off the 16-byte loads (d 40) and the backward's largest at d 128
+# (windows, N, heads, d): one past the short kernels, 197, 256, a head_dim
+# off the 16-wide tiles (d 40), 208 and 256 at d 128 (the earlier long
+# backward refused d 128 past 208), 560 px (18 x 18 = 324 tokens, official)
+# and 672 px (441, tpu): every kernel takes any N
 FV448, FV448_BATCH, FV448_STEP_BATCH = 448, 64, 32
+FV560 = 560  # stage 4 324 tokens: past the 256 the earlier long kernels took
 K5_LONG_SHAPES = [("official", FV448_BATCH, 196, 768, 16, 5), ("tpu", FV448_BATCH, 196, 768, 6, 5)]
 K5_LONG_BWD_SHAPES = [(c, FV448_STEP_BATCH, N, C, h, n) for c, _, N, C, h, n in K5_LONG_SHAPES]
-K5_LONG_ODD = [(8, 129, 2, 64), (8, 197, 3, 40), (8, 256, 16, 48), (8, 208, 1, 128)]
+K5_LONG_ODD = [(8, 129, 2, 64), (8, 197, 3, 40), (8, 256, 16, 48), (8, 208, 1, 128),
+               (8, 256, 6, 128), (8, 324, 16, 48), (4, 441, 6, 128)]
 # K7 at EfficientFormerV2-S1's 384 px shape (12 x 12 = 144 tokens in the
 # last two blocks of stages 3 and 4), (B, N, heads, d, dv, launches); odd N
 EF384, EF384_BATCH = 384, 128
@@ -450,12 +455,14 @@ def reference_imports(source: str) -> list[str]:
 
 
 _T0 = time.perf_counter()
+PHASE_STARTS: dict[str, float] = {}  # seconds since the start, by phase, for the report
 
 
 def log(msg: str) -> None:
     """Prints a line; a phase's first line with the seconds since the start."""
     if msg.startswith("phase "):
-        msg = f"{msg} [{time.perf_counter() - _T0:.0f} s in]"
+        PHASE_STARTS[msg.split(":", 1)[0]] = time.perf_counter() - _T0
+        msg = f"{msg} [{PHASE_STARTS[msg.split(':', 1)[0]]:.0f} s in]"
     print(msg, flush=True)
 
 
@@ -627,6 +634,8 @@ def phase1(device, report, parent: str | None = None):
     kernels["attn4d"]["parent"] = k7_parent(parent)
     kernels["window_attention_long"], kernels["window_attention_long_bwd"] = \
         phase1_k5_long(device)
+    kernels["window_attention_long"]["parent"], kernels["window_attention_long_bwd"]["parent"] = \
+        k5_long_parent(parent)
     kernels["attn4d_long"] = phase1_k7_long(device)
     kernels["attn_subblock"], kernels["attn_subblock_bwd"] = phase1_k6(device)
     kernels["fused_mbconv_se"] = phase1_k3(device)
@@ -714,6 +723,38 @@ def k5_parent(parent: str | None, fwd: bool) -> dict | None:
             f"{agg['this_ms']:.4f} ms (device {agg['this_device_ms']:.4f}), the parent's "
             f"{agg['other_ms']:.4f} ms (device {agg['other_device_ms']:.4f})")
     return {"tree": parent, "rows": rows, "per_pass": sums}
+
+
+def k5_long_parent(parent: str | None) -> tuple[dict | None, dict | None]:
+    """K5's long kernels of the checkout in ``parent`` against this one's, in
+    turns by device time (``profile_k5.compare_long``: the forward at
+    ``K5_LONG_SHAPES``, the backward at ``K5_LONG_BWD_SHAPES``, both held to
+    the plain versions), and the sums per FasterViT-2 448 px forward and
+    fine-tune step of each head configuration. (None, None) without
+    ``parent``."""
+    if parent is None:
+        log("  window_attention_long: the parent's kernels not measured (no --parent)")
+        return None, None
+    from deepfakedetection_tpu_torch import profile_k5
+
+    rows = profile_k5.compare_long(parent)
+    out = []
+    for pass_, shapes in (("forward", K5_LONG_SHAPES), ("backward", K5_LONG_BWD_SHAPES)):
+        sums = {}
+        for r, shape in zip([r for r in rows if r["pass"] == pass_], shapes):
+            agg = sums.setdefault(shape[0], dict.fromkeys(
+                ("this_ms", "other_ms", "this_device_ms", "other_device_ms"), 0.0))
+            for key in agg:
+                agg[key] += shape[5] * r[key]
+        for config, agg in sums.items():
+            log(f"  K5 long {pass_} per FasterViT-2 {config} pass at {FV448} px (5 launches), in "
+                f"turns with {parent}'s: this {agg['this_ms']:.4f} ms (device "
+                f"{agg['this_device_ms']:.4f}), the parent's {agg['other_ms']:.4f} (device "
+                f"{agg['other_device_ms']:.4f}); device ratio "
+                f"{agg['this_device_ms'] / agg['other_device_ms']:.3f}")
+        out.append({"tree": parent, "rows": [r for r in rows if r["pass"] == pass_],
+                    "per_pass": sums})
+    return out[0], out[1]
 
 
 def kernel_bound(name: str, B: int, shape) -> tuple[float, str]:
@@ -1182,7 +1223,8 @@ def phase1_k5_long(device) -> tuple[dict, dict]:
     over two runs (dbias included); each plan the built library's; a launch
     counted on the long counters and none on the short ones. Kernel, plain
     and SDPA times (CUDA events, and device time), the bound, per forward or
-    fine-tune step of each head configuration."""
+    fine-tune step of each head configuration (device time by ``launch_ms``:
+    short profiler takes of these kernels lost records and read low)."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import window_attn as k5
@@ -1199,7 +1241,7 @@ def phase1_k5_long(device) -> tuple[dict, dict]:
     def check(label, qkv, bias, dout, h, scale, bwd=True):
         B, N, C3 = qkv.shape
         d = C3 // 3 // h
-        if (k5.long_fwd_plan(B, N, h, d) != k5.kernel_long_fwd_plan(B, N, h, d)
+        if (k5.long_fwd_plan(B, N, h, d, sms) != k5.kernel_long_fwd_plan(B, N, h, d, sms)
                 or k5.long_bwd_plan(B, N, h, d, sms) != k5.kernel_long_bwd_plan(B, N, h, d, sms)):
             raise AssertionError(f"window_attention_long {label}: plans differ from the "
                                  "kernel's")
@@ -1266,7 +1308,7 @@ def phase1_k5_long(device) -> tuple[dict, dict]:
                 lib = None if lib_t is None else lib_t["median"]
                 lib_dev = None if lib_t is None else lib_t["device_ms"]
             t_k = spread(cuda_times(call, runs=25))
-            dev = sum(kernel_split(call, calls=25, expect=kernels)[0].values())
+            dev = launch_ms(call, kernels, calls=25)  # each kernel once a call
             t_p = spread(cuda_times(plain, runs=10))
             rows.append({"config": config, "shape": (B, N, C, h), "launches": count,
                          "max_abs_err": errs, "ms": t_k, "device_ms": dev, "plain_ms": t_p,
@@ -3998,7 +4040,7 @@ SERVE_B64 = 4  # of them sent as {"image_b64"}, the rest as raw JPEG bodies
 SERVE_WEIGHTS = {"efficientnet_b3": 2.0}  # phase 12's top-level ensemble
 SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
 # the load: client threads x requests each (16 each until phase 17 took its time)
-SERVE_CLIENTS, SERVE_PER_CLIENT = 64, 8
+SERVE_CLIENTS, SERVE_PER_CLIENT = 64, 4
 SERVE_RELOAD_CLIENTS = 16  # the load during the reload, each until the swap is behind it
 SERVE_TOKEN = "phase-12-reload-token"
 
@@ -5828,14 +5870,16 @@ def sized_eval(work: Path, data: Path, model: str, weights: Path, img_size: int,
 def phase17(device, report) -> dict:
     """The image sizes past and below 224 px. FasterViT-2 (official) at 448
     px (stage 4 196 tokens: K5's long kernels; its carrier-token attention 64
-    tokens: K5) and at 112 px (stage 3 one window: plain blocks over 49
-    tokens), EfficientFormerV2-S1 at 384 px (144 tokens: K7's long kernel):
-    ``orchestrate(mode="inference")`` from seeded ``.pth`` files built for
-    those sizes, each batch's launches exactly the model's, the outputs
-    against the CPU under ``FV_GATE`` / ``EFV2_GATE``; FasterViT-2 at 448
-    px trained one epoch by ``orchestrate(mode="training")`` (K5's long
-    backward in every fine-tune step); one bf16 fine-tune step at 448 px on
-    the card against the CPU's (``FV_STEP_BOUNDS``)."""
+    tokens: K5), at 560 px (stage 4 324 tokens, past the 256 the earlier long
+    kernels took; carrier tokens 100) and at 112 px (stage 3 one window:
+    plain blocks over 49 tokens), EfficientFormerV2-S1 at 384 px (144 tokens:
+    K7's long kernel): ``orchestrate(mode="inference")`` from seeded ``.pth``
+    files built for those sizes, each batch's launches exactly the model's,
+    the outputs against the CPU under ``FV_GATE`` / ``EFV2_GATE``;
+    FasterViT-2 at 448 px trained one epoch by ``orchestrate(mode="training")``
+    (K5's long backward in every fine-tune step); one bf16 fine-tune step on
+    the card against the CPU's (``FV_STEP_BOUNDS``) at 448 px (official) and
+    at 560 px (tpu: 6 heads of 128 over 324 tokens)."""
     import torch
 
     from deepfakedetection_tpu_torch.models.efficientformer_v2 import create_efficientformer_v2
@@ -5855,6 +5899,7 @@ def phase17(device, report) -> dict:
     cpu = torch.device("cpu")
     out: dict = {"card": smi()}
     cases = (("fastervit", FV448, FV448_BATCH, FV_GATE["official"]),
+             ("fastervit", FV560, FV448_BATCH, FV_GATE["official"]),
              ("fastervit", FV112, FV_BATCH, FV_GATE["official"]),
              ("efficientformerv2", EF384, EF384_BATCH, EFV2_GATE))
     launches = {}
@@ -5912,11 +5957,17 @@ def phase17(device, report) -> dict:
     out["step_448"] = fv_step_against_cpu(device, "official", dtypes=("bf16",), img_size=FV448,
                                           state=torch.load(weights, weights_only=True))
     lap("FasterViT-2 448 px step against the CPU")
+    # the tpu configuration's stage 4 at 560 px: 324 tokens of 6 heads of 128,
+    # the backward the earlier long kernel refused
+    out["step_560_tpu"] = fv_step_against_cpu(
+        device, "tpu", dtypes=("bf16",), img_size=FV560,
+        state=seeded_fastervit_state("tpu", seed=23, img_size=FV560))
+    lap("FasterViT-2 tpu 560 px step against the CPU")
     out["seconds"] = seconds
     log(f"  sizes: {out['card']}; seconds {({k: round(v, 1) for k, v in seconds.items()})}")
     report["phase17"] = out
-    return {"k5_long": launches[FV448]["k5_long"], "k5_long_bwd": launches["train"]["k5_long_bwd"],
-            "k7_long": launches[EF384]["k7_long"]}
+    return {"k5_long": launches[FV448]["k5_long"] + launches[FV560]["k5_long"],
+            "k5_long_bwd": launches["train"]["k5_long_bwd"], "k7_long": launches[EF384]["k7_long"]}
 
 
 def main() -> int:
@@ -5993,15 +6044,16 @@ def main() -> int:
         "plain one, orchestrate(mode='training') with async checkpoints and mixup, a resume "
         "and orchestrate(mode='inference') through the ranked path")
     phase16(device, report)
-    log("phase 17: image sizes past and below 224 px: FasterViT-2 at 448 (K5's long kernels) "
-        "and 112 (stage 3 one window), EfficientFormerV2-S1 at 384 (K7's long kernel), "
-        "orchestrate(mode='inference') and FasterViT-2 orchestrate(mode='training') at 448")
+    log("phase 17: image sizes past and below 224 px: FasterViT-2 at 448 and 560 (K5's long "
+        "kernels) and 112 (stage 3 one window), EfficientFormerV2-S1 at 384 (K7's long kernel), "
+        "orchestrate(mode='inference'), FasterViT-2 orchestrate(mode='training') at 448 and "
+        "fine-tune steps against the CPU at 448 and 560")
     launches.update(phase17(device, report))
     log(f"timings: {time.perf_counter() - _T0:.0f} s in all (each phase's start above); phase "
         f"17 {sum(report['phase17']['seconds'].values()):.0f} s and phase 1's long rows, paid "
         "for by cutting depth: phase 3's test split 1,280 -> 640 images (phases 3, 5, 7-9, 13, "
-        "15), phase 4's train split 1,024 -> 512 (phases 4, 6), phase 12's load 64 x 16 -> 64 x "
-        "8 requests")
+        "15), phase 4's train split 1,024 -> 512 -> 256 (phases 4, 6), phase 12's load 64 x 16 "
+        "-> 64 x 8 -> 64 x 4 requests")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())
@@ -6009,6 +6061,7 @@ def main() -> int:
         raise AssertionError(f"JAX was imported: {leaked[:5]}; this script imports {own}")
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
+    report["phase_starts_s"] = {**PHASE_STARTS, "end": time.perf_counter() - _T0}
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     sources = {"depthwise_silu_pool": ("k1", "depthwise_se.cu",
                                        "deepfakedetection_tpu/ops/pallas/depthwise_se.py:73"),

@@ -63,9 +63,10 @@ _SIGNATURES = {
     "dfd_window_attention_plan": [_I] * 5 + [_P],
     "dfd_window_attention_bwd": [_P] * 5 + [_L, _P] + [_I] * 4 + [_L] * 4 + [_I, _F, _I, _P],
     "dfd_window_attention_bwd_plan": [_I] * 5 + [_P],
-    "dfd_window_attention_long": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _I, _P],
-    "dfd_window_attention_long_plan": [_I] * 4 + [_P],
-    "dfd_window_attention_long_bwd": [_P] * 5 + [_L, _P] + [_I] * 4 + [_L] * 4 + [_I, _F, _I, _P],
+    "dfd_window_attention_long": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_I, _F, _I, _P],
+    "dfd_window_attention_long_plan": [_I] * 5 + [_P],
+    "dfd_window_attention_long_bwd": [_P] * 5 + [_L, _P, _P, _L] + [_I] * 4 + [_L] * 4
+    + [_I, _F, _I, _P],
     "dfd_window_attention_long_bwd_plan": [_I] * 5 + [_P],
 }
 

@@ -1,6 +1,6 @@
 // K5 past 128 tokens: the forward and the backward of multi-head attention
-// with a per-head additive bias over windows of 129 to 256 tokens (FasterViT's
-// stage 4 at 448 px: 196 tokens; at 512 px: 256). window_attn.cu and
+// with a per-head additive bias over windows of any length (FasterViT's
+// stage 4: 196 tokens at 448 px, 324 at 560, 441 at 672). window_attn.cu and
 // window_attn_bwd.cu keep N <= 128; ops/window_attn.py chooses by N.
 //
 // Replaces: deepfakedetection_tpu/ops/pallas/window_attn.py at these sizes,
@@ -11,42 +11,81 @@
 // Contract: as window_attn.cu and window_attn_bwd.cu. Forward: q, k, v, out
 //   [B, N, h, d] bf16 through (batch, row, head) strides, bias [h, N, N] f32:
 //     s   = (q_h . k_h^T accumulated in f32) * scale + bias[h]
-//     p   = exp(s - max s) / sum exp(s - max s), in f32, rounded to bf16
-//     out = p . v_h accumulated in f32, rounded to bf16.
+//     out = softmax(s) . v_h accumulated in f32, rounded to bf16.
 //   Backward: qkv [B, N, 3C], dout [B, N, C] -> dqkv [B, N, 3C] bf16 and
-//   dbias [h, N, N] f32 summed over windows, as window_attn_bwd.cu: the f32
-//   p recomputed, dv = bf16(bf16(p)^T do), dp = do v^T, ds = p (dp -
-//   rowsum(dp p)), dq = bf16(bf16(ds) k * scale), dk = bf16(bf16(ds)^T q *
-//   scale). 128 < N <= 256 and d <= 128; a block's shared memory must fit
-//   (the forward's always does; the backward's at d 128 up to N 208).
-// Bound on the H100: HBM bytes at FasterViT-2's official stage 4 (N 196,
-//   d 48): a window and head read 3 N d 2 bytes and write N d 2 for 4 N^2 d
-//   flops, ~98 flops per byte, below the ~295 flop/byte bf16 line.
+//   dbias [h, N, N] f32 summed over windows: the f32 p recomputed, dv =
+//   bf16(bf16(p)^T do), dp = do v^T, ds = p (dp - rowsum(dp p)), dq =
+//   bf16(bf16(ds) k * scale), dk = bf16(bf16(ds)^T q * scale). Any N up to
+//   46,340 (N^2 an int), d <= 128; only tiles live in shared memory.
+// Rounding: the forward is an online softmax: p = exp(s - running row max)
+//   is rounded to bf16 before p v, and the f32 row sum and output are
+//   rescaled when the max moves and divided by the sum at the end; the plain
+//   version (the JAX kernel's order) divides first and rounds p / sum. The
+//   two agree within two bf16 steps of the output's scale. The backward's p
+//   is the plain version's quotient exp(s - max) / sum from the row max and
+//   sum of a first walk.
+// Bound on the H100: HBM bytes. At FasterViT-2's official stage 4 (N 196,
+//   d 48) a window and head read 3 N d 2 bytes and write N d 2 for 4 N^2 d
+//   flops, ~98 flops a byte, below the ~295 flop/byte bf16 line: a 448 px
+//   forward at batch 64 moves 80 MB (0.024 ms at 3.35 TB/s) for 7.6 GFLOP
+//   (0.008 ms on the tensor cores). The exponentials (N^2 a window and head,
+//   on the 16-a-clock MUFU units) take about as long as the products.
 //
-// Design: simple and right first. The score row of a query tile does not
-//   fit in registers at 256 keys (128 f32 a thread), so each warp walks its
-//   16-row query tile over 16-key tiles several times, recomputing q k^T
-//   each time: once for the row max, once for the row sum, once for the
-//   probabilities and p v. Every pass computes a score with the same
-//   instructions in the same order, so the passes agree bit for bit, and
-//   the max, sum, quotient and products are those of window_attn.cu (its
-//   order over key columns), so the two kernels compute one function.
-//   Forward: one block of 8 warps a (window, head), q, k and v of the window
-//   staged in shared memory by 16-byte cp.async (element copies where a
-//   stride or d does not allow), the bias read from L2; a warp a query tile.
-//   Backward: persistent blocks of 8 warps, H x P of them (P = SMs / heads,
-//   at most the windows), block (h, i) owning head h's windows [i B / P,
-//   (i + 1) B / P) in order. For each window, q, k, v and do are staged;
-//   a row phase (a warp a query tile) finds each row's max, sum and row term
-//   rowsum(dp p) by three walks over the key tiles, keeps them in shared
-//   memory and computes dq on a fourth; a column phase (a warp a key tile)
-//   walks the query tiles twice, recomputing p (and dp and ds) from the
-//   kept row statistics: dv = bf16(p)^T do on the first, dk = bf16(ds)^T q
-//   and the dbias partial on the second, the transposed operands of p and
-//   ds formed in registers by movmatrix. Each block adds ds into its own
-//   f32 partial plane in device memory, each element by one thread, windows
-//   in order; a second kernel sums each head's P planes in order. No float
-//   atomics: two runs give bit-identical dqkv and dbias.
+// Measured (chip_smoke.py --parent, phase 1: profile_k5.compare_long,
+//   device time by launch, H100 80GB HBM3 at 700.00 W): a FasterViT-2 pass
+//   at 448 px (5 launches), in turns with the three-pass kernels this
+//   replaced: forward 1.193 ms official (batch 64) against 1.858, 0.775 tpu
+//   against 1.624; backward (fine-tune step, batch 32) 2.351 against 4.841,
+//   1.654 against 3.423. SDPA with the bias as its mask: 0.470, 0.261, 1.771
+//   and 1.129; the bound 0.119, 0.116, 0.108 and 0.103. What holds them back
+//   is L2 traffic: each window re-reads its head's whole bias and each query
+//   group the window's k and v. In scratch copies of this design's earlier
+//   versions with clock64 counters, starting those loads took 39-56% of a
+//   forward step while the consumers did it; the producer warpgroup now
+//   does.
+//
+// Design. Every kernel is a block of 4 consumer warps, each a 16-row tile of
+//   one operand, and a producer warpgroup of which one warp loads (the other
+//   three leave at once; setmaxnreg gives the consumers 216 registers and
+//   the producers 40, so that two blocks an SM fit). The loading warp walks
+//   the block's steps ahead of the consumers and copies each step's 64-row
+//   tiles of the other operand into a ring of 2 to 4 shared-memory stages
+//   with 16-byte cp.async (zero-filled past N; element copies where a
+//   stride, d or an address does not allow them), each stage's completion
+//   counted on its full mbarrier by cp.async.mbarrier.arrive.noinc; the
+//   consumers free a stage on its empty mbarrier. An item's own rows (q, or
+//   the key group's k and v) go through one or two item buffers the same
+//   way, so the next item's rows load under the current one's steps. The
+//   plan (dfd_window_attention_long_plan, dfd_window_attention_long_bwd_plan,
+//   mirrored by ops/window_attn.py) takes two blocks an SM and the deepest
+//   ring that fits them, two item buffers before one. Products are mma.sync
+//   m16n8k16 (bf16 in, f32 accumulate; operands by ldmatrix, ldmatrix.trans
+//   where the key axis is the reduction), row statistics are reduced over
+//   the four threads that share a row, exponentials are ex2.approx of
+//   (x - m) log2(e). In the forward and the row kernel the keys of each
+//   16-key chunk sit in the products in key_of's order, so each thread's four
+//   bias values (and dbias partials) are adjacent: one 16-byte load, read
+//   from L2 into registers one step or unit ahead of its use.
+//   Forward: an item is (window, head, group of <= 4 query tiles), the
+//   groups splitting a window's 16-row tiles evenly; persistent blocks, as
+//   many as two an SM hold, each own an even, contiguous range of the items
+//   (windows outermost, so a window's groups follow each other and its k
+//   and v come from L2). A warp keeps its tile's running max and sum and
+//   its f32 output in registers and makes one q k^T and one p v per 64-key
+//   step: one pass over the keys.
+//   Backward: three kernels, no float atomics. (1) A row kernel: block (head,
+//   query group, part) walks part's windows in order; per window two walks
+//   over the key tiles: the first finds each row's max, sum and row term
+//   rowsum(dp p) online (the row term rescaled with the sum), writes them to
+//   a [B, h, 4, N] scratch, and the second recomputes p, dp and ds, adds ds
+//   into the block's rows of its partial dbias plane (each element owned by
+//   one thread, windows in order) and accumulates dq = bf16(ds) k. (2) A
+//   column kernel: block (head, key group, part), a warp a 16-key tile whose
+//   k and v rows stay in the item buffer, walks each window's query tiles
+//   (q, do and the row statistics in the ring), computing s^T = k q^T and
+//   dp^T = v do^T with the keys as the product's rows, so p^T and ds^T are
+//   already the A operands of dv = p^T do and dk = ds^T q. (3) A sum of each
+//   head's part planes in order. Two runs give bit-identical dqkv and dbias.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -59,101 +98,61 @@
 
 namespace {
 
-constexpr int kLongMin = 129, kLongMax = 256;  // N the kernels take
-constexpr int kLongWarps = 8;
-constexpr int kLongThreads = 32 * kLongWarps;
+constexpr int kConsumers = 4;         // a block's consumer warps, each one 16-row tile
+// and a producer warpgroup, one warp of which loads: setmaxnreg moves the
+// group's registers to the consumers, 2 x (216 + 40) a lane of each SM
+// quadrant at two blocks an SM, where five warps of one count get 168
+constexpr int kThreads = 32 * (kConsumers + 4);
+constexpr int kConsumerRegs = 216, kProducerRegs = 40;
+constexpr int kRows = 16 * kConsumers;  // rows of a group, of a step's tile: 64
+constexpr int kBarBytes = 128;        // the mbarriers, at the start of shared memory
+constexpr int kMaxTokens = 46340;     // N^2 fits an int
+constexpr int kMaxStages = 4;
+constexpr int kSmemPerSm = 233472;    // an H100 SM's shared memory (228 KB)
+constexpr int kBlockReserve = 1024;   // shared memory the card keeps for each block
+constexpr int kStats = 4;             // a row's max, sum, 1 / sum and row term
+constexpr float kLog2e = 1.4426950408889634f;
 
-__host__ __device__ constexpr int long_fwd_smem(int N, int d) {
-  return 3 * pad16(N) * (pad16(d) + 8) * 2;
-}
+// Bytes of one [kRows][pad16(d) + 8] bf16 tile.
+__host__ __device__ constexpr int tile_bytes(int d) { return kRows * (pad16(d) + 8) * 2; }
 
-// q, k, v and do, then the row max, sum and row term of every row (f32).
-__host__ __device__ constexpr int long_bwd_smem(int N, int d) {
-  return 4 * pad16(N) * (pad16(d) + 8) * 2 + 3 * pad16(N) * 4;
-}
+// Query (key) groups a window's 16-row tiles are split into: <= kConsumers each.
+__host__ __device__ constexpr int long_groups(int N) { return cdiv(cdiv(N, 16), kConsumers); }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+struct Ring {
+  int stages, buffers, per_sm, smem;
+};
 
-// Transposes an 8x8 bf16 tile held as an mma fragment across the warp.
-__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
-  uint32_t d;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
-  return d;
-}
-
-// The block's copy of window b's rows < N of head h of T tensors into T
-// [Np][ld] tiles (columns < d), then a block barrier. Rows past N and
-// columns past d are not written.
-template <int T>
-__device__ __forceinline__ void load_block(__nv_bfloat16* dst, const View (&src)[T], int b, int h,
-                                           int N, int d, int Np, int ld, bool vec) {
-#pragma unroll
-  for (int i = 0; i < T; ++i) {
-    const __nv_bfloat16* base = src[i].p + b * src[i].sb + h * src[i].sh;
-    __nv_bfloat16* out = dst + i * Np * ld;
-    if (vec) {
-      const int chunks = d / 8;
-      for (int e = threadIdx.x; e < N * chunks; e += kLongThreads) {
-        const int r = e / chunks, c = e - r * chunks;
-        cp_async16(out + r * ld + 8 * c, base + r * src[i].sr + 8 * c);
+// The ring of a kernel that keeps `item` bytes an item buffer and `stage`
+// bytes a step: two blocks an SM where any ring fits them, two item buffers
+// before one, then the most stages (2 to 4). {0, 0, 0, 0} when none fits.
+Ring ring_plan(int item, int stage) {
+  for (int per_sm = 2; per_sm >= 1; --per_sm)
+    for (int buffers = 2; buffers >= 1; --buffers)
+      for (int s = kMaxStages; s >= 2; --s) {
+        const int smem = kBarBytes + buffers * item + s * stage;
+        if (smem <= kMaxSmemBytes && per_sm * (smem + kBlockReserve) <= kSmemPerSm)
+          return {s, buffers, per_sm, smem};
       }
-    } else {
-      for (int e = threadIdx.x; e < N * d; e += kLongThreads) {
-        const int r = e / d, c = e - r * d;
-        out[r * ld + c] = base[r * src[i].sr + c];
-      }
-    }
-  }
-  if (vec) cp_async_wait_all();
-  __syncthreads();
+  return {0, 0, 0, 0};
 }
 
-// s = a_rows(i) . b_rows(j)^T for a 16-row tile i of A and a 16-row tile j
-// of B ([*][ld] bf16 in shared memory), summed over the dt 16-wide column
-// tiles in order: s[t] holds columns 8 t .. 8 t + 7 of the 16x16 tile.
-__device__ __forceinline__ void tile_product(float (&s)[2][4], const __nv_bfloat16* A,
-                                             const __nv_bfloat16* Bm, int i, int j, int dt,
-                                             int ld, int lane) {
-  const int tile_row = lane & 15, tile_col = (lane >> 4) * 8;
-  const int key_row = (lane & 7) + ((lane >> 4) << 3), key_col = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int t = 0; t < 2; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.0f;
-#pragma unroll 1
-  for (int kk = 0; kk < dt; ++kk) {
-    uint32_t a[4], b[4];
-    ldmatrix_x4(a, A + (i * 16 + tile_row) * ld + kk * 16 + tile_col);
-    ldmatrix_x4(b, Bm + (j * 16 + key_row) * ld + kk * 16 + key_col);
-    mma_bf16_16816(s[0], a, b[0], b[1]);
-    mma_bf16_16816(s[1], a, b[2], b[3]);
-  }
+// 16-byte cp.async that writes zeros (reads nothing) where `in` is false.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
 }
 
-// The scores of query tile i against key tile j, scaled, biased and masked
-// as window_attn.cu: -inf on columns past N, 0 on rows past N (whose q rows
-// are zero). v[t][e] is row r0 (e < 2) or r1 (e >= 2), column 8 t + 2 t4 + e % 2.
-__device__ __forceinline__ void scores(float (&v)[2][4], const __nv_bfloat16* qs,
-                                       const __nv_bfloat16* ks, const float* __restrict__ bias_h,
-                                       int i, int j, int N, int dt, int ld, float scale,
-                                       int lane) {
-  tile_product(v, qs, ks, i, j, dt, ld, lane);
-  const int g = lane >> 2, t4 = lane & 3, r0 = i * 16 + g, r1 = r0 + 8;
-  const float* brow0 = bias_h + static_cast<long long>(min(r0, N - 1)) * N;
-  const float* brow1 = bias_h + static_cast<long long>(min(r1, N - 1)) * N;
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = j * 16 + t * 8 + 2 * t4 + e;
-      float v0 = -INFINITY, v1 = -INFINITY;
-      if (c < N) {
-        v0 = r0 < N ? __fadd_rn(__fmul_rn(v[t][e], scale), brow0[c]) : 0.0f;
-        v1 = r1 < N ? __fadd_rn(__fmul_rn(v[t][2 + e], scale), brow1[c]) : 0.0f;
-      }
-      v[t][e] = v0;
-      v[t][2 + e] = v1;
-    }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// exp(x - m) as 2^((x - m) log2 e): 0 where x is -inf.
+__device__ __forceinline__ float exp_sub(float x, float m) {
+  return ex2(__fmul_rn(__fsub_rn(x, m), kLog2e));
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -166,83 +165,170 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The row max and sum of query tile i's two rows held by this thread (its
-// quad's), over every key tile: two walks.
-__device__ __forceinline__ void row_stats(float (&m)[2], float (&l)[2], const __nv_bfloat16* qs,
-                                          const __nv_bfloat16* ks, const float* bias_h, int i,
-                                          int N, int kt, int dt, int ld, float scale, int lane) {
-  m[0] = m[1] = -INFINITY;
-#pragma unroll 1
-  for (int j = 0; j < kt; ++j) {
-    float v[2][4];
-    scores(v, qs, ks, bias_h, i, j, N, dt, ld, scale, lane);
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        m[0] = fmaxf(m[0], v[t][e]);
-        m[1] = fmaxf(m[1], v[t][2 + e]);
+// Rows [row0, row0 + kRows) of window b, head h of `src` into a [kRows][ld]
+// tile (columns < d), by the producer warp's 32 lanes; rows at or past
+// `limit` are written as zeros. 16-byte cp.async (zero-filled past the limit)
+// where vec allows, else element copies.
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const View& src, int b, int h,
+                                          int row0, int limit, int d, int ld, bool vec,
+                                          int lane) {
+  const __nv_bfloat16* base = src.p + b * src.sb + h * src.sh;
+  if (vec) {
+    // the lane's 16-byte chunks (row r, column 8 c) step by 32 chunks
+    const int chunks = d >> 3, dr = 32 / chunks, dc = 32 - dr * chunks;
+    int r = lane / chunks, c = lane - r * chunks;
+    for (; r < kRows; r += dr, c += dc) {
+      if (c >= chunks) {
+        c -= chunks;
+        if (++r >= kRows) break;
       }
+      const bool in = row0 + r < limit;
+      cp_async16_zfill(dst + r * ld + 8 * c, base + (in ? (row0 + r) * src.sr : 0) + 8 * c, in);
+    }
+  } else {
+    for (int e = lane; e < kRows * d; e += 32) {
+      const int r = e / d, c = e - r * d;
+      dst[r * ld + c] =
+          row0 + r < limit ? base[(row0 + r) * src.sr + c] : __float2bfloat16_rn(0.0f);
+    }
   }
-  m[0] = quad_max(m[0]);
-  m[1] = quad_max(m[1]);
-  l[0] = l[1] = 0.0f;
-#pragma unroll 1
-  for (int j = 0; j < kt; ++j) {
-    float v[2][4];
-    scores(v, qs, ks, bias_h, i, j, N, dt, ld, scale, lane);
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        l[0] += expf(__fsub_rn(v[t][e], m[0]));
-        l[1] += expf(__fsub_rn(v[t][2 + e], m[1]));
-      }
-  }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
 }
 
-// The f32 probabilities of tile (i, j) from the scores and the row stats.
-__device__ __forceinline__ void probs(float (&p)[2][4], const float (&m)[2], const float (&l)[2],
-                                      const float (&inv)[2]) {
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      p[t][e] = quotient(expf(__fsub_rn(p[t][e], m[0])), l[0], inv[0]);
-      p[t][2 + e] = quotient(expf(__fsub_rn(p[t][2 + e], m[1])), l[1], inv[1]);
+// The producer lane's copies so far complete on bar, whose count holds the
+// 32 lanes: the arrival follows the lane's cp.async (vec), or its stores.
+__device__ __forceinline__ void arrive_loaded(uint64_t* bar, bool vec) {
+  if (vec)
+    cp_async_arrive(bar);
+  else
+    mbar_arrive(bar);
+}
+
+// The pipeline's mbarriers: each stage's full (the producer's 32 lanes) and
+// empty (an arrival a consumer warp), and the same of each item buffer.
+struct Bars {
+  uint64_t *full, *empty, *item_full, *item_empty;
+
+  __device__ explicit Bars(unsigned char* smem)
+      : full(reinterpret_cast<uint64_t*>(smem)), empty(full + kMaxStages),
+        item_full(empty + kMaxStages), item_empty(item_full + 2) {}
+
+  // Thread 0 initialises them, then a block barrier.
+  __device__ void init(int stages, int buffers) const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < stages; ++s) {
+        mbar_init(&full[s], 32);
+        mbar_init(&empty[s], kConsumers);
+      }
+      for (int b = 0; b < buffers; ++b) {
+        mbar_init(&item_full[b], 32);
+        mbar_init(&item_empty[b], kConsumers);
+      }
+      mbar_init_fence();
     }
+    __syncthreads();
+  }
+
+  // A consumer warp is done with stage s and, at an item's last step
+  // (ib >= 0), with item buffer ib.
+  __device__ void release(int s, int ib, int lane) const {
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&empty[s]);
+      if (ib >= 0) mbar_arrive(&item_empty[ib]);
+    }
+  }
+};
+
+// The zeroed shared memory: columns past d stay zero for good.
+__device__ __forceinline__ void zero_smem(unsigned char* smem, int bytes) {
+  uint4* z = reinterpret_cast<uint4*>(smem);
+  for (int i = threadIdx.x; i < bytes / 16; i += kThreads) z[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+}
+
+// The key of position k (0..15) of a 16-key chunk in the forward's products:
+// the score accumulator's n-tiles 2p and 2p + 1 hold keys {0, 1, 4, 5, ...}
+// and {2, 3, 6, 7, ...}, so a thread's four columns of a chunk, 4 t4 ..
+// 4 t4 + 3, are adjacent and its bias is one 16-byte load.
+__device__ __forceinline__ int key_of(int k) { return 4 * ((k & 7) >> 1) + 2 * (k >> 3) + (k & 1); }
+
+// row[c .. c + 3], 0 past N: one 16-byte load where N % 4 == 0 (c % 4 == 0).
+__device__ __forceinline__ float4 load_quad(const float* row, int c, int N, bool quad) {
+  if (quad && c + 3 < N) return __ldg(reinterpret_cast<const float4*>(row + c));
+  return make_float4(c < N ? __ldg(row + c) : 0.0f, c + 1 < N ? __ldg(row + c + 1) : 0.0f,
+                     c + 2 < N ? __ldg(row + c + 2) : 0.0f, c + 3 < N ? __ldg(row + c + 3) : 0.0f);
+}
+
+// s = rows [16 i, 16 i + 16) of A . rows [16 j, 16 j + 16) of B^T ([*][ld]
+// bf16 in shared memory), over the dt 16-wide column tiles in order: s[t]
+// holds columns 8 t .. 8 t + 7 of the 16x16 tile.
+template <int DT>
+__device__ __forceinline__ void tile_product(float (&s)[2][4], const __nv_bfloat16* A,
+                                             const __nv_bfloat16* Bm, int i, int j, int dt,
+                                             int ld, int lane, bool perm = false) {
+  const int tile_row = lane & 15, tile_col = (lane >> 4) * 8;
+  const int key_row = perm ? key_of((lane & 7) + ((lane >> 4) << 3))
+                           : (lane & 7) + ((lane >> 4) << 3),
+            key_col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk) {
+    if (kk >= dt) break;
+    uint32_t a[4], b[4];
+    ldmatrix_x4(a, A + (i * 16 + tile_row) * ld + kk * 16 + tile_col);
+    ldmatrix_x4(b, Bm + (j * 16 + key_row) * ld + kk * 16 + key_col);
+    mma_bf16_16816(s[0], a, b[0], b[1]);
+    mma_bf16_16816(s[1], a, b[2], b[3]);
+  }
+}
+
+// s[8] = the 16 rows at A . rows [0, 16 nsub) of B^T: the forward's scores
+// of one 64-key step (n8 tiles from 2 nsub on stay zero).
+template <int DT>
+__device__ __forceinline__ void scores64(float (&s)[8][4], const __nv_bfloat16* A,
+                                         const __nv_bfloat16* Bm, int nsub, int dt, int ld,
+                                         int lane) {
+  const int tile_row = lane & 15, tile_col = (lane >> 4) * 8;
+  const int key_row = key_of((lane & 7) + ((lane >> 4) << 3)), key_col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk) {
+    if (kk >= dt) break;
+    uint32_t a[4];
+    ldmatrix_x4(a, A + tile_row * ld + kk * 16 + tile_col);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (p >= nsub) break;
+      uint32_t b[4];
+      ldmatrix_x4(b, Bm + (p * 16 + key_row) * ld + kk * 16 + key_col);
+      mma_bf16_16816(s[2 * p], a, b[0], b[1]);
+      mma_bf16_16816(s[2 * p + 1], a, b[2], b[3]);
+    }
+  }
 }
 
 // A 16x16 accumulator tile (rows x columns) as the bf16 A fragment of the
-// same tile, and of its transpose.
-__device__ __forceinline__ void as_a(uint32_t (&a)[4], const float (&x)[2][4]) {
-  a[0] = pack_bf16(x[0][0], x[0][1]);
-  a[1] = pack_bf16(x[0][2], x[0][3]);
-  a[2] = pack_bf16(x[1][0], x[1][1]);
-  a[3] = pack_bf16(x[1][2], x[1][3]);
+// same tile.
+__device__ __forceinline__ void as_a(uint32_t (&a)[4], const float (&x0)[4], const float (&x1)[4]) {
+  a[0] = pack_bf16(x0[0], x0[1]);
+  a[1] = pack_bf16(x0[2], x0[3]);
+  a[2] = pack_bf16(x1[0], x1[1]);
+  a[3] = pack_bf16(x1[2], x1[3]);
 }
 
-__device__ __forceinline__ void as_a_trans(uint32_t (&a)[4], const float (&x)[2][4]) {
-  uint32_t r[4];
-  as_a(r, x);
-  a[0] = movmatrix_trans(r[0]);
-  a[1] = movmatrix_trans(r[2]);
-  a[2] = movmatrix_trans(r[1]);
-  a[3] = movmatrix_trans(r[3]);
-}
-
-// o[2 DT] += a . rows j*16.. of B ([*][ld], B's columns < 16 dt) through
-// ldmatrix.trans: the A fragment times a [16 x d] tile.
+// o[2 DT] += a . rows [16 j, 16 j + 16) of B ([*][ld], B's columns < 16 dt)
+// through ldmatrix.trans: the A fragment times a [16 x d] tile; `perm` takes
+// the A fragment's keys in key_of's order.
 template <int DT>
 __device__ __forceinline__ void mma_rows(float (&o)[2 * DT][4], const uint32_t (&a)[4],
                                          const __nv_bfloat16* Bm, int j, int dt, int ld,
-                                         int lane) {
-  const int tile_row = lane & 15, tile_col = (lane >> 4) * 8;
+                                         int lane, bool perm = false) {
+  const int tile_row = perm ? key_of(lane & 15) : lane & 15, tile_col = (lane >> 4) * 8;
 #pragma unroll
   for (int nd = 0; nd < DT; ++nd) {
-    if (nd >= dt) continue;
+    if (nd >= dt) break;
     uint32_t b[4];
     ldmatrix_x4_trans(b, Bm + (j * 16 + tile_row) * ld + nd * 16 + tile_col);
     mma_bf16_16816(o[2 * nd], a, b[0], b[1]);
@@ -256,6 +342,7 @@ __device__ __forceinline__ void zero(float (&o)[2 * DT][4]) {
   for (int n = 0; n < 2 * DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
 }
 
+// The 16 rows of tile i held in o (times `mult`, rounded to bf16) at base.
 template <int DT>
 __device__ __forceinline__ void store_tile(__nv_bfloat16* base, long long sr,
                                            const float (&o)[2 * DT][4], int i, int N, int d,
@@ -266,180 +353,563 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* base, long long sr,
     if (n < 2 * dt) store_pair_rows(base, sr, o[n], i * 16 + g, n * 8 + 2 * t4, N, d, mult, vec);
 }
 
-// The zeroed [Np][ld] tiles: rows past N and columns past d stay zero.
-__device__ __forceinline__ void zero_smem(unsigned char* smem, int bytes) {
-  uint4* z = reinterpret_cast<uint4*>(smem);
-  for (int i = threadIdx.x; i < bytes / 16; i += kLongThreads) z[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
+// The scaled, biased, masked score of row r at column c: -inf on columns
+// past N, 0 on rows past N (whose q rows are zero).
+__device__ __forceinline__ float masked(float acc, float scale, float b, int r, int c, int N) {
+  return c < N ? (r < N ? __fadd_rn(__fmul_rn(acc, scale), b) : 0.0f) : -INFINITY;
 }
 
-// DT bounds the 16-wide d tiles (d <= 16 DT); the loops run over dt.
+// One 64-key step of the forward for a warp's query tile i: the scores with
+// this step's bias, the online softmax (reset at the item's first step) and
+// p v; at the item's last step the output divided by the row sums.
 template <int DT>
-__global__ void __launch_bounds__(kLongThreads, 1)
-    window_attention_long_kernel(View q, View k, View v, const float* __restrict__ bias,
-                                 __nv_bfloat16* __restrict__ out, long long o_sb, long long o_sr,
-                                 long long o_sh, int N, int heads, int d, float scale, int vec) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kt = (N + 15) / 16, dt = (d + 15) / 16, Np = kt * 16, ld = dt * 16 + 8;
-  const int tile = Np * ld;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  zero_smem(smem, 3 * tile * 2);
-  const View src[3] = {q, k, v};
-  load_block(qs, src, b, h, N, d, Np, ld, vec);
-  const __nv_bfloat16 *ks = qs + tile, *vs = qs + 2 * tile;
-  const float* bias_h = bias + static_cast<long long>(h) * N * N;
-  __nv_bfloat16* out_bh = out + b * o_sb + h * o_sh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-#pragma unroll 1
-  for (int i = warp; i < kt; i += kLongWarps) {
-    float m[2], l[2];
-    row_stats(m, l, qs, ks, bias_h, i, N, kt, dt, ld, scale, lane);
-    const float inv[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
-    float o[2 * DT][4];
+__device__ __forceinline__ void forward_step(float (&o)[2 * DT][4], float (&m)[2], float (&l)[2],
+                                             const float (&bias_t)[8][4],
+                                             const __nv_bfloat16* qs, const __nv_bfloat16* ks,
+                                             int tile, int N, int d, int dt, int ld, int j, int nk,
+                                             int i, float scale, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  if (j == 0) {
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.0f;
     zero<DT>(o);
-#pragma unroll 1
-    for (int j = 0; j < kt; ++j) {
-      float p[2][4];
-      scores(p, qs, ks, bias_h, i, j, N, dt, ld, scale, lane);
-      probs(p, m, l, inv);
-      uint32_t a[4];
-      as_a(a, p);
-      mma_rows<DT>(o, a, vs, j, dt, ld, lane);
+  }
+  const int key0 = kRows * j, nsub = min(4, cdiv(N - key0, 16));
+  const int r0 = 16 * i + g, r1 = r0 + 8;
+  float s[8][4];
+  scores64<DT>(s, qs, ks, nsub, dt, ld, lane);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = key0 + 16 * (n >> 1) + 4 * t4 + 2 * (n & 1) + e;
+      s[n][e] = masked(s[n][e], scale, bias_t[n][e], r0, c, N);
+      s[n][2 + e] = masked(s[n][2 + e], scale, bias_t[n][2 + e], r1, c, N);
+      mx[0] = fmaxf(mx[0], s[n][e]);
+      mx[1] = fmaxf(mx[1], s[n][2 + e]);
     }
-    store_tile<DT>(out_bh, o_sr, o, i, N, d, dt, 1.0f, vec, lane);
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], quad_max(mx[r]));
+    alpha[r] = exp_sub(m[r], mn);
+    m[r] = mn;
+    l[r] = __fmul_rn(l[r], alpha[r]);
+  }
+#pragma unroll
+  for (int n = 0; n < 2 * DT; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (n >= 2 * nsub) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[n][e] = exp_sub(s[n][e], m[0]);
+      s[n][2 + e] = exp_sub(s[n][2 + e], m[1]);
+      l[0] += s[n][e];
+      l[1] += s[n][2 + e];
+    }
+  }
+  const __nv_bfloat16* vs = ks + tile;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk >= nsub) break;
+    uint32_t a[4];
+    as_a(a, s[2 * kk], s[2 * kk + 1]);
+    mma_rows<DT>(o, a, vs, kk, dt, ld, lane, true);
+  }
+  if (j == nk - 1) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) inv[r] = __frcp_rn(quad_sum(l[r]));
+#pragma unroll
+    for (int n = 0; n < 2 * DT; ++n) {
+      o[n][0] = __fmul_rn(o[n][0], inv[0]);
+      o[n][1] = __fmul_rn(o[n][1], inv[0]);
+      o[n][2] = __fmul_rn(o[n][2], inv[1]);
+      o[n][3] = __fmul_rn(o[n][3], inv[1]);
+    }
   }
 }
 
+// The forward. DT bounds the 16-wide d tiles (d <= 16 DT); loops run over dt.
 template <int DT>
-__global__ void __launch_bounds__(kLongThreads, 1)
-    window_attention_long_bwd_kernel(View q, View k, View v, View dout,
-                                     const float* __restrict__ bias,
-                                     __nv_bfloat16* __restrict__ dqkv,
-                                     long long g_sb, long long g_sr, float* __restrict__ partial,
-                                     int B, int N, int heads, int d, int per_head, float scale,
-                                     int vec) {
+__global__ void __launch_bounds__(kThreads, 2)
+    window_attention_long_kernel(View q, View k, View v, const float* __restrict__ bias,
+                                 __nv_bfloat16* __restrict__ out, long long o_sb, long long o_sr,
+                                 long long o_sh, int B, int N, int heads, int d, float scale,
+                                 int groups, int stages, int buffers, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int kt = (N + 15) / 16, dt = (d + 15) / 16, Np = kt * 16, ld = dt * 16 + 8;
-  const int tile = Np * ld;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  const __nv_bfloat16 *ks = qs + tile, *vs = qs + 2 * tile, *dos = qs + 3 * tile;
-  float* row_m = reinterpret_cast<float*>(smem + 4 * tile * 2);
-  float* row_l = row_m + Np;
-  float* row_d = row_l + Np;
-  const int h = blockIdx.x / per_head, part = blockIdx.x % per_head;
-  const int first = static_cast<int>(static_cast<long long>(part) * B / per_head);
-  const int end = static_cast<int>(static_cast<long long>(part + 1) * B / per_head);
+  const int kt = cdiv(N, 16), nk = cdiv(N, kRows), dt = cdiv(d, 16), ld = 16 * dt + 8;
+  const int tile = kRows * ld;
+  Bars bars(smem);
+  __nv_bfloat16* qbuf = reinterpret_cast<__nv_bfloat16*>(smem + kBarBytes);
+  __nv_bfloat16* ring = qbuf + buffers * tile;
+  const long long items = static_cast<long long>(B) * heads * groups;
+  const int first = static_cast<int>(blockIdx.x * items / gridDim.x);
+  const int end = static_cast<int>((blockIdx.x + 1) * items / gridDim.x);
+  const int steps = (end - first) * nk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const bool quad = (N & 3) == 0;
+  zero_smem(smem, kBarBytes + (buffers + 2 * stages) * tile * 2);
+  bars.init(stages, buffers);
+
+  // a position in the block's steps: item (window b, head h, group gi, its
+  // query tiles [t0, t1)) and key step j, advanced one step at a time
+  struct Cursor {
+    int j, b, h, gi, t0, t1;
+  };
+  auto start = [&](Cursor& c, int t) {
+    const int li = t / nk, it = first + li, bh = it / groups;
+    c.j = t - li * nk;
+    c.gi = it - bh * groups;
+    c.b = bh / heads;
+    c.h = bh - c.b * heads;
+    c.t0 = c.gi * kt / groups;
+    c.t1 = (c.gi + 1) * kt / groups;
+  };
+  auto advance = [&](Cursor& c) {
+    if (++c.j < nk) return;
+    c.j = 0;
+    if (++c.gi == groups) {
+      c.gi = 0;
+      if (++c.h == heads) {
+        c.h = 0;
+        ++c.b;
+      }
+    }
+    c.t0 = c.gi * kt / groups;
+    c.t1 = (c.gi + 1) * kt / groups;
+  };
+
+  if (warp >= kConsumers) {  // the producer warpgroup, of which one warp loads
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp > kConsumers) return;
+    // the loading warp: an item's q, then k and v a step
+    Cursor c;
+    start(c, 0);
+    int li = 0;
+#pragma unroll 1
+    for (int t = 0; t < steps; ++t) {
+      if (c.j == 0) {
+        const int qb = li % buffers;
+        if (li >= buffers) mbar_wait(&bars.item_empty[qb], (li / buffers - 1) & 1);
+        load_rows(qbuf + qb * tile, q, c.b, c.h, 16 * c.t0, min(N, 16 * c.t1), d, ld, vec, lane);
+        arrive_loaded(&bars.item_full[qb], vec);
+      }
+      const int s = t % stages;
+      if (t >= stages) mbar_wait(&bars.empty[s], (t / stages - 1) & 1);
+      __nv_bfloat16* st = ring + s * 2 * tile;
+      load_rows(st, k, c.b, c.h, kRows * c.j, N, d, ld, vec, lane);
+      load_rows(st + tile, v, c.b, c.h, kRows * c.j, N, d, ld, vec, lane);
+      arrive_loaded(&bars.full[s], vec);
+      if (c.j == nk - 1) ++li;
+      advance(c);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // the bias of this warp's rows at step t's 64 keys, into registers: a step
+  // ahead, so that no step waits on its L2 reads
+  auto load_bias = [&](float (&bb)[8][4], const Cursor& c, int t) {
+    if (t >= steps || c.t0 + warp >= c.t1) return;
+    const int r0 = 16 * (c.t0 + warp) + g;
+    const float* bias_h = bias + static_cast<long long>(c.h) * N * N;
+    const float* brow0 = bias_h + min(r0, N - 1) * N;
+    const float* brow1 = bias_h + min(r0 + 8, N - 1) * N;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int col = kRows * c.j + 16 * p + 4 * t4;
+      const float4 x0 = load_quad(brow0, col, N, quad), x1 = load_quad(brow1, col, N, quad);
+      bb[2 * p][0] = x0.x;
+      bb[2 * p][1] = x0.y;
+      bb[2 * p + 1][0] = x0.z;
+      bb[2 * p + 1][1] = x0.w;
+      bb[2 * p][2] = x1.x;
+      bb[2 * p][3] = x1.y;
+      bb[2 * p + 1][2] = x1.z;
+      bb[2 * p + 1][3] = x1.w;
+    }
+  };
+
+  Cursor at, next;  // step t and step t + 1
+  start(at, 0);
+  start(next, min(1, steps));
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, o[2 * DT][4], bb[8][4];
+  zero<DT>(o);
+  load_bias(bb, at, 0);
+  int li = 0;
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    const int j = at.j, b = at.b, h = at.h, t0 = at.t0, t1 = at.t1;
+    const int s = t % stages, qb = li % buffers;
+    float bias_t[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bias_t[n][e] = bb[n][e];
+    load_bias(bb, next, t + 1);
+    advance(next);
+    mbar_wait(&bars.full[s], (t / stages) & 1);
+    if (j == 0) mbar_wait(&bars.item_full[qb], (li / buffers) & 1);
+    const int i = t0 + warp;
+    if (i < t1) {  // a group of fewer than four tiles leaves a warp out
+      forward_step<DT>(o, m, l, bias_t, qbuf + qb * tile + warp * 16 * ld,
+                       ring + s * 2 * tile, tile, N, d, dt, ld, j, nk, i, scale, lane);
+      if (j == nk - 1)
+        store_tile<DT>(out + b * o_sb + h * o_sh, o_sr, o, i, N, d, dt, 1.0f, vec, lane);
+    }
+    bars.release(s, j == nk - 1 ? qb : -1, lane);
+    if (j == nk - 1) ++li;
+    advance(at);
+  }
+}
+
+// The backward's row kernel: dq, the row statistics and the partial dbias.
+template <int DT>
+__global__ void __launch_bounds__(kThreads, 2)
+    window_attention_long_rows_kernel(View q, View k, View v, View dout,
+                                      const float* __restrict__ bias,
+                                      __nv_bfloat16* __restrict__ dqkv, long long g_sb,
+                                      long long g_sr, float* __restrict__ partial,
+                                      float* __restrict__ stats, int B, int N, int heads, int d,
+                                      int groups, int parts, float scale, int stages,
+                                      int buffers, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kt = cdiv(N, 16), nk = cdiv(N, kRows), dt = cdiv(d, 16), ld = 16 * dt + 8;
+  const int tile = kRows * ld, npad = nk * kRows, per = 2 * nk;
+  Bars bars(smem);
+  __nv_bfloat16* ibuf = reinterpret_cast<__nv_bfloat16*>(smem + kBarBytes);  // q and do
+  __nv_bfloat16* ring = ibuf + buffers * 2 * tile;                // k and v of a key tile
+  const int part = blockIdx.x % parts, hg = blockIdx.x / parts;
+  const int gi = hg % groups, h = hg / groups;
+  const int t0 = gi * kt / groups, t1 = (gi + 1) * kt / groups;
+  const int first = static_cast<int>(static_cast<long long>(part) * B / parts);
+  const int end = static_cast<int>(static_cast<long long>(part + 1) * B / parts);
+  const int steps = (end - first) * per;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const bool quad = (N & 3) == 0;
   const float* bias_h = bias + static_cast<long long>(h) * N * N;
-  float* plane = partial + static_cast<long long>(blockIdx.x) * N * N;
-  const long long C = static_cast<long long>(heads) * d;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const View src[4] = {q, k, v, dout};
-  zero_smem(smem, 4 * tile * 2);
+  float* plane = partial + static_cast<long long>(h * parts + part) * N * N;
+  zero_smem(smem, kBarBytes + (2 * buffers + 2 * stages) * tile * 2);
+  bars.init(stages, buffers);
 
+  if (warp >= kConsumers) {  // the producer warpgroup, of which one warp loads
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp > kConsumers) return;
+    // the loading warp: a window's q and do, k and v a step of each walk
 #pragma unroll 1
-  for (int b = first; b < end; ++b) {
-    load_block(qs, src, b, h, N, d, Np, ld, vec);
-    __nv_bfloat16* dq = dqkv + b * g_sb + h * d;
-
-    // Row phase: a warp a query tile.
-#pragma unroll 1
-    for (int i = warp; i < kt; i += kLongWarps) {
-      float m[2], l[2];
-      row_stats(m, l, qs, ks, bias_h, i, N, kt, dt, ld, scale, lane);
-      const float inv[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
-      float D[2] = {0.0f, 0.0f};
-#pragma unroll 1
-      for (int j = 0; j < kt; ++j) {
-        float p[2][4], dp[2][4];
-        scores(p, qs, ks, bias_h, i, j, N, dt, ld, scale, lane);
-        probs(p, m, l, inv);
-        tile_product(dp, dos, vs, i, j, dt, ld, lane);
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            D[0] = fmaf(dp[t][e], p[t][e], D[0]);
-            D[1] = fmaf(dp[t][2 + e], p[t][2 + e], D[1]);
-          }
+    for (int t = 0; t < steps; ++t) {
+      const int w = t / per, s = t - w * per, j = s < nk ? s : s - nk, b = first + w;
+      if (s == 0) {
+        const int qb = w % buffers;
+        if (w >= buffers) mbar_wait(&bars.item_empty[qb], (w / buffers - 1) & 1);
+        __nv_bfloat16* dst = ibuf + qb * 2 * tile;
+        load_rows(dst, q, b, h, 16 * t0, min(N, 16 * t1), d, ld, vec, lane);
+        load_rows(dst + tile, dout, b, h, 16 * t0, min(N, 16 * t1), d, ld, vec, lane);
+        arrive_loaded(&bars.item_full[qb], vec);
       }
-      D[0] = quad_sum(D[0]);
-      D[1] = quad_sum(D[1]);
-      if (t4 == 0) {
-        row_m[i * 16 + g] = m[0];
-        row_m[i * 16 + g + 8] = m[1];
-        row_l[i * 16 + g] = l[0];
-        row_l[i * 16 + g + 8] = l[1];
-        row_d[i * 16 + g] = D[0];
-        row_d[i * 16 + g + 8] = D[1];
-      }
-      float acc[2 * DT][4];
-      zero<DT>(acc);
-#pragma unroll 1
-      for (int j = 0; j < kt; ++j) {
-        float p[2][4], dp[2][4];
-        scores(p, qs, ks, bias_h, i, j, N, dt, ld, scale, lane);
-        probs(p, m, l, inv);
-        tile_product(dp, dos, vs, i, j, dt, ld, lane);
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) p[t][e] = __fmul_rn(p[t][e], __fsub_rn(dp[t][e], D[e / 2]));
-        uint32_t a[4];
-        as_a(a, p);
-        mma_rows<DT>(acc, a, ks, j, dt, ld, lane);
-      }
-      store_tile<DT>(dq, g_sr, acc, i, N, d, dt, scale, vec, lane);
+      const int st = t % stages;
+      if (t >= stages) mbar_wait(&bars.empty[st], (t / stages - 1) & 1);
+      __nv_bfloat16* dst = ring + st * 2 * tile;
+      load_rows(dst, k, b, h, kRows * j, N, d, ld, vec, lane);
+      load_rows(dst + tile, v, b, h, kRows * j, N, d, ld, vec, lane);
+      arrive_loaded(&bars.full[st], vec);
     }
-    __syncthreads();  // the row statistics are in shared memory
+    cp_async_wait<0>();
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
 
-    // Column phase: a warp a key tile j, over the query tiles i.
+  const int i = t0 + warp, r0 = 16 * i + g, r1 = r0 + 8;
+  const float* brow0 = bias_h + min(r0, N - 1) * N;
+  const float* brow1 = bias_h + min(r1, N - 1) * N;
+  // the bias (and, in a second walk after the block's first window, the
+  // partial dbias) of this thread's four keys 4 t4 .. 4 t4 + 3 (key_of's
+  // order) of the 16-key unit u of step t, rows r0 and r1, into registers: a
+  // unit ahead, so that no unit waits on its L2 reads
+  auto load_unit = [&](float4 (&bb)[2], float4 (&old)[2], int t, int u) {
+    if (t >= steps) return;
+    const int w = t / per, s = t - w * per, j = s < nk ? s : s - nk;
+    const int c = kRows * j + 16 * u + 4 * t4;
+    bb[0] = load_quad(brow0, c, N, quad);
+    bb[1] = load_quad(brow1, c, N, quad);
+    old[0] = old[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (s >= nk && w > 0) {
+      if (r0 < N) old[0] = load_quad(plane + r0 * N, c, N, quad);
+      if (r1 < N) old[1] = load_quad(plane + r1 * N, c, N, quad);
+    }
+  };
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, D[2] = {0.0f, 0.0f};
+  float inv[2] = {1.0f, 1.0f}, dq[2 * DT][4];
+  float4 next_bb[2], next_old[2];
+  zero<DT>(dq);
+  if (i < t1) load_unit(next_bb, next_old, 0, 0);
 #pragma unroll 1
-    for (int j = warp; j < kt; j += kLongWarps) {
-      float acc[2 * DT][4];
-      for (int pass = 0; pass < 2; ++pass) {  // dv, then dk and dbias
-        zero<DT>(acc);
+  for (int t = 0; t < steps; ++t) {
+    const int w = t / per, s = t - w * per, j = s < nk ? s : s - nk, b = first + w;
+    const int st = t % stages, qb = w % buffers, last = s == per - 1 ? qb : -1;
+    mbar_wait(&bars.full[st], (t / stages) & 1);
+    if (s == 0) mbar_wait(&bars.item_full[qb], (w / buffers) & 1);
+    if (i >= t1) {  // a group of fewer than four tiles leaves a warp out
+      bars.release(st, last, lane);
+      continue;
+    }
+    const __nv_bfloat16* qs = ibuf + qb * 2 * tile + warp * 16 * ld;
+    const __nv_bfloat16* dos = qs + tile;
+    const __nv_bfloat16* ks = ring + st * 2 * tile;
+    const __nv_bfloat16* vs = ks + tile;
+    const bool second = s >= nk;
+    if (s == 0) {
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = D[0] = D[1] = 0.0f;
+    }
+    if (s == nk) zero<DT>(dq);
+    const int key0 = kRows * j, nsub = min(4, cdiv(N - key0, 16));
 #pragma unroll 1
-        for (int i = 0; i < kt; ++i) {
-          const int r0 = i * 16 + g, r1 = r0 + 8;
-          const float m[2] = {row_m[r0], row_m[r1]}, l[2] = {row_l[r0], row_l[r1]};
-          const float inv[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
-          float p[2][4];
-          scores(p, qs, ks, bias_h, i, j, N, dt, ld, scale, lane);
-          probs(p, m, l, inv);
-          uint32_t a[4];
-          if (pass == 0) {
-            as_a_trans(a, p);
-            mma_rows<DT>(acc, a, dos, i, dt, ld, lane);
-            continue;
-          }
-          float dp[2][4];
-          tile_product(dp, dos, vs, i, j, dt, ld, lane);
-          const float D[2] = {row_d[r0], row_d[r1]};
+    for (int u = 0; u < nsub; ++u) {
+      // this unit's bias and partials as the accumulators hold them: n-tile
+      // t8, row half, column e <-> key 4 t4 + 2 t8 + e of the unit
+      const float bb[2][4] = {{next_bb[0].x, next_bb[0].y, next_bb[1].x, next_bb[1].y},
+                              {next_bb[0].z, next_bb[0].w, next_bb[1].z, next_bb[1].w}};
+      const float4 old[2] = {next_old[0], next_old[1]};
+      if (u + 1 < nsub)
+        load_unit(next_bb, next_old, t, u + 1);
+      else
+        load_unit(next_bb, next_old, t + 1, 0);
+      float sv[2][4], dp[2][4];
+      tile_product<DT>(sv, qs, ks, 0, u, dt, ld, lane, true);
+      tile_product<DT>(dp, dos, vs, 0, u, dt, ld, lane, true);
 #pragma unroll
-          for (int t = 0; t < 2; ++t)
+      for (int t8 = 0; t8 < 2; ++t8)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) p[t][e] = __fmul_rn(p[t][e], __fsub_rn(dp[t][e], D[e / 2]));
-#pragma unroll
-          for (int t = 0; t < 2; ++t)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = e < 2 ? r0 : r1, c = j * 16 + t * 8 + 2 * t4 + (e & 1);
-              if (r >= N || c >= N) continue;
-              float* cell = plane + r * N + c;
-              *cell = b == first ? p[t][e] : __fadd_rn(*cell, p[t][e]);
-            }
-          as_a_trans(a, p);
-          mma_rows<DT>(acc, a, qs, i, dt, ld, lane);
+        for (int e = 0; e < 4; ++e) {
+          const int c = key0 + 16 * u + 4 * t4 + 2 * t8 + (e & 1);
+          sv[t8][e] = masked(sv[t8][e], scale, bb[t8][e], e < 2 ? r0 : r1, c, N);
         }
-        if (pass == 0)
-          store_tile<DT>(dqkv + b * g_sb + 2 * C + h * d, g_sr, acc, j, N, d, dt, 1.0f, vec, lane);
-        else
-          store_tile<DT>(dqkv + b * g_sb + C + h * d, g_sr, acc, j, N, d, dt, scale, vec, lane);
+      if (!second) {
+        // the first walk: the running max, and the sum and row term rescaled with it
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mx = fmaxf(fmaxf(sv[0][2 * r], sv[0][2 * r + 1]),
+                                 fmaxf(sv[1][2 * r], sv[1][2 * r + 1]));
+          const float mn = fmaxf(m[r], quad_max(mx));
+          const float alpha = exp_sub(m[r], mn);
+          m[r] = mn;
+          l[r] = __fmul_rn(l[r], alpha);
+          D[r] = __fmul_rn(D[r], alpha);
+#pragma unroll
+          for (int t8 = 0; t8 < 2; ++t8)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float x = exp_sub(sv[t8][2 * r + e], mn);
+              l[r] += x;
+              D[r] = __fmaf_rn(dp[t8][2 * r + e], x, D[r]);
+            }
+        }
+        continue;
+      }
+      // the second walk: p, ds, the dbias partial and dq
+#pragma unroll
+      for (int t8 = 0; t8 < 2; ++t8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = quotient(exp_sub(sv[t8][e], m[r]), l[r], inv[r]);
+          dp[t8][e] = __fmul_rn(p, __fsub_rn(dp[t8][e], D[r]));
+        }
+      const int c = key0 + 16 * u + 4 * t4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r1 : r0;
+        if (r >= N || c >= N) continue;
+        const float4 x = make_float4(__fadd_rn(old[half].x, dp[0][2 * half]),
+                                     __fadd_rn(old[half].y, dp[0][2 * half + 1]),
+                                     __fadd_rn(old[half].z, dp[1][2 * half]),
+                                     __fadd_rn(old[half].w, dp[1][2 * half + 1]));
+        float* cell = plane + r * N + c;
+        if (quad && c + 3 < N) {
+          *reinterpret_cast<float4*>(cell) = x;
+        } else {
+          cell[0] = x.x;
+          if (c + 1 < N) cell[1] = x.y;
+          if (c + 2 < N) cell[2] = x.z;
+          if (c + 3 < N) cell[3] = x.w;
+        }
+      }
+      uint32_t a[4];
+      as_a(a, dp[0], dp[1]);
+      mma_rows<DT>(dq, a, ks, u, dt, ld, lane, true);
+    }
+    if (s == nk - 1) {  // the row statistics, for the second walk and the column kernel
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = quad_sum(l[r]);
+        D[r] = __fdiv_rn(quad_sum(D[r]), l[r]);
+        inv[r] = __frcp_rn(l[r]);
+      }
+      if (t4 == 0) {
+        float* st = stats + static_cast<long long>(b * heads + h) * kStats * npad;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r ? r1 : r0;
+          if (row >= N) continue;
+          st[row] = m[r];
+          st[npad + row] = l[r];
+          st[2 * npad + row] = inv[r];
+          st[3 * npad + row] = D[r];
+        }
       }
     }
-    __syncthreads();  // the window's tiles are free for the next
+    if (s == per - 1)
+      store_tile<DT>(dqkv + b * g_sb + h * d, g_sr, dq, i, N, d, dt, scale, vec, lane);
+    bars.release(st, last, lane);
+  }
+}
+
+// The backward's column kernel: dk and dv.
+template <int DT>
+__global__ void __launch_bounds__(kThreads, 2)
+    window_attention_long_cols_kernel(View q, View k, View v, View dout,
+                                      const float* __restrict__ bias,
+                                      __nv_bfloat16* __restrict__ dqkv, long long g_sb,
+                                      long long g_sr, const float* __restrict__ stats, int B,
+                                      int N, int heads, int d, int groups, int parts, float scale,
+                                      int stages, int buffers, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kt = cdiv(N, 16), nq = cdiv(N, kRows), dt = cdiv(d, 16), ld = 16 * dt + 8;
+  const int tile = kRows * ld, npad = nq * kRows;
+  const int stage = 2 * tile + kStats * kRows * 2;  // q, do, then the f32 row statistics
+  Bars bars(smem);
+  __nv_bfloat16* ibuf = reinterpret_cast<__nv_bfloat16*>(smem + kBarBytes);  // k and v
+  __nv_bfloat16* ring = ibuf + buffers * 2 * tile;
+  const int part = blockIdx.x % parts, hg = blockIdx.x / parts;
+  const int gi = hg % groups, h = hg / groups;
+  const int t0 = gi * kt / groups, t1 = (gi + 1) * kt / groups;
+  const int first = static_cast<int>(static_cast<long long>(part) * B / parts);
+  const int end = static_cast<int>(static_cast<long long>(part + 1) * B / parts);
+  const int steps = (end - first) * nq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const long long C = static_cast<long long>(heads) * d;
+  const float* bias_h = bias + static_cast<long long>(h) * N * N;
+  zero_smem(smem, kBarBytes + (2 * buffers * tile + stages * stage) * 2);
+  bars.init(stages, buffers);
+
+  if (warp >= kConsumers) {  // the producer warpgroup, of which one warp loads
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp > kConsumers) return;
+    // the loading warp: a window's k and v; q, do and the stats a step
+#pragma unroll 1
+    for (int t = 0; t < steps; ++t) {
+      const int w = t / nq, j = t - w * nq, b = first + w;
+      if (j == 0) {
+        const int kb = w % buffers;
+        if (w >= buffers) mbar_wait(&bars.item_empty[kb], (w / buffers - 1) & 1);
+        __nv_bfloat16* dst = ibuf + kb * 2 * tile;
+        load_rows(dst, k, b, h, 16 * t0, min(N, 16 * t1), d, ld, vec, lane);
+        load_rows(dst + tile, v, b, h, 16 * t0, min(N, 16 * t1), d, ld, vec, lane);
+        arrive_loaded(&bars.item_full[kb], vec);
+      }
+      const int st = t % stages;
+      if (t >= stages) mbar_wait(&bars.empty[st], (t / stages - 1) & 1);
+      __nv_bfloat16* dst = ring + st * stage;
+      load_rows(dst, q, b, h, kRows * j, N, d, ld, vec, lane);
+      load_rows(dst + tile, dout, b, h, kRows * j, N, d, ld, vec, lane);
+      // the row statistics, our own aligned scratch: always 16-byte copies
+      const float* src = stats + static_cast<long long>(b * heads + h) * kStats * npad + kRows * j;
+      float* sdst = reinterpret_cast<float*>(dst + 2 * tile);
+      for (int e = lane; e < kStats * kRows / 4; e += 32)
+        cp_async16(sdst + 4 * e, src + (e / (kRows / 4)) * npad + 4 * (e % (kRows / 4)));
+      if (!vec) cp_async_wait<0>();  // the element copies' arrival then orders the copies too
+      arrive_loaded(&bars.full[st], vec);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int i = t0 + warp, kr0 = 16 * i + g, kr1 = kr0 + 8;
+  // the bias^T of this thread's elements of the 16-query unit u of step t,
+  // into registers a unit ahead
+  auto load_unit = [&](float (&bb)[2][4], int t, int u) {
+    if (t >= steps) return;
+    const int j = t % nq;
+#pragma unroll
+    for (int t8 = 0; t8 < 2; ++t8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = kRows * j + 16 * u + 8 * t8 + 2 * t4 + (e & 1), kr = e < 2 ? kr0 : kr1;
+        bb[t8][e] = qc < N && kr < N ? __ldg(bias_h + qc * N + kr) : 0.0f;
+      }
+  };
+  float dk[2 * DT][4], dv[2 * DT][4], next_bb[2][4];
+  zero<DT>(dk);
+  zero<DT>(dv);
+  if (i < t1) load_unit(next_bb, 0, 0);
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    const int w = t / nq, j = t - w * nq, b = first + w;
+    const int stg = t % stages, kb = w % buffers, last = j == nq - 1 ? kb : -1;
+    mbar_wait(&bars.full[stg], (t / stages) & 1);
+    if (j == 0) mbar_wait(&bars.item_full[kb], (w / buffers) & 1);
+    if (i >= t1) {  // a group of fewer than four tiles leaves a warp out
+      bars.release(stg, last, lane);
+      continue;
+    }
+    if (j == 0) {
+      zero<DT>(dk);
+      zero<DT>(dv);
+    }
+    const __nv_bfloat16* ks = ibuf + kb * 2 * tile + warp * 16 * ld;
+    const __nv_bfloat16* vs = ks + tile;
+    const __nv_bfloat16* qs = ring + stg * stage;
+    const __nv_bfloat16* dos = qs + tile;
+    const float* st = reinterpret_cast<const float*>(qs + 2 * tile);
+    const int q0 = kRows * j, nsub = min(4, cdiv(N - q0, 16));
+#pragma unroll 1
+    for (int u = 0; u < nsub; ++u) {
+      float bb[2][4];
+#pragma unroll
+      for (int t8 = 0; t8 < 2; ++t8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bb[t8][e] = next_bb[t8][e];
+      if (u + 1 < nsub)
+        load_unit(next_bb, t, u + 1);
+      else
+        load_unit(next_bb, t + 1, 0);
+      float sT[2][4], dpT[2][4];
+      tile_product<DT>(sT, ks, qs, 0, u, dt, ld, lane);
+      tile_product<DT>(dpT, vs, dos, 0, u, dt, ld, lane);
+#pragma unroll
+      for (int t8 = 0; t8 < 2; ++t8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 16 * u + 8 * t8 + 2 * t4 + (e & 1), kr = e < 2 ? kr0 : kr1;
+          const bool in = q0 + ql < N && kr < N;
+          const float sc = __fadd_rn(__fmul_rn(sT[t8][e], scale), bb[t8][e]);
+          const float p = in ? quotient(exp_sub(sc, st[ql]), st[kRows + ql], st[2 * kRows + ql])
+                             : 0.0f;
+          sT[t8][e] = p;
+          dpT[t8][e] = in ? __fmul_rn(p, __fsub_rn(dpT[t8][e], st[3 * kRows + ql])) : 0.0f;
+        }
+      uint32_t a[4];
+      as_a(a, sT[0], sT[1]);
+      mma_rows<DT>(dv, a, dos, u, dt, ld, lane);
+      as_a(a, dpT[0], dpT[1]);
+      mma_rows<DT>(dk, a, qs, u, dt, ld, lane);
+    }
+    if (j == nq - 1) {
+      store_tile<DT>(dqkv + b * g_sb + C + h * d, g_sr, dk, i, N, d, dt, scale, vec, lane);
+      store_tile<DT>(dqkv + b * g_sb + 2 * C + h * d, g_sr, dv, i, N, d, dt, 1.0f, vec, lane);
+    }
+    bars.release(stg, last, lane);
   }
 }
 
@@ -456,8 +926,8 @@ __global__ void long_dbias_reduce_kernel(const float* __restrict__ partial,
   dbias[i] = sum;
 }
 
-bool long_sizes(int N, int heads, int d) {
-  return N >= kLongMin && N <= kLongMax && heads >= 1 && d >= 1 && d <= 128;
+bool long_sizes(int B, int N, int heads, int d) {
+  return B >= 1 && heads >= 1 && d >= 1 && d <= 128 && N >= 1 && N <= kMaxTokens;
 }
 
 template <typename K>
@@ -468,69 +938,94 @@ cudaError_t set_smem(K kernel, int bytes) {
 
 }  // namespace
 
-// The forward's launch plan: {blocks, threads a block, shared memory bytes}.
-// Returns a cudaError_t: 0, or cudaErrorInvalidValue (and zeros) when the
-// shape is out of range or the window does not fit a block.
-extern "C" int dfd_window_attention_long_plan(int B, int N, int heads, int d, int* plan) {
-  for (int i = 0; i < 3; ++i) plan[i] = 0;
-  if (B < 1 || !long_sizes(N, heads, d) || long_fwd_smem(N, d) > kMaxSmemBytes ||
-      static_cast<long long>(B) * heads > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  plan[0] = B * heads;
-  plan[1] = kLongThreads;
-  plan[2] = long_fwd_smem(N, d);
+// The forward's launch plan on a card of `sms` SMs: {blocks, query groups a
+// window, ring stages, item buffers, shared memory bytes}. Returns a
+// cudaError_t: 0, or cudaErrorInvalidValue (and zeros) when the shape is out
+// of range.
+extern "C" int dfd_window_attention_long_plan(int B, int N, int heads, int d, int sms,
+                                              int* plan) {
+  for (int i = 0; i < 5; ++i) plan[i] = 0;
+  if (sms < 1 || !long_sizes(B, N, heads, d)) return cudaErrorInvalidValue;
+  const int groups = long_groups(N), nk = cdiv(N, kRows);
+  const long long items = static_cast<long long>(B) * heads * groups;
+  if (items * nk > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const Ring r = ring_plan(tile_bytes(d), 2 * tile_bytes(d));
+  if (r.stages == 0) return cudaErrorInvalidValue;
+  const long long fill = static_cast<long long>(r.per_sm) * sms;
+  plan[0] = static_cast<int>(items < fill ? items : fill);
+  plan[1] = groups;
+  plan[2] = r.stages;
+  plan[3] = r.buffers;
+  plan[4] = r.smem;
   return cudaSuccess;
 }
 
-// The backward's launch plan on a card of `sms` SMs: {blocks a head, threads
-// a block, shared memory bytes}; as dfd_window_attention_long_plan.
+// The backward's launch plan on a card of `sms` SMs: {parts (blocks a head
+// and group, each owning a contiguous range of the windows), groups a
+// window, then the row kernel's stages, item buffers and shared memory
+// bytes, then the column kernel's}; as dfd_window_attention_long_plan.
 extern "C" int dfd_window_attention_long_bwd_plan(int B, int N, int heads, int d, int sms,
                                                   int* plan) {
-  for (int i = 0; i < 3; ++i) plan[i] = 0;
-  if (B < 1 || sms < 1 || !long_sizes(N, heads, d) || long_bwd_smem(N, d) > kMaxSmemBytes)
+  for (int i = 0; i < 8; ++i) plan[i] = 0;
+  if (sms < 1 || !long_sizes(B, N, heads, d)) return cudaErrorInvalidValue;
+  const int groups = long_groups(N), nk = cdiv(N, kRows), tile = tile_bytes(d);
+  const Ring rows = ring_plan(2 * tile, 2 * tile);
+  const Ring cols = ring_plan(2 * tile, 2 * tile + kStats * kRows * 4);
+  const long long hg = static_cast<long long>(heads) * groups;
+  if (rows.stages == 0 || cols.stages == 0 || hg * B > 0x7fffffffLL ||
+      static_cast<long long>(B) * 2 * nk > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const int fill = sms / heads;
-  plan[0] = fill < 1 ? 1 : (fill < B ? fill : B);
-  plan[1] = kLongThreads;
-  plan[2] = long_bwd_smem(N, d);
+  const long long fill = (rows.per_sm < cols.per_sm ? rows.per_sm : cols.per_sm) * sms / hg;
+  plan[0] = static_cast<int>(fill < 1 ? 1 : (fill < B ? fill : B));
+  plan[1] = groups;
+  plan[2] = rows.stages;
+  plan[3] = rows.buffers;
+  plan[4] = rows.smem;
+  plan[5] = cols.stages;
+  plan[6] = cols.buffers;
+  plan[7] = cols.smem;
   return cudaSuccess;
 }
 
-// The forward: arguments as dfd_window_attention's (less the SM count).
+// The forward: arguments as dfd_window_attention's.
 extern "C" int dfd_window_attention_long(const void* q, const void* k, const void* v,
                                          const void* bias, void* out, int B, int N, int heads,
                                          int d, long long q_sb, long long q_sr, long long q_sh,
                                          long long k_sb, long long k_sr, long long k_sh,
                                          long long v_sb, long long v_sr, long long v_sh,
-                                         long long o_sb, long long o_sr, long long o_sh,
+                                         long long o_sb, long long o_sr, long long o_sh, int sms,
                                          float scale, int vec, void* stream) {
-  int plan[3];
-  if (dfd_window_attention_long_plan(B, N, heads, d, plan) != 0) return cudaErrorInvalidValue;
+  int plan[5];
+  if (dfd_window_attention_long_plan(B, N, heads, d, sms, plan) != 0)
+    return cudaErrorInvalidValue;
   const View qv{static_cast<const __nv_bfloat16*>(q), q_sb, q_sr, q_sh};
   const View kv{static_cast<const __nv_bfloat16*>(k), k_sb, k_sr, k_sh};
   const View vv{static_cast<const __nv_bfloat16*>(v), v_sb, v_sr, v_sh};
-  const float* bs = static_cast<const float*>(bias);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kernel = window_attention_long_kernel<8>;
-  if (d <= 64) kernel = window_attention_long_kernel<4>;
-  cudaError_t e = set_smem(kernel, plan[2]);
+  auto kernel = d <= 64 ? window_attention_long_kernel<4> : window_attention_long_kernel<8>;
+  cudaError_t e = set_smem(kernel, plan[4]);
   if (e != cudaSuccess) return e;
-  kernel<<<plan[0], plan[1], plan[2], st>>>(qv, kv, vv, bs, o, o_sb, o_sr, o_sh, N, heads, d,
-                                            scale, vec);
+  kernel<<<plan[0], kThreads, plan[4], static_cast<cudaStream_t>(stream)>>>(
+      qv, kv, vv, static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), o_sb, o_sr,
+      o_sh, B, N, heads, d, scale, plan[1], plan[2], plan[3], vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward: arguments as dfd_window_attention_bwd's.
+// The backward: qkv and dout as dfd_window_attention_bwd's; `partial` holds
+// `planes` f32 [N, N] planes (at least heads x parts), `stats` `stats_len`
+// f32 (at least B x heads x 4 x 64 ceil(N / 64)).
 extern "C" int dfd_window_attention_long_bwd(const void* qkv, const void* dout, const void* bias,
                                              void* dqkv, void* partial, long long planes,
-                                             void* dbias, int B, int N, int heads, int d,
-                                             long long qkv_sb, long long qkv_sr, long long do_sb,
-                                             long long do_sr, int sms, float scale, int vec,
-                                             void* stream) {
-  int plan[3];
-  if (dfd_window_attention_long_bwd_plan(B, N, heads, d, sms, plan) != 0 ||
-      static_cast<long long>(heads) * plan[0] > planes)
+                                             void* dbias, void* stats, long long stats_len,
+                                             int B, int N, int heads, int d, long long qkv_sb,
+                                             long long qkv_sr, long long do_sb, long long do_sr,
+                                             int sms, float scale, int vec, void* stream) {
+  int plan[8];
+  if (dfd_window_attention_long_bwd_plan(B, N, heads, d, sms, plan) != 0)
+    return cudaErrorInvalidValue;
+  const int parts = plan[0], groups = plan[1];
+  const long long npad = static_cast<long long>(cdiv(N, kRows)) * kRows;
+  if (static_cast<long long>(heads) * parts > planes ||
+      static_cast<long long>(B) * heads * kStats * npad > stats_len)
     return cudaErrorInvalidValue;
   const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(qkv);
   const long long C = static_cast<long long>(heads) * d;
@@ -538,20 +1033,28 @@ extern "C" int dfd_window_attention_long_bwd(const void* qkv, const void* dout, 
   const View kv{base + C, qkv_sb, qkv_sr, d};
   const View vv{base + 2 * C, qkv_sb, qkv_sr, d};
   const View dv{static_cast<const __nv_bfloat16*>(dout), do_sb, do_sr, d};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kernel = window_attention_long_bwd_kernel<8>;
-  if (d <= 64) kernel = window_attention_long_bwd_kernel<4>;
-  cudaError_t e = set_smem(kernel, plan[2]);
-  if (e != cudaSuccess) return e;
+  const float* bs = static_cast<const float*>(bias);
+  __nv_bfloat16* g = static_cast<__nv_bfloat16*>(dqkv);
   float* part = static_cast<float*>(partial);
-  kernel<<<heads * plan[0], plan[1], plan[2], st>>>(
-      qv, kv, vv, dv, static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(dqkv),
-      N * 3 * C, 3 * C, part, B, N, heads, d, plan[0], scale, vec);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(heads * groups * parts);
+  auto rows = d <= 64 ? window_attention_long_rows_kernel<4> : window_attention_long_rows_kernel<8>;
+  auto cols = d <= 64 ? window_attention_long_cols_kernel<4> : window_attention_long_cols_kernel<8>;
+  cudaError_t e = set_smem(rows, plan[4]);
+  if (e == cudaSuccess) e = set_smem(cols, plan[7]);
+  if (e != cudaSuccess) return e;
+  rows<<<grid, kThreads, plan[4], s>>>(qv, kv, vv, dv, bs, g, N * 3 * C, 3 * C, part, st, B, N,
+                                       heads, d, groups, parts, scale, plan[2], plan[3], vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  cols<<<grid, kThreads, plan[7], s>>>(qv, kv, vv, dv, bs, g, N * 3 * C, 3 * C, st, B, N, heads,
+                                       d, groups, parts, scale, plan[5], plan[6], vec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long plane = static_cast<long long>(N) * N, total = heads * plane;
   const int threads = 256;
   long_dbias_reduce_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0,
-                             st>>>(part, static_cast<float*>(dbias), plan[0], plane, total);
+                             s>>>(part, static_cast<float*>(dbias), parts, plane, total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,8 @@ are ``csrc/window_attn.cu`` (forward; its launch plan is ``fwd_plan``) and
 ``csrc/window_attn_bwd.cu`` (backward, dqkv and dbias summed over windows,
 deterministically; its launch plan is ``bwd_plan``) for N <= ``MAX_TOKENS``,
 and ``csrc/window_attn_long.cu`` (forward and backward, plans
-``long_fwd_plan`` and ``long_bwd_plan``) for ``MAX_TOKENS`` < N <=
-``LONG_MAX_TOKENS``, one launch per call, reading q, k and v through
+``long_fwd_plan`` and ``long_bwd_plan``; only tiles in shared memory, so any
+N) past ``MAX_TOKENS``, one wrapper call per pass, reading q, k and v through
 strides: ``window_attention`` takes the natural qkv [B, N, 3C] layout (three
 views of one tensor, no copy), ``window_attention_heads`` the v1 layout.
 Neither pads N: the kernels mask their own ragged edge. A launch of the long
@@ -50,10 +50,9 @@ import torch
 from deepfakedetection_tpu_torch.ops import build
 from deepfakedetection_tpu_torch.ops.expand_dw import sm_count
 
-MAX_TOKENS = 128  # N the short kernels take
-LONG_MAX_TOKENS = 256  # N the long kernels take, above MAX_TOKENS
+MAX_TOKENS = 128  # N the short kernels take; the long kernels take the rest
+LONG_INT_TOKENS = 46340  # N the long kernels index with ints (N^2 < 2^31)
 MAX_HEAD_DIM = 128
-LONG_THREADS = 256  # threads of a long kernel's block
 MAX_SMEM_BYTES = 232448  # shared memory one H100 block may use
 H100_SMS = 132
 FWD_MAX_GROUPS = 4  # the forward's most warp groups a block
@@ -65,7 +64,8 @@ _BWD_BARRIER_BYTES = 128
 FWD_KERNELS = ("window_attention_kernel",)
 BWD_KERNELS = ("window_attention_bwd_kernel", "dbias_reduce_kernel")
 LONG_FWD_KERNELS = ("window_attention_long_kernel",)
-LONG_BWD_KERNELS = ("window_attention_long_bwd_kernel", "long_dbias_reduce_kernel")
+LONG_BWD_KERNELS = ("window_attention_long_rows_kernel", "window_attention_long_cols_kernel",
+                    "long_dbias_reduce_kernel")
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -150,9 +150,9 @@ def _check_bias(name: str, bias: torch.Tensor, h: int, N: int, device: torch.dev
 
 
 def _check_sizes(name: str, N: int, d: int) -> None:
-    if not (1 <= N <= LONG_MAX_TOKENS and 1 <= d <= MAX_HEAD_DIM):
+    if not (1 <= N <= LONG_INT_TOKENS and 1 <= d <= MAX_HEAD_DIM):
         raise ValueError(
-            f"{name}: the kernels take 1 <= N <= {LONG_MAX_TOKENS} tokens and head_dim <= "
+            f"{name}: the kernels take 1 <= N <= {LONG_INT_TOKENS} tokens and 1 <= head_dim <= "
             f"{MAX_HEAD_DIM}, got N={N}, head_dim={d}"
         )
 
@@ -218,81 +218,165 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def long_fwd_smem(N: int, d: int) -> int:
-    """Shared memory of one long forward block (``csrc/window_attn_long.cu``
-    ``long_fwd_smem``): the window's q, k and v (bf16, row stride Dp + 8)."""
-    return 3 * _pad16(N) * (_pad16(d) + 8) * 2
+LONG_ROWS = 64  # rows of a long kernel's query (key) group and of a step's tile
+LONG_MAX_STAGES = 4  # the long kernels' deepest ring
+SM_SMEM_BYTES = 233472  # shared memory of an H100 SM, for all its blocks
+_BLOCK_RESERVE = 1024  # shared memory the card keeps for each block
+_LONG_BAR_BYTES = 128  # a long kernel's mbarriers
+_LONG_STATS = 4  # the row statistics the long backward keeps a row
 
 
-def long_bwd_smem(N: int, d: int) -> int:
-    """Shared memory of one long backward block (``long_bwd_smem``): the
-    window's q, k, v and do, and three f32 row statistics a row."""
-    return 4 * _pad16(N) * (_pad16(d) + 8) * 2 + 3 * _pad16(N) * 4
+def long_tile_bytes(d: int) -> int:
+    """Bytes of one of the long kernels' [64][Dp + 8] bf16 tiles
+    (``csrc/window_attn_long.cu`` ``tile_bytes``)."""
+    return LONG_ROWS * (_pad16(d) + 8) * 2
+
+
+def long_groups(N: int) -> int:
+    """The groups of at most four 16-row tiles a window's rows are split into
+    (``long_groups``)."""
+    tiles = -(-N // 16)
+    return -(-tiles // 4)
+
+
+class Ring(NamedTuple):
+    """A long kernel's ring (``csrc/window_attn_long.cu`` ``ring_plan``)."""
+
+    stages: int  # shared-memory stages of the per-step tiles
+    buffers: int  # item buffers: with two, the next item's rows load under this one
+    per_sm: int  # blocks an SM
+    smem: int  # bytes of dynamic shared memory a block
+
+
+def long_ring(item: int, stage: int) -> Ring | None:
+    """The ring of a kernel that keeps ``item`` bytes an item buffer and
+    ``stage`` bytes a step, as ``ring_plan``: two blocks an SM where any ring
+    fits them, two item buffers before one, then the most stages (2 to 4),
+    or None."""
+    for per_sm in (2, 1):
+        for buffers in (2, 1):
+            for stages in range(LONG_MAX_STAGES, 1, -1):
+                smem = _LONG_BAR_BYTES + buffers * item + stages * stage
+                if smem <= MAX_SMEM_BYTES and per_sm * (smem + _BLOCK_RESERVE) <= SM_SMEM_BYTES:
+                    return Ring(stages, buffers, per_sm, smem)
+    return None
+
+
+def _long_sizes(B: int, N: int, heads: int, d: int) -> bool:
+    return B >= 1 and heads >= 1 and 1 <= d <= MAX_HEAD_DIM and 1 <= N <= LONG_INT_TOKENS
+
+
+def _group_tiles(N: int, groups: int, gi: int) -> range:
+    kt = -(-N // 16)
+    return range(gi * kt // groups, (gi + 1) * kt // groups)
 
 
 class LongFwdPlan(NamedTuple):
     """The long forward's launch plan (``csrc/window_attn_long.cu``
-    ``dfd_window_attention_long_plan``): one block a (window, head)."""
+    ``dfd_window_attention_long_plan``): persistent blocks over the items
+    (window, head, query group), an even contiguous range each."""
 
     blocks: int
-    threads: int
+    groups: int  # query groups a window
+    stages: int
+    buffers: int
     smem: int
 
-    @staticmethod
-    def window_head(block: int, heads: int) -> tuple[int, int]:
-        """The (window, head) block ``block`` computes."""
-        return divmod(block, heads)
+    def tiles(self, block: int, B: int, N: int, heads: int) -> list[tuple[int, int, int]]:
+        """The (window, head, 16-row query tile) block ``block`` computes, in
+        its order."""
+        items = B * heads * self.groups
+        out = []
+        for it in range(block * items // self.blocks, (block + 1) * items // self.blocks):
+            b, h = divmod(it // self.groups, heads)
+            out += [(b, h, t) for t in _group_tiles(N, self.groups, it % self.groups)]
+        return out
 
 
 @functools.lru_cache(maxsize=256)
-def long_fwd_plan(B: int, N: int, heads: int, d: int) -> LongFwdPlan | None:
-    """The long forward's plan (``MAX_TOKENS`` < N <= ``LONG_MAX_TOKENS``),
-    as the kernel's, or None when the shape is out of its range or a window
-    does not fit a block's shared memory."""
-    if not (MAX_TOKENS < N <= LONG_MAX_TOKENS and 1 <= d <= MAX_HEAD_DIM and B >= 1
-            and heads >= 1) or long_fwd_smem(N, d) > MAX_SMEM_BYTES:
+def long_fwd_plan(B: int, N: int, heads: int, d: int, sms: int = H100_SMS) -> LongFwdPlan | None:
+    """The long forward's plan on a card of ``sms`` SMs, as the kernel's
+    (``kernel_long_fwd_plan`` reads it back), or None when the shape is out of
+    its range: ``long_ring`` of a q tile an item and k and v tiles a step, as
+    many blocks as the ring's blocks an SM fill, at most one an item."""
+    if not _long_sizes(B, N, heads, d):
         return None
-    return LongFwdPlan(B * heads, LONG_THREADS, long_fwd_smem(N, d))
+    groups, nk = long_groups(N), -(-N // LONG_ROWS)
+    items = B * heads * groups
+    ring = long_ring(long_tile_bytes(d), 2 * long_tile_bytes(d))
+    if ring is None or items * nk > 2**31 - 1:
+        return None
+    return LongFwdPlan(min(items, ring.per_sm * sms), groups, ring.stages, ring.buffers,
+                       ring.smem)
 
 
 class LongBwdPlan(NamedTuple):
-    """The long backward's launch plan (``dfd_window_attention_long_bwd_plan``)."""
+    """The long backward's launch plan (``dfd_window_attention_long_bwd_plan``):
+    the row and the column kernel each run heads x groups x parts blocks,
+    block (head, group, part) owning the part's contiguous range of the
+    windows."""
 
-    per_head: int  # blocks a head, each owning a contiguous range of its windows
-    threads: int
-    smem: int
+    parts: int  # blocks a (head, group)
+    groups: int  # query (key) groups a window
+    rows_stages: int
+    rows_buffers: int
+    rows_smem: int
+    cols_stages: int
+    cols_buffers: int
+    cols_smem: int
 
     def blocks(self, heads: int) -> int:
-        return heads * self.per_head
+        return heads * self.groups * self.parts
 
     def windows(self, B: int, part: int) -> range:
-        """The windows, in the order it sums them, of a head's block ``part``."""
-        return range(part * B // self.per_head, (part + 1) * B // self.per_head)
+        """The windows, in the order it sums them, of a (head, group)'s part."""
+        return range(part * B // self.parts, (part + 1) * B // self.parts)
+
+    def tiles(self, block: int, B: int, N: int, heads: int) -> list[tuple[int, int, int]]:
+        """The (window, head, 16-row tile) block ``block`` computes: query
+        tiles in the row kernel, key tiles in the column kernel."""
+        hg, part = divmod(block, self.parts)
+        h, gi = divmod(hg, self.groups)
+        return [(b, h, t) for b in self.windows(B, part)
+                for t in _group_tiles(N, self.groups, gi)]
 
 
 @functools.lru_cache(maxsize=256)
 def long_bwd_plan(B: int, N: int, heads: int, d: int, sms: int = H100_SMS) -> LongBwdPlan | None:
     """The long backward's plan on a card of ``sms`` SMs, as the kernel's, or
-    None when the shape is out of range or a window does not fit a block's
-    shared memory (at head_dim 128, N > 208): as many blocks a head as the
-    SMs hold for all the heads, at most one a window."""
-    if not (MAX_TOKENS < N <= LONG_MAX_TOKENS and 1 <= d <= MAX_HEAD_DIM and B >= 1
-            and heads >= 1) or long_bwd_smem(N, d) > MAX_SMEM_BYTES:
+    None when the shape is out of range: the row kernel's ring (q and do an
+    item, k and v a step, two walks a window), the column kernel's (k and v
+    an item; q, do and the row statistics a step), and as many parts as the
+    fewer blocks an SM of the two fill for all heads and groups, at most one
+    a window."""
+    if not _long_sizes(B, N, heads, d):
         return None
-    return LongBwdPlan(max(1, min(B, sms // heads)), LONG_THREADS, long_bwd_smem(N, d))
+    groups, nk, tile = long_groups(N), -(-N // LONG_ROWS), long_tile_bytes(d)
+    rows = long_ring(2 * tile, 2 * tile)
+    cols = long_ring(2 * tile, 2 * tile + _LONG_STATS * LONG_ROWS * 4)
+    if rows is None or cols is None or max(heads * groups * B, B * 2 * nk) > 2**31 - 1:
+        return None
+    parts = max(1, min(B, min(rows.per_sm, cols.per_sm) * sms // (heads * groups)))
+    return LongBwdPlan(parts, groups, *rows[:2], rows.smem, *cols[:2], cols.smem)
 
 
-def kernel_long_fwd_plan(B: int, N: int, heads: int, d: int) -> LongFwdPlan | None:
+def long_stats_len(B: int, N: int, heads: int) -> int:
+    """f32 elements of the long backward's row statistics, [B, h, 4, Np]
+    with Np = N padded to 64."""
+    return B * heads * _LONG_STATS * -(-N // LONG_ROWS) * LONG_ROWS
+
+
+def kernel_long_fwd_plan(B: int, N: int, heads: int, d: int, sms: int) -> LongFwdPlan | None:
     """The plan the built long forward computes (card only)."""
-    plan = (ctypes.c_int * 3)()
-    if build.library().dfd_window_attention_long_plan(B, N, heads, d, plan) != 0:
+    plan = (ctypes.c_int * 5)()
+    if build.library().dfd_window_attention_long_plan(B, N, heads, d, sms, plan) != 0:
         return None
     return LongFwdPlan(*plan)
 
 
 def kernel_long_bwd_plan(B: int, N: int, heads: int, d: int, sms: int) -> LongBwdPlan | None:
     """The plan the built long backward computes (card only)."""
-    plan = (ctypes.c_int * 3)()
+    plan = (ctypes.c_int * 8)()
     if build.library().dfd_window_attention_long_bwd_plan(B, N, heads, d, sms, plan) != 0:
         return None
     return LongBwdPlan(*plan)
@@ -302,11 +386,9 @@ def _fwd_sms(name: str, device: torch.device, B: int, N: int, heads: int, d: int
     """The card's SM count, after checking that a forward plan fits there."""
     sms = sm_count(device)
     if N > MAX_TOKENS:
-        if long_fwd_plan(B, N, heads, d) is None:
-            raise ValueError(
-                f"{name}: N={N}, head_dim={d} needs {long_fwd_smem(N, d)} bytes of shared "
-                f"memory a block, more than the {MAX_SMEM_BYTES} an H100 block has"
-            )
+        if long_fwd_plan(B, N, heads, d, sms) is None:
+            raise ValueError(f"{name}: no long-kernel plan for B={B}, N={N}, heads={heads}, "
+                             f"head_dim={d} (N past {LONG_INT_TOKENS} or too many items)")
     elif fwd_plan(B, N, heads, d, sms) is None:
         raise ValueError(
             f"{name}: N={N}, head_dim={d} needs {fwd_smem_bytes(N, d)} bytes of shared memory "
@@ -326,7 +408,7 @@ def _launch(name, q, k, v, bias, out, strides, B: int, N: int, heads: int, d: in
     vec = int(d % 8 == 0 and all(s % 8 == 0 for s in flat)
               and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
     if N > MAX_TOKENS:
-        window_attention_long(q, k, v, bias, out, flat, B, N, heads, d, scale, vec)
+        window_attention_long(q, k, v, bias, out, flat, B, N, heads, d, sms, scale, vec)
         return False
     lib = build.library()
     with torch.cuda.device(q.device):
@@ -340,16 +422,17 @@ def _launch(name, q, k, v, bias, out, strides, B: int, N: int, heads: int, d: in
 
 
 def window_attention_long(q, k, v, bias, out, flat_strides, B: int, N: int, heads: int, d: int,
-                          scale: float, vec: int) -> None:
+                          sms: int, scale: float, vec: int) -> None:
     """One launch of the long forward kernel (``csrc/window_attn_long.cu``)
     on the current stream, counted: q, k, v and out as the short kernel's,
-    ``flat_strides`` their (batch, row, head) strides in elements."""
+    ``flat_strides`` their (batch, row, head) strides in elements, ``sms``
+    the card's SMs."""
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dfd_window_attention_long(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            B, N, heads, d, *flat_strides, float(scale), vec, stream,
+            B, N, heads, d, *flat_strides, sms, float(scale), vec, stream,
         )
     build.check(rc, "window_attention_long")
     window_attention_long.launches += 1
@@ -369,8 +452,8 @@ def _check_qkv(name: str, qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"{name}: 3C={C3} is not 3 x a multiple of num_heads={num_heads}")
     C = C3 // 3
     d = C // num_heads
-    _check_bias(name, bias, num_heads, N, qkv.device)
     _check_sizes(name, N, d)
+    _check_bias(name, bias, num_heads, N, qkv.device)
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {qkv.device}")
     return B, N, C, d
@@ -508,7 +591,7 @@ def window_attention_bwd(
     bias [h, N, N] f32, dout [B, N, C] bf16, each with a unit stride along
     features -> (dqkv [B, N, 3C] bf16, dbias [h, N, N] f32). Launches the CUDA
     kernel (and its fixed-order dbias reduction) on the current stream for
-    CUDA tensors, the long one at N > ``MAX_TOKENS`` (counted on
+    CUDA tensors, the long ones at N > ``MAX_TOKENS`` (counted on
     ``window_attention_long_bwd.launches``), runs the plain version for CPU
     tensors, raises otherwise or when no plan fits (``bwd_plan``,
     ``long_bwd_plan``)."""
@@ -522,26 +605,29 @@ def window_attention_bwd(
             f"{dout.device}"
         )
     long = N > MAX_TOKENS
-    if (long_bwd_plan(B, N, num_heads, d) if long else bwd_plan(B, N, num_heads, d)) is None:
-        need = long_bwd_smem(N, d) if long else bwd_smem_bytes(N, d)
+    if long:
+        if long_bwd_plan(B, N, num_heads, d) is None:
+            raise ValueError(f"{name}: no long-kernel plan for B={B}, N={N}, heads={num_heads}, "
+                             f"head_dim={d} (N past {LONG_INT_TOKENS} or too many windows)")
+    elif bwd_plan(B, N, num_heads, d) is None:
         raise ValueError(
-            f"{name}: N={N}, head_dim={d} needs {need} bytes of shared memory "
+            f"{name}: N={N}, head_dim={d} needs {bwd_smem_bytes(N, d)} bytes of shared memory "
             f"a block, more than the {MAX_SMEM_BYTES} an H100 block has"
         )
     if qkv.device.type == "cpu":
         return window_attention_bwd_plain(qkv, bias, dout, num_heads=num_heads, scale=scale)
     sms = sm_count(qkv.device)
-    plan = (long_bwd_plan if long else bwd_plan)(B, N, num_heads, d, sms)
     dqkv = torch.empty(B, N, 3 * C, dtype=torch.bfloat16, device=qkv.device)
     dbias = torch.empty(num_heads, N, N, dtype=torch.float32, device=qkv.device)
-    partial = torch.empty(plan.blocks(num_heads), N, N, dtype=torch.float32, device=qkv.device)
     strides = (qkv.stride(0), qkv.stride(1), dout.stride(0), dout.stride(1))
     vec = int(d % 8 == 0 and all(s % 8 == 0 for s in strides)
               and all(t.data_ptr() % 16 == 0 for t in (qkv, dout, dqkv)))
     if long:
-        window_attention_long_bwd(qkv, dout, bias, dqkv, partial, dbias, strides, sms, scale, vec,
+        window_attention_long_bwd(qkv, dout, bias, dqkv, dbias, strides, sms, scale, vec,
                                   num_heads)
         return dqkv, dbias
+    plan = bwd_plan(B, N, num_heads, d, sms)
+    partial = torch.empty(plan.blocks(num_heads), N, N, dtype=torch.float32, device=qkv.device)
     lib = build.library()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -555,20 +641,25 @@ def window_attention_bwd(
     return dqkv, dbias
 
 
-def window_attention_long_bwd(qkv, dout, bias, dqkv, partial, dbias, strides, sms: int,
-                              scale: float, vec: int, num_heads: int) -> None:
-    """One launch of the long backward kernel and its dbias sum
-    (``csrc/window_attn_long.cu``) on the current stream, counted; called by
-    ``window_attention_bwd`` at N > ``MAX_TOKENS`` with its checked inputs,
-    its outputs and scratch, and the (qkv, dout) batch and row strides."""
+def window_attention_long_bwd(qkv, dout, bias, dqkv, dbias, strides, sms: int, scale: float,
+                              vec: int, num_heads: int) -> None:
+    """One call of the long backward (``csrc/window_attn_long.cu``: its row
+    and column kernels and the dbias sum) on the current stream, counted;
+    called by ``window_attention_bwd`` at N > ``MAX_TOKENS`` with its checked
+    inputs, its outputs, and the (qkv, dout) batch and row strides. Allocates
+    the scratch: the partial dbias planes and the row statistics."""
     B, N, C3 = qkv.shape
+    plan = long_bwd_plan(B, N, num_heads, C3 // 3 // num_heads, sms)
+    partial = torch.empty(num_heads * plan.parts, N, N, dtype=torch.float32, device=qkv.device)
+    stats = torch.empty(long_stats_len(B, N, num_heads), dtype=torch.float32, device=qkv.device)
     lib = build.library()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         rc = lib.dfd_window_attention_long_bwd(
             qkv.data_ptr(), dout.data_ptr(), bias.data_ptr(), dqkv.data_ptr(),
-            partial.data_ptr(), partial.shape[0], dbias.data_ptr(), B, N, num_heads,
-            C3 // 3 // num_heads, *strides, sms, float(scale), vec, stream,
+            partial.data_ptr(), partial.shape[0], dbias.data_ptr(), stats.data_ptr(),
+            stats.numel(), B, N, num_heads, C3 // 3 // num_heads, *strides, sms, float(scale),
+            vec, stream,
         )
     build.check(rc, "window_attention_long_bwd")
     window_attention_long_bwd.launches += 1
@@ -586,8 +677,8 @@ def _check_heads(name: str, q, k, v, bias) -> tuple[int, int, int, int]:
         if t.device != q.device:
             raise ValueError(f"{name}: q, k, v on different devices")
     B, h, N, d = q.shape
-    _check_bias(name, bias, h, N, q.device)
     _check_sizes(name, N, d)
+    _check_bias(name, bias, h, N, q.device)
     return B, h, N, d
 
 

@@ -2,9 +2,12 @@
 backward) against another checkout's, on one CUDA card: the backward at
 ``chip_smoke.K5_BWD_SHAPES`` (FasterViT-2's fine-tune step at batch 128),
 with ``--fwd`` the forward at ``chip_smoke.K5_SHAPES`` (its eval forward at
-batch 256), both head configurations. Run from the repository root:
+batch 256), both head configurations; with ``--long`` the long kernels
+(``window_attn_long.cu``, past 128 tokens) forward and backward at
+``chip_smoke.K5_LONG_SHAPES`` and ``K5_LONG_BWD_SHAPES`` (FasterViT-2 at 448
+px). Run from the repository root:
 
-    python -m deepfakedetection_tpu_torch.profile_k5 --tree DIR [--fwd]
+    python -m deepfakedetection_tpu_torch.profile_k5 --tree DIR [--fwd | --long]
 
 ``--tree DIR`` builds the K5 backward (or forward) of another checkout (say
 the parent commit, unpacked with ``git archive`` into a directory
@@ -71,7 +74,14 @@ class Other:
         spec = importlib.util.spec_from_file_location("other_window_attn", ops / "window_attn.py")
         self.mod = importlib.util.module_from_spec(spec)
         sys.modules[spec.name] = self.mod
-        spec.loader.exec_module(self.mod)
+        # its operators are this tree's by name (dfd::window_attention): not registered twice
+        from deepfakedetection_tpu_torch.ops import build
+
+        define_op, build.define_op = build.define_op, lambda *args, **kwargs: None
+        try:
+            spec.loader.exec_module(self.mod)
+        finally:
+            build.define_op = define_op
         self.planned_fwd = hasattr(self.mod, "fwd_plan")
         self.grouped = hasattr(self.mod, "bwd_windows_per_block")
         self.libs = {}
@@ -120,6 +130,62 @@ class Other:
             raise RuntimeError(f"the other tree's dfd_window_attention failed: CUDA error {rc}")
         return out
 
+    def long_fwd(self, qkv, bias, h: int, scale: float):
+        """The other tree's long forward on qkv (its C entry with or without
+        the SM count: since the online-softmax design, with)."""
+        import torch
+
+        B, N, C3 = qkv.shape
+        C, dev = C3 // 3, qkv.device
+        d = C // h
+        P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        online = hasattr(self.mod, "long_stats_len")
+        fn = self._entry("window_attn_long.cu", "dfd_window_attention_long",
+                         [P] * 5 + [I] * 4 + [L] * 12 + ([I] if online else []) + [F, I, P])
+        out = torch.empty(B, N, C, dtype=torch.bfloat16, device=dev)
+        src = (qkv.stride(0), qkv.stride(1), d)
+        vec = int(d % 8 == 0 and all(s % 8 == 0 for s in src[:2]))
+        sms = [torch.cuda.get_device_properties(dev).multi_processor_count] if online else []
+        rc = fn(qkv.data_ptr(), qkv[..., C:].data_ptr(), qkv[..., 2 * C:].data_ptr(),
+                bias.data_ptr(), out.data_ptr(), B, N, h, d, *src, *src, *src, N * C, C, d, *sms,
+                scale, vec, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the other tree's dfd_window_attention_long failed: CUDA error {rc}")
+        return out
+
+    def long_bwd(self, qkv, bias, dout, h: int, scale: float):
+        """The other tree's long backward (its C entry with or without the row
+        statistics' scratch: since the online-softmax design, with)."""
+        import torch
+
+        B, N, C3 = qkv.shape
+        C, dev = C3 // 3, qkv.device
+        d = C // h
+        P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        online = hasattr(self.mod, "long_stats_len")
+        fn = self._entry("window_attn_long.cu", "dfd_window_attention_long_bwd",
+                         [P] * 5 + [L, P] + ([P, L] if online else []) + [I] * 4 + [L] * 4
+                         + [I, F, I, P])
+        dqkv = torch.empty(B, N, C3, dtype=torch.bfloat16, device=dev)
+        dbias = torch.empty(h, N, N, dtype=torch.float32, device=dev)
+        strides = (qkv.stride(0), qkv.stride(1), dout.stride(0), dout.stride(1))
+        vec = int(d % 8 == 0 and all(s % 8 == 0 for s in strides))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = self.mod.long_bwd_plan(B, N, h, d, sms)
+        planes = h * plan.parts if online else plan.blocks(h)
+        partial = torch.empty(planes, N, N, dtype=torch.float32, device=dev)
+        scratch = []
+        if online:
+            stats = torch.empty(self.mod.long_stats_len(B, N, h), dtype=torch.float32, device=dev)
+            scratch = [stats.data_ptr(), stats.numel()]
+        rc = fn(qkv.data_ptr(), dout.data_ptr(), bias.data_ptr(), dqkv.data_ptr(),
+                partial.data_ptr(), planes, dbias.data_ptr(), *scratch, B, N, h, d, *strides, sms,
+                scale, vec, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the other tree's dfd_window_attention_long_bwd failed: CUDA "
+                               f"error {rc}")
+        return dqkv, dbias
+
     def bwd(self, qkv, bias, dout, h: int, scale: float):
         import torch
 
@@ -154,17 +220,22 @@ class Other:
         return dqkv, dbias
 
 
-def _turns(runs: dict, expect) -> dict:
+def _turns(runs: dict, expect, per_launch: bool = False) -> dict:
     """Each of ``runs``' time a call (median of 13 calls in each of the turns
     other, this, this, other) and device time a call (``kernel_split`` over
-    10 calls in each of the same turns, the mean)."""
+    10 calls in each of the same turns, the mean; with ``per_launch``
+    ``chip_smoke.launch_ms``, each kernel's mean duration a record, for runs
+    that launch each expected kernel once a call). ``expect``: the kernels
+    both runs launch, or a dict of each run's."""
     import chip_smoke as cs
 
     ms = {name: [] for name in runs}
     dev = {name: [] for name in runs}
     for name in ("other", "this", "this", "other"):
         ms[name] += cs.cuda_times(runs[name], runs=13)
-        dev[name].append(sum(cs.kernel_split(runs[name], expect=expect)[0].values()))
+        want = expect[name] if isinstance(expect, dict) else expect
+        dev[name].append(cs.launch_ms(runs[name], want) if per_launch
+                         else sum(cs.kernel_split(runs[name], expect=want)[0].values()))
     return {**{f"{name}_ms": statistics.median(t) for name, t in ms.items()},
             **{f"{name}_device_ms": statistics.mean(t) for name, t in dev.items()}}
 
@@ -236,12 +307,63 @@ def compare_fwd(tree: str, shapes=None) -> list[dict]:
     return rows
 
 
+def compare_long(tree: str) -> list[dict]:
+    """This checkout's long K5 kernels against ``tree``'s, forward at
+    ``chip_smoke.K5_LONG_SHAPES`` and backward at ``K5_LONG_BWD_SHAPES``
+    (phase 1's inputs): both held to the plain version with phase 1's
+    tolerances, and timed in turns (``_turns`` by ``launch_ms``: each run's
+    own kernels by its module's ``LONG_FWD_KERNELS`` / ``LONG_BWD_KERNELS``,
+    each launched once a call; short profiler takes of these kernels lost
+    records and read low). A row a shape and pass, with ``ratio`` this
+    device time over the other's."""
+    import chip_smoke as cs
+    import torch
+
+    from deepfakedetection_tpu_torch.ops import window_attn as k5
+
+    other, rows = Other(tree), []
+    for i, (shapes, fwd) in enumerate(((cs.K5_LONG_SHAPES, True),
+                                       (cs.K5_LONG_BWD_SHAPES, False))):
+        for j, shape in enumerate(shapes):
+            qkv, bias, dout, h, scale = _inputs(shape, 820 + 10 * i + j, "cuda")
+            if fwd:
+                runs = {"other": lambda: other.long_fwd(qkv, bias, h, scale),
+                        "this": lambda: k5.window_attention(qkv, bias, num_heads=h, scale=scale)}
+                expect = {"other": other.mod.LONG_FWD_KERNELS, "this": k5.LONG_FWD_KERNELS}
+                ref = k5.window_attention_plain(qkv, bias, num_heads=h, scale=scale)
+                for name, fn in runs.items():
+                    got = fn()
+                    torch.cuda.synchronize()
+                    cs.check_close(f"{name} K5 long forward {shape[:5]}", got, ref,
+                                   cs.two_steps(ref), 0.0)
+            else:
+                runs = {"other": lambda: other.long_bwd(qkv, bias, dout, h, scale),
+                        "this": lambda: k5.window_attention_bwd(qkv, bias, dout, num_heads=h,
+                                                                scale=scale)}
+                expect = {"other": other.mod.LONG_BWD_KERNELS, "this": k5.LONG_BWD_KERNELS}
+                for name, fn in runs.items():
+                    got = fn()
+                    torch.cuda.synchronize()
+                    check(f"{name} K5 long backward {shape[:5]}", *got, qkv, bias, dout, h,
+                          scale)
+            row = {"pass": "forward" if fwd else "backward", "shape": shape[:5],
+                   **_turns(runs, expect, per_launch=True)}
+            row["ratio"] = row["this_device_ms"] / row["other_device_ms"]
+            rows.append(row)
+            print(f"K5 long {row['pass']} {shape[:5]}: within the tolerances both; ms a call: "
+                  f"this {row['this_ms']:.4f} (device {row['this_device_ms']:.4f}), {tree}'s "
+                  f"{row['other_ms']:.4f} (device {row['other_device_ms']:.4f})", flush=True)
+    return rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", required=True,
                         help="compare with the K5 of the checkout in this directory")
     parser.add_argument("--fwd", action="store_true",
                         help="compare the forward (at chip_smoke.K5_SHAPES), not the backward")
+    parser.add_argument("--long", action="store_true",
+                        help="compare the long kernels, forward and backward, at 448 px")
     args = parser.parse_args()
     import chip_smoke as cs
     import torch
@@ -249,7 +371,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_k5: no CUDA card")
     print(cs.smi(), flush=True)
-    (compare_fwd if args.fwd else compare)(args.tree)
+    (compare_long if args.long else compare_fwd if args.fwd else compare)(args.tree)
 
 
 if __name__ == "__main__":

@@ -249,8 +249,8 @@ def _rejected(case):
     if case == "k5_too_many_tokens":
         return (_Calls(lambda qkv, bias: k5.window_attention(qkv, bias, num_heads=2,
                                                              scale=0.5)),
-                (torch.randn(2, 257, 48, generator=g).to(torch.bfloat16),
-                 torch.randn(2, 257, 257, generator=g)))
+                (torch.randn(2, k5.LONG_INT_TOKENS + 1, 48, generator=g).to(torch.bfloat16),
+                 torch.randn(2, 8, 8, generator=g)))
     *qkv, bias, th1, th1_b, th2, th2_b, _, _ = _op_args("attn4d")
     return (_Calls(lambda q: k7.attn4d(q, *qkv[1:], bias, th1, th1_b, th2, th2_b,
                                        num_heads=4, scale=0.25)),

@@ -4,15 +4,17 @@ JAX package's Flax model, and what the port refuses there.
 (a) A narrow FasterViT (dim 16, in_dim 8, depths (1, 1, 2, 1)) at 64 px
     (stage 3 a 4 x 4 map, stage 4 2 x 2) and 112 px (stage 3 one 7 x 7
     window: ``PlainBlock``s over its 49 tokens, no carrier tokens, as the JAX
-    model's degenerate branch) in both head configurations, and at 448 px
+    model's degenerate branch) in both head configurations, at 448 px
     (stage 3 4 x 4 windows with 64 carrier tokens, stage 4 14 x 14 = 196
-    tokens), built in both packages; the JAX init with numpy-seeded
+    tokens) and at 560 px (stage 3 5 x 5 windows with 100 carrier tokens,
+    stage 4 18 x 18 = 324 tokens: K5's long kernels past 256), built in
+    both packages; the JAX init with numpy-seeded
     statistics, biases, layer scales and tables is carried over by
     ``state_dict_from_jax`` and loads strictly; the head is fitted to spread
     the logits. float32 logits within 5e-3 of their scale
-    (``tests/test_cross_framework.py``'s gate), equal argmax. At 448 also
-    bf16 (the port through K5's plain versions, its long kernel's at stage 4)
-    within ``tests/test_torch_fastervit.py``'s 1.5e-2.
+    (``tests/test_cross_framework.py``'s gate), equal argmax. At 448 and 560
+    also bf16 (the port through K5's plain versions, its long kernels' at
+    stage 4) within ``tests/test_torch_fastervit.py``'s 1.5e-2.
 (b) The launches a bf16 forward makes at each size, and the degenerate
     stage's names: ``levels.2.blocks.{b}.*`` with the suffixes of the stage-4
     ``PlainBlock``s.
@@ -46,7 +48,7 @@ from tests.test_torch_fastervit import _perturbed
 NARROW = dict(dim=16, in_dim=8, depths=(1, 1, 2, 1))
 OFFICIAL_HEADS = (2, 4, 8, 16)
 CASES = [(64, "official"), (64, "tpu"), (112, "official"), (112, "tpu"), (448, "official"),
-         (448, "tpu")]
+         (448, "tpu"), (560, "official"), (560, "tpu")]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -144,18 +146,37 @@ def test_bf16_logits_at_448_match_jax(trees, config):
     _check(*_logits(config, 448, trees[448, config], "bf16"), 1.5e-2)
 
 
+@pytest.mark.parametrize("config", ["official", "tpu"])
+def test_bf16_logits_at_560_match_jax(trees, config):
+    """Stage 4's 324 tokens: past the 256 that K5's earlier long kernels took.
+    At 560 px the JAX model's own bf16 logits lie 6.1e-2 (official) and
+    3.6e-2 (tpu) of their scale from its f32 ones on these seeded trees,
+    where the port's bf16 lie 4.1e-2 and 2.6e-2 from them and the f32 logits
+    agree to 1e-5 (``test_f32_logits_match_jax``): the gate is 1.5e-2 plus
+    the JAX bf16 run's own drift, ``chip_smoke.check_logits``'s rule past
+    224 px."""
+    tree = trees[560, config]
+    got, want = _logits(config, 560, tree, "bf16")
+    _, exact = _logits(config, 560, tree, "f32")
+    drift = float(np.abs(want - exact).max() / np.abs(exact).max())
+    _check(got, want, 1.5e-2 + drift)
+    # and the port's bf16 is no farther from the exact logits than the JAX one's
+    assert np.abs(got - exact).max() <= np.abs(want - exact).max()
+
+
 @pytest.mark.parametrize("size, launches", [
     (64, {"k5": 0, "k5_long": 0, "k6": 0}),  # 16 and 4 tokens: plain ops
     (112, {"k5": 2, "k5_long": 0, "k6": 0}),  # stage 3's 49 tokens; stage 4's 16 plain
     (224, {"k5": 3, "k5_long": 0, "k6": 0}),
     (448, {"k5": 4, "k5_long": 1, "k6": 0}),  # carrier tokens 64 and windows 53; stage 4 196
+    (560, {"k5": 4, "k5_long": 1, "k6": 0}),  # carrier tokens 100, windows 53; stage 4 324
 ])
 def test_launches_per_forward(size, launches):
     model = FasterViT(2, num_heads=OFFICIAL_HEADS, img_size=size, **NARROW)
     assert model.kernel_launches_per_forward() == launches
 
 
-@pytest.mark.parametrize("size", [112, 448])
+@pytest.mark.parametrize("size", [112, 448, 560])
 def test_every_kernel_attention_goes_through_the_k5_wrapper(monkeypatch, size):
     """A bf16 forward calls ``window_attention`` (whose CUDA path launches
     the short or the long kernel by N) once for each launch

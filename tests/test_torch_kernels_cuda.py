@@ -18,7 +18,7 @@ and dv within two bf16 steps of each one's scale, dbias within 1e-3 of its
 scale (f32 on both sides, summed over the windows in other orders), and
 bit-identical dbias and dqkv over two runs; the autograd Function launches
 the forward once and the backward once. K5's long kernels (past 128
-tokens) at FasterViT-2's stage 4 at 448 and 512 px and odd sizes, to the
+tokens) at FasterViT-2's stage 4 at 448, 560 and 672 px and odd sizes, to the
 same tolerances, bit-identical over two runs, their plans the built
 library's, counted on their own counters. K7 (talking-head attention) at
 EfficientFormerV2-S1's shape and at ragged and small sizes: within two bf16
@@ -273,9 +273,10 @@ def test_window_attention_function_runs_both_kernels(cuda):
 
 K5_LONG_CASES = [
     # (windows, N, heads, d): FasterViT-2's stage 4 at 448 px in both head
-    # configurations, at 512 px, and odd sizes (an element-by-element copy at d 40)
+    # configurations, at 560 px (324 tokens) and 672 px (441), and odd sizes
+    # (256 at d 128, the old kernels' limits; a head_dim off the 16-wide tiles)
     (64, 196, 16, 48), (32, 196, 6, 128), (16, 256, 16, 48), (8, 129, 2, 64), (8, 197, 3, 40),
-    (8, 208, 1, 128),
+    (8, 208, 1, 128), (8, 324, 16, 48), (4, 441, 6, 128), (8, 256, 6, 128), (8, 257, 2, 40),
 ]
 
 
@@ -288,7 +289,7 @@ def test_window_attention_long_kernels_match_plain_and_repeat(cuda, B, N, h, d):
     the built library's."""
     qkv, bias = _k5_inputs(B, N, h, d, cuda, seed=N * d + h + 2)
     sms = k5.sm_count(qkv.device)
-    assert k5.kernel_long_fwd_plan(B, N, h, d) == k5.long_fwd_plan(B, N, h, d)
+    assert k5.kernel_long_fwd_plan(B, N, h, d, sms) == k5.long_fwd_plan(B, N, h, d, sms)
     assert k5.kernel_long_bwd_plan(B, N, h, d, sms) == k5.long_bwd_plan(B, N, h, d, sms)
     counts = (k5.window_attention.launches, k5.window_attention_long.launches,
               k5.window_attention_bwd.launches, k5.window_attention_long_bwd.launches)

@@ -2,8 +2,10 @@
 ops/attn4d.py; the long kernels csrc/window_attn_long.cu, csrc/attn4d_long.cu)
 against the JAX package on the CPU, where the wrappers run the plain versions.
 
-(a) K5 at N = 129, 196 (FasterViT's stage 4 at 448 px) and 256 (at 512),
-    head_dim 48, 2 heads, 2 windows, numpy-seeded bf16: ``window_attention``
+(a) K5 at N = 129, 196 (FasterViT's stage 4 at 448 px), 256, 257, 324 (at
+    560 px) and 441 (at 672 px), head_dim 48, 2 heads, 2 windows, and at
+    head_dim 128 past 208 tokens (which the earlier long backward refused),
+    numpy-seeded bf16: ``window_attention``
     against ``window_mhsa_pallas(..., interpret=True)`` (which pads N to a
     multiple of 64 and masks the padded keys) and ``window_mhsa_xla``, to one
     bf16 step of the output's scale (the tolerance of
@@ -18,10 +20,11 @@ against the JAX package on the CPU, where the wrappers run the plain versions.
     bf16 step (``tests/test_torch_attn4d.py``'s).
 (c) The long kernels' launch plans (``long_fwd_plan``, ``long_bwd_plan``,
     ``attn4d.long_plan``) at FasterViT-2's 448 px stage 4 (both head
-    configurations; eval batch 256, fine-tune batch 128) and S1's 384 px
-    attention (batch 256) fit a block's shared memory and give every (head,
-    window), or every (image, query row), to exactly one block; the limits
-    are refused before any launch.
+    configurations; eval batch 256, fine-tune batch 128), at every N up to
+    784 and head_dim up to 128, and S1's 384 px attention (batch 256) fit a
+    block's shared memory and give every (window, head, 16-row tile), or
+    every (image, query row), to exactly one block; K5 takes any N and
+    refuses head_dim past 128, K7 its limits, before any launch.
 (d) A narrow EfficientFormerV2 at 384 px (stages 3 and 4 attend over 12 x 12 =
     144 tokens) against the JAX model, from one numpy-seeded tree carried
     over by ``state_dict_from_jax``: f32 logits within 5e-3 of their scale
@@ -45,7 +48,8 @@ from deepfakedetection_tpu_torch.runtime.convert import load_state_dict_strict, 
 from tests.test_torch_efficientformer_v2 import NARROW as EF_NARROW
 from tests.test_torch_efficientformer_v2 import seeded_tree
 
-TOKENS = (129, 196, 256)
+TOKENS = (129, 196, 256)  # K7's: it takes N <= 256
+K5_TOKENS = TOKENS + (257, 324, 441)  # K5 takes any N
 HEADS, WINDOWS, D = 2, 2, 48
 DBIAS_TOL = 1e-2
 SMEM = 232448
@@ -82,7 +86,7 @@ def _jax_heads(qkv):
     return [j[..., i * C:(i + 1) * C].reshape(B, N, HEADS, D) for i in range(3)]
 
 
-@pytest.mark.parametrize("N", TOKENS)
+@pytest.mark.parametrize("N", K5_TOKENS)
 def test_k5_forward_matches_the_jax_kernel_and_xla(N):
     qkv, bias, _ = _k5_inputs(N, seed=N)
     scale = D**-0.5
@@ -97,7 +101,7 @@ def test_k5_forward_matches_the_jax_kernel_and_xla(N):
         assert err <= _steps(ref), (N, err, _steps(ref))
 
 
-@pytest.mark.parametrize("N", TOKENS)
+@pytest.mark.parametrize("N", K5_TOKENS)
 def test_k5_backward_matches_jax_grad_of_the_xla_path(N):
     qkv, bias, dout = _k5_inputs(N, seed=10 + N)
     scale = D**-0.5
@@ -120,6 +124,29 @@ def test_k5_backward_matches_jax_grad_of_the_xla_path(N):
     leaf = qkv.clone().requires_grad_(True)
     k5.window_attention(leaf, bias, num_heads=HEADS, scale=scale).backward(dout)
     assert torch.equal(leaf.grad, dqkv)
+
+
+def test_k5_backward_at_head_dim_128_past_208_tokens_matches_jax_grad():
+    """The d-128 backward past 208 tokens, which the earlier long kernel's
+    shared memory refused (FasterViT-2's tpu configuration at 560 px: 324
+    tokens of 6 heads of 128), one head here."""
+    N, d = 324, 128
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.normal(size=(1, N, 3 * d)).astype(np.float32)).to(torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(size=(1, N, N)).astype(np.float32))
+    dout = torch.from_numpy(rng.normal(size=(1, N, d)).astype(np.float32)).to(torch.bfloat16)
+    j = jnp.asarray(qkv.float().numpy(), jnp.bfloat16)
+    q, k, v = (j[..., i * d:(i + 1) * d].reshape(1, N, 1, d) for i in range(3))
+    _, vjp = jax.vjp(lambda q, k, v, b: window_mhsa_xla(q, k, v, b, scale=d**-0.5), q, k, v,
+                     jnp.asarray(bias.numpy()))
+    refs = vjp(jnp.asarray(dout.float().numpy(), jnp.bfloat16))
+    dqkv, dbias = k5.window_attention_bwd(qkv, bias, dout, num_heads=1, scale=d**-0.5)
+    for i, ref in enumerate(refs[:3]):
+        ref = np.asarray(ref, np.float32).reshape(1, N, d)
+        err = float(np.abs(dqkv[..., i * d:(i + 1) * d].float().numpy() - ref).max())
+        assert err <= _steps(ref, 2), ("qkv"[i], err, _steps(ref, 2))
+    jb = np.asarray(refs[3], np.float32)
+    assert float(np.abs(dbias.numpy() - jb).max()) <= DBIAS_TOL * float(np.abs(jb).max())
 
 
 def _k7_inputs(B, N, h, d, dv, seed):
@@ -156,30 +183,69 @@ def test_k7_matches_the_jax_kernel_in_interpret_mode(N):
 K5_SHAPES = {"official": (16, 48), "tpu": (6, 128)}  # heads, head_dim
 
 
+def _covers_every_tile_once(plan, blocks: int, B: int, N: int, heads: int) -> bool:
+    """Every (window, head, 16-row tile) exactly once over the blocks."""
+    tiles = sorted(t for block in range(blocks) for t in plan.tiles(block, B, N, heads))
+    return tiles == [(w, h, t) for w in range(B) for h in range(heads) for t in range(-(-N // 16))]
+
+
+def _fits(plan) -> bool:
+    """A long plan's blocks fit an H100 block's shared memory, two an SM."""
+    smems = (plan.smem,) if isinstance(plan, k5.LongFwdPlan) else (plan.rows_smem, plan.cols_smem)
+    return all(s <= SMEM and 2 * (s + 1024) <= k5.SM_SMEM_BYTES for s in smems)
+
+
 @pytest.mark.parametrize("config", K5_SHAPES)
 def test_k5_long_plans_fit_and_cover_every_window_once(config):
     heads, d = K5_SHAPES[config]
-    fwd = k5.long_fwd_plan(256, 196, heads, d)
-    assert fwd is not None and fwd.smem <= SMEM and fwd.threads == k5.LONG_THREADS
-    assert sorted(fwd.window_head(b, heads) for b in range(fwd.blocks)) == [
-        (w, h) for w in range(256) for h in range(heads)]
+    fwd = k5.long_fwd_plan(256, 196, heads, d, SMS)
+    assert fwd is not None and _fits(fwd) and fwd.blocks == 2 * SMS
+    assert _covers_every_tile_once(fwd, fwd.blocks, 256, 196, heads)
     bwd = k5.long_bwd_plan(128, 196, heads, d, SMS)
-    assert bwd is not None and bwd.smem <= SMEM and bwd.blocks(heads) <= SMS
-    windows = [w for part in range(bwd.per_head) for w in bwd.windows(128, part)]
-    assert windows == list(range(128))  # each head's parts, in order, once each
+    assert bwd is not None and _fits(bwd) and bwd.blocks(heads) <= 2 * SMS
+    assert _covers_every_tile_once(bwd, bwd.blocks(heads), 128, 196, heads)
+    windows = [w for part in range(bwd.parts) for w in bwd.windows(128, part)]
+    assert windows == list(range(128))  # each (head, group)'s parts, in order, once each
+
+
+@pytest.mark.parametrize("N", [129, 196, 257, 324, 441, 576, 784])
+@pytest.mark.parametrize("d", [16, 40, 48, 64, 128])
+def test_k5_long_plans_fit_and_cover_any_window(N, d):
+    """Only tiles live in shared memory: every N, at every head_dim, has
+    plans that fit two blocks an SM and cover each tile once."""
+    B, heads = 3, 5
+    fwd, bwd = k5.long_fwd_plan(B, N, heads, d, SMS), k5.long_bwd_plan(B, N, heads, d, SMS)
+    assert fwd is not None and bwd is not None and _fits(fwd) and _fits(bwd)
+    assert fwd.groups == bwd.groups == -(-N // 64)
+    assert _covers_every_tile_once(fwd, fwd.blocks, B, N, heads)
+    assert _covers_every_tile_once(bwd, bwd.blocks(heads), B, N, heads)
 
 
 def test_k5_refuses_what_the_long_kernels_do_not_take():
-    assert k5.long_fwd_plan(4, 256, 6, 128) is not None  # every forward fits
-    assert k5.long_bwd_plan(4, 208, 6, 128) is not None
-    assert k5.long_bwd_plan(4, 209, 6, 128) is None  # q, k, v and do past 227 KB
-    qkv = torch.zeros(1, 209, 3 * 128, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        k5.window_attention_bwd(qkv, torch.zeros(1, 209, 209), qkv[..., :128].contiguous(),
-                                num_heads=1, scale=0.1)
-    long = torch.zeros(1, 257, 3 * 16, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="1 <= N <= 256 tokens"):
-        k5.window_attention(long, torch.zeros(1, 257, 257), num_heads=1, scale=0.1)
+    """The old limits compute: N past 256 forward and backward, and the
+    backward at head_dim 128 past 208 tokens; head_dim past 128 is refused."""
+    assert k5.long_bwd_plan(4, 324, 6, 128) is not None
+    qkv = torch.zeros(1, 257, 3 * 16, dtype=torch.bfloat16)
+    bias = torch.zeros(1, 257, 257)
+    assert k5.window_attention(qkv, bias, num_heads=1, scale=0.1).shape == (1, 257, 16)
+    wide = torch.zeros(1, 209, 3 * 128, dtype=torch.bfloat16)
+    dqkv, dbias = k5.window_attention_bwd(wide, torch.zeros(1, 209, 209),
+                                          wide[..., :128].contiguous(), num_heads=1, scale=0.1)
+    assert dqkv.shape == (1, 209, 384) and dbias.shape == (1, 209, 209)
+    assert k5.long_fwd_plan(4, 324, 6, 129) is None and k5.long_bwd_plan(4, 324, 6, 129) is None
+    too_wide = torch.zeros(1, 324, 3 * 129, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        k5.window_attention(too_wide, torch.zeros(1, 324, 324), num_heads=1, scale=0.1)
+
+
+@pytest.mark.parametrize("N", [130, 324])
+def test_k5_refuses_a_head_dim_past_128_in_both_directions(N):
+    qkv = torch.zeros(1, N, 3 * 136, dtype=torch.bfloat16)
+    bias = torch.zeros(1, N, N)
+    with pytest.raises(ValueError, match="head_dim=136"):
+        k5.window_attention(qkv, bias, num_heads=1, scale=0.1)
+    with pytest.raises(ValueError, match="head_dim=136"):
+        k5.window_attention_bwd(qkv, bias, qkv[..., :136].contiguous(), num_heads=1, scale=0.1)
 
 
 def test_k7_long_plan_fits_and_covers_every_query_row_once():

@@ -118,9 +118,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(what):
         bias = bias[:, :8]
     elif what == "bias dtype":
         bias = bias.double()
-    elif what == "too many tokens":
-        qkv = torch.zeros(1, 257, 3 * 2 * 8, dtype=torch.bfloat16)
-        bias = torch.zeros(2, 257, 257)
+    elif what == "too many tokens":  # past the long kernels' int indexing (N^2 < 2^31)
+        qkv = torch.zeros(1, k5.LONG_INT_TOKENS + 1, 3 * 2 * 8, dtype=torch.bfloat16)
     elif what == "head split":
         kw["num_heads"] = 5
     else:
