@@ -192,7 +192,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    196 tokens: K5's long kernel, 5 launches a batch; its 64-token carrier
    tokens and 53-token windows K5, 16), at 112 px (stage 3 one window:
    plain blocks over 49 tokens, K5 8 a batch) and EfficientFormerV2-S1 at
-   384 px (144 tokens: K7's long kernel, 4), each from a seeded ``.pth``
+   384 and 640 px (144 and 400 tokens: K7's long kernel, 4), each from a seeded ``.pth``
    built for its size, every launch count exactly the model's, the job's
    outputs for 16 test images against the CPU's bf16 and f32 runs
    (``FV_GATE``, ``EFV2_GATE``; past 224 px against f32 the gate plus the
@@ -216,7 +216,8 @@ attention) at EfficientFormerV2-S1's shape at batch 256 and at ragged sizes
 run, with its event and device time (no PyTorch call computes it: its
 library time is none), and past 128 tokens K5's long forward and backward
 at FasterViT-2's 448 px stage 4 (both head configurations) and K7's long
-kernel at S1's 384 px shape, each at odd N (129, 197, 256) too, within the
+kernel at S1's 384, 512 and 640 px shapes (its bound by both terms), each at
+odd N (129, 197, 256; K7 up to 1,024, and an unaligned view) too, within the
 same tolerances, bit-identical run to run, each plan the built library's,
 counted on the long kernels' counters, with event, device, plain and SDPA
 times, and K6 (the fused attention
@@ -253,7 +254,9 @@ in turns; outputs bit-identical at every ``K4_CASES`` case), its K5 forward
 and backward, in turns at the four eval and the four fine-tune shapes
 (``k5_parent``), its K7 at EfficientFormerV2-S1's shape (``k7_parent``: in
 turns, by events and device time; outputs bit-identical there and at every
-``K7_ODD`` size), and its K3 at B3's six K3 shapes (``k3_parent``); and phase
+``K7_ODD`` size), its K7 long kernel at S1's 384 and 512 px shapes
+(``k7_long_parent``: in turns, and both kernels' cycles by phase), and its K3
+at B3's six K3 shapes (``k3_parent``); and phase
 14 runs that checkout's eager eval steps of the three models on the same
 batch in a process of its own (its kernel library this tree's when the
 sources are the same), between two timings of this tree's: the
@@ -421,12 +424,21 @@ K5_LONG_SHAPES = [("official", FV448_BATCH, 196, 768, 16, 5), ("tpu", FV448_BATC
 K5_LONG_BWD_SHAPES = [(c, FV448_STEP_BATCH, N, C, h, n) for c, _, N, C, h, n in K5_LONG_SHAPES]
 K5_LONG_ODD = [(8, 129, 2, 64), (8, 197, 3, 40), (8, 256, 16, 48), (8, 208, 1, 128),
                (8, 256, 6, 128), (8, 324, 16, 48), (4, 441, 6, 128)]
-# K7 at EfficientFormerV2-S1's 384 px shape (12 x 12 = 144 tokens in the
-# last two blocks of stages 3 and 4), (B, N, heads, d, dv, launches); odd N
+# K7 at EfficientFormerV2-S1's 384, 512 and 640 px shapes (12 x 12 = 144,
+# 16 x 16 = 256 and 20 x 20 = 400 tokens in the last two blocks of stages 3
+# and 4), (B, N, heads, d, dv, launches); odd sizes: N one past the short
+# kernel, 197, 256, 289 (544 px), a few heads with dv % 16 == 8, 1,024
+# tokens, and past 256 the head counts and widths the one-tile design took
 EF384, EF384_BATCH = 384, 128
-K7_LONG_SHAPES = [(EF384_BATCH, 144, 8, 32, 128, 4)]
+# S1 at 640 px: stages 3 and 4 over 400 tokens, past the 256 the earlier long
+# kernel took; its eval batch 32, as the plain attention of stage 3's
+# downsample (1,600 x 6,400 tokens) holds 10 GB of f32 scores at batch 32
+EF640, EF640_BATCH = 640, 32
+K7_LONG_SHAPES = [(EF384_BATCH, 144, 8, 32, 128, 4), (EF384_BATCH, 256, 8, 32, 128, 4),
+                  (EF384_BATCH, 400, 8, 32, 128, 4)]
 K7_LONG_ODD = [(8, 129, 8, 32, 128), (8, 197, 8, 32, 128), (8, 256, 8, 32, 128),
-               (8, 150, 3, 16, 40)]
+               (8, 150, 3, 16, 40), (4, 289, 8, 32, 128), (4, 300, 3, 16, 40),
+               (2, 500, 5, 64, 72), (2, 1024, 8, 32, 128)]
 FV112 = 112  # FasterViT's stage 3 one 7 x 7 window: plain blocks, no carrier tokens
 SIZES_SPLITS = {"val": 32, "test": 64}  # phase 17's eval tree
 FV448_TRAIN_SPLITS = {"train": 128, "val": 32}  # phase 17's training tree at 448 px
@@ -637,6 +649,7 @@ def phase1(device, report, parent: str | None = None):
     kernels["window_attention_long"]["parent"], kernels["window_attention_long_bwd"]["parent"] = \
         k5_long_parent(parent)
     kernels["attn4d_long"] = phase1_k7_long(device)
+    kernels["attn4d_long"]["parent"] = k7_long_parent(parent)
     kernels["attn_subblock"], kernels["attn_subblock_bwd"] = phase1_k6(device)
     kernels["fused_mbconv_se"] = phase1_k3(device)
     kernels["fused_mbconv_se"]["parent"] = k3_parent(parent)
@@ -1130,11 +1143,24 @@ def k7_inputs(B, N, h, d, dv, seed, device):
     return [t.to(device) for t in qkv + tables]
 
 
-def k7_bound(B: int, N: int, h: int, d: int, dv: int) -> tuple[float, str]:
-    """q, k, v and the tables read, the output written; q k^T and p2 v on the
-    tensor cores, the two head mixes on the CUDA cores in f32."""
+def k7_work(B: int, N: int, h: int, d: int, dv: int) -> tuple[int, dict[str, int]]:
+    """(bytes, operations) of K7: q, k, v and the tables read, the output
+    written; q k^T and p2 v on the tensor cores, the two head mixes on the
+    CUDA cores in f32."""
     nbytes = B * N * (2 * h * d + 2 * h * dv) * 2 + (h * N * N + 2 * h * h + 2 * h) * 4
-    return bound(nbytes, {"bf16": 2 * B * h * N * N * (d + dv), "f32": 2 * 2 * B * N * N * h * h})
+    return nbytes, {"bf16": 2 * B * h * N * N * (d + dv), "f32": 2 * 2 * B * N * N * h * h}
+
+
+def k7_bound(B: int, N: int, h: int, d: int, dv: int) -> tuple[float, str]:
+    return bound(*k7_work(B, N, h, d, dv))
+
+
+def k7_bound_terms(B: int, N: int, h: int, d: int, dv: int) -> dict[str, float]:
+    """``k7_bound``'s two terms in ms: the bytes over the HBM rate, the
+    operations over their peak rates."""
+    nbytes, ops = k7_work(B, N, h, d, dv)
+    return {"bytes_ms": 1e3 * nbytes / HBM_RATE,
+            "operations_ms": 1e3 * (ops["bf16"] / BF16_RATE + ops["f32"] / F32_RATE)}
 
 
 def phase1_k7(device) -> dict:
@@ -1353,22 +1379,27 @@ def phase1_k5_long(device) -> tuple[dict, dict]:
 
 def phase1_k7_long(device) -> dict:
     """K7's long kernel (past 128 tokens, ``csrc/attn4d_long.cu``) against
-    its plain version at EfficientFormerV2-S1's 384 px shape and
-    ``K7_LONG_ODD``: within two bf16 steps of the output's scale,
-    bit-identical over two runs, the plan the built library's, counted on
-    ``attn4d_long`` and not ``attn4d``; kernel, plain and device times per
-    S1 forward at 384 px. No single PyTorch call computes it (library:
-    none)."""
+    its plain version at EfficientFormerV2-S1's 384, 512 and 640 px shapes,
+    ``K7_LONG_ODD`` and an unaligned view: within two bf16 steps of the
+    output's scale, bit-identical over two runs, the plan the built
+    library's, counted on ``attn4d_long`` and not ``attn4d``; at each S1
+    shape kernel (CUDA events), device (``launch_ms``) and plain times and
+    the bound by both terms, per launch and per S1 forward (4 launches). The
+    kernels line's numbers are the 384 px forward's. No single PyTorch call
+    computes it (library: none)."""
     import torch
 
     from deepfakedetection_tpu_torch.ops import attn4d as k7
+    from deepfakedetection_tpu_torch.profile_k7 import LONG_KERNELS
 
-    def check(label, args, h, d):
+    sms = k7.sm_count(device)
+
+    def check(label, args, h, d, ref_args=None):
         B, N = args[0].shape[:2]
         dv = args[2].shape[2] // h
-        if k7.long_plan(B, N, h, d, dv) != k7.kernel_long_plan(B, N, h, d, dv):
-            raise AssertionError(f"attn4d_long {label}: plan {k7.long_plan(B, N, h, d, dv)} is "
-                                 "not the kernel's")
+        if k7.long_plan(B, N, h, d, dv, sms) != k7.kernel_long_plan(B, N, h, d, dv, sms):
+            raise AssertionError(f"attn4d_long {label}: plan {k7.long_plan(B, N, h, d, dv, sms)} "
+                                 "is not the kernel's")
         before = (k7.attn4d.launches, k7.attn4d_long.launches)
         out = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
         again = k7.attn4d(*args, num_heads=h, scale=d**-0.5)
@@ -1377,42 +1408,74 @@ def phase1_k7_long(device) -> dict:
             raise AssertionError(f"attn4d_long {label}: launches not counted on the long kernel")
         if not torch.equal(out, again):
             raise AssertionError(f"attn4d_long {label}: two runs differ")
-        ref = k7.attn4d_plain(*args, num_heads=h, scale=d**-0.5)
+        ref = k7.attn4d_plain(*(ref_args or args), num_heads=h, scale=d**-0.5)
         return check_close(f"attn4d_long {label}", out, ref, two_steps(ref), 0.0)
 
-    rows, worst = [], 0.0
-    agg = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bounds": []}
+    rows, worst, per_forward = [], 0.0, []
     for i, (B, N, h, d, dv, count) in enumerate(K7_LONG_SHAPES):
         args = k7_inputs(B, N, h, d, dv, seed=1000 + i, device=device)
         err = check(f"{(B, N, h, d, dv)}", args, h, d)
         worst = max(worst, err)
         t_k = spread(cuda_times(lambda: k7.attn4d(*args, num_heads=h, scale=d**-0.5), runs=25))
-        dev = sum(kernel_split(lambda: k7.attn4d(*args, num_heads=h, scale=d**-0.5), calls=25,
-                               expect=("attn4d_long_kernel",))[0].values())
+        dev = launch_ms(lambda: k7.attn4d(*args, num_heads=h, scale=d**-0.5), LONG_KERNELS,
+                        calls=25)
         t_p = spread(cuda_times(lambda: k7.attn4d_plain(*args, num_heads=h, scale=d**-0.5),
                                 runs=10))
         b_ms, b_by = k7_bound(B, N, h, d, dv)
-        rows.append({"shape": (B, N, h, d, dv), "launches_per_forward": count,
-                     "max_abs_err": err, "ms": t_k, "device_ms": dev, "plain_ms": t_p,
-                     "bound_ms": b_ms, "bound_by": b_by, "x_off": dev / b_ms,
-                     "plan": k7.long_plan(B, N, h, d, dv)._asdict()})
-        agg["ms"] += count * t_k["median"]
-        agg["device_ms"] += count * dev
-        agg["plain_ms"] += count * t_p["median"]
-        agg["bounds"].append((count, (b_ms, b_by)))
+        terms = k7_bound_terms(B, N, h, d, dv)
+        row = {"shape": (B, N, h, d, dv), "launches_per_forward": count, "max_abs_err": err,
+               "ms": t_k, "device_ms": dev, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_terms_ms": terms, "x_off": dev / b_ms,
+               "plan": k7.long_plan(B, N, h, d, dv, sms)._asdict(),
+               "per_forward": {"ms": count * t_k["median"], "device_ms": count * dev,
+                               "plain_ms": count * t_p["median"], "bound_ms": count * b_ms}}
+        rows.append(row)
+        per_forward.append(row["per_forward"])
         log(f"  attn4d_long {(B, N, h, d, dv)}: max|d|={err:.3e}, bit-identical over two runs; "
             f"kernel {t_k['median']:.4f} ms, device {dev:.4f} ms, plain {t_p['median']:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), {dev / b_ms:.1f}x off")
+            f"bound {b_ms:.4f} ms ({b_by}; bytes {terms['bytes_ms']:.4f}, operations "
+            f"{terms['operations_ms']:.4f}), {dev / b_ms:.1f}x off; per S1 forward ({count} "
+            f"launches) device {count * dev:.4f} ms; plan {row['plan']}")
     for i, (B, N, h, d, dv) in enumerate(K7_LONG_ODD):
         err = check(f"{(B, N, h, d, dv)}", k7_inputs(B, N, h, d, dv, 1010 + i, device), h, d)
         rows.append({"shape": (B, N, h, d, dv), "max_abs_err": err})
         log(f"  attn4d_long odd {(B, N, h, d, dv)}: max|d|={err:.3e}")
-    bound_ms, bound_by = add_bounds(agg.pop("bounds"))
+    # q and k unaligned views of a wider tensor: the kernel's element copies
+    args = k7_inputs(4, 200, 8, 32, 128, seed=1030, device=device)
+    wide = torch.zeros(4, 200, 514, dtype=torch.bfloat16, device=device)
+    wide[..., 1:257], wide[..., 257:513] = args[0], args[1]
+    err = check("unaligned view", [wide[..., 1:257], wide[..., 257:513], *args[2:]], 8, 32,
+                ref_args=args)
+    rows.append({"shape": "unaligned view (4, 200, 8, 32, 128)", "max_abs_err": err})
+    log(f"  attn4d_long unaligned view (4, 200, 8, 32, 128): max|d|={err:.3e}")
+    main = per_forward[0]
     log(f"  attn4d_long per EfficientFormerV2-S1 forward at batch {EF384_BATCH}, {EF384} px (4 "
-        f"launches): kernel {agg['ms']:.4f} ms (device {agg['device_ms']:.4f}), plain "
-        f"{agg['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms")
-    return {"rows": rows, "max_abs_err": worst, **agg, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+        f"launches): kernel {main['ms']:.4f} ms (device {main['device_ms']:.4f}), plain "
+        f"{main['plain_ms']:.4f} ms, bound {main['bound_ms']:.4f} ms")
+    return {"rows": rows, "max_abs_err": worst, **main, "bound_by": rows[0]["bound_by"],
+            "library_ms": None}
+
+
+def k7_long_parent(parent: str | None) -> dict | None:
+    """K7's long kernel of the checkout in ``parent`` against this one
+    (``profile_k7.compare_long``): at each ``K7_LONG_SHAPES`` shape the parent
+    takes both times in turns, event and device, at every shape it takes this
+    one within two bf16 steps; and each kernel's cycles by phase at S1's 384
+    px shape (``profile_k7.phases``). None without ``parent``."""
+    if parent is None:
+        log("  attn4d_long: the parent's kernel not measured (no --parent)")
+        return None
+    from deepfakedetection_tpu_torch import profile_k7
+
+    rows = profile_k7.compare_long(parent)
+    for r in rows:
+        if "ratio" in r:
+            log(f"  attn4d_long {r['shape']} in turns with {parent}'s: device "
+                f"{r['this_device_ms']:.4f} against {r['other_device_ms']:.4f} ms a launch, "
+                f"{4 * r['this_device_ms']:.4f} against {4 * r['other_device_ms']:.4f} an S1 "
+                f"forward (4 launches; ratio {r['ratio']:.3f})")
+    split = {"parent": profile_k7.phases(parent), "this": profile_k7.phases(str(REPO))}
+    return {"tree": parent, "rows": rows, "phases": split}
 
 
 def k7_parent(parent: str | None) -> dict | None:
@@ -2401,15 +2464,16 @@ def decode_rate(data: Path) -> float:
     return n / (time.perf_counter() - t0)
 
 
-def test_picks(data: Path) -> list[int]:
-    """The 16 test images ``reference_check`` reads: the first and last 8."""
+def test_picks(data: Path, per_class: int = 8) -> list[int]:
+    """The test images ``reference_check`` reads: the first and last
+    ``per_class`` (16 by default)."""
     from deepfakedetection_tpu_torch.data.pipeline import scan_image_folder
 
     n = len(scan_image_folder(data / "test"))
-    return list(range(8)) + list(range(n - 8, n))
+    return list(range(per_class)) + list(range(n - per_class, n))
 
 
-def test_images(data: Path, img_size: int = 224):
+def test_images(data: Path, img_size: int = 224, per_class: int = 8):
     """``test_picks``' images decoded and normalized as the eval job does at
     ``img_size`` (NCHW f32)."""
     import torch
@@ -2423,24 +2487,26 @@ def test_images(data: Path, img_size: int = 224):
 
     plan = build_eval_plan(img_size, EVAL_TF)
     ds = scan_image_folder(data / "test")
-    picked = test_picks(data)
+    picked = test_picks(data, per_class)
     ds = dataclasses.replace(ds, samples=[ds.samples[i] for i in picked])
     batch = next(iter(make_eval_loader(ds, plan, batch_size=len(picked))))
     return normalize_batch(torch.from_numpy(batch.images), plan)
 
 
 def reference_check(res, data: Path, refs_of, gate: float = 5e-2,
-                    img_size: int = 224, f32_drift: bool = False) -> dict[str, float]:
-    """The job's outputs for 16 test images, the first and last 8 (both
-    classes), against ``refs_of(x)``, the CPU's (bf16, f32) logits over the
-    same decoded pixels at ``img_size``, as logit differences log(p1 / p0):
-    what the job's probabilities keep of the logits."""
+                    img_size: int = 224, f32_drift: bool = False,
+                    per_class: int = 8) -> dict[str, float]:
+    """The job's outputs for 2 ``per_class`` test images, the first and last
+    ``per_class`` (both classes), against ``refs_of(x)``, the CPU's (bf16,
+    f32) logits over the same decoded pixels at ``img_size``, as logit
+    differences log(p1 / p0): what the job's probabilities keep of the
+    logits."""
     import torch
 
-    refs = refs_of(test_images(data, img_size))
-    p = torch.from_numpy(res.probs[test_picks(data)]).double()
+    refs = refs_of(test_images(data, img_size, per_class))
+    p = torch.from_numpy(res.probs[test_picks(data, per_class)]).double()
     got = torch.stack([torch.zeros(len(p), dtype=p.dtype), p[:, 1].log() - p[:, 0].log()], -1)
-    return check_logits("main path (card), 16 test images", got,
+    return check_logits(f"main path (card), {len(p)} test images", got,
                         *(r.double() - r[:, :1].double() for r in refs), gate=gate,
                         f32_drift=f32_drift)
 
@@ -5843,9 +5909,9 @@ def sized_eval(work: Path, data: Path, model: str, weights: Path, img_size: int,
                device, refs_of, gate: float) -> tuple[dict, dict]:
     """``orchestrate(mode="inference")`` of ``model`` at ``img_size`` over
     ``data`` (phase 17's tree), counted: finite test probabilities that sum
-    to one, and the job's outputs for 16 test images against the CPU's bf16
-    and f32 logits (``reference_check`` with ``gate``). (its readings,
-    launches)."""
+    to one, and the job's outputs for 16 test images (8 from 560 px, where
+    the CPU's references cost the most) against the CPU's bf16 and f32
+    logits (``reference_check`` with ``gate``). (its readings, launches)."""
     import numpy as np
 
     from deepfakedetection_tpu_torch.orchestrator import orchestrate
@@ -5860,7 +5926,7 @@ def sized_eval(work: Path, data: Path, model: str, weights: Path, img_size: int,
             or not np.allclose(res.probs.sum(-1), 1.0, atol=1e-5):
         raise AssertionError(f"{model} at {img_size} px: bad test probabilities")
     agree = reference_check(res, data, refs_of, gate=gate, img_size=img_size,
-                            f32_drift=img_size > 224)
+                            f32_drift=img_size > 224, per_class=4 if img_size >= 560 else 8)
     log(f"  {model} at {img_size} px: launches {({k: v for k, v in launches.items() if v})}, "
         f"test pass {res.images_per_s:.1f} img/s (decode included), wall {wall:.1f} s")
     return {"launches": launches, "reference": agree, "wall_s": wall,
@@ -5873,7 +5939,8 @@ def phase17(device, report) -> dict:
     tokens: K5), at 560 px (stage 4 324 tokens, past the 256 the earlier long
     kernels took; carrier tokens 100) and at 112 px (stage 3 one window:
     plain blocks over 49 tokens), EfficientFormerV2-S1 at 384 px (144 tokens:
-    K7's long kernel): ``orchestrate(mode="inference")`` from seeded ``.pth``
+    K7's long kernel) and at 640 px (400 tokens, past the 256 the earlier long
+    kernel took): ``orchestrate(mode="inference")`` from seeded ``.pth``
     files built for those sizes, each batch's launches exactly the model's,
     the outputs against the CPU under ``FV_GATE`` / ``EFV2_GATE``;
     FasterViT-2 at 448 px trained one epoch by ``orchestrate(mode="training")``
@@ -5901,7 +5968,8 @@ def phase17(device, report) -> dict:
     cases = (("fastervit", FV448, FV448_BATCH, FV_GATE["official"]),
              ("fastervit", FV560, FV448_BATCH, FV_GATE["official"]),
              ("fastervit", FV112, FV_BATCH, FV_GATE["official"]),
-             ("efficientformerv2", EF384, EF384_BATCH, EFV2_GATE))
+             ("efficientformerv2", EF384, EF384_BATCH, EFV2_GATE),
+             ("efficientformerv2", EF640, EF640_BATCH, EFV2_GATE))
     launches = {}
     for family, size, batch, gate in cases:
         if family == "fastervit":
@@ -5967,7 +6035,8 @@ def phase17(device, report) -> dict:
     log(f"  sizes: {out['card']}; seconds {({k: round(v, 1) for k, v in seconds.items()})}")
     report["phase17"] = out
     return {"k5_long": launches[FV448]["k5_long"] + launches[FV560]["k5_long"],
-            "k5_long_bwd": launches["train"]["k5_long_bwd"], "k7_long": launches[EF384]["k7_long"]}
+            "k5_long_bwd": launches["train"]["k5_long_bwd"],
+            "k7_long": launches[EF384]["k7_long"] + launches[EF640]["k7_long"]}
 
 
 def main() -> int:
@@ -5975,9 +6044,9 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Drives the PyTorch port on one CUDA card.")
     parser.add_argument("--parent", help="another checkout (say the parent commit, unpacked with "
-                        "git archive) whose K1, K4, K5 forward and backward, K7 and K3 phase 1 "
-                        "times against this one's, and whose eager eval steps phase 14 holds "
-                        "bit-identical to this one's")
+                        "git archive) whose K1, K4, K5 forward and backward, K7, K7 long and K3 "
+                        "phase 1 times against this one's, and whose eager eval steps phase 14 "
+                        "holds bit-identical to this one's")
     args = parser.parse_args()
     if not (REPO / "deepfakedetection_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -6045,7 +6114,8 @@ def main() -> int:
         "and orchestrate(mode='inference') through the ranked path")
     phase16(device, report)
     log("phase 17: image sizes past and below 224 px: FasterViT-2 at 448 and 560 (K5's long "
-        "kernels) and 112 (stage 3 one window), EfficientFormerV2-S1 at 384 (K7's long kernel), "
+        "kernels) and 112 (stage 3 one window), EfficientFormerV2-S1 at 384 and 640 (K7's long "
+        "kernel), "
         "orchestrate(mode='inference'), FasterViT-2 orchestrate(mode='training') at 448 and "
         "fine-tune steps against the CPU at 448 and 560")
     launches.update(phase17(device, report))
@@ -6053,7 +6123,8 @@ def main() -> int:
         f"17 {sum(report['phase17']['seconds'].values()):.0f} s and phase 1's long rows, paid "
         "for by cutting depth: phase 3's test split 1,280 -> 640 images (phases 3, 5, 7-9, 13, "
         "15), phase 4's train split 1,024 -> 512 -> 256 (phases 4, 6), phase 12's load 64 x 16 "
-        "-> 64 x 8 -> 64 x 4 requests")
+        "-> 64 x 8 -> 64 x 4 requests, phase 17's CPU references at 560 and 640 px 16 -> 8 "
+        "images")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
     own = reference_imports(Path(__file__).read_text())

@@ -410,7 +410,8 @@ class EfficientFormerV2(nn.Module):
     def kernel_launches_per_forward(self) -> dict[str, int]:
         """K7 launches of one eval forward: every Attention4D in bf16 (4 for
         S1: the last two blocks of stages 3 and 4), through K7's long kernel
-        (``k7_long``) past 128 tokens (S1 at 384 px: 144)."""
+        (``k7_long``) past 128 tokens, at any image size (S1 at 384 px: 144
+        tokens; at 640 px: 400)."""
         kernels = ["k7_long" if a.resolution**2 > MAX_TOKENS else "k7"
                    for a in self.attentions() if a.uses_kernel()]
         return {k: kernels.count(k) for k in ("k7", "k7_long")}

@@ -20,6 +20,12 @@ kernel against it. For a CUDA tensor ``attn4d`` launches the kernel or
 raises. Like the TPU kernel it has no backward. The wrapper calls the
 operator ``torch.ops.dfd.attn4d`` (``build.define_op``), which takes q, k
 and v as the strided views they are.
+
+Past ``MAX_TOKENS`` the wrapper launches the long kernel
+(``csrc/attn4d_long.cu``), which takes any N up to ``LONG_MAX_TOKENS``: two
+walks over 16-key tiles fed through a shared-memory ring, so a block's
+shared memory does not grow with N. Its plan is ``long_plan``, which
+``kernel_long_plan`` reads back on the card.
 """
 
 from __future__ import annotations
@@ -41,8 +47,12 @@ from deepfakedetection_tpu_torch.ops.window_attn import (
 )
 
 MAX_TOKENS = 128  # N the short kernel takes
-LONG_MAX_TOKENS = 256  # N the long kernel takes, above MAX_TOKENS
-LONG_THREADS = 256  # threads of a long kernel's block
+LONG_MAX_TOKENS = 46340  # N the long kernel takes, above MAX_TOKENS: N^2 an int
+LONG_THREADS = 384  # a long block's threads: 8 consumer warps and a producer warpgroup
+LONG_ROWS = 32  # query rows of a long kernel's item (two 16-row tiles)
+LONG_KEYS = 16  # keys of a long kernel's ring stage
+LONG_MAX_DIM = 128  # the long kernel's largest d and dv
+LONG_MAX_STAGES = 4
 MAX_HEADS = 8
 MAX_SLOTS = 8  # the v ring's deepest (csrc/attn4d.cu kMaxSlots)
 HEADER_BYTES = 1024  # barriers and tables ahead of the operands (kHeader)
@@ -93,48 +103,66 @@ def plan(B: int, N: int, heads: int, d: int, dv: int, sms: int = H100_SMS) -> Pl
 
 class LongPlan(NamedTuple):
     """The long kernel's launch plan (``csrc/attn4d_long.cu``
-    ``dfd_attn4d_long_plan``): one block an image's 16-row query tile."""
+    ``dfd_attn4d_long_plan``): persistent blocks, one an SM, over the items
+    (image, group of ``LONG_ROWS`` query rows)."""
 
     blocks: int
     threads: int
+    qbufs: int  # q item buffers
+    stages: int  # ring stages
     smem: int
 
-    @staticmethod
-    def image_rows(block: int, N: int) -> tuple[int, range]:
-        """The image and the query rows block ``block`` computes."""
-        kt = -(-N // 16)
-        b, mt = divmod(block, kt)
-        return b, range(16 * mt, min(16 * mt + 16, N))
+    def items(self, block: int, B: int, N: int) -> list[tuple[int, range]]:
+        """The (image, query rows) block ``block`` computes, in its order:
+        items ``block``, ``block + blocks``, ... of the B x ceil(N / 32)."""
+        groups = -(-N // LONG_ROWS)
+        out = []
+        for item in range(block, B * groups, self.blocks):
+            b, g = divmod(item, groups)
+            out.append((b, range(LONG_ROWS * g, min(LONG_ROWS * (g + 1), N))))
+        return out
 
 
-def long_layout_bytes(N: int, heads: int, d: int, dv: int) -> int:
-    """A long block's shared memory (``LongLayout``): the tables, q's 16 rows,
-    the f32 scores of every head over them, and one head of v's padded rows."""
-    Np = -(-N // 16) * 16
-    lds = -(-N // 4) * 4
-    lds += 4 if lds % 8 == 0 else 0
-    ldv = dv + (8 if (dv // 8) % 2 == 0 else 16)
-    return HEADER_BYTES + 16 * (heads * d + 8) * 2 + heads * 16 * lds * 4 + Np * ldv * 2
+def long_layout_bytes(heads: int, d: int, dv: int, qbufs: int, stages: int) -> int:
+    """A long block's shared memory (``LongLayout``): the header (barriers
+    and tables), both row tiles' score exchange (two buffers) and p exchange
+    (one), the q item buffers, and the ring stages, each k and v of 16 keys
+    and the item rows' bias at them, of every head."""
+    ldq = heads * d + 8
+    cv = heads * dv
+    ldv = cv + (8 if (cv // 8) % 2 == 0 else 16)
+    exchange = 2 * 3 * heads * 2 * 32 * 16
+    stage = LONG_KEYS * (ldq + ldv) * 2 + heads * LONG_ROWS * LONG_KEYS * 4
+    return HEADER_BYTES + exchange + qbufs * LONG_ROWS * ldq * 2 + stages * stage
 
 
 @functools.lru_cache(maxsize=256)
-def long_plan(B: int, N: int, heads: int, d: int, dv: int) -> LongPlan | None:
-    """The long kernel's plan (``MAX_TOKENS`` < N <= ``LONG_MAX_TOKENS``), as
-    the kernel's, or None when the shape is out of its range or a block's
-    shared memory does not fit."""
-    if not (MAX_TOKENS < N <= LONG_MAX_TOKENS and 1 <= heads <= MAX_HEADS and d >= 16
-            and d % 16 == 0 and dv >= 8 and dv % 8 == 0 and B >= 1):
+def long_plan(B: int, N: int, heads: int, d: int, dv: int,
+              sms: int = H100_SMS) -> LongPlan | None:
+    """The long kernel's plan (``MAX_TOKENS`` < N <= ``LONG_MAX_TOKENS``) on a
+    card of ``sms`` SMs, as the kernel's: the most ring stages (4 down to 2)
+    that fit a block's shared memory, two q buffers before one at each depth,
+    min(B ceil(N / 32), sms) blocks; None when the shape is out of the
+    kernel's range or no ring fits."""
+    if not (MAX_TOKENS < N <= LONG_MAX_TOKENS and 1 <= heads <= MAX_HEADS
+            and 16 <= d <= LONG_MAX_DIM and d % 16 == 0 and 8 <= dv <= LONG_MAX_DIM
+            and dv % 8 == 0 and B >= 1 and sms >= 1):
         return None
-    smem = long_layout_bytes(N, heads, d, dv)
-    if smem > MAX_SMEM_BYTES:
+    items = B * -(-N // LONG_ROWS)
+    if items > 2**31 - 1:
         return None
-    return LongPlan(B * -(-N // 16), LONG_THREADS, smem)
+    for stages in range(LONG_MAX_STAGES, 1, -1):
+        for qbufs in (2, 1):
+            smem = long_layout_bytes(heads, d, dv, qbufs, stages)
+            if smem <= MAX_SMEM_BYTES:
+                return LongPlan(min(items, sms), LONG_THREADS, qbufs, stages, smem)
+    return None
 
 
-def kernel_long_plan(B: int, N: int, heads: int, d: int, dv: int) -> LongPlan | None:
+def kernel_long_plan(B: int, N: int, heads: int, d: int, dv: int, sms: int) -> LongPlan | None:
     """The plan the built long kernel computes (card only)."""
-    out = (ctypes.c_int * 3)()
-    if build.library().dfd_attn4d_long_plan(B, N, heads, d, dv, out) != 0:
+    out = (ctypes.c_int * 5)()
+    if build.library().dfd_attn4d_long_plan(B, N, heads, d, dv, sms, out) != 0:
         return None
     return LongPlan(*out)
 
@@ -200,10 +228,18 @@ def _check(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int) -> tuple[int, 
     return B, N, d, dv
 
 
+def strides_vec(q, k, v) -> tuple[tuple[int, ...], int]:
+    """q's, k's and v's (batch, row) strides, and 1 where they and the data
+    pointers allow the kernels' 16-byte copies, else 0."""
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
+    vec = int(all(s % 8 == 0 for s in strides) and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    return strides, vec
+
+
 def _launch_plan(q: torch.Tensor, B: int, N: int, num_heads: int, d: int, dv: int) -> int:
     """The card's SM count, after checking that a plan fits there."""
     sms = sm_count(q.device)
-    if (long_plan(B, N, num_heads, d, dv) if N > MAX_TOKENS
+    if (long_plan(B, N, num_heads, d, dv, sms) if N > MAX_TOKENS
             else plan(B, N, num_heads, d, dv, sms)) is None:
         raise ValueError(f"attn4d: no plan fits a block's {MAX_SMEM_BYTES} bytes of shared memory "
                          f"at N={N}, heads={num_heads}, d={d}, dv={dv}")
@@ -220,10 +256,9 @@ def _cuda(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int, scale: float):
                          "torch.no_grad()")
     sms = _launch_plan(q, B, N, num_heads, d, dv)
     out = torch.empty(B, N, num_heads * dv, dtype=torch.bfloat16, device=q.device)
-    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
-    vec = int(all(s % 8 == 0 for s in strides) and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    strides, vec = strides_vec(q, k, v)
     if N > MAX_TOKENS:
-        attn4d_long(args, out, B, N, num_heads, d, dv, strides, scale, vec)
+        attn4d_long(args, out, B, N, num_heads, d, dv, strides, sms, scale, vec)
         return out
     lib = build.library()
     with torch.cuda.device(q.device):
@@ -235,17 +270,18 @@ def _cuda(q, k, v, bias, th1, th1_b, th2, th2_b, num_heads: int, scale: float):
     return out
 
 
-def attn4d_long(args, out, B: int, N: int, num_heads: int, d: int, dv: int, strides,
+def attn4d_long(args, out, B: int, N: int, num_heads: int, d: int, dv: int, strides, sms: int,
                 scale: float, vec: int) -> None:
     """One launch of the long kernel (``csrc/attn4d_long.cu``) on the current
     stream, counted: ``args`` the checked (q, k, v, bias, th1, th1_b, th2,
-    th2_b), ``strides`` q's, k's and v's (batch, row) strides."""
+    th2_b), ``strides`` q's, k's and v's (batch, row) strides, ``sms`` the
+    card's SM count."""
     q = args[0]
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dfd_attn4d_long(*(t.data_ptr() for t in args), out.data_ptr(), B, N, num_heads,
-                                 d, dv, *strides, float(scale), vec, stream)
+                                 d, dv, *strides, sms, float(scale), vec, stream)
     build.check(rc, "attn4d_long")
     attn4d_long.launches += 1
 

@@ -42,8 +42,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _SIGNATURES = {
     "dfd_attn4d": [_P] * 9 + [_I] * 5 + [_L] * 6 + [_I, _F, _I, _P],
     "dfd_attn4d_plan": [_I] * 6 + [_P],
-    "dfd_attn4d_long": [_P] * 9 + [_I] * 5 + [_L] * 6 + [_F, _I, _P],
-    "dfd_attn4d_long_plan": [_I] * 5 + [_P],
+    "dfd_attn4d_long": [_P] * 9 + [_I] * 5 + [_L] * 6 + [_I, _F, _I, _P],
+    "dfd_attn4d_long_plan": [_I] * 6 + [_P],
     "dfd_attn_subblock": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     "dfd_attn_subblock_plan": [_I] * 4 + [_P],
     "dfd_attn_subblock_bwd": [_P, _I] + [_P] * 5 + [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],

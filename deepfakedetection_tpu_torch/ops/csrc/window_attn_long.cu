@@ -111,7 +111,6 @@ constexpr int kMaxStages = 4;
 constexpr int kSmemPerSm = 233472;    // an H100 SM's shared memory (228 KB)
 constexpr int kBlockReserve = 1024;   // shared memory the card keeps for each block
 constexpr int kStats = 4;             // a row's max, sum, 1 / sum and row term
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Bytes of one [kRows][pad16(d) + 8] bf16 tile.
 __host__ __device__ constexpr int tile_bytes(int d) { return kRows * (pad16(d) + 8) * 2; }
@@ -135,34 +134,6 @@ Ring ring_plan(int item, int stage) {
           return {s, buffers, per_sm, smem};
       }
   return {0, 0, 0, 0};
-}
-
-// 16-byte cp.async that writes zeros (reads nothing) where `in` is false.
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// exp(x - m) as 2^((x - m) log2 e): 0 where x is -inf.
-__device__ __forceinline__ float exp_sub(float x, float m) {
-  return ex2(__fmul_rn(__fsub_rn(x, m), kLog2e));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Rows [row0, row0 + kRows) of window b, head h of `src` into a [kRows][ld]
@@ -246,12 +217,6 @@ __device__ __forceinline__ void zero_smem(unsigned char* smem, int bytes) {
   __syncthreads();
 }
 
-// The key of position k (0..15) of a 16-key chunk in the forward's products:
-// the score accumulator's n-tiles 2p and 2p + 1 hold keys {0, 1, 4, 5, ...}
-// and {2, 3, 6, 7, ...}, so a thread's four columns of a chunk, 4 t4 ..
-// 4 t4 + 3, are adjacent and its bias is one 16-byte load.
-__device__ __forceinline__ int key_of(int k) { return 4 * ((k & 7) >> 1) + 2 * (k >> 3) + (k & 1); }
-
 // row[c .. c + 3], 0 past N: one 16-byte load where N % 4 == 0 (c % 4 == 0).
 __device__ __forceinline__ float4 load_quad(const float* row, int c, int N, bool quad) {
   if (quad && c + 3 < N) return __ldg(reinterpret_cast<const float4*>(row + c));
@@ -307,15 +272,6 @@ __device__ __forceinline__ void scores64(float (&s)[8][4], const __nv_bfloat16* 
       mma_bf16_16816(s[2 * p + 1], a, b[2], b[3]);
     }
   }
-}
-
-// A 16x16 accumulator tile (rows x columns) as the bf16 A fragment of the
-// same tile.
-__device__ __forceinline__ void as_a(uint32_t (&a)[4], const float (&x0)[4], const float (&x1)[4]) {
-  a[0] = pack_bf16(x0[0], x0[1]);
-  a[1] = pack_bf16(x0[2], x0[3]);
-  a[2] = pack_bf16(x1[0], x1[1]);
-  a[3] = pack_bf16(x1[2], x1[3]);
 }
 
 // o[2 DT] += a . rows [16 j, 16 j + 16) of B ([*][ld], B's columns < 16 dt)

@@ -178,8 +178,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(what):
         args[3] = args[3].double()
     elif what == "th1 shape":
         args[4] = args[4][:2]
-    elif what == "too many tokens":
-        args = _torch(_inputs(1, 257, 4, 16, 64, seed=7), torch.bfloat16)
+    elif what == "too many tokens":  # one past the long kernel's limit, the bias never read
+        n = k7.LONG_MAX_TOKENS + 1
+        args = [torch.zeros(1, n, 64, dtype=torch.bfloat16)] * 2 + [
+            torch.zeros(1, n, 256, dtype=torch.bfloat16), torch.zeros(1, 1, 1).expand(4, n, n),
+            *args[4:]]
     elif what == "too many heads":
         args = _torch(_inputs(1, 16, 16, 16, 8, seed=7), torch.bfloat16)
         h = 16

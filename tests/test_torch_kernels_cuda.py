@@ -348,16 +348,19 @@ def test_attn4d_kernel_matches_plain_and_repeats(cuda, B, N, h, d, dv):
 
 
 K7_LONG_CASES = [
-    # (B, N, heads, d, dv): S1 at 384 and 512 px, odd sizes, fewer heads, dv % 16 == 8
+    # (B, N, heads, d, dv): S1 at 384 and 512 px, odd sizes, fewer heads, dv % 16 == 8;
+    # past 256 tokens: 257, S1 at 544 and 640 px, 1,024 tokens, an odd head count
     (64, 144, 8, 32, 128), (8, 256, 8, 32, 128), (8, 129, 8, 32, 128), (8, 197, 8, 32, 128),
-    (8, 150, 3, 16, 40),
+    (8, 150, 3, 16, 40), (8, 257, 8, 32, 128), (8, 289, 8, 32, 128), (16, 400, 8, 32, 128),
+    (2, 1024, 8, 32, 128), (4, 300, 5, 32, 72),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,h,d,dv", K7_LONG_CASES)
 def test_attn4d_long_kernel_matches_plain_and_repeats(cuda, B, N, h, d, dv):
-    assert k7.long_plan(B, N, h, d, dv) == k7.kernel_long_plan(B, N, h, d, dv)
+    sms = k2.sm_count(cuda)
+    assert k7.long_plan(B, N, h, d, dv, sms) == k7.kernel_long_plan(B, N, h, d, dv, sms)
     args = _k7_inputs(B, N, h, d, dv, cuda, seed=N * dv + h + 1)
     before = (k7.attn4d.launches, k7.attn4d_long.launches)
     out = k7.attn4d(*args, num_heads=h, scale=d**-0.5)

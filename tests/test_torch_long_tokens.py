@@ -17,14 +17,16 @@ against the JAX package on the CPU, where the wrappers run the plain versions.
     dbias, f32 on both sides, differs by that rounding only.
 (b) K7 at N = 129, 196 and 256 (EfficientFormerV2-S1 at 512 px; 144 at 384),
     8 heads: ``attn4d`` against ``attn4d_pallas(..., interpret=True)``, to one
-    bf16 step (``tests/test_torch_attn4d.py``'s).
+    bf16 step (``tests/test_torch_attn4d.py``'s); past 256 tokens
+    ``tests/test_torch_k7_long.py``.
 (c) The long kernels' launch plans (``long_fwd_plan``, ``long_bwd_plan``,
     ``attn4d.long_plan``) at FasterViT-2's 448 px stage 4 (both head
     configurations; eval batch 256, fine-tune batch 128), at every N up to
     784 and head_dim up to 128, and S1's 384 px attention (batch 256) fit a
     block's shared memory and give every (window, head, 16-row tile), or
     every (image, query row), to exactly one block; K5 takes any N and
-    refuses head_dim past 128, K7 its limits, before any launch.
+    refuses head_dim past 128, K7 its limits (N past ``LONG_MAX_TOKENS``),
+    before any launch.
 (d) A narrow EfficientFormerV2 at 384 px (stages 3 and 4 attend over 12 x 12 =
     144 tokens) against the JAX model, from one numpy-seeded tree carried
     over by ``state_dict_from_jax``: f32 logits within 5e-3 of their scale
@@ -48,7 +50,7 @@ from deepfakedetection_tpu_torch.runtime.convert import load_state_dict_strict, 
 from tests.test_torch_efficientformer_v2 import NARROW as EF_NARROW
 from tests.test_torch_efficientformer_v2 import seeded_tree
 
-TOKENS = (129, 196, 256)  # K7's: it takes N <= 256
+TOKENS = (129, 196, 256)
 K5_TOKENS = TOKENS + (257, 324, 441)  # K5 takes any N
 HEADS, WINDOWS, D = 2, 2, 48
 DBIAS_TOL = 1e-2
@@ -248,34 +250,42 @@ def test_k5_refuses_a_head_dim_past_128_in_both_directions(N):
         k5.window_attention_bwd(qkv, bias, qkv[..., :136].contiguous(), num_heads=1, scale=0.1)
 
 
-def test_k7_long_plan_fits_and_covers_every_query_row_once():
-    B, N = 256, 144  # S1 at 384 px: 12 x 12 tokens, 8 heads, d 32, dv 128
-    plan = k7.long_plan(B, N, 8, 32, 128)
-    assert plan is not None and plan.smem <= SMEM and plan.threads == k7.LONG_THREADS
+def covered_rows(plan, B: int, N: int) -> dict[int, list[int]]:
+    """Each image's query rows over the plan's blocks, in block order."""
     rows = {}
     for block in range(plan.blocks):
-        b, r = plan.image_rows(block, N)
-        rows.setdefault(b, []).extend(r)
-    assert rows == {b: list(range(N)) for b in range(B)}
-    assert k7.long_plan(B, 256, 8, 32, 128).smem <= SMEM  # 512 px
-    assert k7.long_plan(B, 256, 8, 64, 256) is None  # past a block's shared memory
-    assert k7.long_plan(B, 144, 9, 32, 128) is None  # more heads than the kernels take
-    args = [torch.zeros(1, 257, 8 * 16, dtype=torch.bfloat16)] * 2 + [
-        torch.zeros(1, 257, 8 * 8, dtype=torch.bfloat16), torch.zeros(8, 257, 257),
+        for b, r in plan.items(block, B, N):
+            rows.setdefault(b, []).extend(r)
+    return rows
+
+
+def test_k7_long_plan_fits_and_covers_every_query_row_once():
+    B, N = 256, 144  # S1 at 384 px: 12 x 12 tokens, 8 heads, d 32, dv 128
+    plan = k7.long_plan(B, N, 8, 32, 128, SMS)
+    assert plan is not None and plan.smem <= SMEM and plan.threads == k7.LONG_THREADS
+    rows = covered_rows(plan, B, N)
+    assert {b: sorted(r) for b, r in rows.items()} == {b: list(range(N)) for b in range(B)}
+    assert k7.long_plan(B, 256, 8, 32, 128, SMS).smem <= SMEM  # 512 px
+    assert k7.long_plan(B, 256, 8, 64, 256, SMS) is None  # dv past the long kernel's 128
+    assert k7.long_plan(B, 144, 9, 32, 128, SMS) is None  # more heads than the kernels take
+    n = k7.LONG_MAX_TOKENS + 1  # one past the limit: refused before the bias is read
+    args = [torch.zeros(1, n, 8 * 16, dtype=torch.bfloat16)] * 2 + [
+        torch.zeros(1, n, 8 * 8, dtype=torch.bfloat16), torch.zeros(1, 1, 1).expand(8, n, n),
         torch.zeros(8, 8), torch.zeros(8), torch.zeros(8, 8), torch.zeros(8)]
-    with pytest.raises(ValueError, match="N <= 256"):
+    with pytest.raises(ValueError, match=f"N <= {k7.LONG_MAX_TOKENS}"):
         k7.attn4d(*args, num_heads=8, scale=0.25)
 
 
 EF_SIZE = 384
 
 
-@pytest.fixture(scope="module")
-def efv2_384():
-    tree = seeded_tree(EF_NARROW, EF_SIZE, np.random.default_rng(0))
-    x = np.random.default_rng(1).normal(size=(4, EF_SIZE, EF_SIZE, 3)).astype(np.float32)
-    # a head along the features' first principal direction spreads the logits
-    model = _ef_port(tree, torch.float32)
+def fitted_efv2(size: int, n: int):
+    """A narrow EfficientFormerV2's numpy-seeded JAX tree at ``size`` px and
+    ``n`` seeded images, its head along the features' first principal
+    direction, which spreads the logits."""
+    tree = seeded_tree(EF_NARROW, size, np.random.default_rng(0))
+    x = np.random.default_rng(1).normal(size=(n, size, size, 3)).astype(np.float32)
+    model = ef_port(tree, torch.float32, size)
     feats = []
     hook = model.head.register_forward_hook(lambda _m, inp, _o: feats.append(inp[0]))
     with torch.no_grad():
@@ -293,8 +303,13 @@ def efv2_384():
     return tree, x
 
 
-def _ef_port(tree, dtype):
-    model = EfficientFormerV2(2, **EF_NARROW, img_size=EF_SIZE, dtype=dtype).eval()
+@pytest.fixture(scope="module")
+def efv2_384():
+    return fitted_efv2(EF_SIZE, 4)
+
+
+def ef_port(tree, dtype, size: int = EF_SIZE):
+    model = EfficientFormerV2(2, **EF_NARROW, img_size=size, dtype=dtype).eval()
     load_state_dict_strict(model, state_dict_from_jax(tree, "efficientformerv2"))
     return model
 
@@ -302,9 +317,15 @@ def _ef_port(tree, dtype):
 @pytest.mark.parametrize("dtype, gate", [("f32", 5e-3), ("bf16", 2.5e-2)])
 def test_narrow_efficientformer_v2_at_384_matches_jax(efv2_384, dtype, gate):
     tree, x = efv2_384
-    model = _ef_port(tree, torch.float32 if dtype == "f32" else torch.bfloat16)
+    model = ef_port(tree, torch.float32 if dtype == "f32" else torch.bfloat16)
     assert model.kernel_launches_per_forward() == (
         {"k7": 0, "k7_long": 0} if dtype == "f32" else {"k7": 0, "k7_long": 2})
+    assert_matches_jax(model, tree, x, dtype, gate)
+
+
+def assert_matches_jax(model, tree, x, dtype: str, gate: float) -> None:
+    """The port's logits within ``gate`` of the JAX model's scale, with equal
+    argmax where the JAX logits are well apart."""
     with torch.no_grad():
         got = model(torch.from_numpy(x).permute(0, 3, 1, 2)).float().numpy()
     with jax.default_matmul_precision("highest"):

@@ -266,8 +266,15 @@ def _config(work: Path, epochs: int) -> Path:
                             "mixup_alpha": 0.4, "bn_recalc_batches": 1, "ema_decay": 0.9},
                "inference": {"weights": "auto", "batch_size": 4, "num_workers": 0}}},
            "selection": ["efficientnet_b3"]}
-    path = work / f"train_{epochs}.yaml"
-    path.write_text(yaml.safe_dump(cfg))
+    return _write_atomically(work / f"train_{epochs}.yaml", yaml.safe_dump(cfg))
+
+
+def _write_atomically(path: Path, text: str) -> Path:
+    """``text`` into ``path`` by a rename: both ranks write the same config,
+    and a rank must never read the other's half-written file."""
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
     return path
 
 
@@ -283,9 +290,7 @@ def int8_config(work: Path, out: str) -> Path:
                "inference": {"weights": str(weights), "precision": "int8", "batch_size": 4,
                              "num_workers": 0}}},
            "selection": ["efficientnet_b3"]}
-    path = work / f"{out}.yaml"
-    path.write_text(yaml.safe_dump(cfg))
-    return path
+    return _write_atomically(work / f"{out}.yaml", yaml.safe_dump(cfg))
 
 
 def _orchestrate_worker(rank: int, port: int, work: Path) -> None:
